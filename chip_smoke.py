@@ -1,0 +1,474 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+  python3 chip_smoke.py [--seed N]
+
+Phases, each raising on a failed check (the script then exits non-zero and
+never prints its last line):
+
+1. build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. hold each kernel against its plain PyTorch version on the card, in f32
+   and bf16, at the shapes of ``tests/test_kernels.py``, at the main path's
+   shapes and at llama3-8b's GQA shapes; time kernel, plain version, one
+   PyTorch call for the same function (SDPA, a yardstick the port never
+   calls) and the card's bound, and print them on one ``{"kernels": ...}``
+   line;
+3. serve qwen1.5-0.5b at full width in bf16 through ``ContinuousBatcher``
+   (16 requests, 8 slots, cache 2048, 32 new tokens each), with the kernels'
+   launch counters proving every prefill and decode attention call went
+   through them; profile 8 decode steps (device time against the step's
+   host time); then hold f32 logits of one prompt (prefill + 8 decode
+   steps) on the card against the same port code on the CPU;
+4. print the device line ``{"ok": true, "device": {...}}`` last.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.models import model as model_lib  # noqa: E402
+from repro_torch.serving import ContinuousBatcher, Engine, EngineConfig, Request  # noqa: E402
+
+# tolerances of tests/test_kernels.py
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# f32 logits, card (kernels, cuBLAS without TF32) vs CPU (plain versions):
+# the same f32 arithmetic summed in another order; relative rounding of
+# ~1e-6 per product through 24 residual layers stays near 1e-5 on logits
+# of size ~1-10, so 1e-3 leaves two orders of margin and still catches a
+# kernel that drops or misweights a single key (errors of order 1e-1).
+LOGIT_TOL = 1e-3
+# H100 SXM datasheet peaks: dense bf16 tensor cores, HBM3
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
+# b, sq, sk, nq, nkv, hd, causal, window  (tests/test_kernels.py FA_CASES)
+FA_CASES = [
+    (2, 64, 64, 4, 2, 32, True, 0),
+    (1, 128, 128, 8, 8, 64, True, 16),
+    (2, 48, 48, 4, 1, 32, True, 0),
+    (1, 64, 64, 2, 2, 16, False, 0),
+    (1, 96, 96, 6, 3, 64, True, 32),
+]
+# b, s, nq, nkv, hd  (tests/test_kernels.py DA_CASES)
+DA_CASES = [
+    (2, 64, 4, 2, 32),
+    (1, 100, 8, 1, 64),
+    (3, 48, 2, 2, 16),
+    (1, 256, 16, 4, 64),
+]
+
+ARCH = "qwen1.5-0.5b"
+N_REQUESTS, SLOTS, CACHE_LEN, NEW_TOKENS = 16, 8, 2048, 32
+PROMPT_MIN, PROMPT_MAX = 64, 512
+F32_DECODE_STEPS = 8
+
+
+def randn(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def check(name, err, tol):
+    if not err < tol:
+        raise AssertionError(f"{name}: max abs err {err} >= {tol}")
+
+
+class L2Flush:
+    """Writes a buffer larger than the 50 MB L2 so each timed call starts
+    cold, as a layer's call does on the main path."""
+
+    def __init__(self, device):
+        self.buf = torch.empty(64 * 2**20, dtype=torch.int32, device=device)
+
+    def __call__(self):
+        self.buf.zero_()
+
+
+def time_ms(fn, flush, iters=20, warmup=3) -> float:
+    """Median device time of ``fn`` from CUDA events, L2 flushed before each."""
+    for _ in range(warmup):
+        fn()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    for s, e in zip(starts, ends):
+        flush()
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
+
+
+def bound(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: build.
+# ---------------------------------------------------------------------------
+def phase_build() -> str:
+    t0 = time.perf_counter()
+    paths = _build.build_all()
+    secs = time.perf_counter() - t0
+    print(f"[build] {secs:.1f} s: " + ", ".join(f"{n} -> {p.name}" for n, p in paths.items()))
+    for name in paths:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+    gpu = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(gpu)
+    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+    return gpu
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions.
+# ---------------------------------------------------------------------------
+def check_flash(gen, b, sq, sk, nq, nkv, hd, causal, window, dtype, q_offset=0):
+    q = randn(gen, (b, sq, nq, hd), dtype)
+    k = randn(gen, (b, sk, nkv, hd), dtype)
+    v = randn(gen, (b, sk, nkv, hd), dtype)
+    out = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    exp = ref.mha_reference(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    if out.shape != exp.shape or out.dtype != dtype:
+        raise AssertionError(f"flash_attention: {out.shape} {out.dtype} vs {exp.shape} {dtype}")
+    err = max_err(out, exp)
+    check(f"flash_attention {(b, sq, sk, nq, nkv, hd, causal, window, q_offset)} {dtype}",
+          err, TOL[dtype])
+    return err, (q, k, v)
+
+
+def prefix_valid(lengths, s, device):
+    lengths = torch.as_tensor(lengths, device=device)
+    return torch.arange(s, device=device)[None, :] < lengths[:, None]
+
+
+def check_decode(gen, b, s, nq, nkv, hd, dtype, valid=None):
+    q = randn(gen, (b, nq, hd), dtype)
+    k = randn(gen, (b, s, nkv, hd), dtype)
+    v = randn(gen, (b, s, nkv, hd), dtype)
+    if valid is None:
+        valid = torch.rand((b, s), generator=gen, device=gen.device) < 0.7
+        valid[:, 0] = True                       # at least one visible slot
+    out = da.decode_attention(q, k, v, valid)
+    exp = ref.decode_attention_reference(q, k, v, valid)
+    # a sequence with no valid slot gives 0 (the plain version, like the
+    # JAX oracle, spreads the softmax uniformly over masked slots instead)
+    empty = ~valid.any(dim=1)
+    exp = torch.where(empty[:, None, None], torch.zeros_like(exp), exp)
+    err = max_err(out, exp)
+    check(f"decode_attention {(b, s, nq, nkv, hd)} {dtype}", err, TOL[dtype])
+    return err, (q, k, v, valid)
+
+
+def timings(kernel, plain, library, flops, nbytes, flush):
+    b_ms, b_by = bound(flops, nbytes)
+    return {
+        "ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(library, flush) if library is not None else None,
+    }
+
+
+def time_flash(err, qkv, flush):
+    q, k, v = qkv
+    b, s, nq, hd = q.shape
+    nkv = k.shape[2]
+    gqa = {"enable_gqa": True} if nq != nkv else {}
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pairs = b * nq * s * (s + 1) // 2            # causal (q, k) pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()   # q, k, v in; o out
+    t = timings(
+        lambda: fa.flash_attention(q, k, v, causal=True),
+        lambda: ref.mha_reference(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa),
+        4 * hd * pairs, nbytes, flush,
+    )
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:91",
+            "shape": f"prefill B={b} S={s} nq={nq} nkv={nkv} hd={hd} causal {q.dtype}",
+            "max_abs_err": err, **t}
+
+
+def time_decode(err, qkvm, flush):
+    q, k, v, valid = qkvm
+    b, nq, hd = q.shape
+    s, nkv = k.shape[1], k.shape[2]
+    n_valid = int(valid.sum())
+    es = q.element_size()
+    gqa = {"enable_gqa": True} if nq != nkv else {}
+    qt, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    mask = valid[:, None, None, :]
+    # only valid slots' K/V rows need to move: the kernel reads the byte mask
+    nbytes = 2 * q.numel() * es + valid.numel() + 2 * n_valid * nkv * hd * es
+    t = timings(
+        lambda: da.decode_attention(q, k, v, valid),
+        lambda: ref.decode_attention_reference(q, k, v, valid),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, **gqa),
+        4 * hd * nq * n_valid, nbytes, flush,
+    )
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:71",
+            "shape": f"decode B={b} S={s} valid={n_valid} nq={nq} nkv={nkv} hd={hd} {q.dtype}",
+            "max_abs_err": err, **t}
+
+
+def phase_kernels(seed, prompt_lengths):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in FA_CASES:
+            check_flash(gen, *case, dtype)
+            n += 1
+        # chunked prefill: q at an absolute offset against the full causal result
+        q = randn(gen, (1, 64, 4, 32), dtype)
+        k = randn(gen, (1, 64, 4, 32), dtype)
+        v = randn(gen, (1, 64, 4, 32), dtype)
+        out = fa.flash_attention(q[:, 32:].contiguous(), k, v, causal=True, q_offset=32)
+        check(f"flash_attention q_offset {dtype}",
+              max_err(out, ref.mha_reference(q, k, v, causal=True)[:, 32:]), TOL[dtype])
+        for case in DA_CASES:
+            check_decode(gen, *case, dtype)
+        # one sequence with no valid slot, one with a single one
+        valid = torch.rand((3, 100), generator=gen, device=dev) < 0.7
+        valid[1] = False
+        valid[2] = False
+        valid[2, 5] = True
+        _, (q, k, v, valid) = check_decode(gen, 3, 100, 8, 2, 64, dtype, valid)
+        out = da.decode_attention(q, k, v, valid)
+        if bool(out[1].any()):
+            raise AssertionError("decode_attention: a sequence with no valid slot is not 0")
+        check("decode_attention single valid slot",
+              max_err(out[2], v[2, 5].repeat_interleave(4, dim=0)), TOL[dtype])
+        n += 2 + len(DA_CASES) + 1
+    torch.cuda.synchronize()
+    print(f"[kernels] {n} test-shape checks passed in f32 and bf16")
+
+    flush = L2Flush(dev)
+    # decode at the main path's shapes: each slot valid up to prompt + new tokens
+    lengths = [min(CACHE_LEN, p + NEW_TOKENS) for p in prompt_lengths[:SLOTS]]
+    main = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        errs = {}
+        errs["flash"], qkv = check_flash(gen, 1, PROMPT_MAX, PROMPT_MAX, 16, 16, 64, True, 0, dtype)
+        errs["decode"], qkvm = check_decode(
+            gen, SLOTS, CACHE_LEN, 16, 16, 64, dtype, prefix_valid(lengths, CACHE_LEN, dev))
+        # llama3-8b: GQA 32 q heads over 8 kv heads, head_dim 128
+        errs["flash_gqa"], qkv_g = check_flash(gen, 1, 2048, 2048, 32, 8, 128, True, 0, dtype)
+        errs["decode_gqa"], qkvm_g = check_decode(gen, 8, 4096, 32, 8, 128, dtype)
+        print(f"[kernels] main-path and llama3-8b shapes {dtype}: max abs err "
+              + json.dumps(errs))
+        main[dtype] = (errs, qkv, qkvm, qkv_g, qkvm_g)
+    errs, qkv, qkvm, qkv_g, qkvm_g = main[torch.bfloat16]   # the main path runs bf16
+    rows = [time_flash(errs["flash"], qkv, flush), time_decode(errs["decode"], qkvm, flush)]
+    gqa_rows = [time_flash(errs["flash_gqa"], qkv_g, flush),
+                time_decode(errs["decode_gqa"], qkvm_g, flush)]
+    del main, flush
+    torch.cuda.empty_cache()
+    return rows, gqa_rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the slice.
+# ---------------------------------------------------------------------------
+def phase_slice(seed, prompts, gpu):
+    dev = torch.device("cuda")
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = model_lib.init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+    engine = Engine(cfg, params, EngineConfig(
+        slots=SLOTS, cache_len=CACHE_LEN, max_new_tokens=NEW_TOKENS,
+        dtype=torch.bfloat16, device="cuda"))
+    batcher = ContinuousBatcher(engine)
+    spent = {"insert": [], "step": []}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[name].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    engine.insert = timed("insert", engine.insert)
+    engine.step = timed("step", engine.step)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(prompts)]
+    for r in reqs:
+        batcher.submit(r)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    da.launches = 0
+    t0 = time.perf_counter()
+    stats = batcher.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fa_n, da_n = fa.launches, da.launches
+    peak = torch.cuda.max_memory_allocated()
+
+    bad = [r.rid for r in reqs if not r.finished or len(r.output) != 1 + NEW_TOKENS]
+    if bad:
+        raise AssertionError(f"requests not finished with 1 + {NEW_TOKENS} tokens: {bad}")
+    if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.output):
+        raise AssertionError("a token outside the vocabulary")
+    if fa_n != cfg.num_layers * N_REQUESTS or fa_n == 0:
+        raise AssertionError(f"flash_attention launches {fa_n} != {cfg.num_layers} x {N_REQUESTS}")
+    if da_n != cfg.num_layers * engine.steps or da_n == 0:
+        raise AssertionError(
+            f"decode_attention launches {da_n} != {cfg.num_layers} x {engine.steps} steps")
+    n_tokens = sum(len(r.output) for r in reqs)
+    result = {
+        "model": ARCH, "dtype": "bfloat16", "requests": N_REQUESTS, "slots": SLOTS,
+        "cache_len": CACHE_LEN, "new_tokens": NEW_TOKENS,
+        "prompt_tokens": int(sum(len(p) for p in prompts)),
+        "decode_steps": engine.steps, "batch_stats": stats.summary(),
+        "wall_s": wall, "tokens_per_s": n_tokens / wall,
+        "prefill_ms_mean": 1e3 * float(np.mean(spent["insert"])),
+        "prefill_ms_per_prompt_token": 1e3 * sum(spent["insert"]) / sum(len(p) for p in prompts),
+        "decode_ms_per_step_median": 1e3 * float(np.median(spent["step"])),
+        "peak_mem_gib": peak / 2**30,
+        "launches": {"flash_attention": fa_n, "decode_attention": da_n},
+        "gpu": gpu,
+    }
+    print(f"[slice] served {N_REQUESTS} requests: {fa_n} flash_attention and {da_n} "
+          f"decode_attention launches over {engine.steps} decode steps")
+    prof = profile_decode(engine, prompts)
+    prof["device_busy_share_of_median_step"] = (
+        prof["device_ms_per_step"] / result["decode_ms_per_step_median"])
+    result["decode_profile"] = prof
+    del engine, batcher, params
+    torch.cuda.empty_cache()
+
+    # f32: the same port code with kernels on the card and plain versions on the CPU
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p_gpu = model_lib.init_params(cfg, gen, dtype=torch.float32, device=dev)
+    p_cpu = _tree_to(p_gpu, "cpu")
+    prompt = torch.as_tensor(prompts[0], dtype=torch.long)
+    fa0, da0 = fa.launches, da.launches
+    gpu_logits, tokens = _teacher_forced(cfg, p_gpu, prompt, None, dev)
+    if (fa.launches - fa0, da.launches - da0) != (cfg.num_layers,
+                                                  cfg.num_layers * F32_DECODE_STEPS):
+        raise AssertionError("the f32 run on the card did not go through the kernels")
+    cpu_logits, _ = _teacher_forced(cfg, p_cpu, prompt, tokens, torch.device("cpu"))
+    errs = []
+    for step, (g, c) in enumerate(zip(gpu_logits, cpu_logits)):
+        if g.shape != (1, cfg.vocab_size) or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"f32 step {step}: bad logits {tuple(g.shape)}")
+        errs.append(max_err(g.cpu(), c))
+    check("f32 logits card vs CPU", max(errs), LOGIT_TOL)
+    result["f32_check"] = {"prompt_tokens": len(prompts[0]), "decode_steps": F32_DECODE_STEPS,
+                           "max_abs_err_per_step": errs, "tol": LOGIT_TOL}
+    return result
+
+
+def profile_decode(engine, prompts, steps=8):
+    """Device time of ``steps`` decode steps with all slots live, from
+    ``torch.profiler``: busy share of the host-clock window and the kernels
+    that take the most device time.  Runs after the served run; its
+    launches are not counted against the main path."""
+    for i, p in enumerate(prompts[:SLOTS]):
+        engine.insert(Request(rid=1000 + i, prompt=p, max_new_tokens=steps + 1))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    # device-side events only (kernels, copies, memsets): a CPU op's entry
+    # repeats the device time of the kernels it launched
+    by_kernel = {e.key: e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+    busy = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "steps": steps, "profiled_wall_ms_per_step": wall_us / steps / 1e3,
+        "device_ms_per_step": busy / steps / 1e3,
+        "device_busy_share_profiled": busy / wall_us,
+        "top_kernels_ms_per_step": {k[:80]: us / steps / 1e3 for k, us in top},
+    }
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _teacher_forced(cfg, params, prompt, tokens, device):
+    """Prefill plus F32_DECODE_STEPS decode steps of batch 1; feeds ``tokens``
+    when given, else the greedy ones, which it returns."""
+    cache = model_lib.init_cache(cfg, 1, len(prompt) + F32_DECODE_STEPS,
+                                 dtype=torch.float32, device=device)
+    logits, cache = model_lib.prefill(cfg, params, prompt[None].to(device), cache)
+    out, fed = [logits], []
+    for i in range(F32_DECODE_STEPS):
+        tok = tokens[i] if tokens is not None else int(torch.argmax(logits[0]))
+        fed.append(tok)
+        logits, cache = model_lib.decode_step(
+            cfg, params, torch.tensor([tok], dtype=torch.long, device=device), cache)
+        out.append(logits)
+    return out, fed
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; the port's smoke run needs a GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    gpu = phase_build()
+    rng = np.random.default_rng(args.seed)
+    vocab = get_config(ARCH).vocab_size
+    prompts = [
+        rng.integers(0, vocab, size=int(rng.integers(PROMPT_MIN, PROMPT_MAX + 1))).astype(np.int32)
+        for _ in range(N_REQUESTS)
+    ]
+    rows, gqa_rows = phase_kernels(args.seed, [len(p) for p in prompts])
+    result = phase_slice(args.seed, prompts, gpu)
+    for row in rows:
+        row["launches"] = result["launches"][row["name"]]
+    print(json.dumps({"llama3_8b_shapes": gqa_rows, "gpu": gpu}))
+    print(json.dumps({"slice": result}))
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

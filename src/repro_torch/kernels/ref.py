@@ -1,0 +1,124 @@
+"""Plain PyTorch versions of the attention kernels.
+
+These are (1) the path ``ops`` takes for tensors on the CPU, and (2) the
+oracles every CUDA kernel is held against on the card (``chip_smoke.py``).
+They keep the arithmetic of the JAX oracles (``repro/kernels/ref.py``):
+logits and softmax in f32 from the inputs' own values, probabilities cast
+to v's dtype before the PV product, which accumulates in f32, and the
+output cast to q's dtype.  Upcasting a bf16 operand to f32 is exact, so an
+f32 product of upcast operands is JAX's ``preferred_element_type=f32``.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _softmax_pv(logits: torch.Tensor, v_dtype: torch.dtype) -> torch.Tensor:
+    """softmax in f32, then probs rounded to v's dtype and returned as f32."""
+    probs = torch.softmax(logits, dim=-1)
+    return probs.to(v_dtype).float()
+
+
+def mha_reference(
+    q: torch.Tensor,                 # (B, Sq, nq, hd)
+    k: torch.Tensor,                 # (B, Sk, nkv, hd)
+    v: torch.Tensor,                 # (B, Sk, nkv, hd)
+    *,
+    causal: bool = True,
+    window: int = 0,                 # 0 = unlimited; else sliding window
+    q_offset: int = 0,               # absolute position of q[0] relative to k[0]
+) -> torch.Tensor:
+    """Quadratic attention with f32 softmax. Returns (B, Sq, nq, hd)."""
+    b, sq, nq, hd = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    if nq % nkv:
+        raise ValueError(f"num q heads {nq} is not a multiple of kv heads {nkv}")
+    qg = q.reshape(b, sq, nkv, nq // nkv, hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * hd ** -0.5
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    kpos = torch.arange(sk, device=q.device)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = _softmax_pv(logits, v.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.float())
+    return out.reshape(b, sq, nq, hd).to(q.dtype)
+
+
+def decode_attention_reference(
+    q: torch.Tensor,                 # (B, nq, hd) — a single new token per seq
+    k_cache: torch.Tensor,           # (B, S, nkv, hd)
+    v_cache: torch.Tensor,           # (B, S, nkv, hd)
+    valid: torch.Tensor,             # (B, S) bool — which cache slots attend
+) -> torch.Tensor:
+    """Single-token decode oracle. Returns (B, nq, hd)."""
+    b, nq, hd = q.shape
+    nkv = k_cache.shape[2]
+    if nq % nkv:
+        raise ValueError(f"num q heads {nq} is not a multiple of kv heads {nkv}")
+    qg = q.reshape(b, nkv, nq // nkv, hd)
+    logits = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.float()) * hd ** -0.5
+    logits = torch.where(
+        valid[:, None, None, :], logits, torch.full_like(logits, NEG_INF)
+    )
+    probs = _softmax_pv(logits, v_cache.dtype)
+    out = torch.einsum("bkgs,bskh->bkgh", probs, v_cache.float())
+    return out.reshape(b, nq, hd).to(q.dtype)
+
+
+def local_attention_blocked(
+    q: torch.Tensor,                 # (B, S, nq, hd)
+    k: torch.Tensor,                 # (B, S, nkv, hd)
+    v: torch.Tensor,                 # (B, S, nkv, hd)
+    *,
+    window: int,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Causal sliding-window attention computed block-locally.
+
+    Queries in block i attend keys in blocks {i-1, i}, which is exact for
+    window <= block size: O(S * 2W) logits instead of the masked O(S^2).
+    """
+    b, s, nq, hd = q.shape
+    nkv = k.shape[2]
+    if window <= 0:
+        raise ValueError(f"blocked attention needs a positive window, got {window}")
+    if q_offset != 0:
+        raise ValueError("blocked attention assumes q and k aligned at position 0")
+    blk = window
+    s_p = -(-s // blk) * blk
+    if s_p != s:
+        pad = (0, 0, 0, 0, 0, s_p - s)
+        q, k, v = (torch.nn.functional.pad(x, pad) for x in (q, k, v))
+    nb = s_p // blk
+
+    qb = q.reshape(b, nb, blk, nq, hd)
+    kb = k.reshape(b, nb, blk, nkv, hd)
+    vb = v.reshape(b, nb, blk, nkv, hd)
+    # keys for block i: [block i-1 ; block i]   (first block: zeros, masked)
+    k_prev = torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], dim=1)
+    v_prev = torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], dim=1)
+    k2 = torch.cat([k_prev, kb], dim=2)                # (B, nb, 2W, nkv, hd)
+    v2 = torch.cat([v_prev, vb], dim=2)
+
+    qg = qb.reshape(b, nb, blk, nkv, nq // nkv, hd)
+    logits = torch.einsum(
+        "bnqkgh,bnskh->bnkgqs", qg.float(), k2.float()
+    ) * hd ** -0.5                                     # (B,nb,nkv,g,W,2W)
+
+    ib = torch.arange(nb, device=q.device)[:, None, None]
+    qpos = q_offset + ib * blk + torch.arange(blk, device=q.device)[None, :, None]
+    kpos = (ib - 1) * blk + torch.arange(2 * blk, device=q.device)[None, None, :]
+    mask = (kpos >= 0) & (kpos <= qpos) & (kpos > qpos - window)  # (nb, W, 2W)
+    logits = torch.where(
+        mask[None, :, None, None], logits, torch.full_like(logits, NEG_INF)
+    )
+    probs = _softmax_pv(logits, v2.dtype)
+    out = torch.einsum("bnkgqs,bnskh->bnqkgh", probs, v2.float())
+    out = out.reshape(b, s_p, nq, hd)
+    return out[:, :s].to(q.dtype)

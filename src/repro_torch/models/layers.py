@@ -1,0 +1,91 @@
+"""Shared layers: norms, MLPs, embeddings, rotary positions."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.registry import ModelConfig
+from repro_torch.models.params import normal
+
+
+# ---------------------------------------------------------------------------
+# Norms (always computed in f32, eps 1e-6, then cast back).
+# ---------------------------------------------------------------------------
+def init_norm(cfg: ModelConfig, dtype, device) -> dict:
+    p = {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    return p
+
+
+def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    x32 = x.float()
+    if cfg.norm == "layernorm":
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = x32.var(dim=-1, keepdim=True, unbiased=False)
+        y = (x32 - mean) * torch.rsqrt(var + 1e-6)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:  # rmsnorm
+        ms = x32.square().mean(dim=-1, keepdim=True)
+        y = x32 * torch.rsqrt(ms + 1e-6) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP: SwiGLU (wi_gate, wi_up, wo) or GELU (wi, wo).
+# ---------------------------------------------------------------------------
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: Optional[int] = None, *,
+             dtype=torch.float32, device="cuda") -> dict:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    s_in, s_out = d ** -0.5, ff ** -0.5
+    if cfg.mlp == "swiglu":
+        return {
+            "wi_gate": normal(gen, (d, ff), s_in, dtype, device),
+            "wi_up": normal(gen, (d, ff), s_in, dtype, device),
+            "wo": normal(gen, (ff, d), s_out, dtype, device),
+        }
+    return {
+        "wi": normal(gen, (d, ff), s_in, dtype, device),
+        "wo": normal(gen, (ff, d), s_out, dtype, device),
+    }
+
+
+def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.mlp == "swiglu":
+        h = F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
+    else:
+        h = F.gelu(x @ p["wi"], approximate="tanh")   # jax.nn.gelu's default
+    return h @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Embeddings.
+# ---------------------------------------------------------------------------
+def init_embed(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> torch.Tensor:
+    return normal(gen, (cfg.vocab_size, cfg.d_model), 1.0, dtype, device)
+
+
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return embed[tokens]
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding, split-half form (not interleaved).
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exponent)          # (head_dim/2,)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    if theta <= 0.0:
+        return x
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None, None].float() * freqs    # (...,S,1,hd/2)
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

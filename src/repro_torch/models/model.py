@@ -1,0 +1,202 @@
+"""Composable language model, attention-only decoder families.
+
+The layers run in order in a Python loop over ``params["layers"]``; the
+decode cache keeps the JAX package's layer-stacked layout (one tensor per
+pattern position, stacked over the pattern's repetitions) so the serving
+engine's slot scatter is the same.  MoE, RWKV-6, RG-LRU and encoder-decoder
+models are later slices of the port: their configs raise
+``NotImplementedError`` here.
+
+Entry points
+------------
+``init_params``  — build the parameter tree from a ``torch.Generator``.
+``param_count``  — exact parameter count from the shapes (no allocation).
+``forward``      — full-sequence logits.
+``init_cache``   — decode cache for a (batch, cache_len).
+``prefill``      — populate the cache from a prompt, return last logits.
+``decode_step``  — one token for every sequence in the batch.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.configs.registry import ATTN, RGLRU, RWKV, ModelConfig
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import layers
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for the families later slices of the port bring up: what
+    passes has only global attention blocks, no tail."""
+    kinds = set(cfg.layer_kinds())
+    if cfg.num_experts:
+        raise NotImplementedError(f"{cfg.name}: MoE is not ported yet (ROADMAP Queue 1 item 5)")
+    if RWKV in kinds:
+        raise NotImplementedError(f"{cfg.name}: RWKV-6 is not ported yet (ROADMAP Queue 1 item 6)")
+    if RGLRU in kinds:
+        raise NotImplementedError(f"{cfg.name}: RG-LRU is not ported yet (ROADMAP Queue 1 item 7)")
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder is not ported yet (ROADMAP Queue 1 item 8)"
+        )
+    if kinds != {ATTN} or cfg.tail_blocks:   # local attention comes with RG-LRU
+        raise NotImplementedError(
+            f"{cfg.name}: blocks {cfg.layer_kinds()} are not ported yet (ROADMAP Queue 1 item 7)"
+        )
+
+
+def _pattern_layout(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...]]:
+    """(n_repeats, pattern) with n_repeats * len(pattern) == num_layers."""
+    pat = cfg.block_pattern
+    n_rep = cfg.num_layers // len(pat)
+    if n_rep * len(pat) != cfg.num_layers:
+        raise ValueError(f"{cfg.name}: layers do not tile the block pattern")
+    return n_rep, pat
+
+
+# ---------------------------------------------------------------------------
+# Init and counting.
+# ---------------------------------------------------------------------------
+def _init_block(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
+    return {
+        "norm1": layers.init_norm(cfg, dtype, device),
+        "attn": attn_lib.init_attention(gen, cfg, dtype=dtype, device=device),
+        "norm2": layers.init_norm(cfg, dtype, device),
+        "mlp": layers.init_mlp(gen, cfg, dtype=dtype, device=device),
+    }
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, *, dtype=torch.float32,
+                device="cuda") -> Dict[str, Any]:
+    """Random parameters with the JAX package's scales, drawn from ``gen``."""
+    check_supported(cfg)
+    p: Dict[str, Any] = {
+        "embed": layers.init_embed(gen, cfg, dtype, device),
+        "final_norm": layers.init_norm(cfg, dtype, device),
+        "layers": [_init_block(gen, cfg, dtype, device) for _ in range(cfg.num_layers)],
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = layers.init_embed(gen, cfg, dtype, device)
+    return p
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Exact count of ``init_params``' elements, from shapes alone."""
+    check_supported(cfg)
+    d, hd, ff, v = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    norm = d * (2 if cfg.norm == "layernorm" else 1)
+    attn = 2 * d * nq * hd + 2 * d * nkv * hd
+    if cfg.qkv_bias:
+        attn += nq * hd + 2 * nkv * hd
+    mlp = (3 if cfg.mlp == "swiglu" else 2) * d * ff
+    embeds = v * d * (1 if cfg.tie_embeddings else 2)
+    return embeds + norm + cfg.num_layers * (2 * norm + attn + mlp)
+
+
+# ---------------------------------------------------------------------------
+# Embedding in/out.
+# ---------------------------------------------------------------------------
+def _embed_in(params, inputs: torch.Tensor) -> torch.Tensor:
+    if inputs.dim() == 3:          # precomputed embeddings (VLM)
+        return inputs.to(params["embed"].dtype)
+    return layers.embed_tokens(params["embed"], inputs)
+
+
+def _unembed(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    # d^-0.5 keeps init logit variance O(1) (embed tables are unit-scale)
+    return (x @ w.T) * (cfg.d_model ** -0.5)
+
+
+# ---------------------------------------------------------------------------
+# Full sequence: forward and prefill.
+# ---------------------------------------------------------------------------
+def _layer_caches(cfg: ModelConfig, cache) -> List[dict]:
+    """Per-layer views of the stacked cache, in the order the layers run."""
+    n_rep, pat = _pattern_layout(cfg)
+    out = []
+    for r in range(n_rep):
+        for i, kind in enumerate(pat):
+            stacked = cache["blocks"][f"p{i}_{kind}"]["attn"]
+            out.append({name: t[r] for name, t in stacked.items()})
+    return out
+
+
+def _run_blocks_full(cfg, params, x, positions, caches, *, window):
+    for i, p in enumerate(params["layers"]):
+        h = layers.apply_norm(cfg, p["norm1"], x)
+        y, _ = attn_lib.attention_full(
+            cfg, p["attn"], h, positions, window=window,
+            cache=caches[i] if caches is not None else None,
+        )
+        x = x + y
+        h2 = layers.apply_norm(cfg, p["norm2"], x)
+        x = x + layers.apply_mlp(cfg, p["mlp"], h2)
+    return x
+
+
+def forward(cfg: ModelConfig, params, inputs: torch.Tensor, *, window: int = 0):
+    """Full-sequence forward -> (logits (B, S, vocab), aux loss 0.0)."""
+    check_supported(cfg)
+    positions = torch.arange(inputs.shape[1], device=inputs.device)
+    x = _embed_in(params, inputs)
+    x = _run_blocks_full(cfg, params, x, positions, None, window=window)
+    x = layers.apply_norm(cfg, params["final_norm"], x)
+    return _unembed(cfg, params, x), 0.0
+
+
+def _layer_cache(cfg: ModelConfig, n: int, batch: int, cache_len: int, window: int,
+                 dtype, device) -> dict:
+    """``n`` layers' attention caches stacked on a leading axis; a window
+    makes each a ring of at most ``window`` slots."""
+    clen = min(window, cache_len) if window else cache_len
+    one = attn_lib.init_layer_cache(cfg, batch, clen, dtype, device)
+    return {"attn": {name: t.expand(n, *t.shape).clone() for name, t in one.items()}}
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, window: int = 0,
+               dtype=torch.float32, device="cuda") -> Dict[str, Any]:
+    """Decode cache. ``window`` > 0 = sliding-window mode for global-attn."""
+    check_supported(cfg)
+    n_rep, pat = _pattern_layout(cfg)
+    cache: Dict[str, Any] = {
+        "t": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "blocks": {f"p{i}_{kind}": _layer_cache(cfg, n_rep, batch, cache_len, window, dtype,
+                                                device)
+                   for i, kind in enumerate(pat)},
+        "tail": {},
+    }
+    return cache
+
+
+def prefill(cfg: ModelConfig, params, inputs: torch.Tensor, cache, *, window: int = 0):
+    """Run the prompt through the model, populating ``cache`` in place.
+
+    Returns (last-token logits (B, vocab), the cache)."""
+    check_supported(cfg)
+    s = inputs.shape[1]
+    positions = torch.arange(s, device=inputs.device)
+    x = _embed_in(params, inputs)
+    x = _run_blocks_full(cfg, params, x, positions, _layer_caches(cfg, cache), window=window)
+    cache["t"] = torch.full((inputs.shape[0],), s, dtype=torch.int32, device=inputs.device)
+    x = layers.apply_norm(cfg, params["final_norm"], x[:, -1:, :])
+    return _unembed(cfg, params, x)[:, 0], cache
+
+
+def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *, window: int = 0):
+    """One decode step for every sequence. Returns (logits (B, vocab), the cache)."""
+    check_supported(cfg)
+    t = cache["t"]
+    x = layers.embed_tokens(params["embed"], tokens[:, None])
+    for p, c in zip(params["layers"], _layer_caches(cfg, cache)):
+        h = layers.apply_norm(cfg, p["norm1"], x)
+        y, _ = attn_lib.attention_decode(cfg, p["attn"], h, t, c, window=window)
+        x = x + y
+        h2 = layers.apply_norm(cfg, p["norm2"], x)
+        x = x + layers.apply_mlp(cfg, p["mlp"], h2)
+    cache["t"] = t + 1
+    x = layers.apply_norm(cfg, params["final_norm"], x)
+    return _unembed(cfg, params, x)[:, 0], cache

@@ -1,0 +1,71 @@
+"""Parameter trees: plain nested dicts of tensors.
+
+Blocks are a list in layer order (``params["layers"]``), not stacked along
+a layer axis as the JAX package stacks them for ``lax.scan``: PyTorch runs
+the layers in a Python loop.  ``params_from_jax`` converts a JAX parameter
+tree so both packages can run on the same weights; JAX's threefry draws
+cannot be reproduced with a ``torch.Generator``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import ModelConfig
+
+
+def normal(gen: torch.Generator, shape: Sequence[int], scale: float, dtype, device) -> torch.Tensor:
+    """``scale * N(0, 1)`` drawn on the generator's device, in f32, then cast."""
+    x = torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32)
+    return (x * scale).to(device=device, dtype=dtype)
+
+
+def _leaf(a, dtype: Optional[torch.dtype], device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes: no numpy->torch bridge
+        t = torch.from_numpy(np.array(a, dtype=np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def _convert(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _convert(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(
+    cfg: ModelConfig,
+    tree: Dict[str, Any],
+    *,
+    dtype: Optional[torch.dtype] = None,
+    device="cpu",
+) -> Dict[str, Any]:
+    """The port's parameters from a JAX parameter tree of numpy arrays
+    (``jax.tree.map(np.asarray, params)``).
+
+    JAX stacks each block kind of the repeating pattern along axis 0
+    (``blocks/p{i}_{kind}``, one entry per repetition); the port lists the
+    blocks in the order the model runs them.  ``dtype`` None keeps each
+    leaf's own.  Raises ``NotImplementedError`` for families not ported.
+    """
+    from repro_torch.models.model import check_supported   # model imports this module
+
+    check_supported(cfg)
+    to_t = lambda a: _leaf(a, dtype, device)
+    layers = []
+    for r in range(cfg.num_layers // len(cfg.block_pattern)):
+        for i, kind in enumerate(cfg.block_pattern):
+            stacked = tree["blocks"][f"p{i}_{kind}"]
+            layers.append(_convert(stacked, lambda a: to_t(np.asarray(a)[r])))
+    out = {
+        "embed": to_t(tree["embed"]),
+        "final_norm": _convert(tree["final_norm"], to_t),
+        "layers": layers,
+    }
+    if "lm_head" in tree:
+        out["lm_head"] = to_t(tree["lm_head"])
+    return out
