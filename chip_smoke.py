@@ -6,24 +6,33 @@
 Phases, each raising on a failed check (the script then exits non-zero and
 never prints its last line):
 
-1. build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
+1. build the three hand-written CUDA kernels from
+   ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, in parallel;
 2. hold each kernel against its plain PyTorch version on the card, in f32
-   and bf16, at the shapes of ``tests/test_kernels.py``, at the main path's
-   shapes and at llama3-8b's GQA shapes; time kernel, plain version, one
-   PyTorch call for the same function (SDPA, a yardstick the port never
-   calls) and the card's bound, and print them on one ``{"kernels": ...}``
-   line;
-3. serve qwen1.5-0.5b at full width in bf16 through ``ContinuousBatcher``
-   (16 requests, 8 slots, cache 2048, 32 new tokens each), with the kernels'
-   launch counters proving every prefill and decode attention call went
-   through them; profile 8 decode steps (device time against the step's
-   host time); then hold f32 logits of one prompt (prefill + 8 decode
-   steps) on the card against the same port code on the CPU;
+   and bf16: the attention kernels at the shapes of ``tests/test_kernels.py``,
+   at the main path's shapes and at llama3-8b's GQA shapes; the RWKV-6 scan
+   at ``RWKV_CASES`` (with and without a state, ragged T), under strong
+   decay, at T = 1 with a state and at rwkv6-1.6b's prefill and decode
+   shapes.  Time kernel, plain version, one PyTorch call for the same
+   function where there is one (SDPA, a yardstick the port never calls) and
+   the card's bound, and print them on one ``{"kernels": ...}`` line;
+3. serve qwen1.5-0.5b at full width and depth in bf16 through
+   ``ContinuousBatcher`` (16 requests, 8 slots, cache 2048, 32 new tokens
+   each), with the kernels' launch counters proving every prefill and
+   decode attention call went through them; profile 8 decode steps (device
+   time against the step's host time); then hold f32 logits of one prompt
+   (prefill + 8 decode steps) on the card against the same port code on
+   the CPU;
+3b. the same for rwkv6-1.6b at full width and depth in bf16 (same traffic),
+   every WKV recurrence of every layer through the scan kernel, then its
+   f32 check at full width and 4 layers;
 4. print the device line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -37,10 +46,13 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.registry import RWKV  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as rk  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
+from repro_torch.models.rwkv import F32_LEAVES  # noqa: E402
 from repro_torch.serving import ContinuousBatcher, Engine, EngineConfig, Request  # noqa: E402
 
 # tolerances of tests/test_kernels.py
@@ -71,10 +83,30 @@ DA_CASES = [
     (1, 256, 16, 4, 64),
 ]
 
+# b, t, h, hd, with_state  (tests/test_kernels.py RWKV_CASES, then one decode step)
+RWKV_CASES = [
+    (2, 64, 2, 32, False),
+    (1, 50, 4, 64, True),
+    (2, 33, 1, 16, True),
+    (1, 128, 2, 64, True),
+    (8, 1, 4, 64, True),
+]
+# tolerances of tests/test_kernels.py for the scan: its chunked form sums
+# decays as log-space prefixes where the plain version multiplies them
+RWKV_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
 ARCH = "qwen1.5-0.5b"
+RWKV_ARCH = "rwkv6-1.6b"
+KERNELS = {"flash_attention": fa, "decode_attention": da, "rwkv6_scan": rk}
 N_REQUESTS, SLOTS, CACHE_LEN, NEW_TOKENS = 16, 8, 2048, 32
 PROMPT_MIN, PROMPT_MAX = 64, 512
 F32_DECODE_STEPS = 8
+# the f32 check of the RWKV path: full width, 4 of its 24 layers (the CPU
+# runs the same model with the plain versions), and a prompt of two whole
+# 32-token chunks and a ragged tail
+RWKV_F32_LAYERS, RWKV_F32_PROMPT = 4, 77
+# rwkv6-1.6b's main-path scan shapes: prefill (B=1, a ragged T) and decode (8 slots)
+RWKV_PREFILL, RWKV_DECODE = (1, 500, 32, 64, True), (SLOTS, 1, 32, 64, True)
 
 
 def randn(gen, shape, dtype):
@@ -293,12 +325,107 @@ def phase_kernels(seed, prompt_lengths):
     return rows, gqa_rows
 
 
-# ---------------------------------------------------------------------------
-# Phase 3: the slice.
-# ---------------------------------------------------------------------------
-def phase_slice(seed, prompts, gpu):
+def rwkv_inputs(gen, b, t, h, hd, with_state, dtype, scale=1.0, strong=False):
+    """The distribution of tests/test_kernels.py: r, k ~ 0.5 N, v ~ N, w in
+    (0.45, 0.95) (strong: exp(-exp(U(-2, 4))), down to 1e-24), u ~ 0.3 N and
+    the state ~ 0.2 N in f32; ``scale`` multiplies r, k and v."""
+    dev = gen.device
+    sh = (b, t, h, hd)
+    r, k = (0.5 * scale * randn(gen, sh, torch.float32) for _ in range(2))
+    v = scale * randn(gen, sh, torch.float32)
+    if strong:
+        w = torch.exp(-torch.exp(torch.rand(sh, generator=gen, device=dev) * 6 - 2))
+    else:
+        w = torch.sigmoid(randn(gen, sh, torch.float32) * 2 - 1) * 0.5 + 0.45
+    u = 0.3 * randn(gen, (h, hd), torch.float32)
+    s0 = 0.2 * randn(gen, (b, h, hd, hd), torch.float32) if with_state else None
+    return [x.to(dtype) for x in (r, k, v, w)] + [u, s0]
+
+
+def check_rwkv(gen, case, dtype, **kw):
+    """Kernel against the plain version: out and final state within
+    RWKV_TOL, and finite."""
+    args = rwkv_inputs(gen, *case, dtype, **kw)
+    out, s_t = rk.rwkv6_scan(*args)
+    exp_o, exp_s = ref.rwkv6_reference(*args)
+    if out.shape != exp_o.shape or out.dtype != dtype or s_t.dtype != torch.float32:
+        raise AssertionError(f"rwkv6_scan {case}: {out.shape} {out.dtype} {s_t.dtype}")
+    if not (bool(torch.isfinite(out.float()).all()) and bool(torch.isfinite(s_t).all())):
+        raise AssertionError(f"rwkv6_scan {case} {dtype} {kw}: non-finite output")
+    err = max(max_err(out, exp_o), max_err(s_t, exp_s))
+    check(f"rwkv6_scan {case} {dtype} {kw}", err, RWKV_TOL[dtype])
+    return err, args, float(exp_o.float().abs().max())
+
+
+def time_rwkv(err, args, flush):
+    r, k, v, w, u, s0 = args
+    b, t, h, hd = r.shape
+    es = r.element_size()
+    # r, k, v, w in and o out once; the state read once and written once
+    nbytes = 5 * r.numel() * es + 2 * b * h * hd * hd * 4
+    t_ = timings(lambda: rk.rwkv6_scan(*args), lambda: ref.rwkv6_reference(*args), None,
+                 4 * hd * hd * b * t * h, nbytes, flush)
+    return {"shape": f"B={b} T={t} H={h} hd={hd} state in and out {r.dtype}",
+            "max_abs_err": err, **t_}
+
+
+def phase_rwkv_kernel(seed):
+    """The scan kernel against its plain version, then its times at
+    rwkv6-1.6b's prefill and decode shapes."""
     dev = torch.device("cuda")
-    cfg = get_config(ARCH)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, main = 0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in RWKV_CASES:
+            check_rwkv(gen, case, dtype)
+            n += 1
+        check_rwkv(gen, (1, 64, 1, 16, False), dtype, strong=True)
+        # main-path shapes; r, k, v halved so |o| stays below 8, where bf16's
+        # step (0.0625 from 8 on) would exceed the tolerance by rounding alone
+        main[dtype] = {name: check_rwkv(gen, case, dtype, scale=0.5)
+                       for name, case in (("prefill", RWKV_PREFILL), ("decode", RWKV_DECODE))}
+        n += 3
+        print(f"[kernels] rwkv6_scan main-path shapes {dtype}: " + json.dumps(
+            {name: {"max_abs_err": e, "max_abs_out": m} for name, (e, _, m) in main[dtype].items()}))
+    torch.cuda.synchronize()
+    print(f"[kernels] rwkv6_scan: {n} checks passed in f32 and bf16")
+    flush = L2Flush(dev)
+    bf = main[torch.bfloat16]         # the main path runs bf16
+    row = {"name": "rwkv6_scan", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+           "replaces": "src/repro/kernels/rwkv6_scan.py:93",
+           **time_rwkv(*bf["prefill"][:2], flush),
+           "library_why": "no single PyTorch call computes the WKV recurrence"}
+    row["decode"] = time_rwkv(*bf["decode"][:2], flush)
+    del main, bf, flush
+    torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the slices.
+# ---------------------------------------------------------------------------
+def launch_counts():
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def expected_launches(cfg, prefills, decode_steps):
+    """What each kernel must have launched for ``prefills`` batch-1 prefills
+    and ``decode_steps`` decode steps: attention models run flash attention
+    in prefill and flash decode per step, RWKV-6 the scan in both."""
+    n = cfg.num_layers
+    if cfg.block_pattern == (RWKV,):
+        return {"flash_attention": 0, "decode_attention": 0,
+                "rwkv6_scan": n * (prefills + decode_steps)}
+    return {"flash_attention": n * prefills, "decode_attention": n * decode_steps,
+            "rwkv6_scan": 0}
+
+
+def phase_slice(arch, seed, prompts, gpu):
+    """Serve ``prompts`` with ``arch`` at full width and depth in bf16, then
+    hold its f32 logits on the card to the CPU's."""
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = model_lib.init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
     engine = Engine(cfg, params, EngineConfig(
@@ -325,29 +452,29 @@ def phase_slice(seed, prompts, gpu):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0
-    da.launches = 0
+    for mod in KERNELS.values():
+        mod.launches = 0
     t0 = time.perf_counter()
     stats = batcher.run_until_idle()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fa_n, da_n = fa.launches, da.launches
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     bad = [r.rid for r in reqs if not r.finished or len(r.output) != 1 + NEW_TOKENS]
     if bad:
-        raise AssertionError(f"requests not finished with 1 + {NEW_TOKENS} tokens: {bad}")
+        raise AssertionError(f"{arch}: requests not finished with 1 + {NEW_TOKENS} tokens: {bad}")
     if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.output):
-        raise AssertionError("a token outside the vocabulary")
-    if fa_n != cfg.num_layers * N_REQUESTS or fa_n == 0:
-        raise AssertionError(f"flash_attention launches {fa_n} != {cfg.num_layers} x {N_REQUESTS}")
-    if da_n != cfg.num_layers * engine.steps or da_n == 0:
-        raise AssertionError(
-            f"decode_attention launches {da_n} != {cfg.num_layers} x {engine.steps} steps")
+        raise AssertionError(f"{arch}: a token outside the vocabulary")
+    expected = expected_launches(cfg, N_REQUESTS, engine.steps)
+    if launches != expected or not any(launches.values()):
+        raise AssertionError(f"{arch}: kernel launches {launches} != {expected} "
+                             f"({cfg.num_layers} layers, {N_REQUESTS} prefills, "
+                             f"{engine.steps} decode steps)")
     n_tokens = sum(len(r.output) for r in reqs)
     result = {
-        "model": ARCH, "dtype": "bfloat16", "requests": N_REQUESTS, "slots": SLOTS,
-        "cache_len": CACHE_LEN, "new_tokens": NEW_TOKENS,
+        "model": arch, "dtype": "bfloat16", "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "requests": N_REQUESTS, "slots": SLOTS, "cache_len": CACHE_LEN, "new_tokens": NEW_TOKENS,
         "prompt_tokens": int(sum(len(p) for p in prompts)),
         "decode_steps": engine.steps, "batch_stats": stats.summary(),
         "wall_s": wall, "tokens_per_s": n_tokens / wall,
@@ -355,38 +482,72 @@ def phase_slice(seed, prompts, gpu):
         "prefill_ms_per_prompt_token": 1e3 * sum(spent["insert"]) / sum(len(p) for p in prompts),
         "decode_ms_per_step_median": 1e3 * float(np.median(spent["step"])),
         "peak_mem_gib": peak / 2**30,
-        "launches": {"flash_attention": fa_n, "decode_attention": da_n},
+        "launches": launches,
         "gpu": gpu,
     }
-    print(f"[slice] served {N_REQUESTS} requests: {fa_n} flash_attention and {da_n} "
-          f"decode_attention launches over {engine.steps} decode steps")
+    print(f"[slice] {arch}: served {N_REQUESTS} requests with {1 + NEW_TOKENS} tokens each "
+          f"over {engine.steps} decode steps; kernel launches {json.dumps(launches)} = "
+          f"{cfg.num_layers} layers x ({N_REQUESTS} prefills, {engine.steps} decode steps)")
     prof = profile_decode(engine, prompts)
     prof["device_busy_share_of_median_step"] = (
         prof["device_ms_per_step"] / result["decode_ms_per_step_median"])
     result["decode_profile"] = prof
+    # the timing wrappers refer back to the engine: collect the cycle, so
+    # that the next slice's peak memory does not count this one's weights
     del engine, batcher, params
+    gc.collect()
     torch.cuda.empty_cache()
+    result["f32_check"] = (f32_check_rwkv(seed, prompts[0]) if cfg.block_pattern == (RWKV,)
+                           else f32_check(cfg, seed, prompts[0]))
+    return result
 
-    # f32: the same port code with kernels on the card and plain versions on the CPU
+
+def f32_check(cfg, seed, prompt, fill=None):
+    """The same port code in f32 with the kernels on the card and the plain
+    versions on the CPU, on one prompt plus F32_DECODE_STEPS decode steps;
+    ``fill(params, gen)`` may first change the weights on the card."""
+    dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     p_gpu = model_lib.init_params(cfg, gen, dtype=torch.float32, device=dev)
+    if fill is not None:
+        fill(p_gpu, gen)
     p_cpu = _tree_to(p_gpu, "cpu")
-    prompt = torch.as_tensor(prompts[0], dtype=torch.long)
-    fa0, da0 = fa.launches, da.launches
+    prompt = torch.as_tensor(prompt, dtype=torch.long)
+    before = launch_counts()
     gpu_logits, tokens = _teacher_forced(cfg, p_gpu, prompt, None, dev)
-    if (fa.launches - fa0, da.launches - da0) != (cfg.num_layers,
-                                                  cfg.num_layers * F32_DECODE_STEPS):
-        raise AssertionError("the f32 run on the card did not go through the kernels")
+    ran = {name: n - before[name] for name, n in launch_counts().items()}
+    if ran != expected_launches(cfg, 1, F32_DECODE_STEPS):
+        raise AssertionError(f"the f32 run on the card did not go through the kernels: {ran}")
     cpu_logits, _ = _teacher_forced(cfg, p_cpu, prompt, tokens, torch.device("cpu"))
     errs = []
     for step, (g, c) in enumerate(zip(gpu_logits, cpu_logits)):
         if g.shape != (1, cfg.vocab_size) or not bool(torch.isfinite(g).all()):
             raise AssertionError(f"f32 step {step}: bad logits {tuple(g.shape)}")
         errs.append(max_err(g.cpu(), c))
-    check("f32 logits card vs CPU", max(errs), LOGIT_TOL)
-    result["f32_check"] = {"prompt_tokens": len(prompts[0]), "decode_steps": F32_DECODE_STEPS,
-                           "max_abs_err_per_step": errs, "tol": LOGIT_TOL}
-    return result
+    check(f"{cfg.name} f32 logits card vs CPU", max(errs), LOGIT_TOL)
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "prompt_tokens": len(prompt),
+            "decode_steps": F32_DECODE_STEPS, "max_abs_err_per_step": errs, "tol": LOGIT_TOL}
+
+
+def f32_check_rwkv(seed, prompt):
+    """The RWKV path's f32 check at full width and RWKV_F32_LAYERS layers,
+    on a RWKV_F32_PROMPT-token prompt (prefill in chunks of 32, 32 and 13,
+    then one-token launches), with the zero-initialised leaves ``mu``,
+    ``cm_mu``, ``w0`` and ``u`` filled with noise of scale 0.3 so that the
+    token shift and the bonus are exercised.  Tolerance LOGIT_TOL, as for
+    attention: the same f32 arithmetic in another order (the chunked scan
+    sums log-decays where the plain version multiplies decays, ~1e-6
+    relative), through 4 residual layers to logits of size ~1."""
+    def fill(params, gen):
+        for layer in params["layers"]:
+            for name in F32_LEAVES:
+                leaf = layer["rwkv"][name]
+                leaf.copy_(0.3 * randn(gen, leaf.shape, torch.float32))
+
+    cfg = dataclasses.replace(get_config(RWKV_ARCH), num_layers=RWKV_F32_LAYERS)
+    return f32_check(cfg, seed, np.resize(prompt, RWKV_F32_PROMPT), fill)
 
 
 def profile_decode(engine, prompts, steps=8):
@@ -458,12 +619,18 @@ def main() -> None:
         rng.integers(0, vocab, size=int(rng.integers(PROMPT_MIN, PROMPT_MAX + 1))).astype(np.int32)
         for _ in range(N_REQUESTS)
     ]
+    # the same traffic for rwkv6-1.6b: the prompt lengths above, its own vocabulary
+    rwkv_vocab = get_config(RWKV_ARCH).vocab_size
+    rwkv_prompts = [rng.integers(0, rwkv_vocab, size=len(p)).astype(np.int32) for p in prompts]
     rows, gqa_rows = phase_kernels(args.seed, [len(p) for p in prompts])
-    result = phase_slice(args.seed, prompts, gpu)
+    rows.append(phase_rwkv_kernel(args.seed))
+    slices = [phase_slice(ARCH, args.seed, prompts, gpu),
+              phase_slice(RWKV_ARCH, args.seed, rwkv_prompts, gpu)]
     for row in rows:
-        row["launches"] = result["launches"][row["name"]]
+        row["launches"] = sum(res["launches"][row["name"]] for res in slices)
     print(json.dumps({"llama3_8b_shapes": gqa_rows, "gpu": gpu}))
-    print(json.dumps({"slice": result}))
+    for res in slices:
+        print(json.dumps({"slice": res}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

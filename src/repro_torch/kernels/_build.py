@@ -26,7 +26,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("flash_attention", "decode_attention")
+KERNEL_SOURCES = ("flash_attention", "decode_attention", "rwkv6_scan")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -1,4 +1,4 @@
-// Helpers shared by the attention kernels: element types, 4-wide loads
+// Helpers shared by the kernels: element types, 4-wide loads
 // into f32 registers, stores back to the element type, warp reductions.
 #pragma once
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the kernels: attention and the RWKV-6 scan.
 
 These are (1) the path ``ops`` takes for tensors on the CPU, and (2) the
 oracles every CUDA kernel is held against on the card (``chip_smoke.py``).
@@ -9,6 +9,8 @@ output cast to q's dtype.  Upcasting a bf16 operand to f32 is exact, so an
 f32 product of upcast operands is JAX's ``preferred_element_type=f32``.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -122,3 +124,36 @@ def local_attention_blocked(
     out = torch.einsum("bnkgqs,bnskh->bnqkgh", probs, v2.float())
     out = out.reshape(b, s_p, nq, hd)
     return out[:, :s].to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 ("Finch") linear-attention recurrence.
+#
+# Per head with state S in R^{hd x hd}:
+#   S_t = diag(w_t) S_{t-1} + k_t v_t^T
+#   o_t = (S_{t-1} + diag(u) k_t v_t^T)^T r_t        (bonus term u on current)
+# w_t in (0,1) is the data-dependent decay.
+# ---------------------------------------------------------------------------
+def rwkv6_reference(
+    r: torch.Tensor,                 # (B, T, H, hd)
+    k: torch.Tensor,                 # (B, T, H, hd)
+    v: torch.Tensor,                 # (B, T, H, hd)
+    w: torch.Tensor,                 # (B, T, H, hd) decay in (0,1)
+    u: torch.Tensor,                 # (H, hd) per-head bonus
+    state: Optional[torch.Tensor] = None,   # (B, H, hd, hd); None = zeros
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential oracle, one token at a time in f32.
+
+    Returns (out (B, T, H, hd) in r's dtype, final state (B, H, hd, hd) f32)."""
+    b, t, h, d = r.shape
+    if state is None:
+        state = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+    s = state.float()
+    r32, k32, v32, w32 = (x.float() for x in (r, k, v, w))
+    u32 = u.float()[None, :, :, None]
+    outs = []
+    for i in range(t):
+        kv = k32[:, i, :, :, None] * v32[:, i, :, None, :]          # (B,H,hd,hd)
+        outs.append(torch.einsum("bhij,bhi->bhj", s + u32 * kv, r32[:, i]))
+        s = w32[:, i, :, :, None] * s + kv
+    return torch.stack(outs, dim=1).to(r.dtype), s

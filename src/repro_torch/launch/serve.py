@@ -1,10 +1,12 @@
 """Serving entry point.
 
-Runs the continuous-batching engine for a registered attention-only
-architecture, on the card by default.  ``--reduced`` selects the smoke
-variant of the same family, which also runs with ``--device cpu``.
+Runs the continuous-batching engine for a registered architecture the
+port builds (attention-only decoders and RWKV-6), on the card by default.
+``--reduced`` selects the smoke variant of the same family, which also runs
+with ``--device cpu``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --dtype bfloat16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --reduced \
       --device cpu --requests 16 --slots 4 --max-new 8
 """

@@ -1,11 +1,11 @@
-"""Composable language model, attention-only decoder families.
+"""Composable language model: attention-only decoders and RWKV-6.
 
 The layers run in order in a Python loop over ``params["layers"]``; the
 decode cache keeps the JAX package's layer-stacked layout (one tensor per
 pattern position, stacked over the pattern's repetitions) so the serving
-engine's slot scatter is the same.  MoE, RWKV-6, RG-LRU and encoder-decoder
-models are later slices of the port: their configs raise
-``NotImplementedError`` here.
+engine's slot scatter is the same.  MoE, RG-LRU and encoder-decoder models
+are later slices of the port: their configs raise ``NotImplementedError``
+here.
 
 Entry points
 ------------
@@ -25,23 +25,22 @@ import torch
 from repro_torch.configs.registry import ATTN, RGLRU, RWKV, ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
+from repro_torch.models import rwkv as rwkv_lib
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the families later slices of the port bring up: what
-    passes has only global attention blocks, no tail."""
+    passes has only global attention blocks or only RWKV-6 blocks, no tail."""
     kinds = set(cfg.layer_kinds())
     if cfg.num_experts:
         raise NotImplementedError(f"{cfg.name}: MoE is not ported yet (ROADMAP Queue 1 item 5)")
-    if RWKV in kinds:
-        raise NotImplementedError(f"{cfg.name}: RWKV-6 is not ported yet (ROADMAP Queue 1 item 6)")
     if RGLRU in kinds:
         raise NotImplementedError(f"{cfg.name}: RG-LRU is not ported yet (ROADMAP Queue 1 item 7)")
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder is not ported yet (ROADMAP Queue 1 item 8)"
         )
-    if kinds != {ATTN} or cfg.tail_blocks:   # local attention comes with RG-LRU
+    if kinds not in ({ATTN}, {RWKV}) or cfg.tail_blocks:   # local attention comes with RG-LRU
         raise NotImplementedError(
             f"{cfg.name}: blocks {cfg.layer_kinds()} are not ported yet (ROADMAP Queue 1 item 7)"
         )
@@ -59,7 +58,18 @@ def _pattern_layout(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...]]:
 # ---------------------------------------------------------------------------
 # Init and counting.
 # ---------------------------------------------------------------------------
-def _init_block(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
+def _layer_kinds(cfg: ModelConfig) -> List[str]:
+    n_rep, pat = _pattern_layout(cfg)
+    return list(pat) * n_rep
+
+
+def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype, device) -> dict:
+    if kind == RWKV:     # no MLP: the channel mix is part of the block's params
+        return {
+            "norm1": layers.init_norm(cfg, dtype, device),
+            "rwkv": rwkv_lib.init_rwkv(gen, cfg, dtype=dtype, device=device),
+            "norm2": layers.init_norm(cfg, dtype, device),
+        }
     return {
         "norm1": layers.init_norm(cfg, dtype, device),
         "attn": attn_lib.init_attention(gen, cfg, dtype=dtype, device=device),
@@ -75,7 +85,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, dtype=torch.float32,
     p: Dict[str, Any] = {
         "embed": layers.init_embed(gen, cfg, dtype, device),
         "final_norm": layers.init_norm(cfg, dtype, device),
-        "layers": [_init_block(gen, cfg, dtype, device) for _ in range(cfg.num_layers)],
+        "layers": [_init_block(gen, cfg, kind, dtype, device) for kind in _layer_kinds(cfg)],
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = layers.init_embed(gen, cfg, dtype, device)
@@ -93,7 +103,8 @@ def param_count(cfg: ModelConfig) -> int:
         attn += nq * hd + 2 * nkv * hd
     mlp = (3 if cfg.mlp == "swiglu" else 2) * d * ff
     embeds = v * d * (1 if cfg.tie_embeddings else 2)
-    return embeds + norm + cfg.num_layers * (2 * norm + attn + mlp)
+    block = rwkv_lib.param_count(cfg) if cfg.block_pattern == (RWKV,) else attn + mlp
+    return embeds + norm + cfg.num_layers * (2 * norm + block)
 
 
 # ---------------------------------------------------------------------------
@@ -115,22 +126,45 @@ def _unembed(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 # Full sequence: forward and prefill.
 # ---------------------------------------------------------------------------
 def _layer_caches(cfg: ModelConfig, cache) -> List[dict]:
-    """Per-layer views of the stacked cache, in the order the layers run."""
+    """Per-layer views of the stacked cache, in the order the layers run:
+    ``{"attn": {k, v, slot_pos}}`` or ``{"rwkv": {shift_tm, shift_cm, wkv}}``."""
     n_rep, pat = _pattern_layout(cfg)
     out = []
     for r in range(n_rep):
         for i, kind in enumerate(pat):
-            stacked = cache["blocks"][f"p{i}_{kind}"]["attn"]
-            out.append({name: t[r] for name, t in stacked.items()})
+            stacked = cache["blocks"][f"p{i}_{kind}"]
+            out.append({sub: {name: t[r] for name, t in leaves.items()}
+                        for sub, leaves in stacked.items()})
     return out
 
 
+def _rwkv_block(cfg, p, x, cache):
+    """RWKV-6 block on (B, T, d), prefill and decode alike; a cache's
+    shift and wkv leaves are updated in place (the kernel writes the wkv
+    state into the cache itself)."""
+    st = cache["rwkv"] if cache is not None else {}
+    h = layers.apply_norm(cfg, p["norm1"], x)
+    y, shift_tm, _ = rwkv_lib.time_mix(
+        cfg, p["rwkv"], h, st.get("shift_tm"), st.get("wkv"), wkv_out=st.get("wkv"))
+    x = x + y
+    h2 = layers.apply_norm(cfg, p["norm2"], x)
+    y2, shift_cm = rwkv_lib.channel_mix(cfg, p["rwkv"], h2, st.get("shift_cm"))
+    if st:
+        st["shift_tm"].copy_(shift_tm)
+        st["shift_cm"].copy_(shift_cm)
+    return x + y2
+
+
 def _run_blocks_full(cfg, params, x, positions, caches, *, window):
-    for i, p in enumerate(params["layers"]):
+    for i, (kind, p) in enumerate(zip(_layer_kinds(cfg), params["layers"])):
+        cache = caches[i] if caches is not None else None
+        if kind == RWKV:
+            x = _rwkv_block(cfg, p, x, cache)
+            continue
         h = layers.apply_norm(cfg, p["norm1"], x)
         y, _ = attn_lib.attention_full(
             cfg, p["attn"], h, positions, window=window,
-            cache=caches[i] if caches is not None else None,
+            cache=cache["attn"] if cache is not None else None,
         )
         x = x + y
         h2 = layers.apply_norm(cfg, p["norm2"], x)
@@ -148,13 +182,16 @@ def forward(cfg: ModelConfig, params, inputs: torch.Tensor, *, window: int = 0):
     return _unembed(cfg, params, x), 0.0
 
 
-def _layer_cache(cfg: ModelConfig, n: int, batch: int, cache_len: int, window: int,
-                 dtype, device) -> dict:
-    """``n`` layers' attention caches stacked on a leading axis; a window
-    makes each a ring of at most ``window`` slots."""
-    clen = min(window, cache_len) if window else cache_len
-    one = attn_lib.init_layer_cache(cfg, batch, clen, dtype, device)
-    return {"attn": {name: t.expand(n, *t.shape).clone() for name, t in one.items()}}
+def _layer_cache(cfg: ModelConfig, kind: str, n: int, batch: int, cache_len: int,
+                 window: int, dtype, device) -> dict:
+    """``n`` layers' caches stacked on a leading axis: attention KV (a
+    window makes each a ring of at most ``window`` slots) or RWKV state."""
+    if kind == RWKV:
+        sub, one = "rwkv", rwkv_lib.init_rwkv_state(cfg, batch, dtype, device)
+    else:
+        clen = min(window, cache_len) if window else cache_len
+        sub, one = "attn", attn_lib.init_layer_cache(cfg, batch, clen, dtype, device)
+    return {sub: {name: t.expand(n, *t.shape).clone() for name, t in one.items()}}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, window: int = 0,
@@ -164,8 +201,8 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, window: int = 0,
     n_rep, pat = _pattern_layout(cfg)
     cache: Dict[str, Any] = {
         "t": torch.zeros((batch,), dtype=torch.int32, device=device),
-        "blocks": {f"p{i}_{kind}": _layer_cache(cfg, n_rep, batch, cache_len, window, dtype,
-                                                device)
+        "blocks": {f"p{i}_{kind}": _layer_cache(cfg, kind, n_rep, batch, cache_len, window,
+                                                dtype, device)
                    for i, kind in enumerate(pat)},
         "tail": {},
     }
@@ -191,9 +228,12 @@ def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *, window
     check_supported(cfg)
     t = cache["t"]
     x = layers.embed_tokens(params["embed"], tokens[:, None])
-    for p, c in zip(params["layers"], _layer_caches(cfg, cache)):
+    for kind, p, c in zip(_layer_kinds(cfg), params["layers"], _layer_caches(cfg, cache)):
+        if kind == RWKV:
+            x = _rwkv_block(cfg, p, x, c)
+            continue
         h = layers.apply_norm(cfg, p["norm1"], x)
-        y, _ = attn_lib.attention_decode(cfg, p["attn"], h, t, c, window=window)
+        y, _ = attn_lib.attention_decode(cfg, p["attn"], h, t, c["attn"], window=window)
         x = x + y
         h2 = layers.apply_norm(cfg, p["norm2"], x)
         x = x + layers.apply_mlp(cfg, p["mlp"], h2)

@@ -31,10 +31,11 @@ def _leaf(a, dtype: Optional[torch.dtype], device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def _convert(tree, fn):
+def _convert(tree, fn, name=""):
+    """``fn(leaf, name)`` on every leaf of a nested dict, ``name`` its key."""
     if isinstance(tree, dict):
-        return {k: _convert(v, fn) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _convert(v, fn, k) for k, v in tree.items()}
+    return fn(tree, name)
 
 
 def params_from_jax(
@@ -50,17 +51,20 @@ def params_from_jax(
     JAX stacks each block kind of the repeating pattern along axis 0
     (``blocks/p{i}_{kind}``, one entry per repetition); the port lists the
     blocks in the order the model runs them.  ``dtype`` None keeps each
-    leaf's own.  Raises ``NotImplementedError`` for families not ported.
+    leaf's own; the RWKV leaves the JAX package keeps in f32 stay f32.
+    Raises ``NotImplementedError`` for families not ported.
     """
-    from repro_torch.models.model import check_supported   # model imports this module
+    # model and rwkv import this module
+    from repro_torch.models.model import check_supported
+    from repro_torch.models.rwkv import F32_LEAVES
 
     check_supported(cfg)
-    to_t = lambda a: _leaf(a, dtype, device)
+    to_t = lambda a, name="": _leaf(a, None if name in F32_LEAVES else dtype, device)
     layers = []
     for r in range(cfg.num_layers // len(cfg.block_pattern)):
         for i, kind in enumerate(cfg.block_pattern):
             stacked = tree["blocks"][f"p{i}_{kind}"]
-            layers.append(_convert(stacked, lambda a: to_t(np.asarray(a)[r])))
+            layers.append(_convert(stacked, lambda a, name: to_t(np.asarray(a)[r], name)))
     out = {
         "embed": to_t(tree["embed"]),
         "final_norm": _convert(tree["final_norm"], to_t),

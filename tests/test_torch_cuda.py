@@ -8,7 +8,9 @@ PyTorch is installed:
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances are those of ``tests/test_kernels.py``: 2e-5 in f32 (the same
-f32 arithmetic summed in another order) and 2e-2 in bf16.
+f32 arithmetic summed in another order) and 2e-2 in bf16 for attention;
+1e-4 and 5e-2 for the RWKV-6 scan, whose chunked form sums decays as
+log-space prefixes where the plain version multiplies them token by token.
 """
 import numpy as np
 import pytest
@@ -17,7 +19,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rwkv6_scan as rk
 from repro_torch.models import model
 from repro_torch.serving import ContinuousBatcher, Engine, EngineConfig, Request
 
@@ -42,6 +45,18 @@ DA_CASES = [
     (3, 48, 2, 2, 16),
     (1, 256, 16, 4, 64),
     (2, 300, 32, 8, 128),
+]
+
+
+RWKV_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+RWKV_CASES = [
+    # b, t, h, hd, with_state  (tests/test_kernels.py RWKV_CASES, then T = 1 and hd 128)
+    (2, 64, 2, 32, False),
+    (1, 50, 4, 64, True),      # ragged tail (t % 32 != 0)
+    (2, 33, 1, 16, True),
+    (1, 128, 2, 64, True),
+    (8, 1, 4, 64, True),       # one decode step
+    (2, 70, 2, 128, True),
 ]
 
 
@@ -117,15 +132,98 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         fa.flash_attention(q, k.transpose(1, 2), v)
 
 
-def test_engine_on_the_card_matches_cpu(cuda):
+def _rwkv_inputs(case, dtype, device, strong=False):
+    """The distribution of tests/test_kernels.py: r, k ~ 0.5 N, v ~ N, w in
+    (0.45, 0.95) (strong: exp(-exp(U(-2, 4))), down to 1e-24), u ~ 0.3 N f32,
+    state ~ 0.2 N f32."""
+    b, t, h, hd, with_state = case
+    rng = np.random.default_rng(sum(case) + strong)
+    x = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    sh = (b, t, h, hd)
+    if strong:
+        w = np.exp(-np.exp(rng.uniform(-2.0, 4.0, sh))).astype(np.float32)
+    else:
+        w = (1 / (1 + np.exp(-(x(*sh) * 2 - 1))) * 0.5 + 0.45).astype(np.float32)
+    to = lambda a, dt: torch.from_numpy(a).to(device, dt)
+    r, k, v, w = (to(a, dtype) for a in (x(*sh) * 0.5, x(*sh) * 0.5, x(*sh), w))
+    u = to(x(h, hd) * 0.3, torch.float32)
+    s0 = to(x(b, h, hd, hd) * 0.2, torch.float32) if with_state else None
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("case", RWKV_CASES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rwkv6_kernel_matches_plain(cuda, case, dtype):
+    r, k, v, w, u, s0 = _rwkv_inputs(case, DTYPES[dtype], cuda)
+    launches = rk.launches
+    out, s_t = rk.rwkv6_scan(r, k, v, w, u, s0)
+    exp_o, exp_s = ref.rwkv6_reference(r, k, v, w, u, s0)
+    assert rk.launches == launches + 1
+    assert out.dtype == r.dtype and out.shape == r.shape and s_t.dtype == torch.float32
+    assert bool(torch.isfinite(out.float()).all()) and bool(torch.isfinite(s_t).all())
+    assert _err(out, exp_o) < RWKV_TOL[dtype]
+    assert _err(s_t, exp_s) < RWKV_TOL[dtype]
+
+
+def test_rwkv6_kernel_strong_decay_stays_finite(cuda):
+    """Decay down to exp(-exp(4)) ~ 1e-24 (tests/test_kernels.py): every
+    factor the kernel exponentiates is <= 1, so nothing overflows."""
+    r, k, v, w, u, _ = _rwkv_inputs((1, 64, 1, 16, False), torch.float32, cuda, strong=True)
+    out, s_t = rk.rwkv6_scan(r, k, v, w, u)
+    exp_o, exp_s = ref.rwkv6_reference(r, k, v, w, u)
+    assert bool(torch.isfinite(out).all())
+    assert _err(out, exp_o) < 1e-4 and _err(s_t, exp_s) < 1e-4
+
+
+def test_rwkv6_kernel_updates_the_state_in_place(cuda):
+    """With ``final_state=state`` the kernel overwrites the state it read,
+    and the result is the one of a separate output."""
+    r, k, v, w, u, s0 = _rwkv_inputs((2, 45, 4, 64, True), torch.float32, cuda)
+    out_sep, s_sep = rk.rwkv6_scan(r, k, v, w, u, s0)
+    state = s0.clone()
+    out_in, s_in = ops.rwkv6(r, k, v, w, u, state, final_state=state)
+    assert s_in is state
+    assert torch.equal(out_in, out_sep) and torch.equal(state, s_sep)
+
+
+def test_rwkv6_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    r, k, v, w, u, s0 = _rwkv_inputs((1, 8, 2, 64, True), torch.float32, cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        rk.rwkv6_scan(*(x.half() for x in (r, k, v, w)), u, s0)
+    with pytest.raises(TypeError, match="dtype"):
+        rk.rwkv6_scan(r, k, v, w, u, s0.bfloat16())           # the state is f32
+    with pytest.raises(TypeError, match="dtype"):
+        rk.rwkv6_scan(r, k, v, w, u.bfloat16(), s0)           # so is u
+    with pytest.raises(ValueError, match="contiguous"):
+        rk.rwkv6_scan(r, k.transpose(1, 2).contiguous().transpose(1, 2), v, w, u, s0)
+    r48, k48, v48, w48, u48, _ = _rwkv_inputs((1, 8, 2, 48, False), torch.float32, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        rk.rwkv6_scan(r48, k48, v48, w48, u48)
+    with pytest.raises(ValueError, match="CUDA"):
+        rk.rwkv6_scan(*(x.cpu() for x in (r, k, v, w, u)))
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(t, device) for k, t in tree.items()}
+    if isinstance(tree, list):
+        return [_to(t, device) for t in tree]
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "rwkv6-1.6b"])
+def test_engine_on_the_card_matches_cpu(cuda, arch):
     """In f32 the engine's greedy tokens on the card (CUDA kernels) equal
     those on the CPU (plain versions) for the same weights."""
-    cfg = get_config("qwen1.5-0.5b").reduced()
+    cfg = get_config(arch).reduced()
     params = model.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    on_card = {"embed": params["embed"].to(cuda),
-               "final_norm": {k: t.to(cuda) for k, t in params["final_norm"].items()},
-               "layers": [{name: {k: t.to(cuda) for k, t in sub.items()}
-                           for name, sub in layer.items()} for layer in params["layers"]]}
+    noise = torch.Generator().manual_seed(1)
+    for layer in params["layers"]:            # RWKV's zero-initialised leaves
+        for name in ("mu", "cm_mu", "w0", "u"):
+            if "rwkv" in layer:
+                leaf = layer["rwkv"][name]
+                leaf.copy_(0.3 * torch.randn(leaf.shape, generator=noise))
+    on_card = _to(params, cuda)
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (5, 9, 17)]
     outs = []
