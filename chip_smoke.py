@@ -7,20 +7,27 @@ Phases, each raising on a failed check (the script then exits non-zero and
 never prints its last line):
 
 1. build the three hand-written CUDA kernels from
-   ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, in parallel;
+   ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, in parallel, and
+   count the tensor-core instructions (``HMMA``) in the attention
+   libraries' SASS (``cuobjdump -sass``); the bf16 flash kernel must have
+   some;
 2. hold each kernel against its plain PyTorch version on the card, in f32
    and bf16: the attention kernels at the shapes of ``tests/test_kernels.py``,
    at the main path's shapes and at llama3-8b's GQA shapes; the RWKV-6 scan
    at ``RWKV_CASES`` (with and without a state, ragged T), under strong
    decay, at T = 1 with a state and at rwkv6-1.6b's prefill and decode
-   shapes.  Time kernel, plain version, one PyTorch call for the same
-   function where there is one (SDPA, a yardstick the port never calls) and
-   the card's bound, and print them on one ``{"kernels": ...}`` line;
+   shapes; the attention kernels' edge cases (rows that see no key, S = 1000
+   in bf16, a window with a q_offset, decode masks that leave whole tiles
+   and whole splits empty in the middle of the cache).  Time kernel, plain
+   version, one PyTorch call for the same function where there is one
+   (SDPA, a yardstick the port never calls) and the card's bound, and print
+   them on one ``{"kernels": ...}`` line;
 3. serve qwen1.5-0.5b at full width and depth in bf16 through
    ``ContinuousBatcher`` (16 requests, 8 slots, cache 2048, 32 new tokens
    each), with the kernels' launch counters proving every prefill and
    decode attention call went through them; profile 8 decode steps (device
-   time against the step's host time); then hold f32 logits of one prompt
+   time against the step's host time) and one 512-token prefill (device
+   time, flash attention's share); then hold f32 logits of one prompt
    (prefill + 8 decode steps) on the card against the same port code on
    the CPU;
 3b. the same for rwkv6-1.6b at full width and depth in bf16 (same traffic),
@@ -133,6 +140,12 @@ class L2Flush:
         self.buf.zero_()
 
 
+# ~0.1 ms of device work queued after each flush, so that the host has
+# enqueued the start event, the call and the end event before the device
+# reaches them: the events then time the device, not the host's dispatch
+HOST_AHEAD_CYCLES = 200_000
+
+
 def time_ms(fn, flush, iters=20, warmup=3) -> float:
     """Median device time of ``fn`` from CUDA events, L2 flushed before each."""
     for _ in range(warmup):
@@ -141,6 +154,7 @@ def time_ms(fn, flush, iters=20, warmup=3) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
         flush()
+        torch.cuda._sleep(HOST_AHEAD_CYCLES)
         s.record()
         fn()
         e.record()
@@ -156,6 +170,15 @@ def bound(flops: float, nbytes: float):
 # ---------------------------------------------------------------------------
 # Phase 1: build.
 # ---------------------------------------------------------------------------
+def hmma_count(path) -> int:
+    """Tensor-core (HMMA) instructions in a built library's SASS, read with
+    the ``cuobjdump`` of the toolkit that built it."""
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    return sum("HMMA" in line for line in sass.splitlines())
+
+
 def phase_build() -> str:
     t0 = time.perf_counter()
     paths = _build.build_all()
@@ -165,6 +188,11 @@ def phase_build() -> str:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    for name in ("flash_attention", "decode_attention"):
+        n = hmma_count(paths[name])
+        print(f"[build] {name}: {n} HMMA instructions in its SASS")
+        if name == "flash_attention" and n == 0:
+            raise AssertionError("the flash attention library has no tensor-core instruction")
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -213,6 +241,42 @@ def check_decode(gen, b, s, nq, nkv, hd, dtype, valid=None):
     err = max_err(out, exp)
     check(f"decode_attention {(b, s, nq, nkv, hd)} {dtype}", err, TOL[dtype])
     return err, (q, k, v, valid)
+
+
+def check_attention_edges(gen, dtype) -> int:
+    """The attention kernels' edge cases; returns the number of checks."""
+    dev = gen.device
+    # flash: a ragged 1000-token prompt (GQA, hd 128 and 64), a window with a
+    # q_offset, and rows whose window lies past Sk, which give 0
+    check_flash(gen, 1, 1000, 1000, 8, 2, 128, True, 0, dtype)
+    check_flash(gen, 2, 1000, 1000, 4, 4, 64, False, 0, dtype)
+    check_flash(gen, 1, 300, 337, 4, 4, 64, True, 48, dtype, q_offset=37)
+    # the same over a grid of 1024 CTAs (several waves on the card)
+    check_flash(gen, 4, 1000, 1037, 16, 4, 64, True, 48, dtype, q_offset=37)
+    q, k, v = (randn(gen, (1, n, 4, 64), dtype) for n in (100, 64, 64))
+    out = fa.flash_attention(q, k, v, causal=True, window=8, q_offset=50)
+    seen = 64 + 8 - 1 - 50                       # rows [0, seen) see a key
+    if bool(out[:, seen:].any()):
+        raise AssertionError(f"flash_attention {dtype}: a row that sees no key is not 0")
+    exp = ref.mha_reference(q, k, v, causal=True, window=8, q_offset=50)
+    check(f"flash_attention window past Sk {dtype}", max_err(out[:, :seen], exp[:, :seen]),
+          TOL[dtype])
+    # decode: whole 64-slot tiles and whole splits empty in the middle of a
+    # 2048-slot cache, a sequence valid only at its last slot, one with none
+    valid = torch.zeros((4, 2048), dtype=torch.bool, device=dev)
+    valid[0, :70] = True
+    valid[0, -100:] = True
+    valid[1, ::97] = True
+    valid[2, -1] = True
+    _, (q, k, v, valid) = check_decode(gen, 4, 2048, 8, 2, 64, dtype, valid)
+    if da.split_plan(4, 2, 2048, torch.cuda.get_device_properties(dev).multi_processor_count)[0] < 3:
+        raise AssertionError("decode_attention edge case: expected the cache split in 3 or more")
+    out = da.decode_attention(q, k, v, valid)
+    if bool(out[3].any()):
+        raise AssertionError("decode_attention: a sequence with no valid slot is not 0")
+    check("decode_attention single valid slot in the last split",
+          max_err(out[2], v[2, -1].repeat_interleave(4, dim=0)), TOL[dtype])
+    return 6
 
 
 def timings(kernel, plain, library, flops, nbytes, flush):
@@ -297,7 +361,7 @@ def phase_kernels(seed, prompt_lengths):
             raise AssertionError("decode_attention: a sequence with no valid slot is not 0")
         check("decode_attention single valid slot",
               max_err(out[2], v[2, 5].repeat_interleave(4, dim=0)), TOL[dtype])
-        n += 2 + len(DA_CASES) + 1
+        n += 2 + len(DA_CASES) + 1 + check_attention_edges(gen, dtype)
     torch.cuda.synchronize()
     print(f"[kernels] {n} test-shape checks passed in f32 and bf16")
 
@@ -318,11 +382,14 @@ def phase_kernels(seed, prompt_lengths):
         main[dtype] = (errs, qkv, qkvm, qkv_g, qkvm_g)
     errs, qkv, qkvm, qkv_g, qkvm_g = main[torch.bfloat16]   # the main path runs bf16
     rows = [time_flash(errs["flash"], qkv, flush), time_decode(errs["decode"], qkvm, flush)]
-    gqa_rows = [time_flash(errs["flash_gqa"], qkv_g, flush),
-                time_decode(errs["decode_gqa"], qkvm_g, flush)]
+    rows[0]["llama3_8b"] = time_flash(errs["flash_gqa"], qkv_g, flush)
+    rows[1]["llama3_8b"] = time_decode(errs["decode_gqa"], qkvm_g, flush)
+    for row in rows:
+        row["vs_library"] = row["ms"] / row["library_ms"]
+        row["llama3_8b"]["vs_library"] = row["llama3_8b"]["ms"] / row["llama3_8b"]["library_ms"]
     del main, flush
     torch.cuda.empty_cache()
-    return rows, gqa_rows
+    return rows
 
 
 def rwkv_inputs(gen, b, t, h, hd, with_state, dtype, scale=1.0, strong=False):
@@ -492,6 +559,8 @@ def phase_slice(arch, seed, prompts, gpu):
     prof["device_busy_share_of_median_step"] = (
         prof["device_ms_per_step"] / result["decode_ms_per_step_median"])
     result["decode_profile"] = prof
+    if cfg.block_pattern != (RWKV,):
+        result["prefill_profile"] = profile_prefill(engine, prompts[0])
     # the timing wrappers refer back to the engine: collect the cycle, so
     # that the next slice's peak memory does not count this one's weights
     del engine, batcher, params
@@ -565,10 +634,7 @@ def profile_decode(engine, prompts, steps=8):
             engine.step()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    # device-side events only (kernels, copies, memsets): a CPU op's entry
-    # repeats the device time of the kernels it launched
-    by_kernel = {e.key: e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA}
+    by_kernel = device_times(prof)
     busy = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     return {
@@ -576,6 +642,45 @@ def profile_decode(engine, prompts, steps=8):
         "device_ms_per_step": busy / steps / 1e3,
         "device_busy_share_profiled": busy / wall_us,
         "top_kernels_ms_per_step": {k[:80]: us / steps / 1e3 for k, us in top},
+    }
+
+
+def device_times(prof):
+    """Device time by kernel name: device-side events only (kernels, copies,
+    memsets); a CPU op's entry repeats the device time of what it launched."""
+    return {e.key: e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def profile_prefill(engine, prompt, length=PROMPT_MAX):
+    """Device time of one ``length``-token prefill, the engine's own call
+    (batch 1, a fresh one-sequence cache), after one unprofiled warm-up:
+    busy share of its host-clock window, flash attention's share of device
+    time and the kernels that take the most."""
+    tokens = torch.as_tensor(np.resize(prompt, length), dtype=torch.long,
+                             device=engine.device)[None, :]
+
+    def run():
+        return model_lib.prefill(engine.cfg, engine.params, tokens, engine._init_cache(1),
+                                 window=engine.ecfg.window)
+
+    run()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    by_kernel = device_times(prof)
+    busy = sum(by_kernel.values())
+    flash = sum(us for k, us in by_kernel.items() if "fa_mma_kernel" in k or "fa_kernel" in k)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "prompt_tokens": length, "profiled_wall_ms": wall_us / 1e3, "device_ms": busy / 1e3,
+        "device_busy_share_profiled": busy / wall_us,
+        "flash_attention_ms": flash / 1e3, "flash_attention_share_of_device": flash / busy,
+        "top_kernels_ms": {k[:80]: us / 1e3 for k, us in top},
     }
 
 
@@ -622,13 +727,12 @@ def main() -> None:
     # the same traffic for rwkv6-1.6b: the prompt lengths above, its own vocabulary
     rwkv_vocab = get_config(RWKV_ARCH).vocab_size
     rwkv_prompts = [rng.integers(0, rwkv_vocab, size=len(p)).astype(np.int32) for p in prompts]
-    rows, gqa_rows = phase_kernels(args.seed, [len(p) for p in prompts])
+    rows = phase_kernels(args.seed, [len(p) for p in prompts])
     rows.append(phase_rwkv_kernel(args.seed))
     slices = [phase_slice(ARCH, args.seed, prompts, gpu),
               phase_slice(RWKV_ARCH, args.seed, rwkv_prompts, gpu)]
     for row in rows:
         row["launches"] = sum(res["launches"][row["name"]] for res in slices)
-    print(json.dumps({"llama3_8b_shapes": gqa_rows, "gpu": gpu}))
     for res in slices:
         print(json.dumps({"slice": res}))
     print(json.dumps({"kernels": rows}))

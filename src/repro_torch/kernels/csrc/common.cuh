@@ -1,5 +1,7 @@
 // Helpers shared by the kernels: element types, 4-wide loads
-// into f32 registers, stores back to the element type, warp reductions.
+// into f32 registers, stores back to the element type, warp reductions,
+// and the Ampere/Hopper instructions written as inline PTX (cp.async,
+// ldmatrix, mma.sync) so that no header beyond the toolkit's is needed.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -45,4 +47,77 @@ __device__ __forceinline__ float group_max(float x, int width) {
 __device__ __forceinline__ float group_sum(float x, int width) {
   for (int off = width / 2; off > 0; off /= 2) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
+}
+
+// ---------------------------------------------------------------------------
+// Asynchronous copies (cp.async, sm_80+): 16 bytes from device memory to
+// shared memory.  With `pred` false nothing is read and the 16 bytes are
+// filled with zeros (src-size 0), so a masked row is never fetched and
+// never holds stale bits.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Tensor cores through mma.sync (m16n8k16, bf16 in, f32 accumulate) fed by
+// ldmatrix.  Fragment layouts (lane = 4 * gid + tig):
+//   A 16x16 row-major: a0 (gid, 2tig..+1), a1 (gid+8, 2tig..), a2 (gid,
+//     2tig+8..), a3 (gid+8, 2tig+8..);
+//   B 16x8 "col": b0 (k 2tig..+1, n gid), b1 (k 2tig+8..+9, n gid);
+//   C 16x8 f32: c0, c1 (gid, 2tig..+1), c2, c3 (gid+8, 2tig..+1).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// c += a * b (registers only: not volatile, so the compiler may schedule it)
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x by the MUFU instruction alone, subnormal results flushed to 0 (a
+// softmax's arguments are <= 0, so only weights below 2^-126 flush)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two floats rounded to bf16 and packed, the first in the low half: the
+// order of a fragment's element pair.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
 }

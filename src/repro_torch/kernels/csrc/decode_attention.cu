@@ -1,200 +1,550 @@
 // Flash-decode for Hopper (sm_90a): one query token per sequence against
-// its KV cache, f32 or bf16 in, f32 softmax.
+// its KV cache, f32 or bf16 in, f32 softmax, the cache split across CTAs.
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py:decode_attention
 // (body _decode_kernel): for q (B,nq,hd), a cache k, v (B,S,nkv,hd) and a
 // (B,S) mask `valid` (ring holes, causal horizon, window), the softmax over
 // the valid slots of q k^T * hd^-0.5, times v.  A sequence with no valid
-// slot gives 0.
+// slot gives 0, as the Pallas kernel does.
 //
 // What bounds it on this card: bytes.  Each cached K/V element is used for
 // 2*(nq/nkv) operations, far below the H100's ~295 operations per byte, so
-// the least time is the valid part of the cache over 3.35 TB/s.  What the
-// design does about it:
-//  - one CTA per (batch, kv head) reads each K/V row once and serves all
-//    nq/nkv query heads of the group from it; the TPU index map streams a
-//    kv head's cache once per query head;
-//  - rows of invalid slots are never read: only the (B,S) byte mask is, so
-//    a cache filled to a fraction of its length costs that fraction;
-//  - K rows are read 4 elements a lane, a group of hd/4 lanes per row, so a
-//    warp reads whole rows; the softmax runs online over 64-slot tiles with
-//    m, l per head in shared memory, and the p v product splits the tile's
-//    slots over the threads left after the head dims are covered, with one
-//    reduction across those slot groups at the end.
-// Not yet done: when B * nkv is below the 132 SMs the card is not filled;
-// splitting S across CTAs with a second reduction pass is the later step.
+// the least time is the valid part of the cache over 3.35 TB/s.  Reaching
+// it takes enough bytes in flight on every SM, and at decode batch sizes
+// there are few (batch, kv head) pairs: 128 for qwen1.5-0.5b at 8 slots, 64
+// for llama3-8b, on 132 SMs.  What the design does about it:
+//  - split S: the grid is (splits, nkv, B) and each CTA owns a contiguous
+//    range of slots; the wrapper picks the split count from B, nkv, S and
+//    the SM count alone (never from `valid`, so no host sync).  Each split
+//    writes its f32 partials (running max, sum, unnormalised accumulator
+//    per query head) to scratch, and da_combine_kernel merges them per
+//    (b, q head); with one split the CTA writes the output itself;
+//  - skip what is empty: each warp owns 16 slots of every 64-slot tile of
+//    its range and reads the mask of 32 such sub-tiles at once (16 bytes a
+//    lane, one ballot); empty sub-tiles are never visited, a split with no
+//    valid slot exits after that read, and masked slots inside a sub-tile
+//    are zero-filled by cp.async without being read.  Ring holes anywhere
+//    in the cache work the same as prefix masks;
+//  - loads in flight: each warp streams its non-empty sub-tiles' K and V
+//    rows with 16-byte cp.async through its own ring of 3 stages (2 at
+//    hd 128 and in f32), so only __syncwarp orders a warp's work and up to
+//    2 sub-tiles per warp are in flight while one computes; no load waits
+//    on a probability;
+//  - each K/V row is read once and serves the whole GQA group of nq/nkv
+//    query heads.  In bf16 a group of <= 16 heads is the 16 rows of
+//    mma.sync m16n8k16: q K^T and P V of a 16-slot sub-tile are 2 * hd/16
+//    and hd/8 tensor-core products, with the online softmax in the
+//    accumulator registers; f32 (held to 2e-5) and larger groups score on
+//    the SIMT units, two half-warps per slot;
+//  - the warps' online-softmax states merge in shared memory at the end of
+//    the range.
+// What is left: the combine is a second launch whenever S is split; at
+// decode's small sizes the two launches and their cold reads (q, the
+// mask, K/V, then the partials) are most of the time.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int NT = 256;           // threads per CTA
-constexpr int NW = NT / 32;       // warps per CTA
-constexpr int TS = 64;            // cache slots per tile (two per lane in the softmax)
-constexpr int VEC = 4;            // elements per lane per load
+constexpr int NW = 4;             // warps per CTA
+constexpr int NT = 32 * NW;
+constexpr int SUB = 16;           // cache slots of a warp's sub-tile
+constexpr int TS = NW * SUB;      // slots of a CTA tile
+constexpr int MAX_PAIRS = 16;     // output pairs per lane: (nq/nkv) * hd <= 1024
+constexpr unsigned FULL = 0xffffffffu;
 
-size_t smem_bytes(int g, int hd) {
-  // q (g x hd), tile scores (g x TS), per-head m, l, alpha, partial outputs
-  return sizeof(float) * (g * hd + g * TS + 3 * g + NT * VEC);
-}
+// ring stages per warp: 3 in bf16 (2 sub-tiles in flight while one
+// computes), 2 where 3 would cost CTAs per SM (hd 128, f32)
+template <typename T, int HD>
+__host__ __device__ constexpr int stages() { return sizeof(T) == 2 && HD < 128 ? 3 : 2; }
+
+// elements per 16-byte chunk, and a shared-memory row: hd and 16 bytes of pad
+template <typename T>
+__host__ __device__ constexpr int epc() { return 16 / (int)sizeof(T); }
+template <typename T, int HD>
+__host__ __device__ constexpr int ld() { return HD + epc<T>(); }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(NT) da_kernel(
-    const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
-    const uint8_t* __restrict__ valid, T* __restrict__ o, int S, int nq, int nkv,
-    float scale_log2) {
-  constexpr int LPK = HD / VEC;   // lanes per key row
-  constexpr int KPW = 32 / LPK;   // key rows a warp reads at once
-  constexpr int ITERS = TS / (NW * KPW);
-  static_assert(ITERS * NW * KPW == TS, "tile must split evenly over the warps");
-  static_assert(TS == 64, "the softmax gives two slots to each lane");
+__host__ __device__ constexpr size_t ring_bytes() {
+  return (size_t)NW * stages<T, HD>() * 2 * SUB * ld<T, HD>() * sizeof(T);
+}
 
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
+// q: on the SIMT path f32, two halves of hd per head padded by 4 floats
+// (the two half-warps read them in different banks); on the tensor-core
+// path 16 rows of hd + 8 bf16, rows past the group zero
+template <int HD>
+__host__ __device__ constexpr int q_row() { return HD + 8; }
+
+template <typename T, int HD>
+size_t smem_bytes(int g) {
+  // the ring, reused at the end for the warps' accumulators (NW x g x hd f32)
+  const size_t ring = ring_bytes<T, HD>() > (size_t)NW * g * HD * sizeof(float)
+                          ? ring_bytes<T, HD>() : (size_t)NW * g * HD * sizeof(float);
+  // q, then per warp: probabilities (g x SUB), m, l, alpha (g each)
+  return ring + sizeof(float) * ((g > 8 ? g : 8) * q_row<HD>() + NW * (g * SUB + 3 * g));
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+__device__ __forceinline__ void load_chunk(const float* p, float (&o)[4]) { load4(p, o); }
+__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float (&o)[8]) {
+  uint4 t = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// TC: scores and P V on the tensor cores (bf16, a group of <= 16 heads as
+// the 16 rows of mma.sync m16n8k16); else on the SIMT units.
+template <typename T, int HD, bool TC>
+__global__ void __launch_bounds__(NT) da_split_kernel(
+    const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+    const uint8_t* __restrict__ valid, T* __restrict__ o, float* __restrict__ part_ml,
+    float* __restrict__ part_acc, int S, int nq, int nkv, int splits, int chunk,
+    float scale_log2) {
+  constexpr int EPC = epc<T>();
+  constexpr int LD = ld<T, HD>();
+  constexpr int CPR = HD / EPC;   // 16-byte chunks per row
+  constexpr int RPP = 32 / CPR;   // rows per pass of a warp's copies
+  static_assert(32 % CPR == 0 && SUB % RPP == 0, "whole passes");
+  constexpr int NS = stages<T, HD>();
+  constexpr int KS = HD / 16;     // tensor cores: k-steps of q K^T
+  constexpr int DB = HD / 8;      // tensor cores: 8-dim blocks of the output
+  constexpr int HALF = HD / 2;    // dims each half-warp scores
+  constexpr int QR = q_row<HD>();
+  static_assert(HALF % EPC == 0, "a half row is whole chunks");
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int g = nq / nkv;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  extern __shared__ float sm[];
-  float* qs = sm;                 // g x HD
-  float* sc = qs + g * HD;        // g x TS logits, then probabilities
-  float* st = sc + g * TS;        // per head: m (log2 units), l, alpha
-  float* red = st + 3 * g;        // NT x VEC partial outputs
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  size_t ring_sz = ring_bytes<T, HD>();
+  if (ring_sz < (size_t)NW * g * HD * sizeof(float)) ring_sz = (size_t)NW * g * HD * sizeof(float);
+  float* qs = reinterpret_cast<float*>(smem_raw + ring_sz);   // max(g, 8) x QR
+  float* wst = qs + (g > 8 ? g : 8) * QR;                     // per-warp state
+  float* my_p = wst + warp * (g * SUB + 3 * g);               // g x SUB
+  float* my_m = my_p + g * SUB;                               // log2 units
+  float* my_l = my_m + g;
+  float* my_a = my_l + g;
 
+  const int start = split * chunk;
+  const int end = split == splits - 1 ? S : start + chunk;
   const long kv_stride = (long)nkv * HD;
   const T* kb = kc + (long)b * S * kv_stride + (long)kvh * HD;
   const T* vb = vc + (long)b * S * kv_stride + (long)kvh * HD;
   const uint8_t* vmask = valid + (long)b * S;
-  const T* qb = q + ((long)b * nq + (long)kvh * g) * HD;   // the group's g heads
+  const long row0 = (long)b * nq + (long)kvh * g;             // the group's first q head
 
-  for (int idx = tid * VEC; idx < g * HD; idx += NT * VEC) {
-    float f[4];
-    load4(qb + idx, f);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) qs[idx + i] = f[i];
+  if constexpr (TC) {
+    T* qt = reinterpret_cast<T*>(qs);
+    for (int idx = tid; idx < 16 * HD; idx += NT) {
+      const int h = idx / HD, d = idx % HD;
+      qt[h * LD + d] = h < g ? q[row0 * HD + idx] : __float2bfloat16(0.f);
+    }
+  } else {
+    for (int idx = tid; idx < g * HD; idx += NT) {
+      const int h = idx / HD, d = idx % HD;
+      qs[h * QR + d + (d >= HALF ? 4 : 0)] = to_float(q[row0 * HD + idx]);
+    }
   }
-  for (int h = tid; h < g; h += NT) {
-    st[3 * h] = NEG_INF;
-    st[3 * h + 1] = 0.f;
+  for (int h = lane; h < g; h += 32) {
+    my_m[h] = NEG_INF;
+    my_l[h] = 0.f;
   }
-
-  // p v split: C chunks of VEC output dims (C <= NT, checked by the wrapper),
-  // SG groups of slots; thread (pv_sg, pv_chunk) sums slots j = pv_sg mod SG.
-  const int C = g * HD / VEC;
-  const int SG = NT / C;
-  const int pv_chunk = tid % C, pv_sg = tid / C;
-  const bool pv_on = pv_sg < SG;
-  const int pv_h = pv_chunk * VEC / HD, pv_d = (pv_chunk * VEC) % HD;
-  float acc[VEC] = {0.f, 0.f, 0.f, 0.f};
-
-  const int sub = lane / LPK, li = lane % LPK;
   __syncthreads();
 
-  for (int s0 = 0; s0 < S; s0 += TS) {
-    // 1. logits: LPK lanes read one K row and score it for every head
+  float acc[MAX_PAIRS][2];         // SIMT: this lane's output pairs
 #pragma unroll
-    for (int it = 0; it < ITERS; ++it) {
-      const int j = (it * NW + warp) * KPW + sub;
-      const int slot = s0 + j;
-      const bool ok = slot < S && vmask[slot];
-      float kf[4] = {0.f, 0.f, 0.f, 0.f};
-      if (ok) load4(kb + (long)slot * kv_stride + li * VEC, kf);
-      for (int h = 0; h < g; ++h) {
-        const float* qh = qs + h * HD + li * VEC;
-        float part = qh[0] * kf[0] + qh[1] * kf[1] + qh[2] * kf[2] + qh[3] * kf[3];
-        part = group_sum(part, LPK);
-        if (li == 0) sc[h * TS + j] = ok ? part * scale_log2 : NEG_INF;
-      }
-    }
-    __syncthreads();
+  for (int j = 0; j < MAX_PAIRS; ++j) acc[j][0] = acc[j][1] = 0.f;
+  // tensor cores: q fragments, and for heads gid and gid + 8 the running
+  // max (log2 units), this lane's part of the sum and the output fragments
+  const int gid = lane / 4, tig = lane % 4;
+  uint32_t qf[KS][4];
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  float oacc[DB][4];
+  if constexpr (TC) {
+    const T* p = reinterpret_cast<const T*>(qs) + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                 (lane >> 4) * 8;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(qf[ks], p + ks * 16);
+#pragma unroll
+    for (int j = 0; j < DB; ++j) oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
+  }
 
-    // 2. online softmax, one warp per head
-    for (int h = warp; h < g; h += NW) {
-      const float a0 = sc[h * TS + lane], a1 = sc[h * TS + lane + 32];
-      const float m_old = st[3 * h];
-      const float m_new = fmaxf(m_old, group_max(fmaxf(a0, a1), 32));
-      const float p0 = is_live(a0) ? exp2f(a0 - m_new) : 0.f;
-      const float p1 = is_live(a1) ? exp2f(a1 - m_new) : 0.f;
-      sc[h * TS + lane] = p0;
-      sc[h * TS + lane + 32] = p1;
-      const float psum = group_sum(p0 + p1, 32);
-      if (lane == 0) {
-        const float alpha = exp2f(m_old - m_new);
-        st[3 * h] = m_new;
-        st[3 * h + 1] = st[3 * h + 1] * alpha + psum;
-        st[3 * h + 2] = alpha;
-      }
-    }
-    __syncthreads();
+  const int n_sub = (end - start + TS - 1) / TS;   // sub-tiles of this warp
+  T* wring = ring + (size_t)warp * NS * 2 * SUB * LD;
+  const int r = lane % SUB, half = lane / SUB;     // scoring: slot r, half of hd
+  const int col = (lane % CPR) * EPC;              // copies: this lane's 16 bytes of a row
+  bool any = false;
 
-    // 3. p v over this thread's slots of the tile; masked slots have p = 0
-    //    and their V rows are not read
-    if (pv_on) {
-      const float alpha = st[3 * pv_h + 2];
+  for (int g0 = 0; g0 < n_sub; g0 += 32) {
+    // valid bits of sub-tile g0 + lane: one mask read per 32 sub-tiles
+    unsigned bits = 0;
+    if (g0 + lane < n_sub) {
+      const int base = start + (g0 + lane) * TS + warp * SUB;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[i] *= alpha;
-      for (int j = pv_sg; j < TS; j += SG) {
-        const float p = sc[pv_h * TS + j];
-        if (p != 0.f) {
-          float vf[4];
-          load4(vb + (long)(s0 + j) * kv_stride + pv_d, vf);
+      for (int i = 0; i < SUB; ++i)
+        if (base + i < end && vmask[base + i]) bits |= 1u << i;
+    }
+    unsigned pend = __ballot_sync(FULL, bits != 0);   // sub-tiles to visit
+    if (!pend) continue;
+    any = true;
+    unsigned todo = pend;                              // sub-tiles to fetch
+
+    // fetch the next non-empty sub-tile into `stage`; always commit a group,
+    // empty or not, so that wait_group counts stay fixed
+    auto fetch = [&](int stage) {
+      if (todo) {
+        const int i = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const unsigned bi = __shfl_sync(FULL, bits, i);
+        const int base = start + (g0 + i) * TS + warp * SUB;
+        T* dk = wring + (size_t)stage * 2 * SUB * LD;
+        T* dv = dk + SUB * LD;
+        // each lane copies one 16-byte column of every RPP-th row
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) acc[i] = fmaf(p, vf[i], acc[i]);
+        for (int i = 0; i < SUB / RPP; ++i) {
+          const int rr = lane / CPR + i * RPP;
+          const bool ok = (bi >> rr) & 1u;
+          const long off = ok ? (long)(base + rr) * kv_stride + col : 0;
+          cp_async16(dk + rr * LD + col, kb + off, ok);
+          cp_async16(dv + rr * LD + col, vb + off, ok);
         }
       }
+      cp_async_commit();
+    };
+
+#pragma unroll
+    for (int st = 0; st < NS - 1; ++st) fetch(st);
+    int stage = 0;
+    while (pend) {
+      const int i = __ffs(pend) - 1;
+      pend &= pend - 1;
+      fetch((stage + NS - 1) % NS);
+      cp_async_wait<NS - 1>();                    // sub-tile i has landed
+      __syncwarp();
+      const unsigned bi = __shfl_sync(FULL, bits, i);
+      const T* tk = wring + (size_t)stage * 2 * SUB * LD;
+      const T* tv = tk + SUB * LD;
+      if constexpr (TC) {
+        // S (16 heads x 16 slots) = Q K^T; x4 matrices (slots 0-7 | 8-15) x
+        // (dims 0-7 | 8-15) of each k-step
+        float sc[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t kf[4];
+          ldmatrix_x4(kf, tk + ((lane & 7) + (lane >> 4) * 8) * LD + ks * 16 +
+                              ((lane >> 3) & 1) * 8);
+          mma_bf16_16816(sc[0], qf[ks], kf[0], kf[1]);
+          mma_bf16_16816(sc[1], qf[ks], kf[2], kf[3]);
+        }
+        // online softmax of rows gid, gid + 8 over the quad that holds them
+        float mx0 = m0, mx1 = m1;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool ok = (bi >> (j * 8 + 2 * tig + (e & 1))) & 1u;
+            sc[j][e] = ok ? sc[j][e] * scale_log2 : NEG_INF;
+          }
+          mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
+          mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
+        }
+        mx0 = group_max(mx0, 4);
+        mx1 = group_max(mx1, 4);
+        const float alpha0 = exp2f(m0 - mx0), alpha1 = exp2f(m1 - mx1);
+        m0 = mx0;
+        m1 = mx1;
+        float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = is_live(sc[j][e]) ? exp2f(sc[j][e] - (e < 2 ? m0 : m1)) : 0.f;
+            sc[j][e] = p;
+            if (e < 2) ps0 += p; else ps1 += p;
+          }
+        }
+        l0 = l0 * alpha0 + ps0;
+        l1 = l1 * alpha1 + ps1;
+        // O += P V: P as bf16 A fragments from the S registers, V by
+        // ldmatrix.trans, x4 matrices (slots 0-7 | 8-15) x (dims 0-7 | 8-15)
+        const uint32_t pa[4] = {pack_bf16x2(sc[0][0], sc[0][1]), pack_bf16x2(sc[0][2], sc[0][3]),
+                                pack_bf16x2(sc[1][0], sc[1][1]), pack_bf16x2(sc[1][2], sc[1][3])};
+#pragma unroll
+        for (int d2 = 0; d2 < DB / 2; ++d2) {
+          uint32_t vf[4];
+          ldmatrix_x4_trans(vf, tv + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + d2 * 16 +
+                                    (lane >> 4) * 8);
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            float* a = oacc[2 * d2 + jj];
+            a[0] *= alpha0; a[1] *= alpha0; a[2] *= alpha1; a[3] *= alpha1;
+          }
+          mma_bf16_16816(oacc[2 * d2], pa, vf[0], vf[1]);
+          mma_bf16_16816(oacc[2 * d2 + 1], pa, vf[2], vf[3]);
+        }
+        __syncwarp();                             // the stage is free again
+        stage = (stage + 1) % NS;
+        continue;
+      }
+      const bool ok = (bi >> r) & 1u;
+
+      // 1. logits of slot r, half-warps on the two halves of hd; then the
+      //    online softmax of each head over the sub-tile's 16 slots
+      for (int h = 0; h < g; ++h) {
+        const T* krow = tk + r * LD + half * HALF;
+        const float* qh = qs + h * QR + half * (HALF + 4);
+        float part = 0.f;
+#pragma unroll
+        for (int c = 0; c < HALF; c += EPC) {
+          float kf[EPC];
+          load_chunk(krow + c, kf);
+#pragma unroll
+          for (int e = 0; e < EPC; e += 4) {
+            const float4 qv = *reinterpret_cast<const float4*>(qh + c + e);
+            part = fmaf(qv.x, kf[e], part);
+            part = fmaf(qv.y, kf[e + 1], part);
+            part = fmaf(qv.z, kf[e + 2], part);
+            part = fmaf(qv.w, kf[e + 3], part);
+          }
+        }
+        part += __shfl_xor_sync(FULL, part, 16);
+        const float sv = ok ? part * scale_log2 : NEG_INF;
+        const float m_old = my_m[h];
+        const float m_new = fmaxf(m_old, group_max(sv, SUB));
+        const float p = ok ? exp2f(sv - m_new) : 0.f;
+        const float psum = group_sum(p, SUB);
+        __syncwarp();                             // every lane has read my_m[h]
+        if (lane == 0) {
+          const float alpha = exp2f(m_old - m_new);
+          my_m[h] = m_new;
+          my_l[h] = my_l[h] * alpha + psum;
+          my_a[h] = alpha;
+        }
+        if (half == 0) my_p[h * SUB + r] = p;
+      }
+      __syncwarp();
+
+      // 2. P V: this lane's output pairs e = 2 lane + 64 j of the g x hd
+      //    outputs; masked slots have p = 0 and zero-filled rows
+#pragma unroll
+      for (int j = 0; j < MAX_PAIRS; ++j) {
+        const int e = 2 * lane + 64 * j;
+        if (e < g * HD) {
+          const int h = e / HD, d = e % HD;
+          const float alpha = my_a[h];
+          float a0 = acc[j][0] * alpha, a1 = acc[j][1] * alpha;
+          const float* ph = my_p + h * SUB;
+#pragma unroll
+          for (int rr = 0; rr < SUB; ++rr) {
+            const float2 vv = load2(tv + rr * LD + d);
+            a0 = fmaf(ph[rr], vv.x, a0);
+            a1 = fmaf(ph[rr], vv.y, a1);
+          }
+          acc[j][0] = a0;
+          acc[j][1] = a1;
+        }
+      }
+      __syncwarp();                               // the stage and my_p are free again
+      stage = (stage + 1) % NS;
     }
-    __syncthreads();  // the next tile overwrites the scores
+  }
+  cp_async_wait<0>();
+  if constexpr (TC) {             // the warp's state of the group's heads to shared memory
+    l0 = group_sum(l0, 4);
+    l1 = group_sum(l1, 4);
+    if (tig == 0 && gid < g) {
+      my_m[gid] = m0;
+      my_l[gid] = l0;
+    }
+    if (tig == 0 && gid + 8 < g) {
+      my_m[gid + 8] = m1;
+      my_l[gid + 8] = l1;
+    }
   }
 
-  if (pv_on) {
+  T* ob = o + row0 * HD;
+  if (!__syncthreads_or(any)) {
+    // no valid slot in this range: one split writes 0, as the Pallas
+    // kernel does; otherwise an empty partial (max -1e30, sum 0)
+    if (splits == 1) {
+      for (int idx = tid; idx < g * HD; idx += NT) store(ob + idx, 0.f);
+    } else {
+      for (int h = tid; h < g; h += NT) {
+        part_ml[((row0 + h) * splits + split) * 2] = NEG_INF;
+        part_ml[((row0 + h) * splits + split) * 2 + 1] = 0.f;
+      }
+    }
+    return;
+  }
+
+  // merge the warps' states: accumulators through the (now idle) ring
+  float* cs = reinterpret_cast<float*>(smem_raw);
+  if constexpr (TC) {
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) red[(pv_sg * C + pv_chunk) * VEC + i] = acc[i];
+    for (int j = 0; j < DB; ++j) {
+      const int d = j * 8 + 2 * tig;
+      if (gid < g) {
+        cs[warp * g * HD + gid * HD + d] = oacc[j][0];
+        cs[warp * g * HD + gid * HD + d + 1] = oacc[j][1];
+      }
+      if (gid + 8 < g) {
+        cs[warp * g * HD + (gid + 8) * HD + d] = oacc[j][2];
+        cs[warp * g * HD + (gid + 8) * HD + d + 1] = oacc[j][3];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < MAX_PAIRS; ++j) {
+      const int e = 2 * lane + 64 * j;
+      if (e < g * HD) {
+        cs[warp * g * HD + e] = acc[j][0];
+        cs[warp * g * HD + e + 1] = acc[j][1];
+      }
+    }
   }
   __syncthreads();
-  T* ob = o + ((long)b * nq + (long)kvh * g) * HD;
   for (int idx = tid; idx < g * HD; idx += NT) {
-    const int chunk = idx / VEC, i = idx % VEC;
-    float sum = 0.f;
-    for (int sg = 0; sg < SG; ++sg) sum += red[(sg * C + chunk) * VEC + i];
-    const float l = st[3 * (idx / HD) + 1];
-    store(ob + idx, l > 0.f ? sum / l : 0.f);
+    const int h = idx / HD;
+    float m = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) m = fmaxf(m, wst[w * (g * SUB + 3 * g) + g * SUB + h]);
+    float l = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float* st = wst + w * (g * SUB + 3 * g) + g * SUB;
+      const float f = exp2f(st[h] - m);           // 0 for a warp that saw no slot
+      l += st[g + h] * f;
+      a += cs[w * g * HD + idx] * f;
+    }
+    if (splits == 1) {
+      store(ob + idx, l > 0.f ? a / l : 0.f);
+    } else {
+      part_acc[((row0 + h) * splits + split) * HD + idx % HD] = a;
+      if (idx % HD == 0) {
+        part_ml[((row0 + h) * splits + split) * 2] = m;
+        part_ml[((row0 + h) * splits + split) * 2 + 1] = l;
+      }
+    }
   }
+}
+
+// out[row, d] for row = b * nq + h: the splits' partials merged.  A split
+// with sum 0 (no valid slot) contributes nothing and its accumulator, never
+// written, is not read; a row whose splits are all empty gives 0.
+template <typename T>
+__global__ void __launch_bounds__(256) da_combine_kernel(
+    const float* __restrict__ part_ml, const float* __restrict__ part_acc, T* __restrict__ o,
+    int rows, int hd, int splits) {
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long)rows * hd) return;
+  const long row = idx / hd;
+  const int d = idx % hd;
+  const float* ml = part_ml + row * splits * 2;
+  float m = NEG_INF;
+  for (int s = 0; s < splits; ++s) m = fmaxf(m, ml[2 * s]);
+  float l = 0.f, a = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float ls = ml[2 * s + 1];
+    if (ls > 0.f) {
+      const float f = exp2f(ml[2 * s] - m);
+      l += ls * f;
+      a += part_acc[(row * splits + s) * hd + d] * f;
+    }
+  }
+  store(o + idx, l > 0.f ? a / l : 0.f);
+}
+
+template <typename T, int HD, bool TC>
+cudaError_t launch_split(const void* q, const void* k, const void* v, const void* valid,
+                         void* o, float* part_ml, float* part_acc, int B, int S, int nq,
+                         int nkv, int splits, int chunk, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T, HD>(nq / nkv);
+  cudaError_t err = cudaFuncSetAttribute(
+      da_split_kernel<T, HD, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(splits, nkv, B);
+  da_split_kernel<T, HD, TC><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const uint8_t*>(valid), static_cast<T*>(o), part_ml, part_acc, S, nq, nkv,
+      splits, chunk, scale * LOG2E);
+  return cudaGetLastError();
 }
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* valid, void* o,
-                   int B, int S, int nq, int nkv, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(nq / nkv, HD);
-  dim3 grid(nkv, B);
-  da_kernel<T, HD><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(valid), static_cast<T*>(o), S, nq, nkv, scale * LOG2E);
+                   void* part, int B, int S, int nq, int nkv, int splits, int chunk,
+                   float scale, cudaStream_t stream) {
+  float* part_ml = static_cast<float*>(part);
+  float* part_acc = part_ml ? part_ml + (size_t)B * nq * splits * 2 : nullptr;
+  // bf16 groups of up to 16 heads fill the 16 rows of an mma; f32 (held to
+  // 2e-5) and larger groups run on the SIMT units
+  cudaError_t err;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    err = nq / nkv <= 16
+              ? launch_split<T, HD, true>(q, k, v, valid, o, part_ml, part_acc, B, S, nq, nkv,
+                                          splits, chunk, scale, stream)
+              : launch_split<T, HD, false>(q, k, v, valid, o, part_ml, part_acc, B, S, nq, nkv,
+                                           splits, chunk, scale, stream);
+  } else {
+    err = launch_split<T, HD, false>(q, k, v, valid, o, part_ml, part_acc, B, S, nq, nkv,
+                                     splits, chunk, scale, stream);
+  }
+  if (err != cudaSuccess || splits == 1) return err;
+  const long n = (long)B * nq * HD;
+  da_combine_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      part_ml, part_acc, static_cast<T*>(o), B * nq, HD, splits);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, const void* valid,
-                     void* o, int B, int S, int nq, int nkv, float scale, cudaStream_t stream) {
+                     void* o, void* part, int B, int S, int nq, int nkv, int splits, int chunk,
+                     float scale, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, valid, o, B, S, nq, nkv, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, valid, o, B, S, nq, nkv, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, valid, o, B, S, nq, nkv, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, valid, o, B, S, nq, nkv, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Returns a cudaError_t: the launch's own, or the error of setting the
-// device.  Shapes, dtypes, contiguity, alignment and the group-size limit
-// (nq/nkv * hd <= 1024) are checked by the Python wrapper.
+// Returns a cudaError_t: the first launch's or the combine's, or the error
+// of setting the device or the shared-memory limit.  Shapes, dtypes,
+// contiguity, alignment, the group-size limit (nq/nkv * hd <= 1024) and the
+// split plan (splits ranges of `chunk` slots, the last one to S; scratch
+// `part` of B*nq*splits*(hd+2) floats when splits > 1) come from the
+// Python wrapper.
 extern "C" int da_forward(const void* q, const void* k, const void* v, const void* valid,
-                          void* o, int dtype, int B, int S, int nq, int nkv, int hd,
-                          float scale, int device, void* stream) {
+                          void* o, void* part, int dtype, int B, int S, int nq, int nkv, int hd,
+                          int splits, int chunk, float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_F32)
-    return (int)dispatch<float>(hd, q, k, v, valid, o, B, S, nq, nkv, scale, st);
+    return (int)dispatch<float>(hd, q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, st);
   if (dtype == DTYPE_BF16)
-    return (int)dispatch<__nv_bfloat16>(hd, q, k, v, valid, o, B, S, nq, nkv, scale, st);
+    return (int)dispatch<__nv_bfloat16>(hd, q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk,
+                                        scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,29 +1,52 @@
-// FlashAttention prefill for Hopper (sm_90a), f32 or bf16 in, f32 softmax.
+// FlashAttention prefill for Hopper (sm_90a): bf16 on the tensor cores, f32
+// on the SIMT units, f32 softmax statistics in both.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:flash_attention
 // (body _fa_kernel): softmax(q k^T * hd^-0.5 + mask) v for q (B,Sq,nq,hd) and
 // k, v (B,Sk,nkv,hd), query head h reading kv head h / (nq/nkv).  Masks: key
 // beyond Sk, causal kpos <= qpos, window kpos > qpos - W, with
-// qpos = q_offset + row.  A row with no visible key gives 0.
+// qpos = q_offset + row.  A row with no visible key gives 0, as the Pallas
+// kernel does.
 //
-// What bounds it on this card: at prefill lengths (S >= 512) the work is
-// 4*S^2*hd/2 operations per causal head against 4*S*hd elements moved, far
-// above the H100's ~295 operations per byte, so operations bound it.  This
-// first version runs the two products on the f32 SIMT units (67 TFLOP/s),
-// not the bf16 tensor cores (989), so it sits well above its bound; wgmma
-// with TMA-fed tiles is the later step.  What the design does about the
-// bound today:
-//  - one CTA per (batch, q head, 64 query rows) walks the KV tiles in a loop
-//    (the TPU's sequential grid axis), keeping m, l and the output
-//    accumulator in registers, so no (Sq, Sk) matrix reaches device memory;
-//  - the loop runs only over the keys some row of the tile can see: it stops
-//    at the causal horizon and starts at the window's edge, skipping the
-//    fully masked tiles the TPU grid visits and masks;
-//  - each K/V tile is read once from device memory into shared memory and
-//    serves all 64 query rows; 4 threads share a row, split the tile's keys
-//    for q k^T and the head dim for p v, and exchange probabilities by
-//    warp shuffles instead of shared memory;
-//  - ragged Sq/Sk are masked in the kernel, without padding on the host.
+// What bounds it on this card: at prefill lengths (S >= 512, hd >= 64) the
+// work is 4*S^2*hd/2 operations per causal head against 4*S*hd elements
+// moved, far above the H100's ~295 operations per byte, so operations bound
+// it: the bf16 tensor cores' 989 TFLOP/s.  Shorter prompts at batch 1 fill
+// few CTAs (16 heads x S/64), so there the latency of one CTA's KV loop
+// bounds it.
+//
+// bf16 (tc::fa_mma_kernel), in the FlashAttention-2 layout:
+//  - one CTA of 4 warps per (batch, q head, 64 query rows); a warp owns 16
+//    rows and keeps their Q fragments in registers for the whole KV loop;
+//  - both products run on the tensor cores as mma.sync m16n8k16 (bf16 in,
+//    f32 accumulate), fed by ldmatrix (.trans for V in P V);
+//  - S = Q K^T stays in the accumulator registers; the online softmax runs
+//    there in log2 units (row max and sum over the 4 lanes of a quad, the
+//    scale folded into the exponent's FMA, ex2.approx), and P is rounded
+//    to bf16 in registers and used directly as the A operand of P V: no
+//    (Sq, Sk) tile reaches shared or device memory;
+//  - K and V tiles of 64 keys move as bf16 with 16-byte cp.async into a
+//    3-stage ring (tiles n+1 and n+2 in flight while n computes, one
+//    barrier per tile); rows are padded by 16 bytes, so the 8 rows an
+//    ldmatrix phase reads fall in 8 different bank groups;
+//  - the products of tile n+1's S are issued in the same basic block as
+//    tile n's softmax, so that the tensor cores work while the FMA and MUFU
+//    units exponentiate;
+//  - the KV loop runs only over [window edge, causal horizon), and only the
+//    tiles that cross the diagonal, the window's edge or Sk evaluate the
+//    mask; interior tiles take the unmasked path;
+//  - the longest causal rows of every head are scheduled first (row blocks
+//    are the grid's slowest axis, in reverse), so the last wave is short.
+// What is left: mma.sync reaches about half of what SDPA (wgmma) reaches on
+// this card; wgmma fed by TMA with warp-specialised producers is the next
+// step (ROADMAP Queue 2).
+//
+// f32 (fa_kernel<float>): the SIMT body of the first port, unchanged.  The
+// f32 tolerance (2e-5) rules out bf16 or TF32 products, so f32 stays on the
+// 67 TFLOP/s SIMT units; one CTA per (batch, q head, 64 rows), 4 threads a
+// row, f32 tiles in shared memory, probabilities exchanged by shuffles.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -162,19 +185,289 @@ __global__ void __launch_bounds__(NT) fa_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (mma.sync m16n8k16) in the FlashAttention-2 layout.
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int NW = 4;             // warps per CTA, 16 query rows each
+constexpr int NT = 32 * NW;
+constexpr int NS = 3;             // ring stages of K and V tiles
+
+// Shared-memory row of a tile: hd bf16 and 16 bytes of padding.
+template <int HD>
+__host__ __device__ constexpr int ld() { return HD + 8; }
+
+// NS stages of a K and a V tile each; Q passes through the last V tile on
+// its way to the registers
+template <int HD>
+constexpr size_t smem_bytes() { return sizeof(bf16) * 2 * NS * BN * ld<HD>(); }
+
+// CTAs per SM the registers must allow (shared memory allows as many)
+template <int HD>
+__host__ __device__ constexpr int min_ctas() { return HD >= 128 ? 2 : 3; }
+
+// ROWS rows of hd bf16 from rows [row0, row0 + ROWS) of `src` (`stride`
+// elements apart) into `dst`; rows at or past `rows` are zero-filled and
+// not read.  Each thread copies the same 16-byte column of every RPP-th
+// row, so its addresses advance by constant steps.
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long stride, int row0,
+                                          int rows, int tid) {
+  constexpr int CPR = HD / 8;     // 16-byte chunks per row
+  constexpr int RPP = NT / CPR;   // rows per pass of the CTA
+  static_assert(NT % CPR == 0 && ROWS % RPP == 0, "whole passes");
+  const int r = tid / CPR, col = (tid % CPR) * 8;
+  const bf16* g = src + (long)(row0 + r) * stride + col;
+  bf16* sm = dst + r * ld<HD>() + col;
+#pragma unroll
+  for (int i = 0; i < ROWS / RPP; ++i) {
+    const bool ok = row0 + r + i * RPP < rows;
+    cp_async16(sm + i * RPP * ld<HD>(), ok ? g + i * RPP * stride : src, ok);
+  }
+}
+
+// S = Q K^T of one 64-key tile: x4 matrices (keys 0-7 | 8-15 of a 16-key
+// pair) x (dims 0-7 | 8-15)
+template <int HD>
+__device__ __forceinline__ void qk(float (&s)[BN / 8][4], const uint32_t (&qf)[HD / 16][4],
+                                   const bf16* Kt, int lane) {
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+#pragma unroll
+    for (int j2 = 0; j2 < BN / 16; ++j2) {
+      uint32_t kf[4];
+      ldmatrix_x4(kf, Kt + (j2 * 16 + (lane & 7) + (lane >> 4) * 8) * ld<HD>() + ks * 16 +
+                          ((lane >> 3) & 1) * 8);
+      mma_bf16_16816(s[2 * j2], qf[ks], kf[0], kf[1]);
+      mma_bf16_16816(s[2 * j2 + 1], qf[ks], kf[2], kf[3]);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT, min_ctas<HD>()) fa_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, int Sq, int Sk, int nq, int nkv, int causal, int window,
+    int q_offset, float scale_log2) {
+  constexpr int LD = ld<HD>();
+  constexpr int KS = HD / 16;     // k-steps of Q K^T
+  constexpr int NB = BN / 8;      // 8-key column blocks of S
+  constexpr int DB = HD / 8;      // 8-dim column blocks of O
+  static_assert(BM == BN, "Q takes one V tile");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // NS x BN x LD
+  bf16* Vs = Ks + NS * BN * LD;                    // NS x BN x LD
+  bf16* Qs = Vs + (NS - 1) * BN * LD;              // BM x LD, the last V tile
+
+  // the grid's slowest axis is the row block, last first: every head's
+  // longest causal rows start before any shorter ones
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BM;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kvh = h / (nq / nkv);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+
+  const long q_stride = (long)nq * HD;
+  const long kv_stride = (long)nkv * HD;
+  const bf16* qb = q + (long)b * Sq * q_stride + (long)h * HD;
+  const bf16* kb = k + (long)b * Sk * kv_stride + (long)kvh * HD;
+  const bf16* vb = v + (long)b * Sk * kv_stride + (long)kvh * HD;
+
+  // Keys that some row of this tile can see, from a tile boundary: [k_lo, k_hi).
+  const int qpos_first = q_offset + q0;
+  const int qpos_last = q_offset + min(q0 + BM, Sq) - 1;
+  const int k_hi = causal ? min(Sk, qpos_last + 1) : Sk;
+  const int k_lo = window > 0 ? max(0, qpos_first - window + 1) / BN * BN : 0;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + BN - 1) / BN : 0;
+
+  // Q, tile 0 and tile 1 into stages 0 and 1: one commit group each, empty
+  // or not, so that the wait counts stay fixed
+  load_tile<HD, BM>(Qs, qb, q_stride, q0, Sq, tid);
+  cp_async_commit();
+#pragma unroll
+  for (int st = 0; st < NS - 1; ++st) {
+    if (st < n_tiles) {
+      load_tile<HD, BN>(Ks + st * BN * LD, kb, kv_stride, k_lo + st * BN, Sk, tid);
+      load_tile<HD, BN>(Vs + st * BN * LD, vb, kv_stride, k_lo + st * BN, Sk, tid);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<NS - 1>();        // Q has landed
+  __syncthreads();
+
+  // Q fragments of this warp's 16 rows: x4 matrices (rows 0-7 | 8-15) x
+  // (dims 0-7 | 8-15) of each 16-dim k-step
+  const int frag_row = (lane & 7) + ((lane >> 3) & 1) * 8, frag_col = (lane >> 4) * 8;
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    ldmatrix_x4(qf[ks], Qs + (warp * 16 + frag_row) * LD + ks * 16 + frag_col);
+
+  // rows gid and gid + 8 of the warp's 16: running max (log2 units), this
+  // lane's part of the running sum, and the output accumulator
+  const int qpos0 = qpos_first + warp * 16 + gid, qpos1 = qpos0 + 8;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  float acc[DB][4];
+#pragma unroll
+  for (int j = 0; j < DB; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  // S of tile it+1 is multiplied while the softmax of tile it runs, so the
+  // tensor cores and the FMA/MUFU units overlap within a warp
+  float s[NB][4];
+  if (n_tiles > 0) {
+    cp_async_wait<NS - 2>();      // tile 0 has landed
+    __syncthreads();
+    qk<HD>(s, qf, Ks, lane);
+  }
+#pragma unroll 2                  // s and sn trade places without moves
+  for (int it = 0; it < n_tiles; ++it) {
+    const int n0 = k_lo + it * BN;
+    cp_async_wait<0>();           // tile it+1 has landed
+    // after this barrier every warp sees tile it+1 and is done with tile
+    // it-1 (and, at it = 0, with Q), whose stage tile it+2 takes
+    __syncthreads();
+    if (it + NS - 1 < n_tiles) {
+      const int st = (it + NS - 1) % NS;
+      load_tile<HD, BN>(Ks + st * BN * LD, kb, kv_stride, n0 + (NS - 1) * BN, Sk, tid);
+      load_tile<HD, BN>(Vs + st * BN * LD, vb, kv_stride, n0 + (NS - 1) * BN, Sk, tid);
+    }
+    cp_async_commit();
+    // Only a tile that crosses Sk, the causal diagonal or the window's edge
+    // evaluates the mask; a masked logit becomes -inf, so exp2 makes it 0.
+    const bool masked = n0 + BN > Sk || (causal && n0 + BN - 1 > qpos_first) ||
+                        (window > 0 && n0 <= qpos_last - window);
+    if (masked) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = n0 + j * 8 + 2 * tig + (e & 1);
+          const int qpos = e < 2 ? qpos0 : qpos1;
+          const bool ok = kpos < Sk && (!causal || kpos <= qpos) &&
+                          (window <= 0 || kpos > qpos - window);
+          if (!ok) s[j][e] = -INFINITY;
+        }
+      }
+    }
+
+    // S of tile it+1 (a stale stage after the last tile, never used): in
+    // one basic block with the softmax below, so that the two interleave
+    float sn[NB][4];
+    qk<HD>(sn, qf, Ks + ((it + 1) % NS) * BN * LD, lane);
+
+
+    // online softmax over the quad that holds each row; the scale goes into
+    // the exponent's FMA.  m starts finite (-1e30), so a row masked so far
+    // keeps exp2(-inf) = 0 and alpha = 1.
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    mx0 = fmaxf(m0, group_max(mx0, 4) * scale_log2);
+    mx1 = fmaxf(m1, group_max(mx1, 4) * scale_log2);
+    const float alpha0 = fast_exp2(m0 - mx0), alpha1 = fast_exp2(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      s[j][0] = fast_exp2(fmaf(s[j][0], scale_log2, -mx0));
+      s[j][1] = fast_exp2(fmaf(s[j][1], scale_log2, -mx0));
+      s[j][2] = fast_exp2(fmaf(s[j][2], scale_log2, -mx1));
+      s[j][3] = fast_exp2(fmaf(s[j][3], scale_log2, -mx1));
+      ps0 += s[j][0] + s[j][1];
+      ps1 += s[j][2] + s[j][3];
+    }
+    l0 = l0 * alpha0 + ps0;
+    l1 = l1 * alpha1 + ps1;
+#pragma unroll
+    for (int j = 0; j < DB; ++j) {
+      acc[j][0] *= alpha0; acc[j][1] *= alpha0;
+      acc[j][2] *= alpha1; acc[j][3] *= alpha1;
+    }
+
+    // O += P V: P from the S registers as bf16 A fragments; V by
+    // ldmatrix.trans, x4 matrices (keys 0-7 | 8-15) x (dims 0-7 | 8-15)
+    const bf16* Vt = Vs + (it % NS) * BN * LD;
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint32_t pa[4] = {
+          pack_bf16x2(s[2 * kk][0], s[2 * kk][1]), pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int d2 = 0; d2 < DB / 2; ++d2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, Vt + (kk * 16 + frag_row) * LD + d2 * 16 + frag_col);
+        mma_bf16_16816(acc[2 * d2], pa, vf[0], vf[1]);
+        mma_bf16_16816(acc[2 * d2 + 1], pa, vf[2], vf[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = sn[j][e];
+  }
+  cp_async_wait<0>();             // no copy outlives the CTA, even an empty group
+
+  l0 = group_sum(l0, 4);
+  l1 = group_sum(l1, 4);
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  const int row0 = q0 + warp * 16 + gid, row1 = row0 + 8;
+  bf16* ob = o + (long)b * Sq * q_stride + (long)h * HD + 2 * tig;
+#pragma unroll
+  for (int j = 0; j < DB; ++j) {
+    if (row0 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * q_stride + j * 8) =
+          __floats2bfloat162_rn(acc[j][0] * inv0, acc[j][1] * inv0);
+    if (row1 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row1 * q_stride + j * 8) =
+          __floats2bfloat162_rn(acc[j][2] * inv1, acc[j][3] * inv1);
+  }
+}
+
+template <int HD>
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int Sq, int Sk,
+                   int nq, int nkv, int causal, int window, int q_offset, float scale,
+                   cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(nq, B, (Sq + BM - 1) / BM);
+  fa_mma_kernel<HD><<<grid, NT, smem, stream>>>(q, k, v, o, Sq, Sk, nq, nkv, causal, window,
+                                                q_offset, scale * LOG2E);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                    int Sk, int nq, int nkv, int causal, int window, int q_offset,
                    float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BM - 1) / BM, nq, B);
-  fa_kernel<T, HD><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, nq, nkv, causal, window, q_offset, scale * LOG2E);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return tc::launch<HD>(static_cast<const T*>(q), static_cast<const T*>(k),
+                          static_cast<const T*>(v), static_cast<T*>(o), B, Sq, Sk, nq, nkv,
+                          causal, window, q_offset, scale, stream);
+  else {
+    constexpr size_t smem = smem_bytes<HD>();
+    cudaError_t err = cudaFuncSetAttribute(
+        fa_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((Sq + BM - 1) / BM, nq, B);
+    fa_kernel<T, HD><<<grid, NT, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), Sq, Sk, nq, nkv, causal, window, q_offset, scale * LOG2E);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>

@@ -2,29 +2,64 @@
 
 The CUDA kernel replaces the TPU kernel ``repro/kernels/decode_attention.py``
 (see the note at the top of the source).  This wrapper checks its operands,
-allocates the output, launches on the current stream and counts launches.
-It takes CUDA tensors only; ``ops.decode_attention`` sends CPU tensors to
-the plain version in ``ref.py``.
+allocates the output and the split partials, launches on the current
+stream and counts launches: one per call, whether the call runs one CUDA
+kernel or the split kernel and its combine.  It takes CUDA tensors only;
+``ops.decode_attention`` sends CPU tensors to the plain version in
+``ref.py`` (``ref.decode_attention_split_reference`` is the plain version
+of the split and combine).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
-MAX_GROUP_ELEMS = 1024   # (nq / nkv) * hd: one CTA's p v outputs over 256 threads x 4
+MAX_GROUP_ELEMS = 1024   # (nq / nkv) * hd: one warp's p v outputs, 32 lanes x 16 pairs
+MIN_SPLIT_SLOTS = 64     # a split owns at least one 64-slot tile
+CTAS_PER_SM = 2          # what the split count aims at
 
 #: kernel launches in this process; ``chip_smoke.py`` resets and reads it
 launches = 0
 
-# (q, k, v, valid, out) pointers, dtype code and shape ints, scale, device, stream
+# (q, k, v, valid, out, partials) pointers, dtype code and shape and split
+# ints, scale, device, stream
 _ARGTYPES = (
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
+
+_sm_counts = {}
+
+
+def split_plan(b: int, nkv: int, s: int, sm_count: int) -> Tuple[int, int]:
+    """``(splits, chunk)``: how the kernel cuts each sequence's S cache slots.
+
+    Split ``i`` owns slots ``[i * chunk, (i + 1) * chunk)``, the last one up
+    to ``s`` (``ref.split_ranges``); every range holds at least ``MIN_SPLIT_SLOTS`` slots (or all
+    ``s`` when there is one split).  The count aims at ``CTAS_PER_SM`` CTAs
+    of (split, kv head, sequence) per SM and is 1 once ``b * nkv`` alone
+    reaches that.  It depends on shapes only, never on ``valid``, so
+    choosing it costs no host sync."""
+    want = -(-CTAS_PER_SM * sm_count // (b * nkv))
+    k = min(want, s // MIN_SPLIT_SLOTS)
+    if k <= 1:
+        return 1, s
+    chunk = MIN_SPLIT_SLOTS * -(-s // (MIN_SPLIT_SLOTS * k))   # whole tiles, <= k ranges
+    splits = -(-s // chunk)
+    if s - (splits - 1) * chunk < MIN_SPLIT_SLOTS:               # the last one joins its neighbour
+        splits -= 1
+    return (splits, chunk) if splits > 1 else (1, s)
+
+
+def _sm_count(device: torch.device) -> int:
+    if device.index not in _sm_counts:
+        _sm_counts[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sm_counts[device.index]
 
 
 def decode_attention(
@@ -61,10 +96,15 @@ def decode_attention(
     if valid.device != q.device or not valid.is_contiguous():
         raise ValueError("valid must be contiguous and on q's device")
     out = torch.empty_like(q)
+    splits, chunk = split_plan(b, nkv, s, _sm_count(q.device))
+    # per (sequence, q head, split): max and sum, then the hd accumulators
+    part = (torch.empty(b * nq * splits * (hd + 2), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _build.function("decode_attention", "da_forward", _ARGTYPES)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid.data_ptr(),
-        out.data_ptr(), _build.DTYPE_CODES[q.dtype], b, s, nq, nkv, hd,
+        out.data_ptr(), None if part is None else part.data_ptr(),
+        _build.DTYPE_CODES[q.dtype], b, s, nq, nkv, hd, splits, chunk,
         hd ** -0.5, q.device.index, stream,
     )
     _build.raise_on_error("decode_attention", err)

@@ -10,7 +10,7 @@ f32 product of upcast operands is JAX's ``preferred_element_type=f32``.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -70,6 +70,54 @@ def decode_attention_reference(
     )
     probs = _softmax_pv(logits, v_cache.dtype)
     out = torch.einsum("bkgs,bskh->bkgh", probs, v_cache.float())
+    return out.reshape(b, nq, hd).to(q.dtype)
+
+
+def split_ranges(s: int, splits: int, chunk: int) -> List[Tuple[int, int]]:
+    """The ``[start, end)`` cache slots of each split of split-S decode:
+    ``chunk`` slots each, the last split up to ``s``."""
+    return [(i * chunk, s if i == splits - 1 else (i + 1) * chunk) for i in range(splits)]
+
+
+def decode_attention_split_reference(
+    q: torch.Tensor,                 # (B, nq, hd)
+    k_cache: torch.Tensor,           # (B, S, nkv, hd)
+    v_cache: torch.Tensor,           # (B, S, nkv, hd)
+    valid: torch.Tensor,             # (B, S) bool
+    splits: int,
+    chunk: Optional[int] = None,     # slots per split; default S // splits
+) -> torch.Tensor:
+    """Split-and-combine decode, the arithmetic of ``csrc/decode_attention.cu``.
+
+    Split ``i`` owns slots ``[i * chunk, (i + 1) * chunk)``, the last one up
+    to S.  Each split keeps its running max m, sum l and unnormalised
+    accumulator a per query head (a split with no valid slot: m = -1e30,
+    l = 0, a = 0); the combine weighs split i by exp(m_i - max m) where
+    l_i > 0 and divides by the weighted sum.  A sequence with no valid slot
+    gives 0, as the kernels do.  Nothing on the main path calls it; the
+    tests hold it to the JAX oracle.  Returns (B, nq, hd) in q's dtype."""
+    b, nq, hd = q.shape
+    s, nkv = k_cache.shape[1], k_cache.shape[2]
+    chunk = s // splits if chunk is None else chunk
+    if not (1 <= splits and 1 <= chunk and (splits - 1) * chunk < s):
+        raise ValueError(f"{splits} splits of {chunk} slots do not cut {s} slots")
+    qg = q.reshape(b, nkv, nq // nkv, hd).float()
+    ms, ls, accs = [], [], []
+    for lo, hi in split_ranges(s, splits, chunk):
+        logits = torch.einsum("bkgh,bskh->bkgs", qg, k_cache[:, lo:hi].float()) * hd ** -0.5
+        ok = valid[:, None, None, lo:hi]
+        logits = torch.where(ok, logits, torch.full_like(logits, NEG_INF))
+        m = logits.amax(dim=-1)                                     # (B, nkv, g)
+        p = torch.where(ok, torch.exp(logits - m[..., None]), torch.zeros_like(logits))
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bkgs,bskh->bkgh", p, v_cache[:, lo:hi].float()))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    w = torch.where(l > 0, torch.exp(m - m.amax(dim=0)), torch.zeros_like(m))
+    total = (w * l).sum(dim=0)
+    out = (w[..., None] * acc).sum(dim=0)
+    out = torch.where(total[..., None] > 0, out / total.clamp_min(1e-30)[..., None],
+                      torch.zeros_like(out))
     return out.reshape(b, nq, hd).to(q.dtype)
 
 

@@ -117,6 +117,131 @@ def test_decode_kernel_empty_and_single_slot(cuda):
     assert _err(out[1], v[1, 37].repeat_interleave(2, dim=0)) < 1e-6
 
 
+FA_BF16_VARIANTS = {
+    # name: (nq, nkv, causal, window, q_offset)
+    "causal_gqa": (8, 2, True, 0, 0),
+    "window_q_offset": (4, 4, True, 48, 37),
+    "non_causal_gqa": (6, 3, False, 0, 0),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(FA_BF16_VARIANTS))
+@pytest.mark.parametrize("s", [1, 63, 65, 1000])
+@pytest.mark.parametrize("hd", fa.SUPPORTED_HEAD_DIMS)
+def test_flash_bf16_tensor_core_path(cuda, hd, s, variant):
+    """The bf16 tensor-core kernel at ragged lengths around its 64-row and
+    64-key tiles, for every head dim; keys = queries + q_offset."""
+    nq, nkv, causal, window, q_offset = FA_BF16_VARIANTS[variant]
+    q, k, v = _randn(hd + s, (1, s, nq, hd), (1, s + q_offset, nkv, hd),
+                     (1, s + q_offset, nkv, hd), dtype=torch.bfloat16, device=cuda)
+    out = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    exp = ref.mha_reference(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert _err(out, exp) < TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("variant", sorted(FA_BF16_VARIANTS))
+@pytest.mark.parametrize("hd", fa.SUPPORTED_HEAD_DIMS)
+def test_flash_bf16_full_grid(cuda, hd, variant):
+    """A grid of 16 x 16 heads x 4 sequences = 1024 CTAs, several waves on
+    the card, with ragged tiles, GQA, a window and a q_offset."""
+    _, _, causal, window, q_offset = FA_BF16_VARIANTS[variant]
+    s, nq, nkv = 1000, 16, 4
+    q, k, v = _randn(hd, (4, s, nq, hd), (4, s + q_offset, nkv, hd), (4, s + q_offset, nkv, hd),
+                     dtype=torch.bfloat16, device=cuda)
+    out = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    exp = ref.mha_reference(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    assert _err(out, exp) < TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_row_without_visible_key_is_zero(cuda, dtype):
+    """A window and a q_offset that put some rows' windows past Sk: those
+    rows give 0, as the Pallas kernel does; the others match the plain
+    version."""
+    sq, sk, q_offset, window = 100, 64, 50, 8
+    q, k, v = _randn(3, (1, sq, 4, 64), (1, sk, 2, 64), (1, sk, 2, 64),
+                     dtype=DTYPES[dtype], device=cuda)
+    out = fa.flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset)
+    exp = ref.mha_reference(q, k, v, causal=True, window=window, q_offset=q_offset)
+    seen = sk + window - 1 - q_offset          # rows [0, seen) see a key
+    assert not bool(out[:, seen:].any())
+    assert _err(out[:, :seen], exp[:, :seen]) < TOL[dtype]
+    none = fa.flash_attention(q, k, v, causal=True, window=window, q_offset=500)
+    assert not bool(none.any())
+
+
+def _decode_check(cuda, dtype, b, s, nq, nkv, hd, valid, seed=0):
+    q, k, v = _randn(seed, (b, nq, hd), (b, s, nkv, hd), (b, s, nkv, hd),
+                     dtype=DTYPES[dtype], device=cuda)
+    valid = valid.to(cuda)
+    launches = da.launches
+    out = da.decode_attention(q, k, v, valid)
+    assert da.launches == launches + 1          # one per call, even with a combine
+    exp = ref.decode_attention_reference(q, k, v, valid)
+    empty = ~valid.any(dim=1)
+    exp = torch.where(empty[:, None, None], torch.zeros_like(exp), exp)
+    assert _err(out, exp) < TOL[dtype]
+    return q, k, v, out
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_decode_empty_tiles_and_splits_in_the_middle(cuda, dtype):
+    """Whole 64-slot tiles and whole splits empty between valid slots, a
+    sequence with only a single slot in the last split, and one with none."""
+    b, s, nq, nkv, hd = 4, 2048, 8, 2, 64
+    splits, chunk = da.split_plan(b, nkv, s, torch.cuda.get_device_properties(cuda)
+                                  .multi_processor_count)
+    assert splits > 2
+    valid = torch.zeros((b, s), dtype=torch.bool)
+    valid[0, :70] = True
+    valid[0, s - 100:] = True                   # tiles and splits between are empty
+    valid[1, ::97] = True                       # one slot every 97: most tiles empty
+    valid[2, s - 1] = True                      # a single slot, in the last split
+    q, k, v, out = _decode_check(cuda, dtype, b, s, nq, nkv, hd, valid)  # row 3: none
+    assert not bool(out[3].any())
+    assert _err(out[2], v[2, s - 1].repeat_interleave(nq // nkv, dim=0)) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_decode_ring_holes(cuda, dtype):
+    rng = np.random.default_rng(11)
+    valid = torch.ones((8, 1000), dtype=torch.bool)
+    for i in range(8):
+        for lo in rng.integers(0, 1000, size=4):
+            valid[i, lo:lo + int(rng.integers(30, 200))] = False
+    valid[:, 500] = True
+    _decode_check(cuda, dtype, 8, 1000, 16, 4, 32, valid, seed=11)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_decode_single_slot_cache(cuda, dtype):
+    valid = torch.tensor([[True], [False], [True]])
+    q, k, v, out = _decode_check(cuda, dtype, 3, 1, 4, 2, 16, valid)
+    assert not bool(out[1].any())
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_decode_one_split_when_the_grid_is_full(cuda, dtype):
+    """S = 4096 at B * nkv = 264 = 2 x 132: the wrapper gives one split on
+    an H100, and the CTA writes the output itself."""
+    b, nkv, s = 33, 8, 4096
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if b * nkv >= da.CTAS_PER_SM * sm:
+        assert da.split_plan(b, nkv, s, sm) == (1, s)
+    valid = torch.from_numpy(np.random.default_rng(2).uniform(size=(b, s)) < 0.5)
+    _decode_check(cuda, dtype, b, s, 8, nkv, 64, valid, seed=2)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_decode_main_path_prefix_masks(cuda, dtype):
+    """qwen1.5-0.5b decode: 8 slots, cache 2048, 16 heads of 64, each slot
+    valid up to its prompt + generated tokens."""
+    lengths = torch.tensor([96, 544, 300, 65, 64, 1, 2048, 411])
+    valid = torch.arange(2048)[None, :] < lengths[:, None]
+    _decode_check(cuda, dtype, 8, 2048, 16, 16, 64, valid, seed=5)
+
+
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q, k, v = _randn(0, (1, 8, 2, 48), (1, 8, 2, 48), (1, 8, 2, 48),
                      dtype=torch.float32, device=cuda)
