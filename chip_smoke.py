@@ -6,22 +6,25 @@
 Phases, each raising on a failed check (the script then exits non-zero and
 never prints its last line):
 
-1. build the three hand-written CUDA kernels from
+1. build the three hand-written CUDA kernel libraries from
    ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, in parallel, and
-   count the tensor-core instructions (``HMMA``) in the attention
-   libraries' SASS (``cuobjdump -sass``); the bf16 flash kernel must have
-   some;
+   count the tensor-core instructions (``HMMA``) in each library's SASS
+   (``cuobjdump -sass``); the bf16 flash kernel and the bf16 RWKV-6
+   prefill must have some;
 2. hold each kernel against its plain PyTorch version on the card, in f32
    and bf16: the attention kernels at the shapes of ``tests/test_kernels.py``,
    at the main path's shapes and at llama3-8b's GQA shapes; the RWKV-6 scan
    at ``RWKV_CASES`` (with and without a state, ragged T), under strong
-   decay, at T = 1 with a state and at rwkv6-1.6b's prefill and decode
-   shapes; the attention kernels' edge cases (rows that see no key, S = 1000
-   in bf16, a window with a q_offset, decode masks that leave whole tiles
-   and whole splits empty in the middle of the cache).  Time kernel, plain
-   version, one PyTorch call for the same function where there is one
-   (SDPA, a yardstick the port never calls) and the card's bound, and print
-   them on one ``{"kernels": ...}`` line;
+   decay (also in bf16 at T = 100), at T = 1 with a state, at T = 2048, with
+   the state updated in place at T = 45 and T = 1, and at rwkv6-1.6b's
+   prefill and decode shapes; the attention kernels' edge cases (rows that
+   see no key, S = 1000 in bf16, a window with a q_offset, decode masks that
+   leave whole tiles and whole splits empty in the middle of the cache).
+   Time kernel, plain version, one PyTorch call for the same function where
+   there is one (SDPA, a yardstick the port never calls) and the card's
+   bound, and print them on one ``{"kernels": ...}`` line; for the scan also
+   the device time of each of its kernels, and a copy of the decode state as
+   the floor of its decode step;
 3. serve qwen1.5-0.5b at full width and depth in bf16 through
    ``ContinuousBatcher`` (16 requests, 8 slots, cache 2048, 32 new tokens
    each), with the kernels' launch counters proving every prefill and
@@ -31,8 +34,9 @@ never prints its last line):
    (prefill + 8 decode steps) on the card against the same port code on
    the CPU;
 3b. the same for rwkv6-1.6b at full width and depth in bf16 (same traffic),
-   every WKV recurrence of every layer through the scan kernel, then its
-   f32 check at full width and 4 layers;
+   every WKV recurrence of every layer through the scan kernels; profile 8
+   decode steps and one 512-token prefill (the scan's device time and
+   share); then its f32 check at full width and 4 layers;
 4. print the device line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -114,6 +118,17 @@ F32_DECODE_STEPS = 8
 RWKV_F32_LAYERS, RWKV_F32_PROMPT = 4, 77
 # rwkv6-1.6b's main-path scan shapes: prefill (B=1, a ragged T) and decode (8 slots)
 RWKV_PREFILL, RWKV_DECODE = (1, 500, 32, 64, True), (SLOTS, 1, 32, 64, True)
+# 64 chunks carried through the prefill's scratch; the state updated in place
+# over two chunks and a ragged tail, and in one decode step
+RWKV_LONG, RWKV_IN_PLACE = (1, 2048, 4, 64, True), ((2, 45, 4, 64, True), (8, 1, 4, 64, True))
+# each slice's own kernels in a profile, by name: flash attention's and
+# decode attention's, and every kernel of the rwkv6_scan library, all of
+# which live in its namespace rwkv6
+PROFILED = {
+    ARCH: {"prefill": ("flash_attention", ("fa_mma_kernel", "fa_kernel")),
+           "decode": ("decode_attention", ("da_split_kernel", "da_combine_kernel"))},
+    RWKV_ARCH: {"prefill": ("rwkv6_scan", ("rwkv6::",)), "decode": ("rwkv6_scan", ("rwkv6::",))},
+}
 
 
 def randn(gen, shape, dtype):
@@ -188,11 +203,11 @@ def phase_build() -> str:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
-    for name in ("flash_attention", "decode_attention"):
+    for name in paths:
         n = hmma_count(paths[name])
         print(f"[build] {name}: {n} HMMA instructions in its SASS")
-        if name == "flash_attention" and n == 0:
-            raise AssertionError("the flash attention library has no tensor-core instruction")
+        if name in ("flash_attention", "rwkv6_scan") and n == 0:
+            raise AssertionError(f"the {name} library has no tensor-core instruction")
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -424,6 +439,39 @@ def check_rwkv(gen, case, dtype, **kw):
     return err, args, float(exp_o.float().abs().max())
 
 
+def check_rwkv_in_place(gen, case, dtype):
+    """``final_state=state``: the kernels overwrite the state they read; out
+    and state equal those of a separate final state and are within RWKV_TOL
+    of the plain version."""
+    r, k, v, w, u, s0 = args = rwkv_inputs(gen, *case, dtype)
+    out_sep, s_sep = rk.rwkv6_scan(*args)
+    state = s0.clone()
+    out, s_t = rk.rwkv6_scan(r, k, v, w, u, state, final_state=state)
+    if s_t is not state or not (torch.equal(out, out_sep) and torch.equal(state, s_sep)):
+        raise AssertionError(f"rwkv6_scan {case} {dtype}: in place differs from a separate state")
+    exp_o, exp_s = ref.rwkv6_reference(*args)
+    err = max(max_err(out, exp_o), max_err(state, exp_s))
+    check(f"rwkv6_scan in place {case} {dtype}", err, RWKV_TOL[dtype])
+    return err
+
+
+def kernel_breakdown(fn, flush, iters=20):
+    """Device time per call of each kernel ``fn`` launches, in microseconds,
+    from ``torch.profiler`` over ``iters`` calls timed as ``time_ms`` times
+    them.  Kernels that overlap (programmatic dependent launch) each count
+    their whole span, waits included."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush()
+            torch.cuda._sleep(HOST_AHEAD_CYCLES)
+            fn()
+        torch.cuda.synchronize()
+    return {k.split("(")[0].replace("void ", ""): us / iters for k, us in device_times(prof).items()
+            if "rwkv6::" in k}
+
+
 def time_rwkv(err, args, flush):
     r, k, v, w, u, s0 = args
     b, t, h, hd = r.shape
@@ -433,7 +481,8 @@ def time_rwkv(err, args, flush):
     t_ = timings(lambda: rk.rwkv6_scan(*args), lambda: ref.rwkv6_reference(*args), None,
                  4 * hd * hd * b * t * h, nbytes, flush)
     return {"shape": f"B={b} T={t} H={h} hd={hd} state in and out {r.dtype}",
-            "max_abs_err": err, **t_}
+            "max_abs_err": err, **t_,
+            "kernels_us": kernel_breakdown(lambda: rk.rwkv6_scan(*args), flush)}
 
 
 def phase_rwkv_kernel(seed):
@@ -441,19 +490,27 @@ def phase_rwkv_kernel(seed):
     rwkv6-1.6b's prefill and decode shapes."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    n, main = 0, {}
+    n, main, edges = 0, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         for case in RWKV_CASES:
             check_rwkv(gen, case, dtype)
             n += 1
         check_rwkv(gen, (1, 64, 1, 16, False), dtype, strong=True)
-        # main-path shapes; r, k, v halved so |o| stays below 8, where bf16's
-        # step (0.0625 from 8 on) would exceed the tolerance by rounding alone
+        # main-path shapes and T = 2048; r, k, v halved so |o| stays below 8,
+        # where bf16's step (0.0625 from 8 on) would exceed the tolerance by
+        # rounding alone
         main[dtype] = {name: check_rwkv(gen, case, dtype, scale=0.5)
                        for name, case in (("prefill", RWKV_PREFILL), ("decode", RWKV_DECODE))}
-        n += 3
+        edges[f"T=2048 {dtype}"] = check_rwkv(gen, RWKV_LONG, dtype, scale=0.5)[0]
+        for case in RWKV_IN_PLACE:
+            edges[f"in place T={case[1]} {dtype}"] = check_rwkv_in_place(gen, case, dtype)
+        n += 4 + len(RWKV_IN_PLACE)
         print(f"[kernels] rwkv6_scan main-path shapes {dtype}: " + json.dumps(
             {name: {"max_abs_err": e, "max_abs_out": m} for name, (e, _, m) in main[dtype].items()}))
+    edges["strong decay T=100 bf16"] = check_rwkv(
+        gen, (1, 100, 4, 64, True), torch.bfloat16, strong=True)[0]
+    n += 1
+    print("[kernels] rwkv6_scan long T, strong decay, in place: max abs err " + json.dumps(edges))
     torch.cuda.synchronize()
     print(f"[kernels] rwkv6_scan: {n} checks passed in f32 and bf16")
     flush = L2Flush(dev)
@@ -464,6 +521,12 @@ def phase_rwkv_kernel(seed):
            **time_rwkv(*bf["prefill"][:2], flush),
            "library_why": "no single PyTorch call computes the WKV recurrence"}
     row["decode"] = time_rwkv(*bf["decode"][:2], flush)
+    # the floor of a decode step under this timing: a copy of its state (the
+    # flush leaves the L2 dirty, so every line brought in is also written back)
+    s0 = bf["decode"][1][5]
+    copy = torch.empty_like(s0)
+    row["decode"]["state_copy_ms"] = time_ms(lambda: copy.copy_(s0), flush)
+    row["checks_max_abs_err"] = edges
     del main, bf, flush
     torch.cuda.empty_cache()
     return row
@@ -555,12 +618,11 @@ def phase_slice(arch, seed, prompts, gpu):
     print(f"[slice] {arch}: served {N_REQUESTS} requests with {1 + NEW_TOKENS} tokens each "
           f"over {engine.steps} decode steps; kernel launches {json.dumps(launches)} = "
           f"{cfg.num_layers} layers x ({N_REQUESTS} prefills, {engine.steps} decode steps)")
-    prof = profile_decode(engine, prompts)
+    prof = profile_decode(engine, prompts, PROFILED[arch]["decode"])
     prof["device_busy_share_of_median_step"] = (
         prof["device_ms_per_step"] / result["decode_ms_per_step_median"])
     result["decode_profile"] = prof
-    if cfg.block_pattern != (RWKV,):
-        result["prefill_profile"] = profile_prefill(engine, prompts[0])
+    result["prefill_profile"] = profile_prefill(engine, prompts[0], PROFILED[arch]["prefill"])
     # the timing wrappers refer back to the engine: collect the cycle, so
     # that the next slice's peak memory does not count this one's weights
     del engine, batcher, params
@@ -619,11 +681,21 @@ def f32_check_rwkv(seed, prompt):
     return f32_check(cfg, seed, np.resize(prompt, RWKV_F32_PROMPT), fill)
 
 
-def profile_decode(engine, prompts, steps=8):
+def kernel_time(by_kernel, patterns) -> float:
+    """Device time of the kernels whose names hold one of ``patterns``;
+    raises if the profile has device time but none of those kernels."""
+    own = sum(us for k, us in by_kernel.items() if any(p in k for p in patterns))
+    if own == 0 and any(by_kernel.values()):
+        raise AssertionError(f"no kernel named like {patterns} in the profile")
+    return own
+
+
+def profile_decode(engine, prompts, kernel, steps=8):
     """Device time of ``steps`` decode steps with all slots live, from
-    ``torch.profiler``: busy share of the host-clock window and the kernels
-    that take the most device time.  Runs after the served run; its
-    launches are not counted against the main path."""
+    ``torch.profiler``: busy share of the host-clock window, the time of
+    ``kernel`` = (label, name patterns) and the kernels that take the most
+    device time.  Runs after the served run; its launches are not counted
+    against the main path."""
     for i, p in enumerate(prompts[:SLOTS]):
         engine.insert(Request(rid=1000 + i, prompt=p, max_new_tokens=steps + 1))
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -636,11 +708,13 @@ def profile_decode(engine, prompts, steps=8):
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_kernel = device_times(prof)
     busy = sum(by_kernel.values())
+    own = kernel_time(by_kernel, kernel[1])
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     return {
         "steps": steps, "profiled_wall_ms_per_step": wall_us / steps / 1e3,
         "device_ms_per_step": busy / steps / 1e3,
         "device_busy_share_profiled": busy / wall_us,
+        f"{kernel[0]}_ms_per_step": own / steps / 1e3, f"{kernel[0]}_share_of_device": own / busy,
         "top_kernels_ms_per_step": {k[:80]: us / steps / 1e3 for k, us in top},
     }
 
@@ -652,11 +726,12 @@ def device_times(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
-def profile_prefill(engine, prompt, length=PROMPT_MAX):
+def profile_prefill(engine, prompt, kernel, length=PROMPT_MAX):
     """Device time of one ``length``-token prefill, the engine's own call
     (batch 1, a fresh one-sequence cache), after one unprofiled warm-up:
-    busy share of its host-clock window, flash attention's share of device
-    time and the kernels that take the most."""
+    busy share of its host-clock window, the time and share of device time
+    of ``kernel`` = (label, name patterns) and the kernels that take the
+    most."""
     tokens = torch.as_tensor(np.resize(prompt, length), dtype=torch.long,
                              device=engine.device)[None, :]
 
@@ -674,12 +749,12 @@ def profile_prefill(engine, prompt, length=PROMPT_MAX):
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_kernel = device_times(prof)
     busy = sum(by_kernel.values())
-    flash = sum(us for k, us in by_kernel.items() if "fa_mma_kernel" in k or "fa_kernel" in k)
+    own = kernel_time(by_kernel, kernel[1])
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     return {
         "prompt_tokens": length, "profiled_wall_ms": wall_us / 1e3, "device_ms": busy / 1e3,
         "device_busy_share_profiled": busy / wall_us,
-        "flash_attention_ms": flash / 1e3, "flash_attention_share_of_device": flash / busy,
+        f"{kernel[0]}_ms": own / 1e3, f"{kernel[0]}_share_of_device": own / busy,
         "top_kernels_ms": {k[:80]: us / 1e3 for k, us in top},
     }
 

@@ -1,7 +1,8 @@
 // Helpers shared by the kernels: element types, 4-wide loads
 // into f32 registers, stores back to the element type, warp reductions,
 // and the Ampere/Hopper instructions written as inline PTX (cp.async,
-// ldmatrix, mma.sync) so that no header beyond the toolkit's is needed.
+// ldmatrix, mma.sync, griddepcontrol) so that no header beyond the
+// toolkit's is needed.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -105,6 +106,20 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Programmatic dependent launch (sm_90): a kernel launched with the
+// programmatic-serialization attribute may start while the kernel before it
+// on the stream runs, once every CTA of that kernel has called
+// allow_next_grid() (or exited); it must call wait_for_previous_grid()
+// before it reads what that kernel writes.  Without the attribute both are
+// no-ops.
+__device__ __forceinline__ void allow_next_grid() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_for_previous_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // 2^x by the MUFU instruction alone, subnormal results flushed to 0 (a

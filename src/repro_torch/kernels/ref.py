@@ -205,3 +205,106 @@ def rwkv6_reference(
         outs.append(torch.einsum("bhij,bhi->bhj", s + u32 * kv, r32[:, i]))
         s = w32[:, i, :, :, None] * s + kv
     return torch.stack(outs, dim=1).to(r.dtype), s
+
+
+# The chunk-parallel form of ``csrc/rwkv6_scan.cu``'s bf16 prefill: chunks of
+# RWKV_CHUNK tokens, each split at its middle into two sub-chunks.
+RWKV_CHUNK = 32
+RWKV_SUB = RWKV_CHUNK // 2
+# the smallest decay, as the TPU kernel clamps it: keeps log2 finite at w = 0
+RWKV_W_MIN = 1e-38
+
+
+def _chunked(x: torch.Tensor, nc: int) -> torch.Tensor:
+    """(B, T, H, hd) zero-padded to nc chunks -> (B, H, nc, C, hd), dtype kept."""
+    b, t, h, d = x.shape
+    x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, nc * RWKV_CHUNK - t))
+    return x.reshape(b, nc, RWKV_CHUNK, h, d).permute(0, 3, 1, 2, 4)
+
+
+def rwkv6_chunk_exponents(w: torch.Tensor) -> dict:
+    """Every base-2 exponent the chunk-parallel form exponentiates, by role.
+
+    ``w`` is (B, T, H, hd).  P[t] is the exclusive prefix of log2 w inside a
+    chunk (rows past T add 0), e = RWKV_SUB the sub-chunk edge and L the
+    chunk's last row + 1:
+      diag        P[t] - P[s+1], s < t in the same sub-chunk  (B,H,nc,2,120,hd)
+      r_edge      P[t] - P[e] for t >= e                      (B,H,nc,16,hd)
+      k_edge      P[e] - P[s+1] for s < e                     (B,H,nc,16,hd)
+      carry_in    P[t]                                        (B,H,nc,C,hd)
+      carry_out   P[L] - P[s+1]                               (B,H,nc,C,hd)
+      chunk_decay P[L]                                        (B,H,nc,hd)
+    Each is the sum of the log-decays between its two ends, so <= 0.  The
+    kernel sums them directly, walking the tokens, and never subtracts two
+    prefixes, which under strong decay are large and would cancel; here they
+    are differences of float64 prefixes, the same sums to f32's precision.
+    All are returned in f32."""
+    nc = -(-w.shape[1] // RWKV_CHUNK)
+    lw = _chunked(torch.log2(w.float().clamp_min(RWKV_W_MIN)), nc)
+    incl = torch.cumsum(lw.double(), dim=3)                 # P[t + 1]
+    excl = torch.nn.functional.pad(incl, (0, 0, 1, 0))[:, :, :, :-1]   # P[t]
+    p_l = incl[:, :, :, -1]                                 # P[L]
+    e = RWKV_SUB
+    ti, si = torch.tril_indices(e, e, -1, device=w.device)  # the 120 pairs s < t
+    diag = torch.stack([excl[:, :, :, o + ti] - incl[:, :, :, o + si] for o in (0, e)], dim=3)
+    p_e = excl[:, :, :, e:e + 1]                            # P[e]
+    ex = {
+        "diag": diag,
+        "r_edge": excl[:, :, :, e:] - p_e,
+        "k_edge": p_e - incl[:, :, :, :e],
+        "carry_in": excl,
+        "carry_out": p_l[:, :, :, None] - incl,
+        "chunk_decay": p_l,
+    }
+    return {name: x.float() for name, x in ex.items()}
+
+
+def rwkv6_chunk_parallel_reference(
+    r: torch.Tensor,                 # (B, T, H, hd)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,                 # decay in (0, 1)
+    u: torch.Tensor,                 # (H, hd)
+    state: Optional[torch.Tensor] = None,   # (B, H, hd, hd) f32; None = zeros
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunk-parallel arithmetic of ``csrc/rwkv6_scan.cu``'s bf16 prefill.
+
+    Per chunk of C = 32 tokens, in the exponents of ``rwkv6_chunk_exponents``:
+      A[t,s]  = sum_i r_ti k_si 2^(P[t,i] - P[s+1,i]), s < t:
+                pairwise where s and t share a sub-chunk; for t >= e > s the
+                product (r_t 2^(P[t]-P[e])) . (k_s 2^(P[e]-P[s+1]));
+      o_t     = sum_s A[t,s] v_s + ((r_t u) . k_t) v_t + (r_t 2^P[t]) S_{c-1};
+      dS_c    = sum_s (k_s 2^(P[L]-P[s+1])) v_s^T,   S_c = 2^P[L] S_{c-1} + dS_c,
+    the carry S_c the only serial step.  Everything is f32: the kernel gives
+    the tensor cores each f32 operand as three bf16 parts (24 significant
+    bits in all), so its products keep f32's precision.  Nothing on the main
+    path calls it: the tests hold it to the JAX oracle.  Returns (out
+    (B, T, H, hd) in r's dtype, final state (B, H, hd, hd) f32)."""
+    b, t, h, d = r.shape
+    nc = -(-t // RWKV_CHUNK)
+    e = RWKV_SUB
+    rc, kc, vc = (_chunked(x.float(), nc) for x in (r, k, v))   # (B, H, nc, C, hd)
+    ex = rwkv6_chunk_exponents(w)
+    # A: the diagonal sub-chunk blocks pairwise, the off-diagonal one as a product
+    a = torch.zeros((b, h, nc, RWKV_CHUNK, RWKV_CHUNK), dtype=torch.float32, device=r.device)
+    ti, si = torch.tril_indices(e, e, -1, device=r.device)
+    for n, o in enumerate((0, e)):
+        a[:, :, :, o + ti, o + si] = (rc[:, :, :, o + ti] * kc[:, :, :, o + si]
+                                      * torch.exp2(ex["diag"][:, :, :, n])).sum(-1)
+    r_hat = rc[:, :, :, e:] * torch.exp2(ex["r_edge"])
+    k_hat = kc[:, :, :, :e] * torch.exp2(ex["k_edge"])
+    a[:, :, :, e:, :e] = r_hat @ k_hat.transpose(-1, -2)
+    bonus = (rc * u.float()[None, :, None, None, :] * kc).sum(-1, keepdim=True)
+    o_intra = a @ vc + bonus * vc
+    # per-chunk state increments and decays, then the serial carry
+    d_state = (kc * torch.exp2(ex["carry_out"])).transpose(-1, -2) @ vc   # (B,H,nc,hd,hd)
+    decay = torch.exp2(ex["chunk_decay"])                   # (B, H, nc, hd)
+    s = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+         if state is None else state.float())
+    carries = []
+    for c in range(nc):
+        carries.append(s)
+        s = decay[:, :, c, :, None] * s + d_state[:, :, c]
+    o_inter = (rc * torch.exp2(ex["carry_in"])) @ torch.stack(carries, dim=2)
+    out = (o_intra + o_inter).permute(0, 2, 3, 1, 4).reshape(b, nc * RWKV_CHUNK, h, d)
+    return out[:, :t].to(r.dtype), s

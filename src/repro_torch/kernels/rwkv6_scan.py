@@ -1,10 +1,13 @@
 """RWKV-6 WKV recurrence on the card: wrapper of ``csrc/rwkv6_scan.cu``.
 
-The CUDA kernel replaces the TPU kernel ``repro/kernels/rwkv6_scan.py``
-(see the note at the top of the source).  This wrapper checks its operands,
-allocates the output and, unless it is given one, the final state, launches
-on the current stream and counts launches.  It takes CUDA tensors only;
-``ops.rwkv6`` sends CPU tensors to the plain version in ``ref.py``.
+The CUDA kernels replace the TPU kernel ``repro/kernels/rwkv6_scan.py``
+(see the note at the top of the source): a streaming kernel for one token,
+and for more, a chunk-parallel prefill on the tensor cores in bf16 or the
+SIMT kernel in f32.  This wrapper checks its operands, allocates the output,
+the final state unless it is given one, and the bf16 prefill's scratch,
+launches on the current stream and counts one launch per call, however many
+kernels the call runs.  It takes CUDA tensors only; ``ops.rwkv6`` sends CPU
+tensors to the plain version in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -16,12 +19,25 @@ import torch
 from repro_torch.kernels import _build
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+#: tokens per chunk of the kernels
+CHUNK = 32
 
 #: kernel launches in this process; ``chip_smoke.py`` resets and reads it
 launches = 0
 
-# (r, k, v, w, u, s0, sT, out) pointers, dtype code and shape ints, device, stream
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_int, ctypes.c_void_p]
+# (r, k, v, w, u, s0, sT, out, dstate, decay) pointers, dtype code and shape
+# ints, device, stream
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_int, ctypes.c_void_p]
+
+
+def scratch_shapes(dtype: torch.dtype, b: int, t: int, h: int, hd: int):
+    """Shapes of the f32 scratch a launch needs: for a bf16 prefill of more
+    than one chunk, each chunk's state increment (which the carry overwrites
+    with the chunk's carry-in state) and its decay; none otherwise."""
+    nc = -(-t // CHUNK)
+    if dtype != torch.bfloat16 or nc == 1:
+        return None
+    return (b, h, nc, hd, hd), (b, h, nc, hd)
 
 
 def rwkv6_scan(
@@ -37,8 +53,9 @@ def rwkv6_scan(
     """(out (B, T, H, hd) in r's dtype, state after the last token, f32).
 
     ``final_state``, when given, receives the final state and is returned;
-    it may be ``state`` itself, which is then updated in place (each CTA
-    reads its slice of the state before it writes it)."""
+    it may be ``state`` itself, which is then updated in place (whatever
+    thread writes an element of the state has read it first, and the
+    prefill's output kernel reads copies of it in scratch)."""
     global launches
     dev = r.device
     if dev.type != "cuda":
@@ -67,11 +84,14 @@ def rwkv6_scan(
     out = torch.empty_like(r)
     if final_state is None:
         final_state = torch.empty((b, h, hd, hd), dtype=torch.float32, device=dev)
+    shapes = scratch_shapes(r.dtype, b, t, h, hd)
+    dstate, decay = ([torch.empty(sh, dtype=torch.float32, device=dev) for sh in shapes]
+                     if shapes else (None, None))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _build.function("rwkv6_scan", "rwkv6_forward", _ARGTYPES)(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        state.data_ptr() if state is not None else None, final_state.data_ptr(),
-        out.data_ptr(), _build.DTYPE_CODES[r.dtype], b, t, h, hd, dev.index, stream,
+        *(x.data_ptr() if x is not None else None
+          for x in (r, k, v, w, u, state, final_state, out, dstate, decay)),
+        _build.DTYPE_CODES[r.dtype], b, t, h, hd, dev.index, stream,
     )
     _build.raise_on_error("rwkv6_scan", err)
     launches += 1

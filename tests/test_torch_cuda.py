@@ -58,6 +58,20 @@ RWKV_CASES = [
     (8, 1, 4, 64, True),       # one decode step
     (2, 70, 2, 128, True),
 ]
+RWKV_EDGE_CASES = [
+    # b, t, h, hd, with_state: the bf16 prefill's sub-chunk and chunk edges
+    # (one launch up to 32 tokens, three above), 64 chunks carried, every
+    # head size over several chunks, and rwkv6-1.6b's decode step
+    (1, 16, 2, 64, True),
+    (1, 17, 2, 64, False),
+    (1, 32, 2, 64, True),
+    (1, 33, 2, 64, True),
+    (1, 2048, 4, 64, True),
+    (2, 300, 2, 128, True),
+    (3, 97, 5, 16, False),
+    (2, 65, 3, 32, True),
+    (8, 1, 32, 64, True),
+]
 
 
 @pytest.fixture
@@ -257,10 +271,10 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         fa.flash_attention(q, k.transpose(1, 2), v)
 
 
-def _rwkv_inputs(case, dtype, device, strong=False):
+def _rwkv_inputs(case, dtype, device, strong=False, scale=1.0):
     """The distribution of tests/test_kernels.py: r, k ~ 0.5 N, v ~ N, w in
     (0.45, 0.95) (strong: exp(-exp(U(-2, 4))), down to 1e-24), u ~ 0.3 N f32,
-    state ~ 0.2 N f32."""
+    state ~ 0.2 N f32; ``scale`` multiplies r, k and v."""
     b, t, h, hd, with_state = case
     rng = np.random.default_rng(sum(case) + strong)
     x = lambda *shape: rng.standard_normal(shape).astype(np.float32)
@@ -270,7 +284,8 @@ def _rwkv_inputs(case, dtype, device, strong=False):
     else:
         w = (1 / (1 + np.exp(-(x(*sh) * 2 - 1))) * 0.5 + 0.45).astype(np.float32)
     to = lambda a, dt: torch.from_numpy(a).to(device, dt)
-    r, k, v, w = (to(a, dtype) for a in (x(*sh) * 0.5, x(*sh) * 0.5, x(*sh), w))
+    r, k, v, w = (to(a, dtype) for a in (x(*sh) * 0.5 * scale, x(*sh) * 0.5 * scale,
+                                         x(*sh) * scale, w))
     u = to(x(h, hd) * 0.3, torch.float32)
     s0 = to(x(b, h, hd, hd) * 0.2, torch.float32) if with_state else None
     return r, k, v, w, u, s0
@@ -288,6 +303,47 @@ def test_rwkv6_kernel_matches_plain(cuda, case, dtype):
     assert bool(torch.isfinite(out.float()).all()) and bool(torch.isfinite(s_t).all())
     assert _err(out, exp_o) < RWKV_TOL[dtype]
     assert _err(s_t, exp_s) < RWKV_TOL[dtype]
+
+
+@pytest.mark.parametrize("case", RWKV_EDGE_CASES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rwkv6_kernel_chunk_edges_and_long_t(cuda, case, dtype):
+    """r, k, v halved so that |o| stays below 8, where one bf16 step (0.0625)
+    would exceed the tolerance by rounding alone; one launch count a call,
+    however many kernels it runs."""
+    r, k, v, w, u, s0 = _rwkv_inputs(case, DTYPES[dtype], cuda, scale=0.5)
+    launches = rk.launches
+    out, s_t = rk.rwkv6_scan(r, k, v, w, u, s0)
+    exp_o, exp_s = ref.rwkv6_reference(r, k, v, w, u, s0)
+    assert rk.launches == launches + 1
+    assert bool(torch.isfinite(out.float()).all()) and bool(torch.isfinite(s_t).all())
+    assert _err(out, exp_o) < RWKV_TOL[dtype]
+    assert _err(s_t, exp_s) < RWKV_TOL[dtype]
+
+
+def test_rwkv6_kernel_strong_decay_bf16(cuda):
+    """Strong decay through the bf16 prefill's three kernels."""
+    r, k, v, w, u, s0 = _rwkv_inputs((1, 100, 4, 64, True), torch.bfloat16, cuda, strong=True)
+    out, s_t = rk.rwkv6_scan(r, k, v, w, u, s0)
+    exp_o, exp_s = ref.rwkv6_reference(r, k, v, w, u, s0)
+    assert bool(torch.isfinite(out.float()).all()) and bool(torch.isfinite(s_t).all())
+    assert _err(out, exp_o) < 5e-2 and _err(s_t, exp_s) < 5e-2
+
+
+@pytest.mark.parametrize("t", [45, 1])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rwkv6_kernel_in_place_in_both_regimes(cuda, t, dtype):
+    """``final_state=state`` through the prefill's kernels (T = 45) and the
+    one-token kernel (T = 1): the result of a separate final state, within
+    tolerance of the plain version."""
+    r, k, v, w, u, s0 = _rwkv_inputs((2, t, 4, 64, True), DTYPES[dtype], cuda)
+    out_sep, s_sep = rk.rwkv6_scan(r, k, v, w, u, s0)
+    state = s0.clone()
+    out_in, s_in = rk.rwkv6_scan(r, k, v, w, u, state, final_state=state)
+    assert s_in is state
+    assert torch.equal(out_in, out_sep) and torch.equal(state, s_sep)
+    exp_o, exp_s = ref.rwkv6_reference(r, k, v, w, u, s0)
+    assert _err(out_in, exp_o) < RWKV_TOL[dtype] and _err(state, exp_s) < RWKV_TOL[dtype]
 
 
 def test_rwkv6_kernel_strong_decay_stays_finite(cuda):

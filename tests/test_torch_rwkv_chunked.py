@@ -1,0 +1,120 @@
+"""The chunk-parallel RWKV-6 scan on the CPU: its plain version against the
+JAX oracle, and the shapes of the scratch the kernel wrapper allocates.
+
+``ref.rwkv6_chunk_parallel_reference`` computes the arithmetic of the bf16
+prefill of ``csrc/rwkv6_scan.cu``: 32-token chunks split into two 16-token
+sub-chunks, pairwise scores inside a sub-chunk, the off-diagonal block
+factored at the sub-chunk edge, per-chunk state increments, the serial
+carry and the carry-in term.  It is held to the sequential JAX oracle
+``repro.kernels.ref.rwkv6_reference`` on the same numpy inputs from a seed.
+Tolerance 1e-5 in f32: the same f32 products summed in another order, and
+the decays multiplied as 2^(a sum of log2 w) where the oracle multiplies them
+one by one, on outputs of size ~10-30 (rounding of ~1e-7 relative); 5e-2 in
+bf16, as ``tests/test_kernels.py`` (one bf16 rounding of the output).  The
+kernel itself runs only on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv6_scan as rk
+
+TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+RWKV_CASES = [
+    # b, t, h, hd, chunk, with_state  (tests/test_kernels.py; the port's chunk is 32)
+    (2, 64, 2, 32, 16, False),
+    (1, 50, 4, 64, 32, True),     # ragged tail (t % chunk != 0)
+    (2, 33, 1, 16, 8, True),
+    (1, 128, 2, 64, 32, True),
+]
+# one token, one sub-chunk, one past it, one whole chunk, one past it, 64 chunks
+LENGTHS = [1, 16, 17, 32, 33, 2048]
+
+
+def _inputs(b, t, h, hd, with_state, seed, strong=False):
+    """numpy inputs with the distribution of tests/test_kernels.py; strong:
+    w = exp(-exp(U(-2, 4))), down to exp(-e^4) ~ 1e-24."""
+    rng = np.random.default_rng(seed)
+    x = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    sh = (b, t, h, hd)
+    if strong:
+        w = np.exp(-np.exp(rng.uniform(-2.0, 4.0, sh))).astype(np.float32)
+    else:
+        w = (1 / (1 + np.exp(-(x(*sh) * 2 - 1))) * 0.5 + 0.45).astype(np.float32)
+    s0 = x(b, h, hd, hd) * 0.2 if with_state else None
+    return x(*sh) * 0.5, x(*sh) * 0.5, x(*sh), w, x(h, hd) * 0.3, s0
+
+
+def _check(arrays, dtype):
+    """The plain chunk-parallel version against the JAX oracle: out and final
+    state within TOL, finite, of the right shape and dtype."""
+    jd, td = DTYPES[dtype]
+    r, k, v, w, u, s0 = arrays
+    jx = [jnp.asarray(a, jd) for a in (r, k, v, w)] + [jnp.asarray(u)]
+    tx = [torch.from_numpy(a).to(td) for a in (r, k, v, w)] + [torch.from_numpy(u)]
+    jx.append(None if s0 is None else jnp.asarray(s0))
+    tx.append(None if s0 is None else torch.from_numpy(s0))
+    out, s_t = ref.rwkv6_chunk_parallel_reference(*tx)
+    exp_o, exp_s = jref.rwkv6_reference(*jx)
+    assert out.shape == tx[0].shape and out.dtype == td and s_t.dtype == torch.float32
+    assert bool(torch.isfinite(out.float()).all()) and bool(torch.isfinite(s_t).all())
+    err_o = float(np.max(np.abs(np.asarray(jnp.asarray(exp_o, jnp.float32)) - out.float().numpy())))
+    err_s = float(np.max(np.abs(np.asarray(exp_s) - s_t.numpy())))
+    assert err_o < TOL[dtype] and err_s < TOL[dtype], (err_o, err_s)
+
+
+@pytest.mark.parametrize("case", RWKV_CASES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_chunk_parallel_matches_jax_oracle(case, dtype):
+    b, t, h, hd, _, with_state = case
+    _check(_inputs(b, t, h, hd, with_state, seed=sum(case)), dtype)
+
+
+@pytest.mark.parametrize("t", LENGTHS)
+@pytest.mark.parametrize("with_state", [False, True])
+def test_chunk_parallel_lengths(t, with_state):
+    """Chunk and sub-chunk edges, and 64 chunks carried, in f32."""
+    _check(_inputs(1, t, 2, 32, with_state, seed=t + with_state), "float32")
+
+
+@pytest.mark.parametrize("t", [64, 100])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_chunk_parallel_strong_decay(t, with_state):
+    """Decay down to ~1e-24: every factor is 2^(a sum of log-decays) <= 1,
+    so nothing overflows, and the sums are exact enough that 1e-5 holds."""
+    _check(_inputs(1, t, 2, 16, with_state, seed=7 + t, strong=True), "float32")
+
+
+@pytest.mark.parametrize("strong", [False, True])
+def test_every_exponent_is_at_most_zero(strong):
+    """Each exponent the factorisation forms is a sum of log-decays, so <= 0
+    (an exponent above 0 could overflow under strong decay), and finite."""
+    b, t, h, hd = 2, 77, 3, 16                          # three chunks, the last ragged
+    w = torch.from_numpy(_inputs(b, t, h, hd, False, seed=11, strong=strong)[3])
+    ex = ref.rwkv6_chunk_exponents(w)
+    nc = 3
+    shapes = {
+        "diag": (b, h, nc, 2, 120, hd), "r_edge": (b, h, nc, 16, hd),
+        "k_edge": (b, h, nc, 16, hd), "carry_in": (b, h, nc, 32, hd),
+        "carry_out": (b, h, nc, 32, hd), "chunk_decay": (b, h, nc, hd),
+    }
+    assert {name: tuple(x.shape) for name, x in ex.items()} == shapes
+    for name, x in ex.items():
+        assert bool(torch.isfinite(x).all()), name
+        assert float(x.max()) <= 0.0, (name, float(x.max()))
+        assert bool(torch.isfinite(torch.exp2(x)).all()), name
+
+
+def test_scratch_only_for_a_bf16_prefill_of_several_chunks():
+    """The wrapper allocates the carry's scratch only where the bf16 prefill
+    runs its three kernels: more than one 32-token chunk."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert rk.scratch_shapes(bf16, 1, 500, 32, 64) == ((1, 32, 16, 64, 64), (1, 32, 16, 64))
+    assert rk.scratch_shapes(bf16, 2, 33, 4, 16) == ((2, 4, 2, 16, 16), (2, 4, 2, 16))
+    for dtype, t in ((bf16, 1), (bf16, 32), (f32, 1), (f32, 500)):
+        assert rk.scratch_shapes(dtype, 1, t, 32, 64) is None
