@@ -13,8 +13,9 @@ never prints its last line):
    prefill must have some;
 2. hold each kernel against its plain PyTorch version on the card, in f32
    and bf16: the attention kernels at the shapes of ``tests/test_kernels.py``,
-   at the main path's shapes and at llama3-8b's GQA shapes; the RWKV-6 scan
-   at ``RWKV_CASES`` (with and without a state, ragged T), under strong
+   at the main path's shapes and at phi3.5-moe's and llama3-8b's GQA shapes
+   (32 q heads over 8 kv heads, hd 128); the RWKV-6 scan at ``RWKV_CASES``
+   (with and without a state, ragged T), under strong
    decay (also in bf16 at T = 100), at T = 1 with a state, at T = 2048, with
    the state updated in place at T = 45 and T = 1, and at rwkv6-1.6b's
    prefill and decode shapes; the attention kernels' edge cases (rows that
@@ -22,9 +23,10 @@ never prints its last line):
    leave whole tiles and whole splits empty in the middle of the cache).
    Time kernel, plain version, one PyTorch call for the same function where
    there is one (SDPA, a yardstick the port never calls) and the card's
-   bound, and print them on one ``{"kernels": ...}`` line; for the scan also
-   the device time of each of its kernels, and a copy of the decode state as
-   the floor of its decode step;
+   bound, at the main path's shapes (and the attention kernels also at
+   phi3.5-moe's and llama3-8b's), and print them on one ``{"kernels": ...}``
+   line; for the scan also the device time of each of its kernels, and a
+   copy of the decode state as the floor of its decode step;
 3. serve qwen1.5-0.5b at full width and depth in bf16 through
    ``ContinuousBatcher`` (16 requests, 8 slots, cache 2048, 32 new tokens
    each), with the kernels' launch counters proving every prefill and
@@ -37,11 +39,23 @@ never prints its last line):
    every WKV recurrence of every layer through the scan kernels; profile 8
    decode steps and one 512-token prefill (the scan's device time and
    share); then its f32 check at full width and 4 layers;
+3c. the same for phi3.5-moe-42b-a6.6b at full width and 16 of its 32
+   layers in bf16 (same traffic; 42.1 GB of weights: all 32 layers, 83.7
+   GB, do not fit one 80 GB card), every attention call through the two
+   attention kernels and every MoE layer through the port's sort-based
+   capacity dispatch (PyTorch ops and cuBLAS batched products); check that
+   the MoE layer never waits on the host (sync debug mode "error"); profile
+   8 decode steps and one 512-token prefill (the expert products', the
+   routing's and the dispatch and combine's device time, from profiler
+   ranges, and the attention kernels' share); then its f32 check at full
+   width and 2 layers, which also holds the experts chosen on the card to
+   those chosen on the CPU;
 4. print the device line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -63,6 +77,7 @@ from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rk  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.rwkv import F32_LEAVES  # noqa: E402
 from repro_torch.serving import ContinuousBatcher, Engine, EngineConfig, Request  # noqa: E402
 
@@ -108,6 +123,15 @@ RWKV_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 
 ARCH = "qwen1.5-0.5b"
 RWKV_ARCH = "rwkv6-1.6b"
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+# phi3.5-moe on one card: 1,300,307,968 parameters a layer (attention
+# 41.9 M, 16 experts 1258.3 M, router, norms) and two 131.3 M embedding
+# tables; 32 layers are 83.7 GB in bf16, more than the card's 80 GB, so
+# the slice runs 16 (42.1 GB), and its f32 check 2 (11.5 GB, on the card
+# and again on the host)
+MOE_LAYERS, MOE_F32_LAYERS, MOE_F32_PROMPT = 16, 2, 64
+MOE_DEPTH_CUT = ("16 of 32 layers at full width: 32 layers are 83.7 GB of bf16 weights, "
+                 "more than one 80 GB card holds")
 KERNELS = {"flash_attention": fa, "decode_attention": da, "rwkv6_scan": rk}
 N_REQUESTS, SLOTS, CACHE_LEN, NEW_TOKENS = 16, 8, 2048, 32
 PROMPT_MIN, PROMPT_MAX = 64, 512
@@ -128,7 +152,14 @@ PROFILED = {
     ARCH: {"prefill": ("flash_attention", ("fa_mma_kernel", "fa_kernel")),
            "decode": ("decode_attention", ("da_split_kernel", "da_combine_kernel"))},
     RWKV_ARCH: {"prefill": ("rwkv6_scan", ("rwkv6::",)), "decode": ("rwkv6_scan", ("rwkv6::",))},
+    MOE_ARCH: {"prefill": ("flash_attention", ("fa_mma_kernel", "fa_kernel")),
+               "decode": ("decode_attention", ("da_split_kernel", "da_combine_kernel"))},
 }
+# the MoE layer's parts, each run inside a profiler range of this name:
+# the whole layer, its routing (router product, top-k, softmax, aux) and
+# the expert products (three batched cuBLAS products and the SwiGLU);
+# dispatch and combine are the layer's time less the other two
+MOE_RANGES = {"layer": "moe_sort_local", "route": "_route", "experts": "_expert_ffn"}
 
 
 def randn(gen, shape, dtype):
@@ -383,25 +414,32 @@ def phase_kernels(seed, prompt_lengths):
     flush = L2Flush(dev)
     # decode at the main path's shapes: each slot valid up to prompt + new tokens
     lengths = [min(CACHE_LEN, p + NEW_TOKENS) for p in prompt_lengths[:SLOTS]]
+    valid = prefix_valid(lengths, CACHE_LEN, dev)
+    # flash (b, s, nq, nkv, hd) and decode (b, s, nq, nkv, hd, valid) at the
+    # main path's shapes (qwen1.5-0.5b), phi3.5-moe's (GQA 32 q heads over 8
+    # kv heads, hd 128, the same traffic) and llama3-8b's (a random mask)
+    shapes = {"main": ((1, PROMPT_MAX, 16, 16, 64), (SLOTS, CACHE_LEN, 16, 16, 64, valid)),
+              MOE_ARCH: ((1, PROMPT_MAX, 32, 8, 128), (SLOTS, CACHE_LEN, 32, 8, 128, valid)),
+              "llama3_8b": ((1, 2048, 32, 8, 128), (8, 4096, 32, 8, 128, None))}
     main = {}
     for dtype in (torch.float32, torch.bfloat16):
-        errs = {}
-        errs["flash"], qkv = check_flash(gen, 1, PROMPT_MAX, PROMPT_MAX, 16, 16, 64, True, 0, dtype)
-        errs["decode"], qkvm = check_decode(
-            gen, SLOTS, CACHE_LEN, 16, 16, 64, dtype, prefix_valid(lengths, CACHE_LEN, dev))
-        # llama3-8b: GQA 32 q heads over 8 kv heads, head_dim 128
-        errs["flash_gqa"], qkv_g = check_flash(gen, 1, 2048, 2048, 32, 8, 128, True, 0, dtype)
-        errs["decode_gqa"], qkvm_g = check_decode(gen, 8, 4096, 32, 8, 128, dtype)
-        print(f"[kernels] main-path and llama3-8b shapes {dtype}: max abs err "
-              + json.dumps(errs))
-        main[dtype] = (errs, qkv, qkvm, qkv_g, qkvm_g)
-    errs, qkv, qkvm, qkv_g, qkvm_g = main[torch.bfloat16]   # the main path runs bf16
-    rows = [time_flash(errs["flash"], qkv, flush), time_decode(errs["decode"], qkvm, flush)]
-    rows[0]["llama3_8b"] = time_flash(errs["flash_gqa"], qkv_g, flush)
-    rows[1]["llama3_8b"] = time_decode(errs["decode_gqa"], qkvm_g, flush)
-    for row in rows:
-        row["vs_library"] = row["ms"] / row["library_ms"]
-        row["llama3_8b"]["vs_library"] = row["llama3_8b"]["ms"] / row["llama3_8b"]["library_ms"]
+        main[dtype] = {}
+        for name, (f, d) in shapes.items():
+            err_f, qkv = check_flash(gen, f[0], f[1], f[1], *f[2:], True, 0, dtype)
+            err_d, qkvm = check_decode(gen, *d[:5], dtype, d[5])
+            main[dtype][name] = (err_f, qkv, err_d, qkvm)
+        print(f"[kernels] main-path, {MOE_ARCH} and llama3-8b shapes {dtype}: max abs err "
+              + json.dumps({name: {"flash": r[0], "decode": r[2]}
+                            for name, r in main[dtype].items()}))
+    rows = []
+    for name, (err_f, qkv, err_d, qkvm) in main[torch.bfloat16].items():   # the paths run bf16
+        pair = [time_flash(err_f, qkv, flush), time_decode(err_d, qkvm, flush)]
+        for row in pair:
+            row["vs_library"] = row["ms"] / row["library_ms"]
+        if name == "main":
+            rows = pair
+        else:
+            rows[0][name], rows[1][name] = pair
     del main, flush
     torch.cuda.empty_cache()
     return rows
@@ -551,11 +589,13 @@ def expected_launches(cfg, prefills, decode_steps):
             "rwkv6_scan": 0}
 
 
-def phase_slice(arch, seed, prompts, gpu):
-    """Serve ``prompts`` with ``arch`` at full width and depth in bf16, then
-    hold its f32 logits on the card to the CPU's."""
+def phase_slice(cfg, seed, prompts, gpu, f32):
+    """Serve ``prompts`` with ``cfg`` at full width in bf16, then run its f32
+    check ``f32(seed, prompt)``, which holds its f32 logits on the card to
+    the CPU's."""
+    t_phase = time.perf_counter()
     dev = torch.device("cuda")
-    cfg = get_config(arch)
+    arch = cfg.name
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = model_lib.init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
     engine = Engine(cfg, params, EngineConfig(
@@ -615,28 +655,86 @@ def phase_slice(arch, seed, prompts, gpu):
         "launches": launches,
         "gpu": gpu,
     }
+    moe = bool(cfg.num_experts)
+    if moe:
+        result["layers_full"] = get_config(arch).num_layers
+        result["depth_cut"] = MOE_DEPTH_CUT
+        result["moe_sync_free"] = check_moe_sync_free(cfg, params["layers"][0]["moe"])
     print(f"[slice] {arch}: served {N_REQUESTS} requests with {1 + NEW_TOKENS} tokens each "
           f"over {engine.steps} decode steps; kernel launches {json.dumps(launches)} = "
           f"{cfg.num_layers} layers x ({N_REQUESTS} prefills, {engine.steps} decode steps)")
-    prof = profile_decode(engine, prompts, PROFILED[arch]["decode"])
-    prof["device_busy_share_of_median_step"] = (
-        prof["device_ms_per_step"] / result["decode_ms_per_step_median"])
-    result["decode_profile"] = prof
-    result["prefill_profile"] = profile_prefill(engine, prompts[0], PROFILED[arch]["prefill"])
+    with moe_ranges() if moe else contextlib.nullcontext():
+        prof = profile_decode(engine, prompts, PROFILED[arch]["decode"])
+        prof["device_busy_share_of_median_step"] = (
+            prof["device_ms_per_step"] / result["decode_ms_per_step_median"])
+        result["decode_profile"] = prof
+        result["prefill_profile"] = profile_prefill(engine, prompts[0], PROFILED[arch]["prefill"])
     # the timing wrappers refer back to the engine: collect the cycle, so
     # that the next slice's peak memory does not count this one's weights
     del engine, batcher, params
     gc.collect()
     torch.cuda.empty_cache()
-    result["f32_check"] = (f32_check_rwkv(seed, prompts[0]) if cfg.block_pattern == (RWKV,)
-                           else f32_check(cfg, seed, prompts[0]))
+    result["f32_check"] = f32(seed, prompts[0])
+    result["phase_s"] = time.perf_counter() - t_phase
     return result
+
+
+@contextlib.contextmanager
+def wrapped(module, name, wrapper):
+    """``module.<name>`` replaced by ``wrapper(original)`` inside the block:
+    the port's code looks its helpers up in the module at each call."""
+    original = getattr(module, name)
+    setattr(module, name, wrapper(original))
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def in_range(label):
+    """A wrapper that runs the function inside the profiler range ``label``."""
+    def wrapper(fn):
+        def run(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return run
+    return wrapper
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """Every MOE_RANGES function of the MoE module inside its profiler range."""
+    with contextlib.ExitStack() as stack:
+        for label, name in MOE_RANGES.items():
+            stack.enter_context(wrapped(moe_lib, name, in_range(f"moe.{label}")))
+        yield
+
+
+def check_moe_sync_free(cfg, p):
+    """The MoE layer at the served decode (all slots) and prefill (512
+    tokens) shapes under the sync debug mode "error": any op of it that
+    waits on the card raises."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    shapes = [(SLOTS, 1, cfg.d_model), (1, PROMPT_MAX, cfg.d_model)]
+    xs = [randn(gen, shape, torch.bfloat16) for shape in shapes]
+    for x in xs:                                 # warm-up
+        moe_lib.moe_sort_local(cfg, p, x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ys = [moe_lib.moe_sort_local(cfg, p, x)[0] for x in xs]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not all(bool(torch.isfinite(y.float()).all()) for y in ys):
+        raise AssertionError("the MoE layer gave non-finite values")
+    return {"shapes": [list(sh) for sh in shapes], "sync_debug_mode": "error"}
 
 
 def f32_check(cfg, seed, prompt, fill=None):
     """The same port code in f32 with the kernels on the card and the plain
     versions on the CPU, on one prompt plus F32_DECODE_STEPS decode steps;
-    ``fill(params, gen)`` may first change the weights on the card."""
+    ``fill(params, gen)`` may first change the weights on the card.  An MoE
+    model's experts chosen must also be the same on both sides."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     p_gpu = model_lib.init_params(cfg, gen, dtype=torch.float32, device=dev)
@@ -645,11 +743,15 @@ def f32_check(cfg, seed, prompt, fill=None):
     p_cpu = _tree_to(p_gpu, "cpu")
     prompt = torch.as_tensor(prompt, dtype=torch.long)
     before = launch_counts()
-    gpu_logits, tokens = _teacher_forced(cfg, p_gpu, prompt, None, dev)
+    card_routes, cpu_routes = [], []
+    with wrapped(moe_lib, "_route", record_routes(card_routes)):
+        gpu_logits, tokens = _teacher_forced(cfg, p_gpu, prompt, None, dev)
     ran = {name: n - before[name] for name, n in launch_counts().items()}
     if ran != expected_launches(cfg, 1, F32_DECODE_STEPS):
         raise AssertionError(f"the f32 run on the card did not go through the kernels: {ran}")
-    cpu_logits, _ = _teacher_forced(cfg, p_cpu, prompt, tokens, torch.device("cpu"))
+    with wrapped(moe_lib, "_route", record_routes(cpu_routes)):
+        cpu_logits, _ = _teacher_forced(cfg, p_cpu, prompt, tokens, torch.device("cpu"))
+    checked = compare_routes(cfg, card_routes, cpu_routes) if cfg.num_experts else {}
     errs = []
     for step, (g, c) in enumerate(zip(gpu_logits, cpu_logits)):
         if g.shape != (1, cfg.vocab_size) or not bool(torch.isfinite(g).all()):
@@ -659,7 +761,8 @@ def f32_check(cfg, seed, prompt, fill=None):
     del p_gpu, p_cpu
     torch.cuda.empty_cache()
     return {"layers": cfg.num_layers, "prompt_tokens": len(prompt),
-            "decode_steps": F32_DECODE_STEPS, "max_abs_err_per_step": errs, "tol": LOGIT_TOL}
+            "decode_steps": F32_DECODE_STEPS, "max_abs_err_per_step": errs, "tol": LOGIT_TOL,
+            **checked}
 
 
 def f32_check_rwkv(seed, prompt):
@@ -679,6 +782,44 @@ def f32_check_rwkv(seed, prompt):
 
     cfg = dataclasses.replace(get_config(RWKV_ARCH), num_layers=RWKV_F32_LAYERS)
     return f32_check(cfg, seed, np.resize(prompt, RWKV_F32_PROMPT), fill)
+
+
+def f32_check_moe(seed, prompt):
+    """phi3.5-moe's f32 check at full width and MOE_F32_LAYERS layers on a
+    MOE_F32_PROMPT-token prompt (capacity 16 in prefill, 8 in each one-token
+    step, so nothing drops).  Card and CPU sum the router product in other
+    orders, so a token whose k-th and (k+1)-th logits nearly tie could
+    choose another expert and then differ by O(1): the experts chosen in
+    every layer and call are recorded on both sides and must be equal, which
+    is checked before the logits."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_F32_LAYERS)
+    return f32_check(cfg, seed, np.resize(prompt, MOE_F32_PROMPT))
+
+
+def record_routes(into):
+    """A wrapper of ``_route`` that appends each call's expert indices to ``into``."""
+    def wrapper(route):
+        def run(cfg, router_w, xf):
+            gates, topi, aux = route(cfg, router_w, xf)
+            into.append(topi.cpu())
+            return gates, topi, aux
+        return run
+    return wrapper
+
+
+def compare_routes(cfg, card, cpu):
+    """Raise if any call chose other experts on the card than on the CPU;
+    calls run layer by layer for the prefill, then for each decode step."""
+    if len(card) != len(cpu):
+        raise AssertionError(f"{len(card)} routing calls on the card, {len(cpu)} on the CPU")
+    flips = {f"call {i} (step {i // cfg.num_layers}, layer {i % cfg.num_layers})":
+             int((a != b).any(dim=-1).sum()) for i, (a, b) in enumerate(zip(card, cpu))
+             if not torch.equal(a, b)}
+    if flips:
+        raise AssertionError(f"{cfg.name}: experts chosen differ between card and CPU "
+                             f"(tokens with another choice): {flips}")
+    return {"routing_calls": len(card), "tokens_routed": int(sum(a.shape[0] for a in card)),
+            "experts_equal": True}
 
 
 def kernel_time(by_kernel, patterns) -> float:
@@ -716,14 +857,42 @@ def profile_decode(engine, prompts, kernel, steps=8):
         "device_busy_share_profiled": busy / wall_us,
         f"{kernel[0]}_ms_per_step": own / steps / 1e3, f"{kernel[0]}_share_of_device": own / busy,
         "top_kernels_ms_per_step": {k[:80]: us / steps / 1e3 for k, us in top},
+        **moe_breakdown(prof, busy, steps, "_ms_per_step"),
     }
 
 
 def device_times(prof):
     """Device time by kernel name: device-side events only (kernels, copies,
-    memsets); a CPU op's entry repeats the device time of what it launched."""
+    memsets); a CPU op's entry repeats the device time of what it launched,
+    and a profiler range's device-side mirror spans other kernels."""
     return {e.key: e.self_device_time_total for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation}
+
+
+def moe_breakdown(prof, busy, per, suffix):
+    """Device time (ms per ``per`` calls of the profiled work) and share of
+    the busy time of the MoE layer's parts, from the MOE_RANGES profiler
+    ranges: the device time of the kernels launched inside each; empty when
+    no range was recorded, and raises when ranges hold no device time."""
+    ranges = {label: 0.0 for label in MOE_RANGES}
+    seen = False
+    for e in prof.events():
+        label = e.name[len("moe."):]
+        if (e.name.startswith("moe.") and label in ranges
+                and e.device_type == torch.autograd.DeviceType.CPU):
+            ranges[label] += e.device_time_total
+            seen = True
+    if not seen:
+        return {}
+    if (busy and not (ranges["layer"] and ranges["experts"])) or ranges["layer"] > busy:
+        raise AssertionError(f"the MoE profiler ranges hold no device time, or more than "
+                             f"the {busy} us of the profile: {ranges}")
+    parts = {"moe_layers": ranges["layer"], "moe_experts": ranges["experts"],
+             "moe_route": ranges["route"],
+             "moe_dispatch_combine": ranges["layer"] - ranges["experts"] - ranges["route"]}
+    out = {f"{name}{suffix}": us / per / 1e3 for name, us in parts.items()}
+    out.update({f"{name}_share_of_device": us / busy for name, us in parts.items()})
+    return out
 
 
 def profile_prefill(engine, prompt, kernel, length=PROMPT_MAX):
@@ -756,6 +925,7 @@ def profile_prefill(engine, prompt, kernel, length=PROMPT_MAX):
         "device_busy_share_profiled": busy / wall_us,
         f"{kernel[0]}_ms": own / 1e3, f"{kernel[0]}_share_of_device": own / busy,
         "top_kernels_ms": {k[:80]: us / 1e3 for k, us in top},
+        **moe_breakdown(prof, busy, 1, "_ms"),
     }
 
 
@@ -802,10 +972,17 @@ def main() -> None:
     # the same traffic for rwkv6-1.6b: the prompt lengths above, its own vocabulary
     rwkv_vocab = get_config(RWKV_ARCH).vocab_size
     rwkv_prompts = [rng.integers(0, rwkv_vocab, size=len(p)).astype(np.int32) for p in prompts]
+    moe_vocab = get_config(MOE_ARCH).vocab_size
+    moe_prompts = [rng.integers(0, moe_vocab, size=len(p)).astype(np.int32) for p in prompts]
     rows = phase_kernels(args.seed, [len(p) for p in prompts])
     rows.append(phase_rwkv_kernel(args.seed))
-    slices = [phase_slice(ARCH, args.seed, prompts, gpu),
-              phase_slice(RWKV_ARCH, args.seed, rwkv_prompts, gpu)]
+    qwen = get_config(ARCH)
+    moe = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    # one slice at a time: each phase frees its weights before the next
+    slices = [phase_slice(qwen, args.seed, prompts, gpu,
+                          lambda seed, prompt: f32_check(qwen, seed, prompt)),
+              phase_slice(get_config(RWKV_ARCH), args.seed, rwkv_prompts, gpu, f32_check_rwkv),
+              phase_slice(moe, args.seed, moe_prompts, gpu, f32_check_moe)]
     for row in rows:
         row["launches"] = sum(res["launches"][row["name"]] for res in slices)
     for res in slices:

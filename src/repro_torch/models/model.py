@@ -1,11 +1,11 @@
-"""Composable language model: attention-only decoders and RWKV-6.
+"""Composable language model: attention-only decoders (dense or MoE) and
+RWKV-6.
 
 The layers run in order in a Python loop over ``params["layers"]``; the
 decode cache keeps the JAX package's layer-stacked layout (one tensor per
 pattern position, stacked over the pattern's repetitions) so the serving
-engine's slot scatter is the same.  MoE, RG-LRU and encoder-decoder models
-are later slices of the port: their configs raise ``NotImplementedError``
-here.
+engine's slot scatter is the same.  RG-LRU and encoder-decoder models are
+later slices of the port: their configs raise ``NotImplementedError`` here.
 
 Entry points
 ------------
@@ -25,22 +25,23 @@ import torch
 from repro_torch.configs.registry import ATTN, RGLRU, RWKV, ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the families later slices of the port bring up: what
-    passes has only global attention blocks or only RWKV-6 blocks, no tail."""
+    passes has only global attention blocks (with an MLP or an MoE layer)
+    or only RWKV-6 blocks, no tail."""
     kinds = set(cfg.layer_kinds())
-    if cfg.num_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE is not ported yet (ROADMAP Queue 1 item 5)")
     if RGLRU in kinds:
         raise NotImplementedError(f"{cfg.name}: RG-LRU is not ported yet (ROADMAP Queue 1 item 7)")
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder is not ported yet (ROADMAP Queue 1 item 8)"
         )
-    if kinds not in ({ATTN}, {RWKV}) or cfg.tail_blocks:   # local attention comes with RG-LRU
+    if (kinds not in ({ATTN}, {RWKV}) or cfg.tail_blocks    # local attention comes with RG-LRU
+            or (cfg.num_experts and kinds != {ATTN})):
         raise NotImplementedError(
             f"{cfg.name}: blocks {cfg.layer_kinds()} are not ported yet (ROADMAP Queue 1 item 7)"
         )
@@ -70,12 +71,16 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype, device
             "rwkv": rwkv_lib.init_rwkv(gen, cfg, dtype=dtype, device=device),
             "norm2": layers.init_norm(cfg, dtype, device),
         }
-    return {
+    p = {
         "norm1": layers.init_norm(cfg, dtype, device),
         "attn": attn_lib.init_attention(gen, cfg, dtype=dtype, device=device),
         "norm2": layers.init_norm(cfg, dtype, device),
-        "mlp": layers.init_mlp(gen, cfg, dtype=dtype, device=device),
     }
+    if cfg.num_experts:
+        p["moe"] = moe_lib.init_moe(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = layers.init_mlp(gen, cfg, dtype=dtype, device=device)
+    return p
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *, dtype=torch.float32,
@@ -101,7 +106,8 @@ def param_count(cfg: ModelConfig) -> int:
     attn = 2 * d * nq * hd + 2 * d * nkv * hd
     if cfg.qkv_bias:
         attn += nq * hd + 2 * nkv * hd
-    mlp = (3 if cfg.mlp == "swiglu" else 2) * d * ff
+    mlp = moe_lib.param_count(cfg) if cfg.num_experts else (
+        (3 if cfg.mlp == "swiglu" else 2) * d * ff)
     embeds = v * d * (1 if cfg.tie_embeddings else 2)
     block = rwkv_lib.param_count(cfg) if cfg.block_pattern == (RWKV,) else attn + mlp
     return embeds + norm + cfg.num_layers * (2 * norm + block)
@@ -155,7 +161,17 @@ def _rwkv_block(cfg, p, x, cache):
     return x + y2
 
 
+def _ffn(cfg, p, x):
+    """The block's feed-forward: (y, aux loss), the MoE layer's sort path
+    where the block has one, else the MLP with aux 0."""
+    if "moe" in p:
+        return moe_lib.moe_apply(cfg, p["moe"], x, path="local")
+    return layers.apply_mlp(cfg, p["mlp"], x), 0.0
+
+
 def _run_blocks_full(cfg, params, x, positions, caches, *, window):
+    """The layers over a full sequence -> (x, the sum of their aux losses)."""
+    aux = 0.0
     for i, (kind, p) in enumerate(zip(_layer_kinds(cfg), params["layers"])):
         cache = caches[i] if caches is not None else None
         if kind == RWKV:
@@ -168,18 +184,20 @@ def _run_blocks_full(cfg, params, x, positions, caches, *, window):
         )
         x = x + y
         h2 = layers.apply_norm(cfg, p["norm2"], x)
-        x = x + layers.apply_mlp(cfg, p["mlp"], h2)
-    return x
+        y2, a = _ffn(cfg, p, h2)
+        x, aux = x + y2, aux + a
+    return x, aux
 
 
 def forward(cfg: ModelConfig, params, inputs: torch.Tensor, *, window: int = 0):
-    """Full-sequence forward -> (logits (B, S, vocab), aux loss 0.0)."""
+    """Full-sequence forward -> (logits (B, S, vocab), the layers' summed
+    aux loss: 0.0 without MoE layers)."""
     check_supported(cfg)
     positions = torch.arange(inputs.shape[1], device=inputs.device)
     x = _embed_in(params, inputs)
-    x = _run_blocks_full(cfg, params, x, positions, None, window=window)
+    x, aux = _run_blocks_full(cfg, params, x, positions, None, window=window)
     x = layers.apply_norm(cfg, params["final_norm"], x)
-    return _unembed(cfg, params, x), 0.0
+    return _unembed(cfg, params, x), aux
 
 
 def _layer_cache(cfg: ModelConfig, kind: str, n: int, batch: int, cache_len: int,
@@ -217,7 +235,7 @@ def prefill(cfg: ModelConfig, params, inputs: torch.Tensor, cache, *, window: in
     s = inputs.shape[1]
     positions = torch.arange(s, device=inputs.device)
     x = _embed_in(params, inputs)
-    x = _run_blocks_full(cfg, params, x, positions, _layer_caches(cfg, cache), window=window)
+    x, _ = _run_blocks_full(cfg, params, x, positions, _layer_caches(cfg, cache), window=window)
     cache["t"] = torch.full((inputs.shape[0],), s, dtype=torch.int32, device=inputs.device)
     x = layers.apply_norm(cfg, params["final_norm"], x[:, -1:, :])
     return _unembed(cfg, params, x)[:, 0], cache
@@ -236,7 +254,7 @@ def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *, window
         y, _ = attn_lib.attention_decode(cfg, p["attn"], h, t, c["attn"], window=window)
         x = x + y
         h2 = layers.apply_norm(cfg, p["norm2"], x)
-        x = x + layers.apply_mlp(cfg, p["mlp"], h2)
+        x = x + _ffn(cfg, p, h2)[0]
     cache["t"] = t + 1
     x = layers.apply_norm(cfg, params["final_norm"], x)
     return _unembed(cfg, params, x)[:, 0], cache

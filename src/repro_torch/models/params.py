@@ -51,15 +51,17 @@ def params_from_jax(
     JAX stacks each block kind of the repeating pattern along axis 0
     (``blocks/p{i}_{kind}``, one entry per repetition); the port lists the
     blocks in the order the model runs them.  ``dtype`` None keeps each
-    leaf's own; the RWKV leaves the JAX package keeps in f32 stay f32.
-    Raises ``NotImplementedError`` for families not ported.
+    leaf's own; the leaves the JAX package keeps in f32 (RWKV's ``mu``,
+    ``cm_mu``, ``w0``, ``u`` and the MoE router) stay f32.  Raises
+    ``NotImplementedError`` for families not ported.
     """
-    # model and rwkv import this module
+    # model, moe and rwkv import this module
+    from repro_torch.models import moe, rwkv
     from repro_torch.models.model import check_supported
-    from repro_torch.models.rwkv import F32_LEAVES
 
     check_supported(cfg)
-    to_t = lambda a, name="": _leaf(a, None if name in F32_LEAVES else dtype, device)
+    f32 = rwkv.F32_LEAVES + moe.F32_LEAVES
+    to_t = lambda a, name="": _leaf(a, None if name in f32 else dtype, device)
     layers = []
     for r in range(cfg.num_layers // len(cfg.block_pattern)):
         for i, kind in enumerate(cfg.block_pattern):

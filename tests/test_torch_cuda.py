@@ -11,17 +11,22 @@ Tolerances are those of ``tests/test_kernels.py``: 2e-5 in f32 (the same
 f32 arithmetic summed in another order) and 2e-2 in bf16 for attention;
 1e-4 and 5e-2 for the RWKV-6 scan, whose chunked form sums decays as
 log-space prefixes where the plain version multiplies them token by token.
+The MoE layer (PyTorch ops and cuBLAS, no kernel of its own) is held to its
+CPU run at 1e-5 in f32 and 2e-2 in bf16, as ``tests/test_torch_moe.py``
+holds it to the JAX package.
 """
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.configs.registry import ModelConfig
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rwkv6_scan as rk
-from repro_torch.models import model
+from repro_torch.models import model, moe
 from repro_torch.serving import ContinuousBatcher, Engine, EngineConfig, Request
 
 pytestmark = pytest.mark.cuda
@@ -392,7 +397,7 @@ def _to(tree, device):
     return tree.to(device)
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "rwkv6-1.6b", "phi3.5-moe-42b-a6.6b"])
 def test_engine_on_the_card_matches_cpu(cuda, arch):
     """In f32 the engine's greedy tokens on the card (CUDA kernels) equal
     those on the CPU (plain versions) for the same weights."""
@@ -417,3 +422,56 @@ def test_engine_on_the_card_matches_cpu(cuda, arch):
         bat.run_until_idle()
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# The MoE layer on the card.
+# ---------------------------------------------------------------------------
+MOE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+MOE_CASES = [
+    # experts, top-k, d, expert ff, tokens (B, S), capacity (None: from the shapes)
+    (4, 1, 32, 64, (2, 16), None),     # tests/test_moe.py's routes
+    (4, 2, 32, 64, (2, 16), None),
+    (8, 2, 32, 64, (2, 16), None),
+    (3, 2, 32, 64, (2, 16), None),
+    (4, 2, 32, 64, (1, 32), 8),        # capacity 8 for 64 assignments: drops
+    (16, 2, 256, 512, (1, 64), None),  # phi's routing, narrow: a batch-1 prefill
+    (16, 2, 256, 512, (8, 1), None),   # and an 8-slot decode step
+]
+
+
+def _moe_layer(case, dtype, device):
+    e, k, d, ff, shape, _ = case
+    cfg = ModelConfig(name="moe-card", family="moe", num_layers=1, d_model=d, num_heads=4,
+                      num_kv_heads=4, d_ff=ff, expert_d_ff=ff, vocab_size=64, num_experts=e,
+                      num_experts_per_tok=k)
+    p = moe.init_moe(torch.Generator().manual_seed(e + k), cfg, DTYPES[dtype], "cpu")
+    [x] = _randn(d + shape[1], (*shape, d), dtype=DTYPES[dtype], device="cpu")
+    return cfg, p, x, {n: t.to(device) for n, t in p.items()}, x.to(device)
+
+
+@pytest.mark.parametrize("case", MOE_CASES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_moe_sort_local_on_the_card_matches_cpu(cuda, case, dtype):
+    cfg, p, x, p_card, x_card = _moe_layer(case, dtype, cuda)
+    y, aux = moe.moe_sort_local(cfg, p, x, capacity=case[-1])
+    y_card, aux_card = moe.moe_sort_local(cfg, p_card, x_card, capacity=case[-1])
+    assert y_card.dtype == x.dtype and y_card.shape == x.shape
+    assert _err(y_card.cpu(), y) < MOE_TOL[dtype]
+    assert abs(float(aux_card) - float(aux)) < 1e-6
+
+
+@pytest.mark.parametrize("case", [MOE_CASES[4], MOE_CASES[5], MOE_CASES[6]])
+def test_moe_forward_does_not_wait_on_the_card(cuda, case):
+    """No step of the sort path syncs with the host: under the sync debug
+    mode "error" any op that waits on the card raises."""
+    cfg, _, _, p_card, x_card = _moe_layer(case, "bfloat16", cuda)
+    moe.moe_sort_local(cfg, p_card, x_card, capacity=case[-1])      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = moe.moe_sort_local(cfg, p_card, x_card, capacity=case[-1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(aux))
+
