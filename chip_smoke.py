@@ -7,14 +7,20 @@ Phases, each raising on a failed check (the script then exits non-zero and
 never prints its last line):
 
 1. build the three hand-written CUDA kernel libraries from
-   ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, in parallel, and
-   count the tensor-core instructions (``HMMA``) in each library's SASS
+   ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, in parallel; print
+   each kernel instantiation's registers and spill bytes (``ptxas -v``),
+   the attention libraries' hd-256 ones among them, and count the
+   tensor-core instructions (``HMMA``) in each library's SASS
    (``cuobjdump -sass``); the bf16 flash kernel and the bf16 RWKV-6
    prefill must have some;
 2. hold each kernel against its plain PyTorch version on the card, in f32
    and bf16: the attention kernels at the shapes of ``tests/test_kernels.py``,
-   at the main path's shapes and at phi3.5-moe's and llama3-8b's GQA shapes
-   (32 q heads over 8 kv heads, hd 128); the RWKV-6 scan at ``RWKV_CASES``
+   at the main path's shapes, at phi3.5-moe's and llama3-8b's GQA shapes
+   (32 q heads over 8 kv heads, hd 128) and at recurrentgemma-9b's (16 q
+   heads over 1 kv head, hd 256: flash at S = 512 and at S = 2112 under its
+   2048-token window, decode over the 8-slot, 2048-slot ring with the main
+   path's prefix masks and with a wrapped ring whose window excludes the
+   oldest slots); the RWKV-6 scan at ``RWKV_CASES``
    (with and without a state, ragged T), under strong
    decay (also in bf16 at T = 100), at T = 1 with a state, at T = 2048, with
    the state updated in place at T = 45 and T = 1, and at rwkv6-1.6b's
@@ -24,7 +30,8 @@ never prints its last line):
    Time kernel, plain version, one PyTorch call for the same function where
    there is one (SDPA, a yardstick the port never calls) and the card's
    bound, at the main path's shapes (and the attention kernels also at
-   phi3.5-moe's and llama3-8b's), and print them on one ``{"kernels": ...}``
+   phi3.5-moe's, llama3-8b's and recurrentgemma-9b's, under those names in
+   each attention row), and print them on one ``{"kernels": ...}``
    line; for the scan also the device time of each of its kernels, and a
    copy of the decode state as the floor of its decode step;
 3. serve qwen1.5-0.5b at full width and depth in bf16 through
@@ -50,6 +57,14 @@ never prints its last line):
    ranges, and the attention kernels' share); then its f32 check at full
    width and 2 layers, which also holds the experts chosen on the card to
    those chosen on the CPU;
+3d. the same for recurrentgemma-9b at full width and all 38 layers in bf16
+   (same traffic; 26 RG-LRU blocks, whose log-depth scan is PyTorch ops, and
+   12 local-attention blocks, every one of whose calls goes through the two
+   attention kernels at hd 256, 16 q heads over 1 kv head); profile 8 decode
+   steps and one 512-token prefill (the attention kernels' share); then its
+   f32 check at full width and 5 layers, one (RG-LRU, RG-LRU, local
+   attention) pattern and the (RG-LRU, RG-LRU) tail, on a 2112-token prompt
+   that wraps the 2048-slot ring in prefill and under the window;
 4. print the device line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -60,6 +75,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -71,7 +87,7 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.registry import RWKV  # noqa: E402
+from repro_torch.configs.registry import ATTN, LOCAL_ATTN, RWKV  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -132,6 +148,13 @@ MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 MOE_LAYERS, MOE_F32_LAYERS, MOE_F32_PROMPT = 16, 2, 64
 MOE_DEPTH_CUT = ("16 of 32 layers at full width: 32 layers are 83.7 GB of bf16 weights, "
                  "more than one 80 GB card holds")
+RG_ARCH = "recurrentgemma-9b"
+# its f32 check: one (RG-LRU, RG-LRU, local attention) pattern and the tail,
+# on a prompt longer than the 2048-token window and ring
+RG_F32_LAYERS, RG_F32_PROMPT = 5, 2112
+# a decode mask over a ring that has wrapped, under a window shorter than
+# the ring (positions written per sequence, ring slots, window)
+RING_POSITIONS, RING_WINDOW = [2100, 4095, 3000, 2047, 100, 5000, 2048, 10], 1536
 KERNELS = {"flash_attention": fa, "decode_attention": da, "rwkv6_scan": rk}
 N_REQUESTS, SLOTS, CACHE_LEN, NEW_TOKENS = 16, 8, 2048, 32
 PROMPT_MIN, PROMPT_MAX = 64, 512
@@ -154,6 +177,8 @@ PROFILED = {
     RWKV_ARCH: {"prefill": ("rwkv6_scan", ("rwkv6::",)), "decode": ("rwkv6_scan", ("rwkv6::",))},
     MOE_ARCH: {"prefill": ("flash_attention", ("fa_mma_kernel", "fa_kernel")),
                "decode": ("decode_attention", ("da_split_kernel", "da_combine_kernel"))},
+    RG_ARCH: {"prefill": ("flash_attention", ("fa_mma_wide_kernel", "fa_kernel")),
+              "decode": ("decode_attention", ("da_split_kernel", "da_combine_kernel"))},
 }
 # the MoE layer's parts, each run inside a profiler range of this name:
 # the whole layer, its routing (router product, top-k, softmax, aux) and
@@ -225,15 +250,57 @@ def hmma_count(path) -> int:
     return sum("HMMA" in line for line in sass.splitlines())
 
 
+def ptxas_report(log: str):
+    """{mangled kernel: (registers, spill store bytes, spill load bytes)}
+    from ``ptxas -v``'s lines: "Compiling entry function '<k>'", then
+    "Function properties for <k>" with its spill bytes, then "Used N
+    registers"."""
+    out, name, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), *spill)
+            name = None
+    return out
+
+
+def kernel_names(mangled):
+    """{mangled: "name<template args>"} by ``c++filt`` (the mangled name where
+    it is missing), without the return type, namespaces and parameters."""
+    filt = subprocess.run(["c++filt"], input="\n".join(mangled), capture_output=True, text=True,
+                          timeout=60)
+    lines = filt.stdout.splitlines() if filt.returncode == 0 else []
+    if len(lines) != len(mangled):
+        return {n: n for n in mangled}
+    short = lambda d: d.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+    return {n: short(d) for n, d in zip(mangled, lines)}
+
+
 def phase_build() -> str:
     t0 = time.perf_counter()
     paths = _build.build_all()
     secs = time.perf_counter() - t0
     print(f"[build] {secs:.1f} s: " + ", ".join(f"{n} -> {p.name}" for n, p in paths.items()))
     for name in paths:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+        report = ptxas_report(_build.build_log(name))
+        readable = kernel_names(list(report))
+        for k, (regs, st, ld) in report.items():
+            print(f"[build] {name}: {readable[k]}: {regs} registers, "
+                  f"{st} bytes spill stores, {ld} bytes spill loads")
+        wide = {readable[k]: v for k, v in report.items() if "Li256E" in k}
+        if name in ("flash_attention", "decode_attention"):
+            if not wide:
+                raise AssertionError(f"the {name} library has no hd-256 instantiation")
+            print(f"[build] {name} hd 256: " + json.dumps(
+                {k: {"registers": r, "spill_store_bytes": st, "spill_load_bytes": ld}
+                 for k, (r, st, ld) in wide.items()}))
     for name in paths:
         n = hmma_count(paths[name])
         print(f"[build] {name}: {n} HMMA instructions in its SASS")
@@ -307,6 +374,13 @@ def check_attention_edges(gen, dtype) -> int:
     exp = ref.mha_reference(q, k, v, causal=True, window=8, q_offset=50)
     check(f"flash_attention window past Sk {dtype}", max_err(out[:, :seen], exp[:, :seen]),
           TOL[dtype])
+    # recurrentgemma-9b's local attention (hd 256, 16 q heads over 1 kv
+    # head): a prompt longer than its 2048-token window, so the window bites
+    check_flash(gen, 1, RG_F32_PROMPT, RG_F32_PROMPT, 16, 1, 256, True, 2048, dtype)
+    # and its decode over a 2048-slot ring that has wrapped, under a window
+    # that excludes the oldest slots
+    check_decode(gen, SLOTS, CACHE_LEN, 16, 1, 256, dtype,
+                 ring_valid(RING_POSITIONS, CACHE_LEN, RING_WINDOW, dev))
     # decode: whole 64-slot tiles and whole splits empty in the middle of a
     # 2048-slot cache, a sequence valid only at its last slot, one with none
     valid = torch.zeros((4, 2048), dtype=torch.bool, device=dev)
@@ -322,7 +396,18 @@ def check_attention_edges(gen, dtype) -> int:
         raise AssertionError("decode_attention: a sequence with no valid slot is not 0")
     check("decode_attention single valid slot in the last split",
           max_err(out[2], v[2, -1].repeat_interleave(4, dim=0)), TOL[dtype])
-    return 6
+    return 8
+
+
+def ring_valid(positions, ring, window, device):
+    """The decode mask of a ring of ``ring`` slots after each sequence wrote
+    positions 0..t (slot = pos % ring, the latest write wins) under a window
+    of ``window`` positions, as ``attention.attention_decode`` builds it."""
+    t = torch.tensor(positions, device=device)[:, None]
+    slot = torch.arange(ring, device=device)[None, :]
+    sp = slot + ring * torch.div(t - slot, ring, rounding_mode="floor")
+    sp = torch.where(sp >= 0, sp, torch.full_like(sp, -1))
+    return (sp >= 0) & (sp <= t) & (sp > t - window)
 
 
 def timings(kernel, plain, library, flops, nbytes, flush):
@@ -417,10 +502,15 @@ def phase_kernels(seed, prompt_lengths):
     valid = prefix_valid(lengths, CACHE_LEN, dev)
     # flash (b, s, nq, nkv, hd) and decode (b, s, nq, nkv, hd, valid) at the
     # main path's shapes (qwen1.5-0.5b), phi3.5-moe's (GQA 32 q heads over 8
-    # kv heads, hd 128, the same traffic) and llama3-8b's (a random mask)
+    # kv heads, hd 128, the same traffic), llama3-8b's (a random mask) and
+    # recurrentgemma-9b's (MQA 16 q heads over 1 kv head, hd 256, the same
+    # traffic: its 2048-token window does not bite at S = 512, and its ring
+    # of 2048 slots is the main path's cache)
     shapes = {"main": ((1, PROMPT_MAX, 16, 16, 64), (SLOTS, CACHE_LEN, 16, 16, 64, valid)),
               MOE_ARCH: ((1, PROMPT_MAX, 32, 8, 128), (SLOTS, CACHE_LEN, 32, 8, 128, valid)),
-              "llama3_8b": ((1, 2048, 32, 8, 128), (8, 4096, 32, 8, 128, None))}
+              "llama3_8b": ((1, 2048, 32, 8, 128), (8, 4096, 32, 8, 128, None)),
+              "recurrentgemma_9b": ((1, PROMPT_MAX, 16, 1, 256),
+                                    (SLOTS, CACHE_LEN, 16, 1, 256, valid))}
     main = {}
     for dtype in (torch.float32, torch.bfloat16):
         main[dtype] = {}
@@ -428,7 +518,8 @@ def phase_kernels(seed, prompt_lengths):
             err_f, qkv = check_flash(gen, f[0], f[1], f[1], *f[2:], True, 0, dtype)
             err_d, qkvm = check_decode(gen, *d[:5], dtype, d[5])
             main[dtype][name] = (err_f, qkv, err_d, qkvm)
-        print(f"[kernels] main-path, {MOE_ARCH} and llama3-8b shapes {dtype}: max abs err "
+        print(f"[kernels] main-path, {MOE_ARCH}, llama3-8b and {RG_ARCH} shapes {dtype}: "
+              "max abs err "
               + json.dumps({name: {"flash": r[0], "decode": r[2]}
                             for name, r in main[dtype].items()}))
     rows = []
@@ -579,14 +670,14 @@ def launch_counts():
 
 def expected_launches(cfg, prefills, decode_steps):
     """What each kernel must have launched for ``prefills`` batch-1 prefills
-    and ``decode_steps`` decode steps: attention models run flash attention
-    in prefill and flash decode per step, RWKV-6 the scan in both."""
-    n = cfg.num_layers
-    if cfg.block_pattern == (RWKV,):
-        return {"flash_attention": 0, "decode_attention": 0,
-                "rwkv6_scan": n * (prefills + decode_steps)}
-    return {"flash_attention": n * prefills, "decode_attention": n * decode_steps,
-            "rwkv6_scan": 0}
+    and ``decode_steps`` decode steps: every attention layer (global or
+    local) runs flash attention in prefill and flash decode per step, every
+    RWKV-6 layer the scan in both; RG-LRU layers launch none of them."""
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k in (ATTN, LOCAL_ATTN) for k in kinds)
+    n_rwkv = kinds.count(RWKV)
+    return {"flash_attention": n_attn * prefills, "decode_attention": n_attn * decode_steps,
+            "rwkv6_scan": n_rwkv * (prefills + decode_steps)}
 
 
 def phase_slice(cfg, seed, prompts, gpu, f32):
@@ -662,7 +753,8 @@ def phase_slice(cfg, seed, prompts, gpu, f32):
         result["moe_sync_free"] = check_moe_sync_free(cfg, params["layers"][0]["moe"])
     print(f"[slice] {arch}: served {N_REQUESTS} requests with {1 + NEW_TOKENS} tokens each "
           f"over {engine.steps} decode steps; kernel launches {json.dumps(launches)} = "
-          f"{cfg.num_layers} layers x ({N_REQUESTS} prefills, {engine.steps} decode steps)")
+          f"{json.dumps(expected_launches(cfg, 1, 1))} per (prefill, decode step) x "
+          f"({N_REQUESTS} prefills, {engine.steps} decode steps)")
     with moe_ranges() if moe else contextlib.nullcontext():
         prof = profile_decode(engine, prompts, PROFILED[arch]["decode"])
         prof["device_busy_share_of_median_step"] = (
@@ -794,6 +886,17 @@ def f32_check_moe(seed, prompt):
     is checked before the logits."""
     cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_F32_LAYERS)
     return f32_check(cfg, seed, np.resize(prompt, MOE_F32_PROMPT))
+
+
+def f32_check_rg(seed, prompt):
+    """recurrentgemma-9b's f32 check at full width and RG_F32_LAYERS layers
+    (the pattern once and the tail) on a RG_F32_PROMPT-token prompt: longer
+    than the 2048-token window, so flash attention's window masks keys and
+    the prefill wraps the 2048-slot ring; the decode steps then write over
+    its oldest slots.  Tolerance LOGIT_TOL, as for attention: the RG-LRU's
+    log-depth scan is the same PyTorch ops on both sides."""
+    cfg = dataclasses.replace(get_config(RG_ARCH), num_layers=RG_F32_LAYERS)
+    return f32_check(cfg, seed, np.resize(prompt, RG_F32_PROMPT))
 
 
 def record_routes(into):
@@ -974,6 +1077,8 @@ def main() -> None:
     rwkv_prompts = [rng.integers(0, rwkv_vocab, size=len(p)).astype(np.int32) for p in prompts]
     moe_vocab = get_config(MOE_ARCH).vocab_size
     moe_prompts = [rng.integers(0, moe_vocab, size=len(p)).astype(np.int32) for p in prompts]
+    rg_vocab = get_config(RG_ARCH).vocab_size
+    rg_prompts = [rng.integers(0, rg_vocab, size=len(p)).astype(np.int32) for p in prompts]
     rows = phase_kernels(args.seed, [len(p) for p in prompts])
     rows.append(phase_rwkv_kernel(args.seed))
     qwen = get_config(ARCH)
@@ -982,7 +1087,8 @@ def main() -> None:
     slices = [phase_slice(qwen, args.seed, prompts, gpu,
                           lambda seed, prompt: f32_check(qwen, seed, prompt)),
               phase_slice(get_config(RWKV_ARCH), args.seed, rwkv_prompts, gpu, f32_check_rwkv),
-              phase_slice(moe, args.seed, moe_prompts, gpu, f32_check_moe)]
+              phase_slice(moe, args.seed, moe_prompts, gpu, f32_check_moe),
+              phase_slice(get_config(RG_ARCH), args.seed, rg_prompts, gpu, f32_check_rg)]
     for row in rows:
         row["launches"] = sum(res["launches"][row["name"]] for res in slices)
     for res in slices:

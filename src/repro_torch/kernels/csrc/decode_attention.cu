@@ -27,15 +27,26 @@
 //    in the cache work the same as prefix masks;
 //  - loads in flight: each warp streams its non-empty sub-tiles' K and V
 //    rows with 16-byte cp.async through its own ring of 3 stages (2 at
-//    hd 128 and in f32), so only __syncwarp orders a warp's work and up to
-//    2 sub-tiles per warp are in flight while one computes; no load waits
-//    on a probability;
+//    hd 128 and in f32, 1 at hd 256), so only __syncwarp orders a warp's
+//    work and up to 2 sub-tiles per warp are in flight while one computes;
+//    no load waits on a probability;
 //  - each K/V row is read once and serves the whole GQA group of nq/nkv
 //    query heads.  In bf16 a group of <= 16 heads is the 16 rows of
 //    mma.sync m16n8k16: q K^T and P V of a 16-slot sub-tile are 2 * hd/16
 //    and hd/8 tensor-core products, with the online softmax in the
 //    accumulator registers; f32 (held to 2e-5) and larger groups score on
-//    the SIMT units, two half-warps per slot;
+//    the SIMT units, two half-warps per slot.  A SIMT warp holds at most
+//    MAX_PAIRS x 64 = 1024 outputs (heads x hd), so a larger group (f32 at
+//    recurrentgemma-9b's 16 heads of 256) is cut into chunks of heads, one
+//    CTA each, every chunk reading the K/V rows again;
+//  - hd 256 in bf16 (16 q heads over 1 kv head): the P V accumulators take
+//    hd/8 x 4 = 128 f32 registers a lane, so the q fragments are reloaded
+//    from shared memory at each k-step instead of held (64 registers).
+//    Each warp's ring has one stage: shared memory 89,344 bytes (K/V
+//    67,584, q 16,896, warp state), two CTAs per SM.  A warp's copy of its
+//    next sub-tile then waits for its compute, but at recurrentgemma-9b's
+//    decode (32 splits of 64 slots) every warp owns one sub-tile of a
+//    split, and the other CTA's warps keep loads in flight;
 //  - the warps' online-softmax states merge in shared memory at the end of
 //    the range.
 // What is left: the combine is a second launch whenever S is split; at
@@ -51,13 +62,17 @@ constexpr int NW = 4;             // warps per CTA
 constexpr int NT = 32 * NW;
 constexpr int SUB = 16;           // cache slots of a warp's sub-tile
 constexpr int TS = NW * SUB;      // slots of a CTA tile
-constexpr int MAX_PAIRS = 16;     // output pairs per lane: (nq/nkv) * hd <= 1024
+constexpr int MAX_PAIRS = 16;     // SIMT output pairs per lane: heads x hd <= 1024 a CTA
 constexpr unsigned FULL = 0xffffffffu;
 
 // ring stages per warp: 3 in bf16 (2 sub-tiles in flight while one
-// computes), 2 where 3 would cost CTAs per SM (hd 128, f32)
+// computes), 2 where 3 would cost CTAs per SM (hd 128, f32), 1 at hd 256,
+// where a stage of the 4 warps' K and V rows is 67,584 bytes in bf16 and
+// 133,120 in f32 (two would not fit in f32, nor two CTAs an SM in bf16)
 template <typename T, int HD>
-__host__ __device__ constexpr int stages() { return sizeof(T) == 2 && HD < 128 ? 3 : 2; }
+__host__ __device__ constexpr int stages() {
+  return HD >= 256 ? 1 : (sizeof(T) == 2 && HD < 128 ? 3 : 2);
+}
 
 // elements per 16-byte chunk, and a shared-memory row: hd and 16 bytes of pad
 template <typename T>
@@ -108,27 +123,33 @@ __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
 }
 
 // TC: scores and P V on the tensor cores (bf16, a group of <= 16 heads as
-// the 16 rows of mma.sync m16n8k16); else on the SIMT units.
+// the 16 rows of mma.sync m16n8k16); else on the SIMT units.  The CTA
+// serves `g` heads of its kv head's group of nq/nkv (a chunk of the group
+// on the SIMT path, the whole group on the tensor cores): grid (splits,
+// nkv x chunks, B).
 template <typename T, int HD, bool TC>
 __global__ void __launch_bounds__(NT) da_split_kernel(
     const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
     const uint8_t* __restrict__ valid, T* __restrict__ o, float* __restrict__ part_ml,
-    float* __restrict__ part_acc, int S, int nq, int nkv, int splits, int chunk,
+    float* __restrict__ part_acc, int S, int nq, int nkv, int g, int splits, int chunk,
     float scale_log2) {
   constexpr int EPC = epc<T>();
   constexpr int LD = ld<T, HD>();
   constexpr int CPR = HD / EPC;   // 16-byte chunks per row
-  constexpr int RPP = 32 / CPR;   // rows per pass of a warp's copies
-  static_assert(32 % CPR == 0 && SUB % RPP == 0, "whole passes");
+  constexpr int LPR = CPR < 32 ? CPR : 32;   // lanes copying one row
+  constexpr int CPL = CPR / LPR;  // chunks of a row per lane
+  constexpr int RPP = 32 / LPR;   // rows per pass of a warp's copies
+  static_assert(32 % LPR == 0 && CPR % LPR == 0 && SUB % RPP == 0, "whole passes");
   constexpr int NS = stages<T, HD>();
   constexpr int KS = HD / 16;     // tensor cores: k-steps of q K^T
   constexpr int DB = HD / 8;      // tensor cores: 8-dim blocks of the output
+  constexpr bool Q_IN_REGS = HD <= 128;   // tensor cores: q fragments held, else reloaded
   constexpr int HALF = HD / 2;    // dims each half-warp scores
   constexpr int QR = q_row<HD>();
   static_assert(HALF % EPC == 0, "a half row is whole chunks");
 
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int g = nq / nkv;
+  const int group = nq / nkv, chunks = TC ? 1 : group / g;   // the tensor cores take a group whole
+  const int split = blockIdx.x, kvh = blockIdx.y / chunks, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
@@ -147,7 +168,8 @@ __global__ void __launch_bounds__(NT) da_split_kernel(
   const T* kb = kc + (long)b * S * kv_stride + (long)kvh * HD;
   const T* vb = vc + (long)b * S * kv_stride + (long)kvh * HD;
   const uint8_t* vmask = valid + (long)b * S;
-  const long row0 = (long)b * nq + (long)kvh * g;             // the group's first q head
+  // the CTA's first q head
+  const long row0 = (long)b * nq + (long)kvh * group + (long)(blockIdx.y % chunks) * g;
 
   if constexpr (TC) {
     T* qt = reinterpret_cast<T*>(qs);
@@ -173,14 +195,17 @@ __global__ void __launch_bounds__(NT) da_split_kernel(
   // tensor cores: q fragments, and for heads gid and gid + 8 the running
   // max (log2 units), this lane's part of the sum and the output fragments
   const int gid = lane / 4, tig = lane % 4;
-  uint32_t qf[KS][4];
+  uint32_t qf[Q_IN_REGS ? KS : 1][4];
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
   float oacc[DB][4];
+  // this lane's ldmatrix address of the q rows; a k-step adds 16
+  const T* qp = reinterpret_cast<const T*>(qs) + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                (lane >> 4) * 8;
   if constexpr (TC) {
-    const T* p = reinterpret_cast<const T*>(qs) + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                 (lane >> 4) * 8;
+    if constexpr (Q_IN_REGS) {
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(qf[ks], p + ks * 16);
+      for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(qf[ks], qp + ks * 16);
+    }
 #pragma unroll
     for (int j = 0; j < DB; ++j) oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
   }
@@ -188,7 +213,7 @@ __global__ void __launch_bounds__(NT) da_split_kernel(
   const int n_sub = (end - start + TS - 1) / TS;   // sub-tiles of this warp
   T* wring = ring + (size_t)warp * NS * 2 * SUB * LD;
   const int r = lane % SUB, half = lane / SUB;     // scoring: slot r, half of hd
-  const int col = (lane % CPR) * EPC;              // copies: this lane's 16 bytes of a row
+  const int col = (lane % LPR) * EPC;              // copies: this lane's first 16 bytes of a row
   bool any = false;
 
   for (int g0 = 0; g0 < n_sub; g0 += 32) {
@@ -215,14 +240,18 @@ __global__ void __launch_bounds__(NT) da_split_kernel(
         const int base = start + (g0 + i) * TS + warp * SUB;
         T* dk = wring + (size_t)stage * 2 * SUB * LD;
         T* dv = dk + SUB * LD;
-        // each lane copies one 16-byte column of every RPP-th row
+        // each lane copies CPL 16-byte columns, LPR chunks apart, of every
+        // RPP-th row
 #pragma unroll
         for (int i = 0; i < SUB / RPP; ++i) {
-          const int rr = lane / CPR + i * RPP;
+          const int rr = lane / LPR + i * RPP;
           const bool ok = (bi >> rr) & 1u;
           const long off = ok ? (long)(base + rr) * kv_stride + col : 0;
-          cp_async16(dk + rr * LD + col, kb + off, ok);
-          cp_async16(dv + rr * LD + col, vb + off, ok);
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) {
+            cp_async16(dk + rr * LD + col + c * LPR * EPC, kb + off + c * LPR * EPC, ok);
+            cp_async16(dv + rr * LD + col + c * LPR * EPC, vb + off + c * LPR * EPC, ok);
+          }
         }
       }
       cp_async_commit();
@@ -248,11 +277,13 @@ __global__ void __launch_bounds__(NT) da_split_kernel(
         for (int j = 0; j < 2; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks) {
+          if constexpr (!Q_IN_REGS) ldmatrix_x4(qf[0], qp + ks * 16);
+          const uint32_t(&qa)[4] = qf[Q_IN_REGS ? ks : 0];
           uint32_t kf[4];
           ldmatrix_x4(kf, tk + ((lane & 7) + (lane >> 4) * 8) * LD + ks * 16 +
                               ((lane >> 3) & 1) * 8);
-          mma_bf16_16816(sc[0], qf[ks], kf[0], kf[1]);
-          mma_bf16_16816(sc[1], qf[ks], kf[2], kf[3]);
+          mma_bf16_16816(sc[0], qa, kf[0], kf[1]);
+          mma_bf16_16816(sc[1], qa, kf[2], kf[3]);
         }
         // online softmax of rows gid, gid + 8 over the quad that holds them
         float mx0 = m0, mx1 = m1;
@@ -476,14 +507,20 @@ template <typename T, int HD, bool TC>
 cudaError_t launch_split(const void* q, const void* k, const void* v, const void* valid,
                          void* o, float* part_ml, float* part_acc, int B, int S, int nq,
                          int nkv, int splits, int chunk, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, HD>(nq / nkv);
+  // heads per CTA: the whole group on the tensor cores (<= 16), else the
+  // largest divisor of the group whose outputs a warp holds (<= 1024)
+  const int group = nq / nkv;
+  int g = group;
+  if (!TC)
+    while (g * HD > 64 * MAX_PAIRS || group % g) --g;
+  const size_t smem = smem_bytes<T, HD>(g);
   cudaError_t err = cudaFuncSetAttribute(
       da_split_kernel<T, HD, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(splits, nkv, B);
+  dim3 grid(splits, nkv * (group / g), B);
   da_split_kernel<T, HD, TC><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(valid), static_cast<T*>(o), part_ml, part_acc, S, nq, nkv,
+      static_cast<const uint8_t*>(valid), static_cast<T*>(o), part_ml, part_acc, S, nq, nkv, g,
       splits, chunk, scale * LOG2E);
   return cudaGetLastError();
 }
@@ -523,6 +560,7 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, const 
     case 32: return launch<T, 32>(q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, stream);
     case 64: return launch<T, 64>(q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, stream);
     case 128: return launch<T, 128>(q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -531,8 +569,7 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, const 
 
 // Returns a cudaError_t: the first launch's or the combine's, or the error
 // of setting the device or the shared-memory limit.  Shapes, dtypes,
-// contiguity, alignment, the group-size limit (nq/nkv * hd <= 1024) and the
-// split plan (splits ranges of `chunk` slots, the last one to S; scratch
+// contiguity, alignment and the split plan (splits ranges of `chunk` slots, the last one to S; scratch
 // `part` of B*nq*splits*(hd+2) floats when splits > 1) come from the
 // Python wrapper.
 extern "C" int da_forward(const void* q, const void* k, const void* v, const void* valid,

@@ -41,10 +41,32 @@
 // this card; wgmma fed by TMA with warp-specialised producers is the next
 // step (ROADMAP Queue 2).
 //
+// bf16 at hd 256 (tc::fa_mma_wide_kernel, recurrentgemma-9b's 16 q heads
+// over 1 kv head): the layout above does not fit.  Per thread it would hold
+// the Q fragments (HD/16 x 4 = 64 registers), the O accumulators (HD/8 x 4
+// = 128 f32) and S of two tiles (2 x 32): more than the 255 registers a
+// thread may have, so it would spill.  The wide kernel keeps the CTA shape
+// (4 warps x 16 rows, 64-key tiles, the same masks and online softmax) and
+// changes three things:
+//  - Q stays in its own shared-memory tile for the whole KV loop and each
+//    k-step reloads its fragment by ldmatrix, so no register holds Q;
+//  - S of the next tile is not computed ahead (one S tile, 32 registers):
+//    128 + 32 registers of accumulators and S and the fragments in flight
+//    fit the cap of 255 at one CTA per SM (__launch_bounds__(128, 1));
+//    ptxas keeps it at 245 registers with no spill;
+//  - K and V pass through a 2-stage ring (tile n+1 in flight while n
+//    computes; two barriers per tile, the second before the stage is
+//    refilled).  Shared memory: Q 64 x 264 + 2 stages x (K + V) 64 x 264
+//    bf16 = 168,960 bytes, one CTA per SM.  recurrentgemma-9b's prefills
+//    (16 heads x S/64 row blocks, at most 128 CTAs at S = 512) fit in one
+//    wave of 132 SMs, so one CTA per SM costs no wave there.
+//
 // f32 (fa_kernel<float>): the SIMT body of the first port, unchanged.  The
 // f32 tolerance (2e-5) rules out bf16 or TF32 products, so f32 stays on the
 // 67 TFLOP/s SIMT units; one CTA per (batch, q head, 64 rows), 4 threads a
-// row, f32 tiles in shared memory, probabilities exchanged by shuffles.
+// row, f32 tiles in shared memory, probabilities exchanged by shuffles.  At
+// hd 256 its tiles take 4 x (64 x 257 + 64 x 257 + 64 x 256) = 197,120 bytes
+// of shared memory (opted in above 48 KB), one CTA per SM.
 #include <type_traits>
 
 #include "common.cuh"
@@ -248,6 +270,99 @@ __device__ __forceinline__ void qk(float (&s)[BN / 8][4], const uint32_t (&qf)[H
   }
 }
 
+// Masked logits of one S tile to -inf: keys at or past Sk, past the causal
+// horizon, or at or before the window's edge.  Rows gid (qpos0) and gid + 8
+// (qpos1) of the warp's 16.
+__device__ __forceinline__ void mask_tile(float (&s)[BN / 8][4], int n0, int Sk, int causal,
+                                          int window, int qpos0, int qpos1, int tig) {
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kpos = n0 + j * 8 + 2 * tig + (e & 1);
+      const int qpos = e < 2 ? qpos0 : qpos1;
+      const bool ok = kpos < Sk && (!causal || kpos <= qpos) &&
+                      (window <= 0 || kpos > qpos - window);
+      if (!ok) s[j][e] = -INFINITY;
+    }
+  }
+}
+
+// The online softmax of one S tile over the quad that holds each row (the
+// scale goes into the exponent's FMA; m starts finite (-1e30), so a row
+// masked so far keeps exp2(-inf) = 0 and alpha = 1), then O += P V: P from
+// the S registers as bf16 A fragments, V by ldmatrix.trans, x4 matrices
+// (keys 0-7 | 8-15) x (dims 0-7 | 8-15).
+template <int HD>
+__device__ __forceinline__ void softmax_pv(float (&s)[BN / 8][4], float (&acc)[HD / 8][4],
+                                           float& m0, float& m1, float& l0, float& l1,
+                                           const bf16* Vt, float scale_log2, int frag_row,
+                                           int frag_col) {
+  constexpr int NB = BN / 8;
+  constexpr int DB = HD / 8;
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+    mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+  }
+  mx0 = fmaxf(m0, group_max(mx0, 4) * scale_log2);
+  mx1 = fmaxf(m1, group_max(mx1, 4) * scale_log2);
+  const float alpha0 = fast_exp2(m0 - mx0), alpha1 = fast_exp2(m1 - mx1);
+  m0 = mx0;
+  m1 = mx1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    s[j][0] = fast_exp2(fmaf(s[j][0], scale_log2, -mx0));
+    s[j][1] = fast_exp2(fmaf(s[j][1], scale_log2, -mx0));
+    s[j][2] = fast_exp2(fmaf(s[j][2], scale_log2, -mx1));
+    s[j][3] = fast_exp2(fmaf(s[j][3], scale_log2, -mx1));
+    ps0 += s[j][0] + s[j][1];
+    ps1 += s[j][2] + s[j][3];
+  }
+  l0 = l0 * alpha0 + ps0;
+  l1 = l1 * alpha1 + ps1;
+#pragma unroll
+  for (int j = 0; j < DB; ++j) {
+    acc[j][0] *= alpha0; acc[j][1] *= alpha0;
+    acc[j][2] *= alpha1; acc[j][3] *= alpha1;
+  }
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    const uint32_t pa[4] = {
+        pack_bf16x2(s[2 * kk][0], s[2 * kk][1]), pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
+        pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+        pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+    for (int d2 = 0; d2 < DB / 2; ++d2) {
+      uint32_t vf[4];
+      ldmatrix_x4_trans(vf, Vt + (kk * 16 + frag_row) * ld<HD>() + d2 * 16 + frag_col);
+      mma_bf16_16816(acc[2 * d2], pa, vf[0], vf[1]);
+      mma_bf16_16816(acc[2 * d2 + 1], pa, vf[2], vf[3]);
+    }
+  }
+}
+
+// The normalised output rows gid and gid + 8 of the warp's 16 as bf16.
+template <int HD>
+__device__ __forceinline__ void store_rows(bf16* ob, const float (&acc)[HD / 8][4], float l0,
+                                           float l1, int row0, int Sq, long q_stride) {
+  l0 = group_sum(l0, 4);
+  l1 = group_sum(l1, 4);
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  const int row1 = row0 + 8;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    if (row0 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * q_stride + j * 8) =
+          __floats2bfloat162_rn(acc[j][0] * inv0, acc[j][1] * inv0);
+    if (row1 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row1 * q_stride + j * 8) =
+          __floats2bfloat162_rn(acc[j][2] * inv1, acc[j][3] * inv1);
+  }
+}
+
 template <int HD>
 __global__ void __launch_bounds__(NT, min_ctas<HD>()) fa_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
@@ -341,109 +456,148 @@ __global__ void __launch_bounds__(NT, min_ctas<HD>()) fa_mma_kernel(
     // evaluates the mask; a masked logit becomes -inf, so exp2 makes it 0.
     const bool masked = n0 + BN > Sk || (causal && n0 + BN - 1 > qpos_first) ||
                         (window > 0 && n0 <= qpos_last - window);
-    if (masked) {
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kpos = n0 + j * 8 + 2 * tig + (e & 1);
-          const int qpos = e < 2 ? qpos0 : qpos1;
-          const bool ok = kpos < Sk && (!causal || kpos <= qpos) &&
-                          (window <= 0 || kpos > qpos - window);
-          if (!ok) s[j][e] = -INFINITY;
-        }
-      }
-    }
+    if (masked) mask_tile(s, n0, Sk, causal, window, qpos0, qpos1, tig);
 
     // S of tile it+1 (a stale stage after the last tile, never used): in
     // one basic block with the softmax below, so that the two interleave
     float sn[NB][4];
     qk<HD>(sn, qf, Ks + ((it + 1) % NS) * BN * LD, lane);
 
-
-    // online softmax over the quad that holds each row; the scale goes into
-    // the exponent's FMA.  m starts finite (-1e30), so a row masked so far
-    // keeps exp2(-inf) = 0 and alpha = 1.
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    mx0 = fmaxf(m0, group_max(mx0, 4) * scale_log2);
-    mx1 = fmaxf(m1, group_max(mx1, 4) * scale_log2);
-    const float alpha0 = fast_exp2(m0 - mx0), alpha1 = fast_exp2(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      s[j][0] = fast_exp2(fmaf(s[j][0], scale_log2, -mx0));
-      s[j][1] = fast_exp2(fmaf(s[j][1], scale_log2, -mx0));
-      s[j][2] = fast_exp2(fmaf(s[j][2], scale_log2, -mx1));
-      s[j][3] = fast_exp2(fmaf(s[j][3], scale_log2, -mx1));
-      ps0 += s[j][0] + s[j][1];
-      ps1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * alpha0 + ps0;
-    l1 = l1 * alpha1 + ps1;
-#pragma unroll
-    for (int j = 0; j < DB; ++j) {
-      acc[j][0] *= alpha0; acc[j][1] *= alpha0;
-      acc[j][2] *= alpha1; acc[j][3] *= alpha1;
-    }
-
-    // O += P V: P from the S registers as bf16 A fragments; V by
-    // ldmatrix.trans, x4 matrices (keys 0-7 | 8-15) x (dims 0-7 | 8-15)
-    const bf16* Vt = Vs + (it % NS) * BN * LD;
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16x2(s[2 * kk][0], s[2 * kk][1]), pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int d2 = 0; d2 < DB / 2; ++d2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, Vt + (kk * 16 + frag_row) * LD + d2 * 16 + frag_col);
-        mma_bf16_16816(acc[2 * d2], pa, vf[0], vf[1]);
-        mma_bf16_16816(acc[2 * d2 + 1], pa, vf[2], vf[3]);
-      }
-    }
+    softmax_pv<HD>(s, acc, m0, m1, l0, l1, Vs + (it % NS) * BN * LD, scale_log2, frag_row,
+                   frag_col);
 #pragma unroll
     for (int j = 0; j < NB; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = sn[j][e];
   }
   cp_async_wait<0>();             // no copy outlives the CTA, even an empty group
-
-  l0 = group_sum(l0, 4);
-  l1 = group_sum(l1, 4);
-  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-  const int row0 = q0 + warp * 16 + gid, row1 = row0 + 8;
-  bf16* ob = o + (long)b * Sq * q_stride + (long)h * HD + 2 * tig;
-#pragma unroll
-  for (int j = 0; j < DB; ++j) {
-    if (row0 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * q_stride + j * 8) =
-          __floats2bfloat162_rn(acc[j][0] * inv0, acc[j][1] * inv0);
-    if (row1 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row1 * q_stride + j * 8) =
-          __floats2bfloat162_rn(acc[j][2] * inv1, acc[j][3] * inv1);
-  }
+  store_rows<HD>(o + (long)b * Sq * q_stride + (long)h * HD + 2 * tig, acc, l0, l1,
+                 q0 + warp * 16 + gid, Sq, q_stride);
 }
+
+// ---------------------------------------------------------------------------
+// bf16 at hd 256: Q in shared memory, one S tile, a 2-stage K/V ring (see
+// the note at the top).
+// ---------------------------------------------------------------------------
+constexpr int NS_WIDE = 2;
+
+template <int HD>
+constexpr size_t smem_bytes_wide() { return sizeof(bf16) * (BM + 2 * NS_WIDE * BN) * ld<HD>(); }
+
+template <int HD>
+__global__ void __launch_bounds__(NT, 1) fa_mma_wide_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, int Sq, int Sk, int nq, int nkv, int causal, int window,
+    int q_offset, float scale_log2) {
+  constexpr int LD = ld<HD>();
+  constexpr int KS = HD / 16;
+  constexpr int NB = BN / 8;
+  constexpr int DB = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);    // BM x LD, for the whole loop
+  bf16* Ks = Qs + BM * LD;                          // NS_WIDE x BN x LD
+  bf16* Vs = Ks + NS_WIDE * BN * LD;                // NS_WIDE x BN x LD
+
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BM;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kvh = h / (nq / nkv);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+
+  const long q_stride = (long)nq * HD;
+  const long kv_stride = (long)nkv * HD;
+  const bf16* qb = q + (long)b * Sq * q_stride + (long)h * HD;
+  const bf16* kb = k + (long)b * Sk * kv_stride + (long)kvh * HD;
+  const bf16* vb = v + (long)b * Sk * kv_stride + (long)kvh * HD;
+
+  const int qpos_first = q_offset + q0;
+  const int qpos_last = q_offset + min(q0 + BM, Sq) - 1;
+  const int k_hi = causal ? min(Sk, qpos_last + 1) : Sk;
+  const int k_lo = window > 0 ? max(0, qpos_first - window + 1) / BN * BN : 0;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + BN - 1) / BN : 0;
+
+  // Q with tile 0, then tile 1: one commit group each, empty or not, so
+  // that the wait counts stay fixed
+  load_tile<HD, BM>(Qs, qb, q_stride, q0, Sq, tid);
+#pragma unroll
+  for (int st = 0; st < NS_WIDE; ++st) {
+    if (st < n_tiles) {
+      load_tile<HD, BN>(Ks + st * BN * LD, kb, kv_stride, k_lo + st * BN, Sk, tid);
+      load_tile<HD, BN>(Vs + st * BN * LD, vb, kv_stride, k_lo + st * BN, Sk, tid);
+    }
+    cp_async_commit();
+  }
+
+  const int frag_row = (lane & 7) + ((lane >> 3) & 1) * 8, frag_col = (lane >> 4) * 8;
+  // this warp's 16 Q rows at its lane's ldmatrix address; a k-step adds 16
+  const bf16* qw = Qs + (warp * 16 + frag_row) * LD + frag_col;
+  const int qpos0 = qpos_first + warp * 16 + gid, qpos1 = qpos0 + 8;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  float acc[DB][4];
+#pragma unroll
+  for (int j = 0; j < DB; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int n0 = k_lo + it * BN;
+    const int st = it % NS_WIDE;
+    cp_async_wait<NS_WIDE - 1>();  // Q and tile it have landed; tile it+1 may not have
+    __syncthreads();
+    const bf16* Kt = Ks + st * BN * LD;
+    float s[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qf[4];
+      ldmatrix_x4(qf, qw + ks * 16);
+#pragma unroll
+      for (int j2 = 0; j2 < BN / 16; ++j2) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, Kt + (j2 * 16 + (lane & 7) + (lane >> 4) * 8) * LD + ks * 16 +
+                            ((lane >> 3) & 1) * 8);
+        mma_bf16_16816(s[2 * j2], qf, kf[0], kf[1]);
+        mma_bf16_16816(s[2 * j2 + 1], qf, kf[2], kf[3]);
+      }
+    }
+    const bool masked = n0 + BN > Sk || (causal && n0 + BN - 1 > qpos_first) ||
+                        (window > 0 && n0 <= qpos_last - window);
+    if (masked) mask_tile(s, n0, Sk, causal, window, qpos0, qpos1, tig);
+    softmax_pv<HD>(s, acc, m0, m1, l0, l1, Vs + st * BN * LD, scale_log2, frag_row, frag_col);
+    __syncthreads();              // every warp is done with stage st: refill it
+    if (it + NS_WIDE < n_tiles) {
+      load_tile<HD, BN>(Ks + st * BN * LD, kb, kv_stride, n0 + NS_WIDE * BN, Sk, tid);
+      load_tile<HD, BN>(Vs + st * BN * LD, vb, kv_stride, n0 + NS_WIDE * BN, Sk, tid);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<0>();             // no copy outlives the CTA, even an empty group
+  store_rows<HD>(o + (long)b * Sq * q_stride + (long)h * HD + 2 * tig, acc, l0, l1,
+                 q0 + warp * 16 + gid, Sq, q_stride);
+}
+
+using KernelFn = void (*)(const bf16*, const bf16*, const bf16*, bf16*, int, int, int, int,
+                         int, int, int, float);
 
 template <int HD>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int Sq, int Sk,
                    int nq, int nkv, int causal, int window, int q_offset, float scale,
                    cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  KernelFn kernel;
+  size_t smem;
+  if constexpr (HD > 128) {       // only the kernel each head size runs is compiled
+    kernel = fa_mma_wide_kernel<HD>;
+    smem = smem_bytes_wide<HD>();
+  } else {
+    kernel = fa_mma_kernel<HD>;
+    smem = smem_bytes<HD>();
+  }
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(nq, B, (Sq + BM - 1) / BM);
-  fa_mma_kernel<HD><<<grid, NT, smem, stream>>>(q, k, v, o, Sq, Sk, nq, nkv, causal, window,
-                                                q_offset, scale * LOG2E);
+  kernel<<<grid, NT, smem, stream>>>(q, k, v, o, Sq, Sk, nq, nkv, causal, window, q_offset,
+                                     scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -479,6 +633,7 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, void* 
     case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, nq, nkv, causal, window, q_offset, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, nq, nkv, causal, window, q_offset, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, nq, nkv, causal, window, q_offset, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, o, B, Sq, Sk, nq, nkv, causal, window, q_offset, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -4,7 +4,9 @@ The CUDA kernel replaces the TPU kernel ``repro/kernels/decode_attention.py``
 (see the note at the top of the source).  This wrapper checks its operands,
 allocates the output and the split partials, launches on the current
 stream and counts launches: one per call, whether the call runs one CUDA
-kernel or the split kernel and its combine.  It takes CUDA tensors only;
+kernel or the split kernel and its combine.  Any GQA group size is taken:
+the kernel cuts a group whose outputs one warp cannot hold (more than 1024
+heads x hd on the SIMT path) into chunks of heads, one CTA each.  It takes CUDA tensors only;
 ``ops.decode_attention`` sends CPU tensors to the plain version in
 ``ref.py`` (``ref.decode_attention_split_reference`` is the plain version
 of the split and combine).
@@ -18,8 +20,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
-MAX_GROUP_ELEMS = 1024   # (nq / nkv) * hd: one warp's p v outputs, 32 lanes x 16 pairs
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
 MIN_SPLIT_SLOTS = 64     # a split owns at least one 64-slot tile
 CTAS_PER_SM = 2          # what the split count aims at
 
@@ -85,8 +86,6 @@ def decode_attention(
             f"valid must be a ({b}, {s}) bool tensor, got {valid.dtype} {tuple(valid.shape)}")
     if hd not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not supported, only {SUPPORTED_HEAD_DIMS}")
-    if (nq // nkv) * hd > MAX_GROUP_ELEMS:
-        raise ValueError(f"group of {nq // nkv} heads x {hd} exceeds {MAX_GROUP_ELEMS}")
     if q.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"dtype {q.dtype} not supported")
     if b == 0 or s == 0:

@@ -3,6 +3,10 @@
   * a CPU tensor goes to the plain version in ``ref.py``;
   * a CUDA tensor launches the hand-written kernel, which raises on what it
     cannot take: there is no fallback to the plain version.
+
+The RG-LRU recurrence has no kernel: the JAX package runs it as an XLA
+associative scan for every ``impl``, and ``rglru`` here is the same
+log-depth scan in PyTorch ops on any device.
 """
 from __future__ import annotations
 
@@ -52,3 +56,28 @@ def rwkv6(r, k, v, w, u, state=None, *, final_state=None):
     if final_state is None:
         return out, s
     return out, final_state.copy_(s)
+
+
+def rglru(x, a, h0=None):
+    """RG-LRU ``h_t = a_t h_{t-1} + sqrt(1 - a_t^2) x_t`` over (B, T, D)
+    -> (h in x's dtype, final state (B, D) f32)."""
+    return _rglru_assoc(x, a, h0)
+
+
+def _rglru_assoc(x, a, h0=None):
+    """The recurrence as an inclusive scan of the pairs (a_t, b_t) under
+    ``combine((a1, b1), (a2, b2)) = (a1 a2, a2 b1 + b2)``, in f32: ceil(log2 T)
+    elementwise steps, each combining every pair with the one ``off``
+    steps before it (Hillis-Steele).  ``h0`` is folded into step 0's
+    additive term, as the JAX package folds it."""
+    a32 = a.float()
+    b = torch.sqrt(torch.clamp(1.0 - a32 * a32, min=0.0)) * x.float()
+    if h0 is not None:
+        b[:, 0] += a32[:, 0] * h0.float()
+    t, off = x.shape[1], 1
+    while off < t:
+        b = torch.cat([b[:, :off], a32[:, off:] * b[:, :-off] + b[:, off:]], dim=1)
+        if 2 * off < t:      # the last step needs no products of a
+            a32 = torch.cat([a32[:, :off], a32[:, :-off] * a32[:, off:]], dim=1)
+        off *= 2
+    return b.to(x.dtype), b[:, -1]

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the kernels: attention and the RWKV-6 scan.
+"""Plain PyTorch versions of the kernels (attention and the RWKV-6 scan) and
+the RG-LRU's sequential oracle.
 
 These are (1) the path ``ops`` takes for tensors on the CPU, and (2) the
 oracles every CUDA kernel is held against on the card (``chip_smoke.py``).
@@ -205,6 +206,30 @@ def rwkv6_reference(
         outs.append(torch.einsum("bhij,bhi->bhj", s + u32 * kv, r32[:, i]))
         s = w32[:, i, :, :, None] * s + kv
     return torch.stack(outs, dim=1).to(r.dtype), s
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (RecurrentGemma): elementwise gated linear recurrence
+#   h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * x_t
+# with x_t the gated input and a_t in (0, 1) the decay.
+# ---------------------------------------------------------------------------
+def rglru_reference(
+    x: torch.Tensor,                 # (B, T, D) gated input
+    a: torch.Tensor,                 # (B, T, D) decay in (0, 1)
+    h0: Optional[torch.Tensor] = None,   # (B, D); None = zeros
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential oracle, one step at a time in f32.
+
+    Returns (h (B, T, D) in x's dtype, final state (B, D) f32)."""
+    b, t, d = x.shape
+    h = torch.zeros((b, d), dtype=torch.float32, device=x.device) if h0 is None else h0.float()
+    x32, a32 = x.float(), a.float()
+    outs = []
+    for i in range(t):
+        a_t = a32[:, i]
+        h = a_t * h + torch.sqrt(torch.clamp(1.0 - a_t * a_t, min=0.0)) * x32[:, i]
+        outs.append(h)
+    return torch.stack(outs, dim=1).to(x.dtype), h
 
 
 # The chunk-parallel form of ``csrc/rwkv6_scan.cu``'s bf16 prefill: chunks of

@@ -1,8 +1,8 @@
 """Serving entry point.
 
 Runs the continuous-batching engine for a registered architecture the
-port builds (attention-only decoders, dense or MoE, and RWKV-6), on the
-card by default.  ``--reduced`` selects the smoke variant of the same
+port builds (attention-only decoders, dense or MoE, RWKV-6 and the Griffin
+hybrid), on the card by default.  ``--reduced`` selects the smoke variant of the same
 family, which also runs with ``--device cpu``.  The full MoE models do not
 fit one 80 GB card (phi3.5-moe-42b-a6.6b is 83.7 GB of bf16 weights): they
 fail with the card's out-of-memory error.
@@ -12,6 +12,9 @@ fail with the card's out-of-memory error.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --reduced \
       --device cpu --requests 16 --slots 4 --max-new 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --reduced \
+      --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --dtype bfloat16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --reduced \
       --device cpu
 """
 from __future__ import annotations

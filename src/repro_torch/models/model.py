@@ -1,11 +1,13 @@
-"""Composable language model: attention-only decoders (dense or MoE) and
-RWKV-6.
+"""Composable language model: attention decoders (dense or MoE), RWKV-6 and
+the Griffin hybrid (RG-LRU and local-attention blocks).
 
-The layers run in order in a Python loop over ``params["layers"]``; the
-decode cache keeps the JAX package's layer-stacked layout (one tensor per
-pattern position, stacked over the pattern's repetitions) so the serving
-engine's slot scatter is the same.  RG-LRU and encoder-decoder models are
-later slices of the port: their configs raise ``NotImplementedError`` here.
+The config's ``block_pattern`` repeats over the layers, followed by any
+``tail_blocks``; the layers run in that order in a Python loop over
+``params["layers"]``.  The decode cache keeps the JAX package's layout (one
+tensor per pattern position, stacked over the pattern's repetitions, and
+the tail's blocks unstacked) so the serving engine's slot scatter is the
+same.  Encoder-decoder models (whisper) are a later slice of the port:
+their configs raise ``NotImplementedError`` here.
 
 Entry points
 ------------
@@ -22,46 +24,38 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
-from repro_torch.configs.registry import ATTN, RGLRU, RWKV, ModelConfig
+from repro_torch.configs.registry import LOCAL_ATTN, RGLRU, RWKV, ModelConfig
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import layers
+from repro_torch.models import griffin, layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the families later slices of the port bring up: what
-    passes has only global attention blocks (with an MLP or an MoE layer)
-    or only RWKV-6 blocks, no tail."""
-    kinds = set(cfg.layer_kinds())
-    if RGLRU in kinds:
-        raise NotImplementedError(f"{cfg.name}: RG-LRU is not ported yet (ROADMAP Queue 1 item 7)")
+    """Raise for the family a later slice of the port brings up:
+    encoder-decoder (whisper)."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder is not ported yet (ROADMAP Queue 1 item 8)"
         )
-    if (kinds not in ({ATTN}, {RWKV}) or cfg.tail_blocks    # local attention comes with RG-LRU
-            or (cfg.num_experts and kinds != {ATTN})):
-        raise NotImplementedError(
-            f"{cfg.name}: blocks {cfg.layer_kinds()} are not ported yet (ROADMAP Queue 1 item 7)"
-        )
 
 
-def _pattern_layout(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...]]:
-    """(n_repeats, pattern) with n_repeats * len(pattern) == num_layers."""
-    pat = cfg.block_pattern
-    n_rep = cfg.num_layers // len(pat)
-    if n_rep * len(pat) != cfg.num_layers:
-        raise ValueError(f"{cfg.name}: layers do not tile the block pattern")
-    return n_rep, pat
+def _pattern_layout(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...], Tuple[str, ...]]:
+    """(n_repeats, pattern, tail) with n_repeats * len(pattern) + len(tail)
+    == num_layers."""
+    pat, tail = cfg.block_pattern, cfg.tail_blocks
+    n_rep = (cfg.num_layers - len(tail)) // len(pat)
+    if n_rep * len(pat) + len(tail) != cfg.num_layers:
+        raise ValueError(f"{cfg.name}: layers do not tile the block pattern and its tail")
+    return n_rep, pat, tail
 
 
 # ---------------------------------------------------------------------------
 # Init and counting.
 # ---------------------------------------------------------------------------
 def _layer_kinds(cfg: ModelConfig) -> List[str]:
-    n_rep, pat = _pattern_layout(cfg)
-    return list(pat) * n_rep
+    n_rep, pat, tail = _pattern_layout(cfg)
+    return list(pat) * n_rep + list(tail)
 
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype, device) -> dict:
@@ -70,6 +64,13 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype, device
             "norm1": layers.init_norm(cfg, dtype, device),
             "rwkv": rwkv_lib.init_rwkv(gen, cfg, dtype=dtype, device=device),
             "norm2": layers.init_norm(cfg, dtype, device),
+        }
+    if kind == RGLRU:
+        return {
+            "norm1": layers.init_norm(cfg, dtype, device),
+            "rglru": griffin.init_rglru(gen, cfg, dtype=dtype, device=device),
+            "norm2": layers.init_norm(cfg, dtype, device),
+            "mlp": layers.init_mlp(gen, cfg, dtype=dtype, device=device),
         }
     p = {
         "norm1": layers.init_norm(cfg, dtype, device),
@@ -106,11 +107,12 @@ def param_count(cfg: ModelConfig) -> int:
     attn = 2 * d * nq * hd + 2 * d * nkv * hd
     if cfg.qkv_bias:
         attn += nq * hd + 2 * nkv * hd
-    mlp = moe_lib.param_count(cfg) if cfg.num_experts else (
-        (3 if cfg.mlp == "swiglu" else 2) * d * ff)
+    dense = (3 if cfg.mlp == "swiglu" else 2) * d * ff
+    mlp = moe_lib.param_count(cfg) if cfg.num_experts else dense
     embeds = v * d * (1 if cfg.tie_embeddings else 2)
-    block = rwkv_lib.param_count(cfg) if cfg.block_pattern == (RWKV,) else attn + mlp
-    return embeds + norm + cfg.num_layers * (2 * norm + block)
+    block = {RWKV: rwkv_lib.param_count(cfg), RGLRU: griffin.param_count(cfg) + dense}
+    return embeds + norm + sum(2 * norm + block.get(kind, attn + mlp)
+                               for kind in _layer_kinds(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -132,16 +134,17 @@ def _unembed(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 # Full sequence: forward and prefill.
 # ---------------------------------------------------------------------------
 def _layer_caches(cfg: ModelConfig, cache) -> List[dict]:
-    """Per-layer views of the stacked cache, in the order the layers run:
-    ``{"attn": {k, v, slot_pos}}`` or ``{"rwkv": {shift_tm, shift_cm, wkv}}``."""
-    n_rep, pat = _pattern_layout(cfg)
+    """Per-layer views of the cache, in the order the layers run:
+    ``{"attn": {k, v, slot_pos}}``, ``{"rwkv": {shift_tm, shift_cm, wkv}}``
+    or ``{"rglru": {conv, h}}``; the pattern's stacked, then the tail's."""
+    n_rep, pat, tail = _pattern_layout(cfg)
     out = []
     for r in range(n_rep):
         for i, kind in enumerate(pat):
             stacked = cache["blocks"][f"p{i}_{kind}"]
             out.append({sub: {name: t[r] for name, t in leaves.items()}
                         for sub, leaves in stacked.items()})
-    return out
+    return out + [cache["tail"][f"t{j}_{kind}"] for j, kind in enumerate(tail)]
 
 
 def _rwkv_block(cfg, p, x, cache):
@@ -161,6 +164,26 @@ def _rwkv_block(cfg, p, x, cache):
     return x + y2
 
 
+def _rglru_block(cfg, p, x, cache):
+    """Griffin recurrent block on (B, T, d), prefill and decode alike; a
+    cache's conv and h leaves are updated in place."""
+    st = cache["rglru"] if cache is not None else None
+    h = layers.apply_norm(cfg, p["norm1"], x)
+    y, new = griffin.rglru_block(cfg, p["rglru"], h, st)
+    if st is not None:
+        st["conv"].copy_(new["conv"])
+        st["h"].copy_(new["h"])
+    x = x + y
+    h2 = layers.apply_norm(cfg, p["norm2"], x)
+    return x + layers.apply_mlp(cfg, p["mlp"], h2)
+
+
+def _window(cfg: ModelConfig, kind: str, window: int) -> int:
+    """A local-attention block's own window; ``window`` is the global
+    blocks' sliding-window mode."""
+    return cfg.local_window if kind == LOCAL_ATTN else window
+
+
 def _ffn(cfg, p, x):
     """The block's feed-forward: (y, aux loss), the MoE layer's sort path
     where the block has one, else the MLP with aux 0."""
@@ -177,9 +200,12 @@ def _run_blocks_full(cfg, params, x, positions, caches, *, window):
         if kind == RWKV:
             x = _rwkv_block(cfg, p, x, cache)
             continue
+        if kind == RGLRU:
+            x = _rglru_block(cfg, p, x, cache)
+            continue
         h = layers.apply_norm(cfg, p["norm1"], x)
         y, _ = attn_lib.attention_full(
-            cfg, p["attn"], h, positions, window=window,
+            cfg, p["attn"], h, positions, window=_window(cfg, kind, window),
             cache=cache["attn"] if cache is not None else None,
         )
         x = x + y
@@ -200,31 +226,37 @@ def forward(cfg: ModelConfig, params, inputs: torch.Tensor, *, window: int = 0):
     return _unembed(cfg, params, x), aux
 
 
-def _layer_cache(cfg: ModelConfig, kind: str, n: int, batch: int, cache_len: int,
+def _layer_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                  window: int, dtype, device) -> dict:
-    """``n`` layers' caches stacked on a leading axis: attention KV (a
-    window makes each a ring of at most ``window`` slots) or RWKV state."""
+    """One layer's cache: attention KV (a window makes it a ring of at most
+    ``window`` slots; a local-attention block's own window always does),
+    RWKV state or RG-LRU state."""
     if kind == RWKV:
-        sub, one = "rwkv", rwkv_lib.init_rwkv_state(cfg, batch, dtype, device)
-    else:
-        clen = min(window, cache_len) if window else cache_len
-        sub, one = "attn", attn_lib.init_layer_cache(cfg, batch, clen, dtype, device)
-    return {sub: {name: t.expand(n, *t.shape).clone() for name, t in one.items()}}
+        return {"rwkv": rwkv_lib.init_rwkv_state(cfg, batch, dtype, device)}
+    if kind == RGLRU:
+        return {"rglru": griffin.init_rglru_state(cfg, batch, dtype, device)}
+    w = _window(cfg, kind, window)
+    clen = min(w, cache_len) if w else cache_len
+    return {"attn": attn_lib.init_layer_cache(cfg, batch, clen, dtype, device)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, window: int = 0,
                dtype=torch.float32, device="cuda") -> Dict[str, Any]:
     """Decode cache. ``window`` > 0 = sliding-window mode for global-attn."""
     check_supported(cfg)
-    n_rep, pat = _pattern_layout(cfg)
-    cache: Dict[str, Any] = {
+    n_rep, pat, tail = _pattern_layout(cfg)
+
+    def stacked(kind):
+        one = _layer_cache(cfg, kind, batch, cache_len, window, dtype, device)
+        return {sub: {name: t.expand(n_rep, *t.shape).clone() for name, t in leaves.items()}
+                for sub, leaves in one.items()}
+
+    return {
         "t": torch.zeros((batch,), dtype=torch.int32, device=device),
-        "blocks": {f"p{i}_{kind}": _layer_cache(cfg, kind, n_rep, batch, cache_len, window,
-                                                dtype, device)
-                   for i, kind in enumerate(pat)},
-        "tail": {},
+        "blocks": {f"p{i}_{kind}": stacked(kind) for i, kind in enumerate(pat)},
+        "tail": {f"t{j}_{kind}": _layer_cache(cfg, kind, batch, cache_len, window, dtype, device)
+                 for j, kind in enumerate(tail)},
     }
-    return cache
 
 
 def prefill(cfg: ModelConfig, params, inputs: torch.Tensor, cache, *, window: int = 0):
@@ -250,8 +282,12 @@ def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *, window
         if kind == RWKV:
             x = _rwkv_block(cfg, p, x, c)
             continue
+        if kind == RGLRU:
+            x = _rglru_block(cfg, p, x, c)
+            continue
         h = layers.apply_norm(cfg, p["norm1"], x)
-        y, _ = attn_lib.attention_decode(cfg, p["attn"], h, t, c["attn"], window=window)
+        y, _ = attn_lib.attention_decode(cfg, p["attn"], h, t, c["attn"],
+                                         window=_window(cfg, kind, window))
         x = x + y
         h2 = layers.apply_norm(cfg, p["norm2"], x)
         x = x + _ffn(cfg, p, h2)[0]

@@ -42,6 +42,9 @@ FA_CASES = [
     (1, 96, 96, 6, 3, 64, True, 32, 0),        # window + GQA
     (1, 32, 64, 4, 4, 32, True, 0, 32),        # chunked prefill: q at an offset
     (1, 200, 200, 4, 2, 128, True, 0, 0),      # hd 128, ragged tiles
+    (1, 200, 200, 16, 1, 256, True, 0, 0),     # recurrentgemma-9b: hd 256, MQA 16:1
+    (1, 2112, 2112, 16, 1, 256, True, 2048, 0),   # its local window bites (S > W)
+    (2, 100, 164, 16, 1, 256, True, 48, 64),   # hd 256, a window and a q_offset
 ]
 DA_CASES = [
     # b, s, nq, nkv, hd
@@ -50,6 +53,8 @@ DA_CASES = [
     (3, 48, 2, 2, 16),
     (1, 256, 16, 4, 64),
     (2, 300, 32, 8, 128),
+    (2, 300, 16, 1, 256),      # recurrentgemma-9b: hd 256, 16 q heads over 1 kv head
+    (8, 2048, 16, 1, 256),     # and its 8-slot, 2048-slot ring
 ]
 
 
@@ -261,6 +266,47 @@ def test_decode_main_path_prefix_masks(cuda, dtype):
     _decode_check(cuda, dtype, 8, 2048, 16, 16, 64, valid, seed=5)
 
 
+def _ring_valid(positions, ring, window):
+    """The decode mask of a ring of ``ring`` slots after each sequence wrote
+    positions 0..t (slot = pos % ring, the latest write wins), for a window
+    of ``window`` positions, as ``attention.attention_decode`` builds it."""
+    t = torch.tensor(positions)[:, None]
+    slot = torch.arange(ring)[None, :]
+    sp = slot + ring * ((t - slot) // ring)          # the latest position p <= t in each slot
+    sp = torch.where(sp >= 0, sp, torch.full_like(sp, -1))
+    return (sp >= 0) & (sp <= t) & (sp > t - window)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_decode_ring_wrapped_window_mask_hd256(cuda, dtype):
+    """recurrentgemma-9b's local attention: 8 slots of a 2048-slot ring that
+    has wrapped (t past 2048) under a window that excludes the oldest slots,
+    mixed with slots not yet wrapped; hd 256, 16 q heads over 1 kv head."""
+    positions = [2100, 4095, 3000, 2047, 100, 5000, 2048, 10]
+    valid = _ring_valid(positions, 2048, 1536)
+    assert bool((~valid[0]).any()) and bool(valid[0, :53].all())   # wrapped, windowed
+    _decode_check(cuda, dtype, 8, 2048, 16, 1, 256, valid, seed=7)
+
+
+@pytest.mark.parametrize("hd", [64, 256])
+def test_flash_bf16_rounding_margin_at_large_outputs(cuda, hd):
+    """Outputs of |o| >= 4 made from a few keys (sharp logits, large values),
+    held to the plain version at the unchanged bf16 tolerance: the margin
+    left by rounding where bf16's step is 2^-5 and more."""
+    rng = np.random.default_rng(hd)
+    s, nq, nkv = 256, 16, 1 if hd == 256 else 4
+    q = 3.0 * rng.standard_normal((1, s, nq, hd))
+    k = 3.0 * rng.standard_normal((1, s, nkv, hd))
+    v = 6.0 * rng.standard_normal((1, s, nkv, hd))
+    q, k, v = (torch.from_numpy(x.astype(np.float32)).to(cuda, torch.bfloat16) for x in (q, k, v))
+    out = fa.flash_attention(q, k, v, causal=True)
+    exp = ref.mha_reference(q, k, v, causal=True)
+    assert float(exp.float().abs().max()) >= 4.0
+    worst = int((out.float() - exp.float()).abs().argmax())
+    assert _err(out, exp) < TOL["bfloat16"], (
+        f"kernel {float(out.flatten()[worst])} vs plain {float(exp.flatten()[worst])}")
+
+
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q, k, v = _randn(0, (1, 8, 2, 48), (1, 8, 2, 48), (1, 8, 2, 48),
                      dtype=torch.float32, device=cuda)
@@ -397,7 +443,8 @@ def _to(tree, device):
     return tree.to(device)
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "rwkv6-1.6b", "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "rwkv6-1.6b", "phi3.5-moe-42b-a6.6b",
+                                  "recurrentgemma-9b"])
 def test_engine_on_the_card_matches_cpu(cuda, arch):
     """In f32 the engine's greedy tokens on the card (CUDA kernels) equal
     those on the CPU (plain versions) for the same weights."""

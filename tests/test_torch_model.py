@@ -22,9 +22,11 @@ from repro_torch.models.params import params_from_jax
 
 TOL = 1e-4
 ATTENTION_ONLY = ["qwen1.5-0.5b", "llama3-8b", "qwen2-72b", "minicpm-2b", "llava-next-mistral-7b"]
-# RWKV-6's own tests: tests/test_torch_rwkv.py; MoE's: tests/test_torch_moe.py
-PORTED = ATTENTION_ONLY + ["rwkv6-1.6b", "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b"]
-NOT_PORTED = {"recurrentgemma-9b": "item 7", "whisper-small": "item 8"}
+# RWKV-6's own tests: tests/test_torch_rwkv.py; MoE's: tests/test_torch_moe.py;
+# the Griffin hybrid's: tests/test_torch_griffin.py
+PORTED = ATTENTION_ONLY + ["rwkv6-1.6b", "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b",
+                           "recurrentgemma-9b"]
+NOT_PORTED = {"whisper-small": "item 8"}
 
 
 def _pair(arch, seed=0):

@@ -4,6 +4,7 @@ The four engine/batcher cases of ``tests/test_serving.py``, run on the CPU
 in f32 by both packages on the same weights (``params_from_jax``); greedy
 tokens must agree exactly.
 """
+import dataclasses
 import sys
 
 import jax
@@ -116,6 +117,29 @@ def test_scatter_slot_writes_one_lane(small_lm):
     assert (sp[:, 1, :5] >= 0).all() and (sp[:, [0, 2]] == -1).all()
     k, jk = tc["blocks"]["p0_attn"]["attn"]["k"], jc["blocks"]["p0_attn"]["attn"]["k"]
     assert float(np.max(np.abs(k.numpy() - np.asarray(jk)))) < 1e-5
+
+
+def test_scatter_slot_writes_the_tail_in_one_lane():
+    """A model with a tail (recurrentgemma-9b, reduced, with its (RG-LRU,
+    RG-LRU) tail): the tail's unstacked leaves take the prefill at batch axis
+    0, as the JAX engine's do, and other slots stay zero."""
+    arch = "recurrentgemma-9b"
+    jcfg, tcfg = (dataclasses.replace(get(arch).reduced(), num_layers=5,
+                                      tail_blocks=("rglru", "rglru"))
+                  for get in (jax_config, get_config))
+    jp = jmodel.init_params(jcfg, jax.random.key(0))
+    tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp))
+    teng = Engine(tcfg, tp, EngineConfig(slots=3, cache_len=16, max_new_tokens=1, device="cpu"))
+    jeng = JaxEngine(jcfg, jp, JaxEngineConfig(slots=3, cache_len=16, max_new_tokens=1))
+    prompt = np.arange(5, dtype=np.int32)
+    teng.insert(Request(rid=0, prompt=prompt, max_new_tokens=1), slot=1)
+    jeng.insert(JaxRequest(rid=0, prompt=prompt, max_new_tokens=1), slot=1)
+    assert sorted(teng.cache["tail"]) == ["t0_rglru", "t1_rglru"]
+    for key, sub in teng.cache["tail"].items():
+        for name, leaf in sub["rglru"].items():
+            jleaf = np.asarray(jeng.cache["tail"][key]["rglru"][name], np.float32)
+            assert leaf.shape[0] == 3 and bool(leaf[1].any()) and not bool(leaf[[0, 2]].any())
+            assert float(np.max(np.abs(leaf.float().numpy() - jleaf))) < 1e-4, (key, name)
 
 
 def test_engine_runs_bf16_on_cpu(small_lm):
