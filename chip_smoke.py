@@ -16,22 +16,28 @@ never prints its last line):
 2. hold each kernel against its plain PyTorch version on the card, in f32
    and bf16: the attention kernels at the shapes of ``tests/test_kernels.py``,
    at the main path's shapes, at phi3.5-moe's and llama3-8b's GQA shapes
-   (32 q heads over 8 kv heads, hd 128) and at recurrentgemma-9b's (16 q
+   (32 q heads over 8 kv heads, hd 128), at recurrentgemma-9b's (16 q
    heads over 1 kv head, hd 256: flash at S = 512 and at S = 2112 under its
    2048-token window, decode over the 8-slot, 2048-slot ring with the main
    path's prefix masks and with a wrapped ring whose window excludes the
-   oldest slots); the RWKV-6 scan at ``RWKV_CASES``
+   oldest slots) and at whisper-small's (12 heads of 64, non-causal flash
+   at B = 8 over 1500 keys with Sq = 1500, 4 and 1, decode over a 448-slot
+   cache); the RWKV-6 scan at ``RWKV_CASES``
    (with and without a state, ragged T), under strong
    decay (also in bf16 at T = 100), at T = 1 with a state, at T = 2048, with
    the state updated in place at T = 45 and T = 1, and at rwkv6-1.6b's
    prefill and decode shapes; the attention kernels' edge cases (rows that
    see no key, S = 1000 in bf16, a window with a q_offset, decode masks that
-   leave whole tiles and whole splits empty in the middle of the cache).
+   leave whole tiles and whole splits empty in the middle of the cache),
+   and the bf16 flash kernel within one bf16 step of the f32 attention of
+   its inputs, as the TPU kernel rounds, at outputs of |o| up to ~27 and at
+   whisper-small's three flash shapes.
    Time kernel, plain version, one PyTorch call for the same function where
    there is one (SDPA, a yardstick the port never calls) and the card's
    bound, at the main path's shapes (and the attention kernels also at
-   phi3.5-moe's, llama3-8b's and recurrentgemma-9b's, under those names in
-   each attention row), and print them on one ``{"kernels": ...}``
+   phi3.5-moe's, llama3-8b's, recurrentgemma-9b's and whisper-small's
+   (its encoder and its cross-attention of a decode step in the flash row),
+   under those names in each attention row), and print them on one ``{"kernels": ...}``
    line; for the scan also the device time of each of its kernels, and a
    copy of the decode state as the floor of its decode step;
 3. serve qwen1.5-0.5b at full width and depth in bf16 through
@@ -65,6 +71,19 @@ never prints its last line):
    f32 check at full width and 5 layers, one (RG-LRU, RG-LRU, local
    attention) pattern and the (RG-LRU, RG-LRU) tail, on a 2112-token prompt
    that wraps the 2048-slot ring in prefill and under the window;
+3e. whisper-small at full width and depth in bf16 (12 encoder and 12
+   decoder layers), served at the model's entry points as the JAX package
+   serves it (its engine takes no audio): 2 batches of 8 requests, each
+   1500 frames of the seeded audio stub and a 4-token prompt, prefilled
+   together (``prefill(enc_inputs=)``, which stores the cross-attention K/V)
+   and decoded 32 greedy steps in a 448-slot cache; the launch counters
+   prove that every encoder, self- and cross-attention call went through
+   the flash kernel (cross-attention at Sq = 1 in each step) and every
+   decode self-attention call through the decode kernel; profile one batch
+   prefill and 8 decode steps (the flash kernel's time split into encoder,
+   self and cross by pairing its kernels, in start order, with the kinds of
+   the calls: ``flash_split``), print the floors of both from the
+   shapes, then the f32 check at full depth on one request;
 4. print the device line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -92,6 +111,7 @@ from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rk  # noqa: E402
+from repro_torch.models import frontends  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.rwkv import F32_LEAVES  # noqa: E402
@@ -155,6 +175,14 @@ RG_F32_LAYERS, RG_F32_PROMPT = 5, 2112
 # a decode mask over a ring that has wrapped, under a window shorter than
 # the ring (positions written per sequence, ring slots, window)
 RING_POSITIONS, RING_WINDOW = [2100, 4095, 3000, 2047, 100, 5000, 2048, 10], 1536
+WHISPER_ARCH = "whisper-small"
+WHISPER_FRAMES = frontends.WHISPER_FRAMES
+# whisper-small's traffic: WHISPER_BATCHES batches of SLOTS requests, each
+# with 1500 frames of the seeded audio stub and a 4-token decoder prompt
+# (the start-of-transcript prefix: start, language, task, no timestamps),
+# NEW_TOKENS greedy tokens after the prefill's, in a cache of 448 slots (the
+# decoder's context)
+WHISPER_BATCHES, WHISPER_PROMPT, WHISPER_CACHE = 2, 4, 448
 KERNELS = {"flash_attention": fa, "decode_attention": da, "rwkv6_scan": rk}
 N_REQUESTS, SLOTS, CACHE_LEN, NEW_TOKENS = 16, 8, 2048, 32
 PROMPT_MIN, PROMPT_MAX = 64, 512
@@ -399,6 +427,29 @@ def check_attention_edges(gen, dtype) -> int:
     return 8
 
 
+def check_one_step(name, qkv, causal) -> float:
+    """The bf16 flash kernel on ``qkv`` held to the f32 attention o32 of the
+    same bf16 inputs within one bf16 step of o32 (at least 2e-2,
+    ``ref.bf16_step``), what the TPU kernel meets by rounding its f32 result
+    once; returns the largest error in steps."""
+    q, k, v = qkv
+    steps = float(ref.bf16_steps_from_f32(fa.flash_attention(q, k, v, causal=causal),
+                                          q, k, v, causal=causal).max())
+    if not steps <= 1.0:
+        raise AssertionError(f"flash_attention bf16 {name}: {steps} bf16 steps from the f32 "
+                             "attention of its inputs")
+    return steps
+
+
+def check_flash_rounding(dev):
+    """bf16 outputs of |o| up to ~27 made from a few keys (the inputs of
+    tests/test_torch_cuda.py::test_flash_bf16_rounding_margin_at_large_outputs,
+    ``ref.large_output_inputs``) within one bf16 step of the f32 attention;
+    returns the largest error in steps per hd."""
+    return {f"hd {hd}": check_one_step(f"hd {hd}", ref.large_output_inputs(hd, dev), True)
+            for hd in (64, 256)}
+
+
 def ring_valid(positions, ring, window, device):
     """The decode mask of a ring of ``ring`` slots after each sequence wrote
     positions 0..t (slot = pos % ring, the latest write wins) under a window
@@ -412,31 +463,34 @@ def ring_valid(positions, ring, window, device):
 
 def timings(kernel, plain, library, flops, nbytes, flush):
     b_ms, b_by = bound(flops, nbytes)
-    return {
-        "ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(library, flush) if library is not None else None,
-    }
+    t = {"ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush),
+         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    if library is not None:
+        t["library_ms"] = time_ms(library, flush)
+        t["vs_library"] = t["ms"] / t["library_ms"]
+    return t
 
 
-def time_flash(err, qkv, flush):
+def time_flash(err, qkv, flush, causal=True):
     q, k, v = qkv
-    b, s, nq, hd = q.shape
-    nkv = k.shape[2]
+    b, sq, nq, hd = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
     gqa = {"enable_gqa": True} if nq != nkv else {}
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    pairs = b * nq * s * (s + 1) // 2            # causal (q, k) pairs
+    # visible (q, k) pairs: causal from position 0 (Sq = Sk), or all of them
+    pairs = b * nq * (sq * (sq + 1) // 2 if causal else sq * sk)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()   # q, k, v in; o out
     t = timings(
-        lambda: fa.flash_attention(q, k, v, causal=True),
-        lambda: ref.mha_reference(q, k, v, causal=True),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa),
+        lambda: fa.flash_attention(q, k, v, causal=causal),
+        lambda: ref.mha_reference(q, k, v, causal=causal),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, **gqa),
         4 * hd * pairs, nbytes, flush,
     )
+    kind = "causal" if causal else "non-causal"
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:91",
-            "shape": f"prefill B={b} S={s} nq={nq} nkv={nkv} hd={hd} causal {q.dtype}",
+            "shape": f"prefill B={b} Sq={sq} Sk={sk} nq={nq} nkv={nkv} hd={hd} {kind} {q.dtype}",
             "max_abs_err": err, **t}
 
 
@@ -493,8 +547,10 @@ def phase_kernels(seed, prompt_lengths):
         check("decode_attention single valid slot",
               max_err(out[2], v[2, 5].repeat_interleave(4, dim=0)), TOL[dtype])
         n += 2 + len(DA_CASES) + 1 + check_attention_edges(gen, dtype)
+    print("[kernels] flash_attention bf16 at |o| up to ~27, largest error in bf16 steps of the "
+          "f32 attention: " + json.dumps(check_flash_rounding(dev)))
     torch.cuda.synchronize()
-    print(f"[kernels] {n} test-shape checks passed in f32 and bf16")
+    print(f"[kernels] {n + 2} test-shape checks passed in f32 and bf16")
 
     flush = L2Flush(dev)
     # decode at the main path's shapes: each slot valid up to prompt + new tokens
@@ -522,16 +578,39 @@ def phase_kernels(seed, prompt_lengths):
               "max abs err "
               + json.dumps({name: {"flash": r[0], "decode": r[2]}
                             for name, r in main[dtype].items()}))
+    # whisper-small (12 q over 12 kv heads of 64, non-causal flash): the
+    # encoder over 1500 frames, the cross-attention of a batch prefill's
+    # 4-token prompts and of one decode step (Sq = 1) over those frames, and
+    # decode self-attention over its 448-token context, valid up to the
+    # prompt and the new tokens
+    whisper = {}
+    wvalid = prefix_valid([WHISPER_PROMPT + NEW_TOKENS] * SLOTS, WHISPER_CACHE, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        whisper[dtype] = {name: check_flash(gen, SLOTS, sq, WHISPER_FRAMES, 12, 12, 64, False, 0,
+                                            dtype)
+                          for name, sq in (("encoder", WHISPER_FRAMES),
+                                           ("cross_prefill", WHISPER_PROMPT), ("cross_decode", 1))}
+        whisper[dtype]["decode"] = check_decode(gen, SLOTS, WHISPER_CACHE, 12, 12, 64, dtype, wvalid)
+        print(f"[kernels] {WHISPER_ARCH} shapes {dtype}: max abs err "
+              + json.dumps({name: r[0] for name, r in whisper[dtype].items()}))
+    # the plain version's 2e-2 is ~0.6 of a typical |o| over 1500 keys, so
+    # the bf16 outputs are also held within one bf16 step of the f32 attention
+    print(f"[kernels] {WHISPER_ARCH} flash bf16, largest error in bf16 steps of the f32 "
+          "attention: " + json.dumps(
+              {name: check_one_step(name, whisper[torch.bfloat16][name][1], False)
+               for name in ("encoder", "cross_prefill", "cross_decode")}))
     rows = []
     for name, (err_f, qkv, err_d, qkvm) in main[torch.bfloat16].items():   # the paths run bf16
         pair = [time_flash(err_f, qkv, flush), time_decode(err_d, qkvm, flush)]
-        for row in pair:
-            row["vs_library"] = row["ms"] / row["library_ms"]
         if name == "main":
             rows = pair
         else:
             rows[0][name], rows[1][name] = pair
-    del main, flush
+    bf = whisper[torch.bfloat16]
+    rows[0]["whisper_small"] = time_flash(*bf["encoder"], flush, causal=False)
+    rows[0]["whisper_small"]["cross_decode"] = time_flash(*bf["cross_decode"], flush, causal=False)
+    rows[1]["whisper_small"] = time_decode(*bf["decode"], flush)
+    del main, whisper, bf, flush
     torch.cuda.empty_cache()
     return rows
 
@@ -669,14 +748,19 @@ def launch_counts():
 
 
 def expected_launches(cfg, prefills, decode_steps):
-    """What each kernel must have launched for ``prefills`` batch-1 prefills
-    and ``decode_steps`` decode steps: every attention layer (global or
-    local) runs flash attention in prefill and flash decode per step, every
-    RWKV-6 layer the scan in both; RG-LRU layers launch none of them."""
+    """What each kernel must have launched for ``prefills`` prefills and
+    ``decode_steps`` decode steps: every attention layer (global or local)
+    runs flash attention in prefill and flash decode per step, every RWKV-6
+    layer the scan in both; RG-LRU layers launch none of them.  Whisper's
+    encoder layers run flash attention in each prefill, and its decoder
+    layers' cross-attention runs it in each prefill and each step."""
     kinds = cfg.layer_kinds()
     n_attn = sum(k in (ATTN, LOCAL_ATTN) for k in kinds)
     n_rwkv = kinds.count(RWKV)
-    return {"flash_attention": n_attn * prefills, "decode_attention": n_attn * decode_steps,
+    flash = n_attn * prefills
+    if cfg.is_encoder_decoder:
+        flash += (cfg.encoder_layers + cfg.num_layers) * prefills + cfg.num_layers * decode_steps
+    return {"flash_attention": flash, "decode_attention": n_attn * decode_steps,
             "rwkv6_scan": n_rwkv * (prefills + decode_steps)}
 
 
@@ -822,10 +906,11 @@ def check_moe_sync_free(cfg, p):
     return {"shapes": [list(sh) for sh in shapes], "sync_debug_mode": "error"}
 
 
-def f32_check(cfg, seed, prompt, fill=None):
+def f32_check(cfg, seed, prompt, fill=None, enc_inputs=None):
     """The same port code in f32 with the kernels on the card and the plain
     versions on the CPU, on one prompt plus F32_DECODE_STEPS decode steps;
-    ``fill(params, gen)`` may first change the weights on the card.  An MoE
+    ``fill(params, gen)`` may first change the weights on the card, and
+    ``enc_inputs`` (1, frames, d) on the CPU are whisper's audio.  An MoE
     model's experts chosen must also be the same on both sides."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -837,12 +922,13 @@ def f32_check(cfg, seed, prompt, fill=None):
     before = launch_counts()
     card_routes, cpu_routes = [], []
     with wrapped(moe_lib, "_route", record_routes(card_routes)):
-        gpu_logits, tokens = _teacher_forced(cfg, p_gpu, prompt, None, dev)
+        gpu_logits, tokens = _teacher_forced(cfg, p_gpu, prompt, None, dev, enc_inputs)
     ran = {name: n - before[name] for name, n in launch_counts().items()}
     if ran != expected_launches(cfg, 1, F32_DECODE_STEPS):
         raise AssertionError(f"the f32 run on the card did not go through the kernels: {ran}")
     with wrapped(moe_lib, "_route", record_routes(cpu_routes)):
-        cpu_logits, _ = _teacher_forced(cfg, p_cpu, prompt, tokens, torch.device("cpu"))
+        cpu_logits, _ = _teacher_forced(cfg, p_cpu, prompt, tokens, torch.device("cpu"),
+                                        enc_inputs)
     checked = compare_routes(cfg, card_routes, cpu_routes) if cfg.num_experts else {}
     errs = []
     for step, (g, c) in enumerate(zip(gpu_logits, cpu_logits)):
@@ -897,6 +983,224 @@ def f32_check_rg(seed, prompt):
     log-depth scan is the same PyTorch ops on both sides."""
     cfg = dataclasses.replace(get_config(RG_ARCH), num_layers=RG_F32_LAYERS)
     return f32_check(cfg, seed, np.resize(prompt, RG_F32_PROMPT))
+
+
+# ---------------------------------------------------------------------------
+# Phase 3e: whisper-small, served at the model's entry points.
+# ---------------------------------------------------------------------------
+def _numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_numel(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_numel(v) for v in tree)
+    return tree.numel()
+
+
+def whisper_floors(cfg, params, batch, valid_slots):
+    """The least device time of a decode step and of a batch prefill, from
+    the shapes.  A step reads every decoder weight but the cross-attention's
+    K/V projections (their output is cached), the final norm and the
+    unembedding, all layers' cross-attention K/V and the self-attention
+    cache's valid rows (the token embedding gathers 8 rows): bytes bound
+    it.  A prefill multiplies every frame through the encoder's products and
+    each decoder layer's cross K/V projections, runs the encoder's attention
+    over all frame pairs, and the prompt through the decoder and the last
+    row through the unembedding: operations bound it."""
+    es = params["embed"].element_size()
+    hd, nq, nkv, L = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
+    xkv = lambda p: _numel({k: v for k, v in p["xattn"].items() if k in ("wk", "wv", "bk", "bv")})
+    dec = sum(_numel(p) - xkv(p) for p in params["layers"])
+    head = _numel(params["lm_head"]) + _numel(params["final_norm"])
+    kv_row = 2 * nkv * hd                                  # K and V of one position
+    step_bytes = es * (dec + head + L * batch * kv_row * (WHISPER_FRAMES + valid_slots))
+    enc_w = sum(_numel(p["attn"]) + _numel(p["mlp"]) for p in params["encoder"]["blocks"])
+    frames = batch * WHISPER_FRAMES
+    prefill_ops = (2 * frames * (enc_w + sum(xkv(p) for p in params["layers"]))
+                   + cfg.encoder_layers * 4 * hd * batch * nq * WHISPER_FRAMES ** 2
+                   + 2 * batch * WHISPER_PROMPT * dec + 2 * batch * _numel(params["lm_head"]))
+    return {"decode_step_bytes": step_bytes, "decode_step_floor_ms": 1e3 * step_bytes / PEAK_BYTES,
+            "prefill_operations": prefill_ops,
+            "prefill_floor_ms": 1e3 * prefill_ops / PEAK_BF16_FLOPS}
+
+
+def whisper_generate(cfg, params, frames, prompt, steps, spent):
+    """Greedy tokens of one batch at the model's entry points: ``init_cache``,
+    ``prefill(enc_inputs=frames)`` and ``steps`` decode steps, each timed on
+    the host clock between syncs into ``spent``; returns (B, 1 + steps)
+    tokens on the host."""
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        spent[name].append(time.perf_counter() - t0)
+        return out
+
+    def prefill():
+        cache = model_lib.init_cache(cfg, prompt.shape[0], WHISPER_CACHE,
+                                     dtype=params["embed"].dtype, device=prompt.device)
+        return model_lib.prefill(cfg, params, prompt, cache, enc_inputs=frames)
+
+    logits, cache = timed("prefill", prefill)
+    out = [torch.argmax(logits, dim=-1)]
+    for _ in range(steps):
+        logits, cache = timed("step", lambda: model_lib.decode_step(cfg, params, out[-1], cache))
+        out.append(torch.argmax(logits, dim=-1))
+    if not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    return torch.stack(out, dim=1).cpu()
+
+
+FLASH_KERNELS = ("fa_mma_kernel", "fa_kernel")
+
+
+def flash_by_kind(kinds):
+    """A wrapper of the flash kernel's entry that appends what each call
+    attends to ``kinds``: ``self`` (causal, the decoder's prompt),
+    ``encoder`` (non-causal, Sq = Sk, the frames) or ``cross`` (non-causal,
+    decoder rows over the frames)."""
+    def wrapper(flash):
+        def run(q, k, v, *, causal=True, **kw):
+            kinds.append("self" if causal else ("encoder" if q.shape[1] == k.shape[1] else "cross"))
+            return flash(q, k, v, causal=causal, **kw)
+        return run
+    return wrapper
+
+
+def flash_split(prof, kinds, per, suffix):
+    """Device ms (per ``per`` calls of the profiled work) of the flash
+    kernel by what it attended: each call launches one kernel, and the
+    stream runs them in call order, so the profile's flash kernels sorted
+    by start time pair with ``kinds``.  (A profiler range around each call
+    would show no device time: a launch through ctypes is no ATen op that
+    the profiler links a kernel to.)"""
+    launched = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                       and any(p in e.name for p in FLASH_KERNELS)),
+                      key=lambda e: e.time_range.start)
+    if len(launched) != len(kinds):
+        raise AssertionError(f"{len(launched)} flash kernels in the profile, {len(kinds)} calls")
+    out = {f"flash_{kind}{suffix}": 0.0 for kind in ("encoder", "self", "cross")}
+    for kind, e in zip(kinds, launched):
+        out[f"flash_{kind}{suffix}"] += e.time_range.elapsed_us() / per / 1e3
+    return out
+
+
+def profile_whisper(cfg, params, frames, prompt, steps=8):
+    """Device time of one batch prefill and of ``steps`` decode steps after
+    it, from ``torch.profiler``: busy share of the host-clock window, the
+    flash kernel's time split into encoder, self and cross
+    (``flash_split``), the decode kernel's (the decoder's self-attention),
+    and the kernels that take the most."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    cache = model_lib.init_cache(cfg, prompt.shape[0], WHISPER_CACHE,
+                                 dtype=params["embed"].dtype, device=prompt.device)
+    result, kinds = {}, []
+    with wrapped(fa, "flash_attention", flash_by_kind(kinds)):
+        for name, per in (("prefill", 1), ("decode", steps)):
+            kinds.clear()
+            with torch.profiler.profile(activities=acts) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if name == "prefill":
+                    logits, cache = model_lib.prefill(cfg, params, prompt, cache,
+                                                      enc_inputs=frames)
+                    tok = torch.argmax(logits, dim=-1)
+                else:
+                    for _ in range(steps):
+                        logits, cache = model_lib.decode_step(cfg, params, tok, cache)
+                        tok = torch.argmax(logits, dim=-1)
+                torch.cuda.synchronize()
+                wall_us = 1e6 * (time.perf_counter() - t0)
+            by_kernel = device_times(prof)
+            busy = sum(by_kernel.values())
+            flash = kernel_time(by_kernel, FLASH_KERNELS)
+            dec = kernel_time(by_kernel, ("da_split_kernel", "da_combine_kernel")) if per > 1 else 0
+            top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+            suffix = "_ms" if per == 1 else "_ms_per_step"
+            r = {"profiled_wall" + suffix: wall_us / per / 1e3, "device" + suffix: busy / per / 1e3,
+                 "device_busy_share_profiled": busy / wall_us,
+                 "flash_attention" + suffix: flash / per / 1e3,
+                 "flash_attention_share_of_device": flash / busy,
+                 **flash_split(prof, kinds, per, suffix),
+                 "top_kernels" + suffix: {k[:80]: us / per / 1e3 for k, us in top}}
+            if per > 1:
+                r.update({"steps": steps, "decode_attention" + suffix: dec / per / 1e3,
+                          "decode_attention_share_of_device": dec / busy})
+            result[name] = r
+    return result
+
+
+def phase_whisper(seed, gpu):
+    """whisper-small at full width and depth in bf16 through ``init_cache``,
+    ``prefill(enc_inputs=)`` and ``decode_step``, batched, as the JAX
+    package serves it (its engine's requests carry no audio): every
+    encoder, self- and cross-attention call through the flash kernel and
+    every decode self-attention call through the decode kernel, by the
+    launch counters; then the profile and the f32 check at full depth."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_config(WHISPER_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = model_lib.init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(seed)
+    batches = [
+        (torch.from_numpy(frontends.audio_frames(cfg, SLOTS, seed=seed + i)).to(dev, torch.bfloat16),
+         torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(SLOTS, WHISPER_PROMPT)),
+                         dtype=torch.long, device=dev))
+        for i in range(WHISPER_BATCHES)]
+    spent = {"prefill": [], "step": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in KERNELS.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    tokens = [whisper_generate(cfg, params, frames, prompt, NEW_TOKENS, spent)
+              for frames, prompt in batches]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = WHISPER_BATCHES * NEW_TOKENS
+    if any(t.shape != (SLOTS, 1 + NEW_TOKENS) for t in tokens):
+        raise AssertionError(f"{cfg.name}: tokens of shapes {[tuple(t.shape) for t in tokens]}")
+    if not all(bool(((t >= 0) & (t < cfg.vocab_size)).all()) for t in tokens):
+        raise AssertionError(f"{cfg.name}: a token outside the vocabulary")
+    expected = expected_launches(cfg, WHISPER_BATCHES, steps)
+    if launches != expected:
+        raise AssertionError(f"{cfg.name}: kernel launches {launches} != {expected} "
+                             f"({cfg.encoder_layers} + {cfg.num_layers} layers, "
+                             f"{WHISPER_BATCHES} batch prefills, {steps} decode steps)")
+    print(f"[slice] {cfg.name}: served {WHISPER_BATCHES * SLOTS} requests of {WHISPER_FRAMES} "
+          f"frames and {WHISPER_PROMPT} prompt tokens with {1 + NEW_TOKENS} tokens each over "
+          f"{steps} decode steps; kernel launches {json.dumps(launches)} = "
+          f"{json.dumps(expected_launches(cfg, 1, 0))} per batch prefill + "
+          f"{json.dumps(expected_launches(cfg, 0, 1))} per decode step")
+    n_tokens = sum(t.numel() for t in tokens)
+    result = {
+        "model": cfg.name, "dtype": "bfloat16", "layers": cfg.num_layers,
+        "encoder_layers": cfg.encoder_layers, "d_model": cfg.d_model,
+        "params": model_lib.param_count(cfg), "requests": WHISPER_BATCHES * SLOTS,
+        "batches": WHISPER_BATCHES, "slots": SLOTS, "frames": WHISPER_FRAMES,
+        "prompt_tokens": WHISPER_PROMPT, "cache_len": WHISPER_CACHE, "new_tokens": NEW_TOKENS,
+        "decode_steps": steps, "wall_s": wall, "tokens_per_s": n_tokens / wall,
+        "prefill_ms_mean": 1e3 * float(np.mean(spent["prefill"])),
+        "decode_ms_per_step_median": 1e3 * float(np.median(spent["step"])),
+        "peak_mem_gib": peak / 2**30, "launches": launches, "gpu": gpu,
+        "floors": whisper_floors(cfg, params, SLOTS, WHISPER_PROMPT + NEW_TOKENS),
+    }
+    prof = profile_whisper(cfg, params, *batches[0])
+    prof["decode"]["device_busy_share_of_median_step"] = (
+        prof["decode"]["device_ms_per_step"] / result["decode_ms_per_step_median"])
+    result["decode_profile"], result["prefill_profile"] = prof["decode"], prof["prefill"]
+    prompt = batches[0][1][0].cpu().numpy()          # the first request's, and its audio:
+    del params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["f32_check"] = f32_check(
+        cfg, seed, prompt, enc_inputs=torch.from_numpy(frontends.audio_frames(cfg, 1, seed=seed)))
+    result["phase_s"] = time.perf_counter() - t_phase
+    return result
+
 
 
 def record_routes(into):
@@ -1040,12 +1344,14 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def _teacher_forced(cfg, params, prompt, tokens, device):
+def _teacher_forced(cfg, params, prompt, tokens, device, enc_inputs=None):
     """Prefill plus F32_DECODE_STEPS decode steps of batch 1; feeds ``tokens``
     when given, else the greedy ones, which it returns."""
     cache = model_lib.init_cache(cfg, 1, len(prompt) + F32_DECODE_STEPS,
                                  dtype=torch.float32, device=device)
-    logits, cache = model_lib.prefill(cfg, params, prompt[None].to(device), cache)
+    enc = enc_inputs.to(device) if enc_inputs is not None else None
+    logits, cache = model_lib.prefill(cfg, params, prompt[None].to(device), cache,
+                                      enc_inputs=enc)
     out, fed = [logits], []
     for i in range(F32_DECODE_STEPS):
         tok = tokens[i] if tokens is not None else int(torch.argmax(logits[0]))
@@ -1088,7 +1394,8 @@ def main() -> None:
                           lambda seed, prompt: f32_check(qwen, seed, prompt)),
               phase_slice(get_config(RWKV_ARCH), args.seed, rwkv_prompts, gpu, f32_check_rwkv),
               phase_slice(moe, args.seed, moe_prompts, gpu, f32_check_moe),
-              phase_slice(get_config(RG_ARCH), args.seed, rg_prompts, gpu, f32_check_rg)]
+              phase_slice(get_config(RG_ARCH), args.seed, rg_prompts, gpu, f32_check_rg),
+              phase_whisper(args.seed, gpu)]
     for row in rows:
         row["launches"] = sum(res["launches"][row["name"]] for res in slices)
     for res in slices:

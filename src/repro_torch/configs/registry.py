@@ -161,9 +161,8 @@ class ModelConfig:
     @property
     def params_total(self) -> int:
         """Exact parameter count from the model's parameter shapes (no
-        allocation).  Raises ``NotImplementedError`` for a family the port
-        cannot build yet: the analytic ``param_counts()`` differs from the
-        built model, so it is no stand-in."""
+        allocation); the analytic ``param_counts()`` differs from the built
+        model, so it is no stand-in."""
         from repro_torch.models.model import param_count
 
         return param_count(self)

@@ -136,3 +136,16 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&t);
 }
+
+// Two floats split into a bf16 high part (rounded) and a bf16 low part (the
+// rounded remainder), each pair packed as pack_bf16x2 packs it: hi + lo
+// carries about 16 significant bits where hi alone carries 8, so two
+// products (hi, then lo, against the same bf16 operand) summed in f32 give
+// the product of the f32 value to about 2^-17 of it.
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}

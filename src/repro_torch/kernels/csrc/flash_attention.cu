@@ -22,9 +22,17 @@
 //    f32 accumulate), fed by ldmatrix (.trans for V in P V);
 //  - S = Q K^T stays in the accumulator registers; the online softmax runs
 //    there in log2 units (row max and sum over the 4 lanes of a quad, the
-//    scale folded into the exponent's FMA, ex2.approx), and P is rounded
-//    to bf16 in registers and used directly as the A operand of P V: no
-//    (Sq, Sk) tile reaches shared or device memory;
+//    scale folded into the exponent's FMA, ex2.approx), and P is split in
+//    registers into a bf16 high part and a bf16 low part, both used
+//    directly as A operands of P V: no (Sq, Sk) tile reaches shared or
+//    device memory.  The TPU kernel multiplies the f32 P by V and rounds
+//    once, at the output; P rounded to bf16 alone (relative error 2^-9 on
+//    each weight) put outputs of |o| in [2, 4) up to 0.0255 from the f32
+//    attention of the same inputs, more than one bf16 step there, and the
+//    low part's product (half again as many mma.sync per tile; its time
+//    on an H100 is in PERF.md) brings them back within half a step
+//    (tests/test_torch_cuda.py,
+//    test_flash_bf16_rounding_margin_at_large_outputs);
 //  - K and V tiles of 64 keys move as bf16 with 16-byte cp.async into a
 //    3-stage ring (tiles n+1 and n+2 in flight while n computes, one
 //    barrier per tile); rows are padded by 16 bytes, so the 8 rows an
@@ -53,7 +61,8 @@
 //  - S of the next tile is not computed ahead (one S tile, 32 registers):
 //    128 + 32 registers of accumulators and S and the fragments in flight
 //    fit the cap of 255 at one CTA per SM (__launch_bounds__(128, 1));
-//    ptxas keeps it at 245 registers with no spill;
+//    ptxas kept it at 245 registers with no spill, and with P's low part
+//    (four more fragment registers) at 255 and 76 bytes of spill;
 //  - K and V pass through a 2-stage ring (tile n+1 in flight while n
 //    computes; two barriers per tile, the second before the stage is
 //    refilled).  Shared memory: Q 64 x 264 + 2 stages x (K + V) 64 x 264
@@ -291,8 +300,10 @@ __device__ __forceinline__ void mask_tile(float (&s)[BN / 8][4], int n0, int Sk,
 // The online softmax of one S tile over the quad that holds each row (the
 // scale goes into the exponent's FMA; m starts finite (-1e30), so a row
 // masked so far keeps exp2(-inf) = 0 and alpha = 1), then O += P V: P from
-// the S registers as bf16 A fragments, V by ldmatrix.trans, x4 matrices
-// (keys 0-7 | 8-15) x (dims 0-7 | 8-15).
+// the S registers as two bf16 A fragments, its high and low parts, each
+// multiplied by V (ldmatrix.trans, x4 matrices (keys 0-7 | 8-15) x (dims
+// 0-7 | 8-15)) into the same f32 accumulators, so that P V is the product
+// of the f32 P, as the TPU kernel's is.
 template <int HD>
 __device__ __forceinline__ void softmax_pv(float (&s)[BN / 8][4], float (&acc)[HD / 8][4],
                                            float& m0, float& m1, float& l0, float& l1,
@@ -330,16 +341,19 @@ __device__ __forceinline__ void softmax_pv(float (&s)[BN / 8][4], float (&acc)[H
   }
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk) {
-    const uint32_t pa[4] = {
-        pack_bf16x2(s[2 * kk][0], s[2 * kk][1]), pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-        pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-        pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    uint32_t ph[4], pl[4];
+    split_bf16x2(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+    split_bf16x2(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+    split_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+    split_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
 #pragma unroll
     for (int d2 = 0; d2 < DB / 2; ++d2) {
       uint32_t vf[4];
       ldmatrix_x4_trans(vf, Vt + (kk * 16 + frag_row) * ld<HD>() + d2 * 16 + frag_col);
-      mma_bf16_16816(acc[2 * d2], pa, vf[0], vf[1]);
-      mma_bf16_16816(acc[2 * d2 + 1], pa, vf[2], vf[3]);
+      mma_bf16_16816(acc[2 * d2], ph, vf[0], vf[1]);
+      mma_bf16_16816(acc[2 * d2 + 1], ph, vf[2], vf[3]);
+      mma_bf16_16816(acc[2 * d2], pl, vf[0], vf[1]);
+      mma_bf16_16816(acc[2 * d2 + 1], pl, vf[2], vf[3]);
     }
   }
 }

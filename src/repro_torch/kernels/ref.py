@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the kernels (attention and the RWKV-6 scan) and
-the RG-LRU's sequential oracle.
+"""Plain PyTorch versions of the kernels (attention and the RWKV-6 scan),
+the RG-LRU's sequential oracle, and the one-bf16-step bound (with its
+large-output inputs) that the bf16 flash kernel is held to.
 
 These are (1) the path ``ops`` takes for tensors on the CPU, and (2) the
 oracles every CUDA kernel is held against on the card (``chip_smoke.py``).
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -51,6 +53,30 @@ def mha_reference(
     probs = _softmax_pv(logits, v.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.float())
     return out.reshape(b, sq, nq, hd).to(q.dtype)
+
+
+def bf16_step(o32: torch.Tensor, floor: float = 2e-2) -> torch.Tensor:
+    """One bf16 step of each exact output, ``2^(floor(log2|o32|) - 7)``, and
+    never below ``floor``: what a kernel that computes in f32 and rounds its
+    output once to bf16 stays within."""
+    return torch.clamp(torch.exp2(torch.floor(torch.log2(o32.abs())) - 7), min=floor)
+
+
+def bf16_steps_from_f32(o, q, k, v, *, causal: bool) -> torch.Tensor:
+    """|o - o32| in bf16 steps of o32 (``bf16_step``), where o32 is the f32
+    attention of the same (bf16) inputs; a kernel that rounds once is <= 1."""
+    o32 = mha_reference(q.float(), k.float(), v.float(), causal=causal)
+    return (o.float() - o32).abs() / bf16_step(o32)
+
+
+def large_output_inputs(hd: int, device, dtype=torch.bfloat16):
+    """q, k, v whose attention reaches |o| ~ 27 from a few keys (sharp logits,
+    large values): seed = hd, S = 256, q, k ~ 3 N, v ~ 6 N, 16 q heads over 4
+    kv heads at hd 64 and over 1 at hd 256; made in f32 with numpy."""
+    rng = np.random.default_rng(hd)
+    s, nq, nkv = 256, 16, 1 if hd == 256 else 4
+    return tuple(torch.from_numpy((c * rng.standard_normal((1, s, n, hd))).astype(np.float32))
+                 .to(device, dtype) for c, n in ((3.0, nq), (3.0, nkv), (6.0, nkv)))
 
 
 def decode_attention_reference(

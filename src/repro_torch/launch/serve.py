@@ -2,7 +2,8 @@
 
 Runs the continuous-batching engine for a registered architecture the
 port builds (attention-only decoders, dense or MoE, RWKV-6 and the Griffin
-hybrid), on the card by default.  ``--reduced`` selects the smoke variant of the same
+hybrid; whisper serves at the model's entry points, see ``chip_smoke.py``
+phase 3e), on the card by default.  ``--reduced`` selects the smoke variant of the same
 family, which also runs with ``--device cpu``.  The full MoE models do not
 fit one 80 GB card (phi3.5-moe-42b-a6.6b is 83.7 GB of bf16 weights): they
 fail with the card's out-of-memory error.
@@ -51,6 +52,10 @@ def main() -> None:
         cfg = cfg.reduced()
     if cfg.frontend == "vision":
         raise SystemExit("vision archs serve via embeddings, not token prompts")
+    if cfg.is_encoder_decoder:
+        # the engine's requests carry no audio, in the JAX package as here
+        raise SystemExit("encoder-decoder archs serve at the model's entry points "
+                         "(init_cache, prefill(enc_inputs=), decode_step), not through the engine")
 
     device = torch.device(args.device)
     dtype = DTYPES[args.dtype]

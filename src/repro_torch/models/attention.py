@@ -29,6 +29,8 @@ from repro_torch.models.params import normal
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, *, dtype=torch.float32,
                    device="cuda") -> dict:
+    """Projections wq, wk, wv (d, heads, hd) and wo (nq, hd, d), biases with
+    ``qkv_bias``; whisper's cross-attention uses the same shapes."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     s = d ** -0.5
@@ -148,3 +150,28 @@ def attention_decode(
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], valid)  # (B,nq,hd)
     y = _out_proj(out, p["wo"])[:, None, :]
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder). KV computed once from the encoder output.
+# ---------------------------------------------------------------------------
+def cross_attention_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor):
+    """(B, S_enc, d) -> k, v (B, S_enc, nkv, hd)."""
+    k = _proj(enc_out, p["wk"])
+    v = _proj(enc_out, p["wv"])
+    if "bk" in p:
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return k, v
+
+
+def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """(B, Sq, d) decoder rows against the encoder's k, v -> (B, Sq, d):
+    non-causal flash attention, in prefill and at Sq = 1 in each decode
+    step alike, as the JAX package runs it."""
+    q = _proj(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    out = ops.flash_attention(q, k, v, causal=False)
+    return _out_proj(out, p["wo"])

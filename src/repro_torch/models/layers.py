@@ -1,6 +1,7 @@
-"""Shared layers: norms, MLPs, embeddings, rotary positions."""
+"""Shared layers: norms, MLPs, embeddings, rotary and sinusoidal positions."""
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -89,3 +90,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Absolute sinusoidal positions.
+# ---------------------------------------------------------------------------
+def sinusoidal_positions(seq_len: int, d_model: int, device="cuda") -> torch.Tensor:
+    """Whisper-style absolute sinusoidal embeddings (seq, d_model) in f32, sin
+    and cos interleaved (even columns sin, odd columns cos).  The model adds
+    ``model._abs_pos`` instead, which concatenates [sin, cos]; both forms are
+    the JAX package's and both are kept."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10_000.0) / d_model))
+    pe = torch.zeros((seq_len, d_model), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe

@@ -1,13 +1,17 @@
-"""Composable language model: attention decoders (dense or MoE), RWKV-6 and
-the Griffin hybrid (RG-LRU and local-attention blocks).
+"""Composable language model: attention decoders (dense or MoE), RWKV-6,
+the Griffin hybrid (RG-LRU and local-attention blocks) and the whisper
+encoder-decoder.
 
 The config's ``block_pattern`` repeats over the layers, followed by any
 ``tail_blocks``; the layers run in that order in a Python loop over
 ``params["layers"]``.  The decode cache keeps the JAX package's layout (one
 tensor per pattern position, stacked over the pattern's repetitions, and
 the tail's blocks unstacked) so the serving engine's slot scatter is the
-same.  Encoder-decoder models (whisper) are a later slice of the port:
-their configs raise ``NotImplementedError`` here.
+same.  Whisper adds an encoder stack (``params["encoder"]``) over frame
+embeddings, and each decoder block a cross-attention to the encoder's
+output between its self-attention and its MLP; ``prefill(enc_inputs=)``
+stores every layer's cross-attention K/V under ``cache["cross"]``, stacked
+over the layers like ``cache["blocks"]["dec"]``.
 
 Entry points
 ------------
@@ -20,24 +24,16 @@ Entry points
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+import math
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.registry import LOCAL_ATTN, RGLRU, RWKV, ModelConfig
+from repro_torch.configs.registry import ATTN, LOCAL_ATTN, RGLRU, RWKV, ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import griffin, layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the family a later slice of the port brings up:
-    encoder-decoder (whisper)."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder is not ported yet (ROADMAP Queue 1 item 8)"
-        )
 
 
 def _pattern_layout(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...], Tuple[str, ...]]:
@@ -50,6 +46,13 @@ def _pattern_layout(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...], Tuple[str, 
     return n_rep, pat, tail
 
 
+def block_key(cfg: ModelConfig, i: int, kind: str) -> str:
+    """The name of pattern position ``i`` in the cache and in the JAX
+    package's parameters: ``p{i}_{kind}``, and ``dec`` for whisper's
+    decoder blocks."""
+    return "dec" if cfg.is_encoder_decoder else f"p{i}_{kind}"
+
+
 # ---------------------------------------------------------------------------
 # Init and counting.
 # ---------------------------------------------------------------------------
@@ -58,7 +61,10 @@ def _layer_kinds(cfg: ModelConfig) -> List[str]:
     return list(pat) * n_rep + list(tail)
 
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype, device) -> dict:
+def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype, device,
+                cross: bool = False) -> dict:
+    """One block's parameters; ``cross`` adds whisper's decoder
+    cross-attention (``norm_x``, ``xattn``)."""
     if kind == RWKV:     # no MLP: the channel mix is part of the block's params
         return {
             "norm1": layers.init_norm(cfg, dtype, device),
@@ -77,6 +83,9 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype, device
         "attn": attn_lib.init_attention(gen, cfg, dtype=dtype, device=device),
         "norm2": layers.init_norm(cfg, dtype, device),
     }
+    if cross:
+        p["norm_x"] = layers.init_norm(cfg, dtype, device)
+        p["xattn"] = attn_lib.init_attention(gen, cfg, dtype=dtype, device=device)
     if cfg.num_experts:
         p["moe"] = moe_lib.init_moe(gen, cfg, dtype, device)
     else:
@@ -86,21 +95,28 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype, device
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *, dtype=torch.float32,
                 device="cuda") -> Dict[str, Any]:
-    """Random parameters with the JAX package's scales, drawn from ``gen``."""
-    check_supported(cfg)
+    """Random parameters with the JAX package's scales, drawn from ``gen``.
+    Whisper's encoder blocks are ``encoder/blocks``, a list like ``layers``."""
+    enc_dec = cfg.is_encoder_decoder
     p: Dict[str, Any] = {
         "embed": layers.init_embed(gen, cfg, dtype, device),
         "final_norm": layers.init_norm(cfg, dtype, device),
-        "layers": [_init_block(gen, cfg, kind, dtype, device) for kind in _layer_kinds(cfg)],
+        "layers": [_init_block(gen, cfg, kind, dtype, device, cross=enc_dec)
+                   for kind in _layer_kinds(cfg)],
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = layers.init_embed(gen, cfg, dtype, device)
+    if enc_dec:
+        p["encoder"] = {
+            "blocks": [_init_block(gen, cfg, ATTN, dtype, device)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": layers.init_norm(cfg, dtype, device),
+        }
     return p
 
 
 def param_count(cfg: ModelConfig) -> int:
     """Exact count of ``init_params``' elements, from shapes alone."""
-    check_supported(cfg)
     d, hd, ff, v = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     norm = d * (2 if cfg.norm == "layernorm" else 1)
@@ -111,17 +127,40 @@ def param_count(cfg: ModelConfig) -> int:
     mlp = moe_lib.param_count(cfg) if cfg.num_experts else dense
     embeds = v * d * (1 if cfg.tie_embeddings else 2)
     block = {RWKV: rwkv_lib.param_count(cfg), RGLRU: griffin.param_count(cfg) + dense}
-    return embeds + norm + sum(2 * norm + block.get(kind, attn + mlp)
-                               for kind in _layer_kinds(cfg))
+    total = embeds + norm + sum(2 * norm + block.get(kind, attn + mlp)
+                                for kind in _layer_kinds(cfg))
+    if cfg.is_encoder_decoder:    # decoder cross-attention; the encoder and its final norm
+        total += cfg.num_layers * (norm + attn) + cfg.encoder_layers * (2 * norm + attn + dense)
+        total += norm
+    return total
 
 
 # ---------------------------------------------------------------------------
 # Embedding in/out.
 # ---------------------------------------------------------------------------
-def _embed_in(params, inputs: torch.Tensor) -> torch.Tensor:
-    if inputs.dim() == 3:          # precomputed embeddings (VLM)
+def _embed_in(cfg: ModelConfig, params, inputs: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+    """Token embeddings, or precomputed ones (B, S, d) as they are (VLM);
+    whisper's decoder scales its token embeddings by sqrt(d) (rounded to the
+    model dtype, as the JAX package rounds it) and adds absolute positions
+    (``positions`` (S,) or (B, 1))."""
+    if inputs.dim() == 3:          # precomputed embeddings (VLM / audio enc)
         return inputs.to(params["embed"].dtype)
-    return layers.embed_tokens(params["embed"], inputs)
+    x = layers.embed_tokens(params["embed"], inputs)
+    if cfg.is_encoder_decoder:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+        x = x + _abs_pos(positions, cfg.d_model).to(x.dtype)
+    return x
+
+
+def _abs_pos(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Absolute sinusoidal positions (..., d_model) in f32 as [sin, cos]
+    halves (``layers.sinusoidal_positions`` interleaves them instead)."""
+    pos = positions.float()[..., None]
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32, device=positions.device)
+                    * (-math.log(10_000.0) / d_model))
+    ang = pos * div
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def _unembed(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -136,12 +175,17 @@ def _unembed(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 def _layer_caches(cfg: ModelConfig, cache) -> List[dict]:
     """Per-layer views of the cache, in the order the layers run:
     ``{"attn": {k, v, slot_pos}}``, ``{"rwkv": {shift_tm, shift_cm, wkv}}``
-    or ``{"rglru": {conv, h}}``; the pattern's stacked, then the tail's."""
+    or ``{"rglru": {conv, h}}``; the pattern's stacked, then the tail's.
+    Once whisper's prefill has stored it, each decoder layer's view also
+    holds ``{"cross": {k, v}}``."""
     n_rep, pat, tail = _pattern_layout(cfg)
+    trees = [cache["blocks"][block_key(cfg, i, kind)] for i, kind in enumerate(pat)]
+    if "cross" in cache:    # stacked over all layers: one pattern position only
+        assert len(pat) == 1 and not tail, (pat, tail)
+        trees[0] = {**trees[0], "cross": cache["cross"]}
     out = []
     for r in range(n_rep):
-        for i, kind in enumerate(pat):
-            stacked = cache["blocks"][f"p{i}_{kind}"]
+        for stacked in trees:
             out.append({sub: {name: t[r] for name, t in leaves.items()}
                         for sub, leaves in stacked.items()})
     return out + [cache["tail"][f"t{j}_{kind}"] for j, kind in enumerate(tail)]
@@ -192,8 +236,22 @@ def _ffn(cfg, p, x):
     return layers.apply_mlp(cfg, p["mlp"], x), 0.0
 
 
-def _run_blocks_full(cfg, params, x, positions, caches, *, window):
-    """The layers over a full sequence -> (x, the sum of their aux losses)."""
+def _cross_block(cfg, p, x, enc_out, cache):
+    """Whisper's decoder cross-attention with its norm (residual added by
+    the caller): against the cache's K/V where prefill stored them, else
+    against K/V projected from ``enc_out``."""
+    hx = layers.apply_norm(cfg, p["norm_x"], x)
+    if cache is not None and "cross" in cache:
+        k, v = cache["cross"]["k"], cache["cross"]["v"]
+    else:
+        k, v = attn_lib.cross_attention_kv(cfg, p["xattn"], enc_out)
+    return attn_lib.cross_attention(cfg, p["xattn"], hx, k, v)
+
+
+def _run_blocks_full(cfg, params, x, positions, caches, *, window, enc_out=None):
+    """The layers over a full sequence -> (x, the sum of their aux losses).
+    Whisper's decoder blocks attend to ``enc_out`` (or to the K/V a cache
+    holds) after their self-attention."""
     aux = 0.0
     for i, (kind, p) in enumerate(zip(_layer_kinds(cfg), params["layers"])):
         cache = caches[i] if caches is not None else None
@@ -209,21 +267,57 @@ def _run_blocks_full(cfg, params, x, positions, caches, *, window):
             cache=cache["attn"] if cache is not None else None,
         )
         x = x + y
+        if "xattn" in p:
+            x = x + _cross_block(cfg, p, x, enc_out, cache)
         h2 = layers.apply_norm(cfg, p["norm2"], x)
         y2, a = _ffn(cfg, p, h2)
         x, aux = x + y2, aux + a
     return x, aux
 
 
-def forward(cfg: ModelConfig, params, inputs: torch.Tensor, *, window: int = 0):
+def _encoder_output(cfg: ModelConfig, params, enc_inputs: Optional[torch.Tensor]):
+    """Whisper's encoder output (B, S_enc, d), None for a decoder-only model."""
+    if not cfg.is_encoder_decoder:
+        return None
+    if enc_inputs is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: pass enc_inputs (B, frames, d)")
+    return _encode(cfg, params, enc_inputs)
+
+
+def forward(cfg: ModelConfig, params, inputs: torch.Tensor, *,
+            enc_inputs: Optional[torch.Tensor] = None, window: int = 0):
     """Full-sequence forward -> (logits (B, S, vocab), the layers' summed
-    aux loss: 0.0 without MoE layers)."""
-    check_supported(cfg)
+    aux loss: 0.0 without MoE layers).  Whisper takes its frame embeddings
+    (B, S_enc, d) as ``enc_inputs``."""
     positions = torch.arange(inputs.shape[1], device=inputs.device)
-    x = _embed_in(params, inputs)
-    x, aux = _run_blocks_full(cfg, params, x, positions, None, window=window)
+    x = _embed_in(cfg, params, inputs, positions)
+    x, aux = _run_blocks_full(cfg, params, x, positions, None, window=window,
+                              enc_out=_encoder_output(cfg, params, enc_inputs))
     x = layers.apply_norm(cfg, params["final_norm"], x)
     return _unembed(cfg, params, x), aux
+
+
+def _encode(cfg: ModelConfig, params, enc_inputs: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder: absolute positions, then pre-norm blocks of
+    non-causal self-attention over all frames and an MLP, then its final
+    norm."""
+    enc = params["encoder"]
+    x = enc_inputs.to(params["embed"].dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = x + _abs_pos(positions, cfg.d_model).to(x.dtype)
+    for p in enc["blocks"]:
+        h = layers.apply_norm(cfg, p["norm1"], x)
+        y, _ = attn_lib.attention_full(cfg, p["attn"], h, positions, causal=False)
+        x = x + y
+        h2 = layers.apply_norm(cfg, p["norm2"], x)
+        x = x + layers.apply_mlp(cfg, p["mlp"], h2)
+    return layers.apply_norm(cfg, enc["final_norm"], x)
+
+
+def _all_cross_kv(cfg: ModelConfig, params, enc_out: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Every decoder layer's cross-attention K/V, each (L, B, S_enc, nkv, hd)."""
+    kvs = [attn_lib.cross_attention_kv(cfg, p["xattn"], enc_out) for p in params["layers"]]
+    return {"k": torch.stack([k for k, _ in kvs]), "v": torch.stack([v for _, v in kvs])}
 
 
 def _layer_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
@@ -242,8 +336,9 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, window: int = 0,
                dtype=torch.float32, device="cuda") -> Dict[str, Any]:
-    """Decode cache. ``window`` > 0 = sliding-window mode for global-attn."""
-    check_supported(cfg)
+    """Decode cache. ``window`` > 0 = sliding-window mode for global-attn.
+    Whisper's decoder layers are ``blocks/dec``; its cross-attention K/V
+    come with ``prefill``."""
     n_rep, pat, tail = _pattern_layout(cfg)
 
     def stacked(kind):
@@ -253,20 +348,25 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, window: int = 0,
 
     return {
         "t": torch.zeros((batch,), dtype=torch.int32, device=device),
-        "blocks": {f"p{i}_{kind}": stacked(kind) for i, kind in enumerate(pat)},
+        "blocks": {block_key(cfg, i, kind): stacked(kind) for i, kind in enumerate(pat)},
         "tail": {f"t{j}_{kind}": _layer_cache(cfg, kind, batch, cache_len, window, dtype, device)
                  for j, kind in enumerate(tail)},
     }
 
 
-def prefill(cfg: ModelConfig, params, inputs: torch.Tensor, cache, *, window: int = 0):
-    """Run the prompt through the model, populating ``cache`` in place.
+def prefill(cfg: ModelConfig, params, inputs: torch.Tensor, cache, *,
+            enc_inputs: Optional[torch.Tensor] = None, window: int = 0):
+    """Run the prompt through the model, populating ``cache`` in place;
+    whisper encodes ``enc_inputs`` and stores every decoder layer's
+    cross-attention K/V under ``cache["cross"]``.
 
     Returns (last-token logits (B, vocab), the cache)."""
-    check_supported(cfg)
     s = inputs.shape[1]
     positions = torch.arange(s, device=inputs.device)
-    x = _embed_in(params, inputs)
+    x = _embed_in(cfg, params, inputs, positions)
+    enc_out = _encoder_output(cfg, params, enc_inputs)
+    if enc_out is not None:
+        cache["cross"] = _all_cross_kv(cfg, params, enc_out)
     x, _ = _run_blocks_full(cfg, params, x, positions, _layer_caches(cfg, cache), window=window)
     cache["t"] = torch.full((inputs.shape[0],), s, dtype=torch.int32, device=inputs.device)
     x = layers.apply_norm(cfg, params["final_norm"], x[:, -1:, :])
@@ -275,9 +375,8 @@ def prefill(cfg: ModelConfig, params, inputs: torch.Tensor, cache, *, window: in
 
 def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *, window: int = 0):
     """One decode step for every sequence. Returns (logits (B, vocab), the cache)."""
-    check_supported(cfg)
     t = cache["t"]
-    x = layers.embed_tokens(params["embed"], tokens[:, None])
+    x = _embed_in(cfg, params, tokens[:, None], t[:, None])
     for kind, p, c in zip(_layer_kinds(cfg), params["layers"], _layer_caches(cfg, cache)):
         if kind == RWKV:
             x = _rwkv_block(cfg, p, x, c)
@@ -289,6 +388,8 @@ def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *, window
         y, _ = attn_lib.attention_decode(cfg, p["attn"], h, t, c["attn"],
                                          window=_window(cfg, kind, window))
         x = x + y
+        if "xattn" in p:
+            x = x + _cross_block(cfg, p, x, None, c)
         h2 = layers.apply_norm(cfg, p["norm2"], x)
         x = x + _ffn(cfg, p, h2)[0]
     cache["t"] = t + 1

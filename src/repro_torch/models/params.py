@@ -49,27 +49,27 @@ def params_from_jax(
     (``jax.tree.map(np.asarray, params)``).
 
     JAX stacks each block kind of the repeating pattern along axis 0
-    (``blocks/p{i}_{kind}``, one entry per repetition) and keeps the tail's
-    blocks unstacked (``tail/t{j}_{kind}``); the port lists the blocks in
-    the order the model runs them, the tail last.  ``dtype`` None keeps
-    each leaf's own; the leaves the JAX package keeps in f32 (RWKV's
-    ``mu``, ``cm_mu``, ``w0``, ``u``, the MoE router and the RG-LRU's
-    Lambda ``lam``) stay f32.  Raises ``NotImplementedError`` for families
-    not ported.
+    (``blocks/p{i}_{kind}``, one entry per repetition; whisper's decoder
+    blocks ``blocks/dec``) and keeps the tail's blocks unstacked
+    (``tail/t{j}_{kind}``); the port lists the blocks in the order the model
+    runs them, the tail last.  Whisper's encoder blocks (``encoder/blocks``,
+    stacked) become the list ``encoder/blocks`` beside ``encoder/final_norm``.
+    ``dtype`` None keeps each leaf's own; the leaves the JAX package keeps
+    in f32 (RWKV's ``mu``, ``cm_mu``, ``w0``, ``u``, the MoE router and the
+    RG-LRU's Lambda ``lam``) stay f32.
     """
     # model, moe, rwkv and griffin import this module
     from repro_torch.models import griffin, moe, rwkv
-    from repro_torch.models.model import check_supported
+    from repro_torch.models.model import block_key
 
-    check_supported(cfg)
     f32 = rwkv.F32_LEAVES + moe.F32_LEAVES + griffin.F32_LEAVES
     to_t = lambda a, name="": _leaf(a, None if name in f32 else dtype, device)
+    unstack = lambda stacked, r: _convert(stacked, lambda a, name: to_t(np.asarray(a)[r], name))
     tail = cfg.tail_blocks
     layers = []
     for r in range((cfg.num_layers - len(tail)) // len(cfg.block_pattern)):
         for i, kind in enumerate(cfg.block_pattern):
-            stacked = tree["blocks"][f"p{i}_{kind}"]
-            layers.append(_convert(stacked, lambda a, name: to_t(np.asarray(a)[r], name)))
+            layers.append(unstack(tree["blocks"][block_key(cfg, i, kind)], r))
     layers += [_convert(tree["tail"][f"t{j}_{kind}"], to_t) for j, kind in enumerate(tail)]
     out = {
         "embed": to_t(tree["embed"]),
@@ -78,4 +78,10 @@ def params_from_jax(
     }
     if "lm_head" in tree:
         out["lm_head"] = to_t(tree["lm_head"])
+    if cfg.is_encoder_decoder:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "blocks": [unstack(enc["blocks"], r) for r in range(cfg.encoder_layers)],
+            "final_norm": _convert(enc["final_norm"], to_t),
+        }
     return out

@@ -55,11 +55,11 @@ def _scatter_slot(cache_tree, sub_tree, slot: int):
     """Write a batch-1 cache into batch slot ``slot`` of the shared cache,
     in place.
 
-    Cache layout (see model.init_cache): leaves under ``blocks`` are
-    layer-stacked -> batch axis 1; ``tail`` entries and the per-seq ``t``
-    counter are unstacked -> batch axis 0."""
+    Cache layout (see model.init_cache): leaves under ``blocks`` and
+    whisper's ``cross`` are layer-stacked -> batch axis 1; ``tail`` entries
+    and the per-seq ``t`` counter are unstacked -> batch axis 0."""
     for key, full in cache_tree.items():
-        _scatter(full, sub_tree[key], slot, 1 if key == "blocks" else 0)
+        _scatter(full, sub_tree[key], slot, 1 if key in ("blocks", "cross") else 0)
     return cache_tree
 
 

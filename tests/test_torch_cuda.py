@@ -26,7 +26,7 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rwkv6_scan as rk
-from repro_torch.models import model, moe
+from repro_torch.models import frontends, model, moe
 from repro_torch.serving import ContinuousBatcher, Engine, EngineConfig, Request
 
 pytestmark = pytest.mark.cuda
@@ -45,6 +45,9 @@ FA_CASES = [
     (1, 200, 200, 16, 1, 256, True, 0, 0),     # recurrentgemma-9b: hd 256, MQA 16:1
     (1, 2112, 2112, 16, 1, 256, True, 2048, 0),   # its local window bites (S > W)
     (2, 100, 164, 16, 1, 256, True, 48, 64),   # hd 256, a window and a q_offset
+    (8, 1500, 1500, 12, 12, 64, False, 0, 0),  # whisper-small: the encoder over 1500 frames
+    (8, 4, 1500, 12, 12, 64, False, 0, 0),     # cross-attention of the 4-token prompt
+    (8, 1, 1500, 12, 12, 64, False, 0, 0),     # cross-attention of one decode step
 ]
 DA_CASES = [
     # b, s, nq, nkv, hd
@@ -55,6 +58,7 @@ DA_CASES = [
     (2, 300, 32, 8, 128),
     (2, 300, 16, 1, 256),      # recurrentgemma-9b: hd 256, 16 q heads over 1 kv head
     (8, 2048, 16, 1, 256),     # and its 8-slot, 2048-slot ring
+    (8, 448, 12, 12, 64),      # whisper-small's decoder self-attention: 448-token context
 ]
 
 
@@ -290,21 +294,23 @@ def test_decode_ring_wrapped_window_mask_hd256(cuda, dtype):
 
 @pytest.mark.parametrize("hd", [64, 256])
 def test_flash_bf16_rounding_margin_at_large_outputs(cuda, hd):
-    """Outputs of |o| >= 4 made from a few keys (sharp logits, large values),
-    held to the plain version at the unchanged bf16 tolerance: the margin
-    left by rounding where bf16's step is 2^-5 and more."""
-    rng = np.random.default_rng(hd)
-    s, nq, nkv = 256, 16, 1 if hd == 256 else 4
-    q = 3.0 * rng.standard_normal((1, s, nq, hd))
-    k = 3.0 * rng.standard_normal((1, s, nkv, hd))
-    v = 6.0 * rng.standard_normal((1, s, nkv, hd))
-    q, k, v = (torch.from_numpy(x.astype(np.float32)).to(cuda, torch.bfloat16) for x in (q, k, v))
+    """Outputs of |o| >= 16 made from a few keys (sharp logits, large values),
+    held to the f32 attention of the same bf16 inputs within one bf16 step of
+    that exact output, ``max(2e-2, 2^(floor(log2|o32|) - 7))``.  The TPU
+    kernel computes in f32 from its bf16 inputs and rounds once, at the
+    output, so this is what it meets (tests/test_torch_flash_rounding.py);
+    the plain version rounds its probabilities to bf16 first and sits up to
+    one step away on its own side, so no kernel can be held to it at 2e-2
+    once a step exceeds 4e-2."""
+    q, k, v = ref.large_output_inputs(hd, cuda)
     out = fa.flash_attention(q, k, v, causal=True)
-    exp = ref.mha_reference(q, k, v, causal=True)
-    assert float(exp.float().abs().max()) >= 4.0
-    worst = int((out.float() - exp.float()).abs().argmax())
-    assert _err(out, exp) < TOL["bfloat16"], (
-        f"kernel {float(out.flatten()[worst])} vs plain {float(exp.flatten()[worst])}")
+    o32 = ref.mha_reference(q.float(), k.float(), v.float(), causal=True)
+    assert float(o32.abs().max()) >= 16.0
+    steps = ref.bf16_steps_from_f32(out, q, k, v, causal=True)
+    worst = int(steps.argmax())
+    assert float(steps.max()) <= 1.0, (
+        f"kernel {float(out.flatten()[worst])} vs f32 {float(o32.flatten()[worst])}, "
+        f"{float(steps.max())} bf16 steps")
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -469,6 +475,38 @@ def test_engine_on_the_card_matches_cpu(cuda, arch):
         bat.run_until_idle()
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
+
+
+def test_whisper_on_the_card_matches_cpu(cuda):
+    """whisper-small at ``reduced()`` in f32: ``prefill(enc_inputs=)`` and 4
+    decode steps on the card (CUDA kernels) against the CPU (plain
+    versions), the CPU's greedy tokens fed to both.  Logits within 1e-3, as
+    ``chip_smoke.py`` holds f32 logits (the same f32 arithmetic summed in
+    another order through 2 + 2 layers), the same greedy tokens, and every
+    attention call through the kernels: per prefill 2 encoder, 2 self- and 2
+    cross-attention flash calls, per step 2 cross-attention flash calls
+    (Sq = 1) and 2 decode calls."""
+    cfg = get_config("whisper-small").reduced()
+    params = model.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    frames = torch.from_numpy(frontends.audio_frames(cfg, 2, seed=3))
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 4)))
+    runs, fed = [], None
+    for device, p in (("cpu", params), (cuda, _to(params, cuda))):
+        before = (fa.launches, da.launches)
+        cache = model.init_cache(cfg, 2, 16, device=device)
+        logits, cache = model.prefill(cfg, p, prompt.to(device), cache,
+                                      enc_inputs=frames.to(device))
+        out = [logits.cpu()]
+        for i in range(4):
+            tok = fed[i] if fed is not None else torch.argmax(out[-1], dim=-1)
+            logits, cache = model.decode_step(cfg, p, tok.to(device), cache)
+            out.append(logits.cpu())
+        fed = fed or [torch.argmax(x, dim=-1) for x in out[:-1]]
+        runs.append((out, fa.launches - before[0], da.launches - before[1]))
+    (cpu, _, _), (card, flash_calls, decode_calls) = runs
+    assert (flash_calls, decode_calls) == (3 * 2 + 4 * 2, 4 * 2)
+    assert max(_err(a, b) for a, b in zip(card, cpu)) < 1e-3
+    assert all(torch.equal(torch.argmax(a, -1), torch.argmax(b, -1)) for a, b in zip(card, cpu))
 
 
 # ---------------------------------------------------------------------------

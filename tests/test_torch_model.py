@@ -14,19 +14,17 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_config
-from repro.models import frontends
 from repro.models import model as jmodel
 from repro_torch.configs import get_config
-from repro_torch.models import model
+from repro_torch.models import frontends, model
 from repro_torch.models.params import params_from_jax
 
 TOL = 1e-4
 ATTENTION_ONLY = ["qwen1.5-0.5b", "llama3-8b", "qwen2-72b", "minicpm-2b", "llava-next-mistral-7b"]
 # RWKV-6's own tests: tests/test_torch_rwkv.py; MoE's: tests/test_torch_moe.py;
-# the Griffin hybrid's: tests/test_torch_griffin.py
+# the Griffin hybrid's: tests/test_torch_griffin.py; whisper's: tests/test_torch_whisper.py
 PORTED = ATTENTION_ONLY + ["rwkv6-1.6b", "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b",
-                           "recurrentgemma-9b"]
-NOT_PORTED = {"whisper-small": "item 8"}
+                           "recurrentgemma-9b", "whisper-small"]
 
 
 def _pair(arch, seed=0):
@@ -85,7 +83,7 @@ def test_windowed_forward_and_prefill_match_jax():
 def test_vlm_embedding_inputs_match_jax():
     jcfg, tcfg, jp, tp = _pair("llava-next-mistral-7b", seed=5)
     text = _tokens(jcfg, b=2, s=6, seed=5)
-    inputs = np.asarray(frontends.multimodal_inputs(jcfg, text, jp["embed"], tiles=0, seed=1))
+    inputs = frontends.multimodal_inputs(tcfg, text, np.asarray(jp["embed"]), tiles=0, seed=1)
     jl, _ = jmodel.forward(jcfg, jp, jnp.asarray(inputs))
     tl, _ = model.forward(tcfg, tp, torch.from_numpy(inputs))
     assert tl.shape == (2, inputs.shape[1], tcfg.vocab_size)
@@ -173,12 +171,3 @@ def test_init_params_is_seeded_by_the_generator():
     b = model.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
     c = model.init_params(cfg, torch.Generator().manual_seed(4), device="cpu")
     assert torch.equal(a["embed"], b["embed"]) and not torch.equal(a["embed"], c["embed"])
-
-
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_unported_families_raise_naming_their_roadmap_item(arch):
-    cfg = get_config(arch)
-    for call in (lambda: model.param_count(cfg), lambda: cfg.params_total,
-                 lambda: model.init_cache(cfg.reduced(), 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {NOT_PORTED[arch]}"):
-            call()
