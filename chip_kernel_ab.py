@@ -10,8 +10,9 @@ its kernels are built into that checkout's ``build/``.  Timing is
 ``chip_smoke.py``'s: median of CUDA events around single calls, the L2
 flushed and ~0.1 ms of device sleep queued before each.  Run the trees in
 turns (A, B, B, A) in one command on one card, so that both see the same
-card and host.  Prints one JSON line: ms per kernel and shape, and the
-bf16 flash kernel's rounding at large outputs (``rounding_margin``).
+card and host.  Prints one JSON line: ms per kernel and shape, the bf16
+flash kernel's rounding at large outputs (``rounding_margin``) and the bf16
+decode kernel's over ``ref.DECODE_ROUNDING_SEEDS`` (``decode_rounding``).
 """
 from __future__ import annotations
 
@@ -120,6 +121,9 @@ def main() -> None:
         out[f"decode {name}"] = time_ms(lambda: da.decode_attention(q, k, v, valid), flush,
                                         args.iters)
     out["rounding"] = rounding_margin(fa, dev)
+    probe = own_ref()
+    out["decode_rounding"] = {f"hd {hd}": probe.decode_rounding_sweep(da.decode_attention, hd, dev)
+                              for hd in (64, 256)}
     print(json.dumps(out))
 
 

@@ -31,7 +31,8 @@ never prints its last line):
    leave whole tiles and whole splits empty in the middle of the cache),
    and the bf16 flash kernel within one bf16 step of the f32 attention of
    its inputs, as the TPU kernel rounds, at outputs of |o| up to ~27 and at
-   whisper-small's three flash shapes.
+   whisper-small's three flash shapes, and the bf16 decode kernel the same
+   at outputs of |o| up to ~24 (hd 64 at 16:4 heads, hd 256 at 16:1).
    Time kernel, plain version, one PyTorch call for the same function where
    there is one (SDPA, a yardstick the port never calls) and the card's
    bound, at the main path's shapes (and the attention kernels also at
@@ -84,7 +85,21 @@ never prints its last line):
    self and cross by pairing its kernels, in start order, with the kinds of
    the calls: ``flash_split``), print the floors of both from the
    shapes, then the f32 check at full depth on one request;
-4. print the device line ``{"ok": true, "device": {...}}`` last.
+4. the control plane: the batched float64 tick engine
+   (``core/sim/torch_engine.py``) at the JAX package's benchmark shapes
+   (``benchmarks/sim_throughput.py``): ``run_scenario`` over a fleet of
+   1024 archs and 3600 ticks under ``portfolio`` and ``rl_pool``, and
+   ``run_grid`` over 64 cells (4 scenarios x 16 seeds) of 16 archs under
+   ``portfolio``; every fleet run and 8 sampled grid cells held to the
+   port's NumPy engine (raw ledger and per-arch flows at 1e-6, equal
+   summary keys), and each sampled cell of the grid run again over its
+   first 600 ticks equal to ``run_scenario`` of that cell over them;
+   the tick loop runs under ``torch.cuda.set_sync_debug_mode("error")``
+   (a sync raises; the phase first shows the guard catching one); prints
+   ticks/s, arch- and cell-ticks/s beside the NumPy engine's on the same
+   runs, the device's busy share and kernels a tick over 100 profiled
+   ticks, peak memory and the largest relative ledger error;
+5. print the device line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
@@ -106,6 +121,11 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import sim as core_sim  # noqa: E402
+from repro_torch.core.rl.policy import RLPoolPolicy  # noqa: E402
+from repro_torch.core.schedulers import VECTOR_SCHEDULERS  # noqa: E402
+from repro_torch.core.sim import torch_engine  # noqa: E402
+from repro_torch.core.workloads import SCENARIO_ZOO  # noqa: E402
 from repro_torch.configs.registry import ATTN, LOCAL_ATTN, RWKV  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
@@ -450,6 +470,23 @@ def check_flash_rounding(dev):
             for hd in (64, 256)}
 
 
+def check_decode_rounding(dev):
+    """bf16 decode outputs of |o| up to ~24 made from a few slots, 16 q heads
+    over 4 kv heads at hd 64 and over 1 at hd 256 (the inputs of
+    tests/test_torch_cuda.py::test_decode_bf16_rounding_margin_at_large_outputs,
+    ``ref.large_output_decode_inputs`` at its default seed and the 64 of
+    ``ref.DECODE_ROUNDING_SEEDS``), within one bf16 step of the f32
+    attention of the same inputs, as the TPU kernel rounds; returns
+    ``ref.decode_rounding_sweep`` per hd."""
+    out = {}
+    for hd in (64, 256):
+        out[f"hd {hd}"] = sweep = ref.decode_rounding_sweep(da.decode_attention, hd, dev)
+        if not sweep["max_err_in_steps"] <= 1.0:
+            raise AssertionError(f"decode_attention bf16 hd {hd}: {sweep} (bf16 steps from "
+                                 "the f32 attention of its inputs)")
+    return out
+
+
 def ring_valid(positions, ring, window, device):
     """The decode mask of a ring of ``ring`` slots after each sequence wrote
     positions 0..t (slot = pos % ring, the latest write wins) under a window
@@ -549,6 +586,8 @@ def phase_kernels(seed, prompt_lengths):
         n += 2 + len(DA_CASES) + 1 + check_attention_edges(gen, dtype)
     print("[kernels] flash_attention bf16 at |o| up to ~27, largest error in bf16 steps of the "
           "f32 attention: " + json.dumps(check_flash_rounding(dev)))
+    print("[kernels] decode_attention bf16 at |o| up to ~24, largest error in bf16 steps of "
+          "the f32 attention: " + json.dumps(check_decode_rounding(dev)))
     torch.cuda.synchronize()
     print(f"[kernels] {n + 2} test-shape checks passed in f32 and bf16")
 
@@ -1203,6 +1242,215 @@ def phase_whisper(seed, gpu):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: the control plane, the batched tick engine on the card.
+# ---------------------------------------------------------------------------
+# the JAX package's own benchmark shapes (benchmarks/sim_throughput.py):
+# a fleet of FLEET_ARCHS archs over SCAN_TICKS ticks of the shared_berkeley
+# scenario, and a grid of GRID_CELLS cells (the four GRID_SCENARIOS x 16
+# seeds) of GRID_ARCHS archs over the same number of ticks
+SERVING_POOL = ["llama3-8b", "qwen1.5-0.5b", "rwkv6-1.6b", "minicpm-2b", "whisper-small",
+                "llava-next-mistral-7b", "recurrentgemma-9b", "phi3.5-moe-42b-a6.6b"]
+FLEET_ARCHS, SCAN_TICKS, STRICT_FRAC = 1024, 3600, 0.25
+GRID_CELLS, GRID_ARCHS, GRID_MEAN_RPS = 64, 16, 400.0
+GRID_SCENARIOS = ("shared_berkeley", "diurnal_phases", "mmpp_bursts", "flash_correlated")
+# grid cells held to the NumPy engine and to run_scenario: all four scenarios
+GRID_SAMPLE = (0, 9, 18, 27, 36, 45, 54, 63)
+# the grid = run_scenario check runs the grid again over the first
+# SAME_TICKS ticks of every cell and each sampled cell alone over them
+SAME_TICKS = 600
+PROFILE_TICKS = 100
+# the contract of tests/test_torch_sim_engine.py (and the reference's
+# tests/test_jax_engine.py): raw ledger totals and per-arch flows
+SIM_RTOL = SIM_ATOL = 1e-6
+PER_ARCH_FLOWS = ("served_vm", "served_burst", "dropped", "violations", "acc_weight",
+                  "acc_violations")
+
+
+def numpy_run(arrivals, wl, policy, seed):
+    """The port's NumPy engine (the oracle) driven by the vector scheduler."""
+    sim = core_sim.ServingSim(arrivals, wl, seed=seed)
+    pol = RLPoolPolicy(greedy=True) if policy == "rl_pool" else VECTOR_SCHEDULERS[policy]()
+    while not sim.done:
+        sim.apply_pool(pol(sim.tick, sim.observe_pool()))
+    return sim
+
+
+def raw_ledger(res):
+    """A ``SimResult``'s unrounded ledger, as the torch engine's
+    ``_assemble`` names it (``out["ledger"]``)."""
+    return {"cost_reserved": res.cost_reserved, "cost_spot": res.cost_spot,
+            "cost_burst": res.cost_burst, "cost_harvest": res.cost_other.get("harvest", 0.0),
+            "cost_remote": res.cost_other.get("remote", 0.0), "violations": res.violations,
+            "violations_strict": res.violations_strict, "served_vm": res.served_vm,
+            "served_burst": res.served_burst, "preemptions": float(res.preemptions),
+            "chip_seconds": res.chip_seconds, "chip_seconds_needed": res.chip_seconds_needed,
+            "chip_seconds_over": res.chip_seconds_over,
+            "accuracy_weighted": res.accuracy_weighted,
+            "accuracy_served": res.accuracy_served, "acc_violations": res.acc_violations}
+
+
+def hold_to_numpy(name, out, sim) -> float:
+    """Raise unless the torch engine's raw ledger and per-arch flows are
+    within SIM_RTOL / SIM_ATOL of the NumPy engine's and their summaries
+    have the same keys; returns the largest relative ledger error."""
+    want, got = raw_ledger(sim.res), out["ledger"]
+    worst = 0.0
+    for k, w in want.items():
+        if not abs(got[k] - w) <= SIM_ATOL + SIM_RTOL * abs(w):
+            raise AssertionError(f"control plane {name}: ledger {k} {got[k]!r} on the card, "
+                                 f"{w!r} from the NumPy engine")
+        worst = max(worst, abs(got[k] - w) / max(abs(w), 1e-300))
+    counts = sim.per_arch_counts()
+    for k in PER_ARCH_FLOWS:
+        if not np.allclose(out["per_arch"][k], counts[k], rtol=SIM_RTOL, atol=SIM_ATOL):
+            i = int(np.argmax(np.abs(out["per_arch"][k] - counts[k])))
+            raise AssertionError(f"control plane {name}: per-arch {k} of arch {i}: "
+                                 f"{out['per_arch'][k][i]!r} on the card, {counts[k][i]!r}")
+    if set(out["summary"]) != set(sim.res.summary()):
+        raise AssertionError(f"control plane {name}: summary keys {sorted(out['summary'])} "
+                             f"!= {sorted(sim.res.summary())}")
+    return worst
+
+
+def timed_ticks(policy, inputs, ticks=None):
+    """One tick loop on the card, host clock from a sync to the end of a
+    sync; returns (wall seconds, device outputs)."""
+    statics, state0, xs, variants = inputs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = torch_engine.run_ticks(torch_engine.TORCH_POLICIES[policy].apply, statics, state0, xs,
+                                 variants=variants, ticks=ticks)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def profile_ticks(policy, inputs):
+    """Device busy share of PROFILE_TICKS ticks from ``torch.profiler``, the
+    kernels launched a tick and the kernels that take the most time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        wall, _ = timed_ticks(policy, inputs, ticks=PROFILE_TICKS)
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    by_kernel = {e.key: e.self_device_time_total for e in device}
+    launches = sum(e.count for e in device)
+    busy = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    return {"ticks": PROFILE_TICKS, "profiled_wall_ms_per_tick": 1e3 * wall / PROFILE_TICKS,
+            "device_ms_per_tick": busy / PROFILE_TICKS / 1e3,
+            "device_busy_share": busy / (1e6 * wall),
+            "device_kernels_per_tick": launches / PROFILE_TICKS,
+            "top_kernels_ms_per_tick": {k[:60]: us / PROFILE_TICKS / 1e3 for k, us in top}}
+
+
+def busy_share(row):
+    """The profiled device time a tick over the unprofiled run's wall time a
+    tick: the device's busy share of the timed run."""
+    row["device_busy_share_of_timed_run"] = (
+        row["profile"]["device_ms_per_tick"] / (1e3 * row["wall_s"] / row["ticks"]))
+
+
+def check_sync_guard(dev):
+    """The tick loop's guard is live: a host sync inside it raises."""
+    x = torch.ones(1, device=dev)
+    try:
+        with torch_engine._SyncGuard(dev):
+            x.item()
+    except RuntimeError:
+        return True
+    raise AssertionError("torch.cuda.set_sync_debug_mode('error') did not catch a sync")
+
+
+def phase_control_plane(seed):
+    """The control plane on the card: run_scenario over a fleet of 1024 archs
+    under portfolio and rl_pool, run_grid over 64 cells of 16 archs under
+    portfolio, every run held to the port's NumPy engine."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    result = {"sync_guard_catches_a_sync": check_sync_guard(dev)}
+    wl = core_sim.replicate_pool(SERVING_POOL, FLEET_ARCHS, strict_frac=STRICT_FRAC)
+    arr = SCENARIO_ZOO["shared_berkeley"].build(FLEET_ARCHS, duration_s=SCAN_TICKS)
+    worst = 0.0
+    for policy in ("portfolio", "rl_pool"):
+        t0 = time.perf_counter()
+        inputs = torch_engine.prepare_grid(arr[None], wl, policy, seeds=[seed], device=dev)
+        build_s = time.perf_counter() - t0
+        timed_ticks(policy, inputs, ticks=20)                 # warm-up, not timed
+        wall, out = timed_ticks(policy, inputs)
+        res = torch_engine._assemble(torch_engine._cell(torch_engine._to_host(out), 0), arr)
+        t0 = time.perf_counter()
+        sim = numpy_run(arr, wl, policy, seed)
+        numpy_s = time.perf_counter() - t0
+        err = hold_to_numpy(f"{policy} A={FLEET_ARCHS}", res, sim)
+        worst = max(worst, err)
+        result[f"fleet_{policy}"] = {
+            "archs": FLEET_ARCHS, "ticks": SCAN_TICKS, "build_inputs_s": build_s,
+            "wall_s": wall, "ticks_per_s": SCAN_TICKS / wall,
+            "arch_ticks_per_s": FLEET_ARCHS * SCAN_TICKS / wall,
+            "numpy_engine_s": numpy_s, "max_rel_ledger_err": err,
+            "profile": profile_ticks(policy, inputs),
+        }
+        busy_share(result[f"fleet_{policy}"])
+        del inputs, out
+        print(f"[control] {policy} A={FLEET_ARCHS} T={SCAN_TICKS}: "
+              + json.dumps(result[f"fleet_{policy}"]))
+
+    gwl = core_sim.replicate_pool(SERVING_POOL, GRID_ARCHS, strict_frac=STRICT_FRAC)
+    arrs = np.stack([
+        SCENARIO_ZOO[GRID_SCENARIOS[i % len(GRID_SCENARIOS)]].build(
+            GRID_ARCHS, duration_s=SCAN_TICKS, mean_rps=GRID_MEAN_RPS,
+            seed=100 + i // len(GRID_SCENARIOS))
+        for i in range(GRID_CELLS)])
+    seeds = [seed + i // len(GRID_SCENARIOS) for i in range(GRID_CELLS)]
+    t0 = time.perf_counter()
+    inputs = torch_engine.prepare_grid(arrs, gwl, "portfolio", seeds=seeds, device=dev)
+    build_s = time.perf_counter() - t0
+    timed_ticks("portfolio", inputs, ticks=20)
+    wall, out = timed_ticks("portfolio", inputs)
+    host = torch_engine._to_host(out)
+    cells, numpy_s = {}, 0.0
+    for i in GRID_SAMPLE:
+        cell = torch_engine._assemble(torch_engine._cell(host, i), arrs[i])
+        t0 = time.perf_counter()
+        sim = numpy_run(arrs[i], gwl, "portfolio", seeds[i])
+        numpy_s += time.perf_counter() - t0
+        err = hold_to_numpy(f"grid cell {i}", cell, sim)
+        worst = max(worst, err)
+        cells[i] = {"max_rel_ledger_err": err}
+    short = arrs[:, :, :SAME_TICKS]
+    grid = torch_engine.run_grid(short, gwl, "portfolio", seeds=seeds, device=dev)
+    for i in GRID_SAMPLE:
+        single = torch_engine.run_scenario(short[i], gwl, "portfolio", seed=seeds[i], device=dev)
+        if single["summary"] != grid[i]["summary"]:
+            raise AssertionError(f"control plane grid cell {i}: summary {grid[i]['summary']} "
+                                 f"!= run_scenario's {single['summary']}")
+        gap = max(abs(grid[i]["ledger"][k] - v) / max(abs(v), 1e-300)
+                  for k, v in single["ledger"].items())
+        if gap > 1e-12:
+            raise AssertionError(f"control plane grid cell {i}: raw ledger {gap} from "
+                                 "run_scenario's")
+        cells[i]["vs_run_scenario"] = gap
+    result["grid_portfolio"] = {
+        "cells": GRID_CELLS, "archs": GRID_ARCHS, "ticks": SCAN_TICKS,
+        "build_inputs_s": build_s, "wall_s": wall,
+        "cell_ticks_per_s": GRID_CELLS * SCAN_TICKS / wall,
+        "ticks_per_s": SCAN_TICKS / wall,
+        "numpy_engine_s": numpy_s,
+        "numpy_cell_ticks_per_s": len(GRID_SAMPLE) * SCAN_TICKS / numpy_s,
+        "vs_run_scenario_ticks": SAME_TICKS, "sampled_cells": cells,
+        "profile": profile_ticks("portfolio", inputs),
+    }
+    busy_share(result["grid_portfolio"])
+    print(f"[control] grid {GRID_CELLS} cells x A={GRID_ARCHS}: "
+          + json.dumps(result["grid_portfolio"]))
+    result["max_rel_ledger_err"] = worst
+    result["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    result["phase_s"] = time.perf_counter() - t_phase
+    return result
+
+
 def record_routes(into):
     """A wrapper of ``_route`` that appends each call's expert indices to ``into``."""
     def wrapper(route):
@@ -1398,8 +1646,10 @@ def main() -> None:
               phase_whisper(args.seed, gpu)]
     for row in rows:
         row["launches"] = sum(res["launches"][row["name"]] for res in slices)
+    control = phase_control_plane(args.seed)
     for res in slices:
         print(json.dumps({"slice": res}))
+    print(json.dumps({"control_plane": control}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

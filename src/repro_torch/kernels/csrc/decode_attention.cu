@@ -33,8 +33,10 @@
 //  - each K/V row is read once and serves the whole GQA group of nq/nkv
 //    query heads.  In bf16 a group of <= 16 heads is the 16 rows of
 //    mma.sync m16n8k16: q K^T and P V of a 16-slot sub-tile are 2 * hd/16
-//    and hd/8 tensor-core products, with the online softmax in the
-//    accumulator registers; f32 (held to 2e-5) and larger groups score on
+//    and 2 * hd/8 tensor-core products (P as a bf16 high and a bf16 low
+//    part, so that the output is within one bf16 step of the f32
+//    attention, as the TPU kernel's f32 P is), with the online softmax in
+//    the accumulator registers; f32 (held to 2e-5) and larger groups score on
 //    the SIMT units, two half-warps per slot.  A SIMT warp holds at most
 //    MAX_PAIRS x 64 = 1024 outputs (heads x hd), so a larger group (f32 at
 //    recurrentgemma-9b's 16 heads of 256) is cut into chunks of heads, one
@@ -314,10 +316,16 @@ __global__ void __launch_bounds__(NT) da_split_kernel(
         }
         l0 = l0 * alpha0 + ps0;
         l1 = l1 * alpha1 + ps1;
-        // O += P V: P as bf16 A fragments from the S registers, V by
-        // ldmatrix.trans, x4 matrices (slots 0-7 | 8-15) x (dims 0-7 | 8-15)
-        const uint32_t pa[4] = {pack_bf16x2(sc[0][0], sc[0][1]), pack_bf16x2(sc[0][2], sc[0][3]),
-                                pack_bf16x2(sc[1][0], sc[1][1]), pack_bf16x2(sc[1][2], sc[1][3])};
+        // O += P V: P as bf16 A fragments from the S registers, split into
+        // high and low parts (two products, ~16 bits of P, as the f32 P of
+        // the TPU kernel: one bf16 part alone moves o by over a bf16 step
+        // where |o| is small and sum p|v| large), V by ldmatrix.trans, x4
+        // matrices (slots 0-7 | 8-15) x (dims 0-7 | 8-15)
+        uint32_t ph[4], pl[4];
+        split_bf16x2(sc[0][0], sc[0][1], ph[0], pl[0]);
+        split_bf16x2(sc[0][2], sc[0][3], ph[1], pl[1]);
+        split_bf16x2(sc[1][0], sc[1][1], ph[2], pl[2]);
+        split_bf16x2(sc[1][2], sc[1][3], ph[3], pl[3]);
 #pragma unroll
         for (int d2 = 0; d2 < DB / 2; ++d2) {
           uint32_t vf[4];
@@ -328,8 +336,10 @@ __global__ void __launch_bounds__(NT) da_split_kernel(
             float* a = oacc[2 * d2 + jj];
             a[0] *= alpha0; a[1] *= alpha0; a[2] *= alpha1; a[3] *= alpha1;
           }
-          mma_bf16_16816(oacc[2 * d2], pa, vf[0], vf[1]);
-          mma_bf16_16816(oacc[2 * d2 + 1], pa, vf[2], vf[3]);
+          mma_bf16_16816(oacc[2 * d2], ph, vf[0], vf[1]);
+          mma_bf16_16816(oacc[2 * d2 + 1], ph, vf[2], vf[3]);
+          mma_bf16_16816(oacc[2 * d2], pl, vf[0], vf[1]);
+          mma_bf16_16816(oacc[2 * d2 + 1], pl, vf[2], vf[3]);
         }
         __syncwarp();                             // the stage is free again
         stage = (stage + 1) % NS;

@@ -62,10 +62,16 @@ def bf16_step(o32: torch.Tensor, floor: float = 2e-2) -> torch.Tensor:
     return torch.clamp(torch.exp2(torch.floor(torch.log2(o32.abs())) - 7), min=floor)
 
 
-def bf16_steps_from_f32(o, q, k, v, *, causal: bool) -> torch.Tensor:
+def bf16_steps_from_f32(o, q, k, v, *, causal: bool = False,
+                        valid=None) -> torch.Tensor:
     """|o - o32| in bf16 steps of o32 (``bf16_step``), where o32 is the f32
-    attention of the same (bf16) inputs; a kernel that rounds once is <= 1."""
-    o32 = mha_reference(q.float(), k.float(), v.float(), causal=causal)
+    attention of the same (bf16) inputs; a kernel that rounds once is <= 1.
+    With ``valid`` the inputs are a decode step's (q (B, nq, hd) against a
+    masked cache) and o32 is ``decode_attention_reference`` in f32."""
+    if valid is not None:
+        o32 = decode_attention_reference(q.float(), k.float(), v.float(), valid)
+    else:
+        o32 = mha_reference(q.float(), k.float(), v.float(), causal=causal)
     return (o.float() - o32).abs() / bf16_step(o32)
 
 
@@ -77,6 +83,48 @@ def large_output_inputs(hd: int, device, dtype=torch.bfloat16):
     s, nq, nkv = 256, 16, 1 if hd == 256 else 4
     return tuple(torch.from_numpy((c * rng.standard_normal((1, s, n, hd))).astype(np.float32))
                  .to(device, dtype) for c, n in ((3.0, nq), (3.0, nkv), (6.0, nkv)))
+
+
+def large_output_decode_inputs(hd: int, device, dtype=torch.bfloat16, seed=None):
+    """q, k, v, valid of a decode step whose outputs reach |o| ~ 20 from a
+    few slots (sharp logits, large values): seed = 1000 + hd unless given,
+    B = 4, a 512-slot cache holding 512, 384, 200 and 37 tokens, q, k ~ 3 N,
+    v ~ 6 N, 16 q heads over 4 kv heads at hd 64 and over 1 at hd 256; made
+    in f32 with numpy."""
+    rng = np.random.default_rng(1000 + hd if seed is None else seed)
+    b, s, nq, nkv = 4, 512, 16, 1 if hd == 256 else 4
+    q = 3.0 * rng.standard_normal((b, nq, hd))
+    k, v = (c * rng.standard_normal((b, s, nkv, hd)) for c in (3.0, 6.0))
+    lengths = np.array([512, 384, 200, 37])
+    valid = np.arange(s)[None, :] < lengths[:, None]
+    return tuple(torch.from_numpy(x.astype(np.float32)).to(device, dtype)
+                 for x in (q, k, v)) + (torch.from_numpy(valid).to(device),)
+
+
+#: the seeds a decode kernel's rounding is swept over: the default input set
+#: of each hd (1000 + hd) and 64 more
+DECODE_ROUNDING_SEEDS = tuple(range(2000, 2064))
+
+
+def decode_rounding_sweep(decode_fn, hd: int, device, seeds=DECODE_ROUNDING_SEEDS) -> dict:
+    """``decode_fn(q, k, v, valid)`` on ``large_output_decode_inputs`` of
+    hd at its default seed and at each of ``seeds``, in bf16 steps of the
+    f32 attention (``bf16_steps_from_f32``): the largest error, its seed,
+    |o32| and |o - o32| there, and how many outputs lie over one step."""
+    out = {"max_err_in_steps": -1.0, "outputs": 0, "outputs_over_one_step": 0}
+    for seed in (1000 + hd,) + tuple(seeds):
+        q, k, v, valid = large_output_decode_inputs(hd, device, seed=seed)
+        o = decode_fn(q, k, v, valid).float()
+        o32 = decode_attention_reference(q.float(), k.float(), v.float(), valid)
+        steps = (o - o32).abs() / bf16_step(o32)
+        out["outputs"] += steps.numel()
+        out["outputs_over_one_step"] += int((steps > 1).sum())
+        i = int(steps.argmax())
+        if float(steps.flatten()[i]) > out["max_err_in_steps"]:
+            out.update(max_err_in_steps=float(steps.flatten()[i]), seed=seed,
+                       o32_at_worst=float(o32.flatten()[i]),
+                       abs_err_at_worst=float((o - o32).abs().flatten()[i]))
+    return out
 
 
 def decode_attention_reference(

@@ -16,11 +16,16 @@ CPU run at 1e-5 in f32 and 2e-2 in bf16, as ``tests/test_torch_moe.py``
 holds it to the JAX package.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import sim as core_sim
+from repro_torch.core.sim import torch_engine
+from repro_torch.core.workloads import SCENARIO_ZOO
 from repro_torch.configs.registry import ModelConfig
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
@@ -313,6 +318,29 @@ def test_flash_bf16_rounding_margin_at_large_outputs(cuda, hd):
         f"{float(steps.max())} bf16 steps")
 
 
+@pytest.mark.parametrize("hd", [64, 256])
+def test_decode_bf16_rounding_margin_at_large_outputs(cuda, hd):
+    """A decode step with outputs of |o| >= 16 made from a few slots
+    (sharp logits, large values), 16 q heads over 4 kv heads at hd 64 and
+    over 1 at hd 256, held to the f32 attention of the same bf16 inputs
+    within one bf16 step of that exact output,
+    ``max(2e-2, 2^(floor(log2|o32|) - 7))``: the TPU kernel keeps P in f32
+    and rounds once, at the output, and meets half of it
+    (tests/test_torch_decode_rounding.py).  Then the same over the 64
+    input sets of ``ref.DECODE_ROUNDING_SEEDS``."""
+    q, k, v, valid = ref.large_output_decode_inputs(hd, cuda)
+    out = da.decode_attention(q, k, v, valid)
+    o32 = ref.decode_attention_reference(q.float(), k.float(), v.float(), valid)
+    assert float(o32.abs().max()) >= 16.0
+    steps = ref.bf16_steps_from_f32(out, q, k, v, valid=valid)
+    worst = int(steps.argmax())
+    assert float(steps.max()) <= 1.0, (
+        f"kernel {float(out.flatten()[worst])} vs f32 {float(o32.flatten()[worst])}, "
+        f"{float(steps.max())} bf16 steps")
+    sweep = ref.decode_rounding_sweep(da.decode_attention, hd, cuda)
+    assert sweep["max_err_in_steps"] <= 1.0, sweep
+
+
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q, k, v = _randn(0, (1, 8, 2, 48), (1, 8, 2, 48), (1, 8, 2, 48),
                      dtype=torch.float32, device=cuda)
@@ -560,3 +588,34 @@ def test_moe_forward_does_not_wait_on_the_card(cuda, case):
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(aux))
 
+
+
+# ---------------------------------------------------------------------------
+# The control plane: the batched tick engine on the card against the CPU.
+# ---------------------------------------------------------------------------
+SIM_POOL = ["llama3-8b", "qwen1.5-0.5b", "rwkv6-1.6b", "minicpm-2b"]
+
+
+@pytest.mark.parametrize("policy,catalog", [("portfolio", False), ("rl_pool", False),
+                                            ("infaas_variant", True), ("rl_pool", True)])
+def test_tick_engine_on_the_card_matches_cpu(cuda, policy, catalog):
+    """run_grid over 3 cells of 8 archs on the card (float64, its tick loop
+    under sync debug mode "error") equals the same run on the CPU: raw ledger
+    totals at 1e-6 relative, equal summary keys, and the per-arch flows."""
+    wl = core_sim.replicate_pool(SIM_POOL, 8, strict_frac=0.25)
+    if catalog:
+        wl = [dataclasses.replace(w, min_accuracy=0.55) for w in wl]
+    cat = core_sim.VariantCatalog.for_workload(wl) if catalog else None
+    arrs = np.stack([SCENARIO_ZOO[n].build(8, duration_s=400, mean_rps=300.0, seed=i)
+                     for i, n in enumerate(("trending_hotswap", "mmpp_bursts", "flash_anti"))])
+    runs = [torch_engine.run_grid(arrs, wl, policy, seeds=[3, 4, 5], catalog=cat, device=d)
+            for d in (cuda, "cpu")]
+    for card, cpu in zip(*runs):
+        assert set(card["summary"]) == set(cpu["summary"])
+        assert card["summary"].get("variant_swaps") == cpu["summary"].get("variant_swaps")
+        a, b = card["ledger"], cpu["ledger"]
+        for k in b:
+            assert a[k] == pytest.approx(b[k], rel=1e-6, abs=1e-6), k
+        for k in ("served_vm", "served_burst", "dropped", "violations", "acc_weight"):
+            np.testing.assert_allclose(card["per_arch"][k], cpu["per_arch"][k],
+                                       rtol=1e-6, atol=1e-6, err_msg=k)
