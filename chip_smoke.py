@@ -99,7 +99,20 @@ never prints its last line):
    ticks/s, arch- and cell-ticks/s beside the NumPy engine's on the same
    runs, the device's busy share and kernels a tick over 100 profiled
    ticks, peak memory and the largest relative ledger error;
-5. print the device line ``{"ok": true, "device": {...}}`` last.
+5. the PPO controller (``core/rl/ppo.py``), trained on the card in the JAX
+   package's training env (``benchmarks/rl_vs_schemes.py``: its 8-model
+   pool at 400 requests/s, 900-tick episodes, the variant catalog, every
+   zoo scenario as a cell of one tick loop of the engine a rollout),
+   cut to 3 iterations; prints per iteration the rollout's seconds, ticks/s
+   and cell-ticks/s, the update phase's seconds, the five loss means and
+   the rollout reward; replays one cell of the first rollout through the
+   NumPy env (the actions its NumPy forward draws from the same uniforms
+   equal, features and rewards within 1e-6), holds the first minibatch
+   update on the card to the CPU at 1e-5, and the trained checkpoint's
+   ``rl_pool`` run on the card to the CPU; times the benchmark's rollout
+   metric (64 archs, 600 ticks: the step-wise env loop against the
+   collector) and profiles a 100-tick rollout and an update phase;
+6. print the device line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
@@ -112,6 +125,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -122,7 +136,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import sim as core_sim  # noqa: E402
-from repro_torch.core.rl.policy import RLPoolPolicy  # noqa: E402
+from repro_torch.core.rl import EnvConfig, PoolServingEnv, ppo, save_policy_params  # noqa: E402
+from repro_torch.core.rl.policy import RLPoolPolicy, policy_logits  # noqa: E402
 from repro_torch.core.schedulers import VECTOR_SCHEDULERS  # noqa: E402
 from repro_torch.core.sim import torch_engine  # noqa: E402
 from repro_torch.core.workloads import SCENARIO_ZOO  # noqa: E402
@@ -1451,6 +1466,262 @@ def phase_control_plane(seed):
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the PPO controller, trained on the card.
+# ---------------------------------------------------------------------------
+# the JAX package's own training env (benchmarks/rl_vs_schemes.py:351-380):
+# its 8-model serving pool, strict share 0.25, 400 requests/s, 900-tick
+# episodes, $0.02 per violated request, the variant catalog, every scenario
+# of the zoo (scenario_seed 1), entropy bonus 0.0005, batched full-zoo
+# rollouts; one cut: PPO_ITERATIONS iterations, not its 192, for time
+PPO_MEAN_RPS, PPO_DURATION_S, PPO_PENALTY, PPO_ENTROPY = 400.0, 900, 0.02, 0.0005
+PPO_ITERATIONS = 3
+# its rollout-throughput metric (rl_vs_schemes.py:131-165): a 64-arch pool
+# over 600 ticks of mmpp_bursts, the step-wise env loop against the collector
+ROLLOUT_ARCHS, ROLLOUT_TICKS = 64, 600
+# the checkpoint run: a held-out realization (its EVAL_SEED_OFFSET), cut to
+# CHECKPOINT_TICKS ticks: equality card vs CPU needs no whole episode
+PPO_HOLDOUT_SEED, CHECKPOINT_TICKS = 4242, 300
+# a float32 update, card (TF32 off) vs CPU: tests/test_torch_ppo.py's 1e-5;
+# a rollout against the NumPy env: its 1e-6
+PPO_UPDATE_TOL, PPO_REPLAY_TOL = 1e-5, 1e-6
+PPO_MEANS = ("loss_mean", "pi_loss", "v_loss", "entropy_mean", "approx_kl")
+
+
+def ppo_env(duration_s=PPO_DURATION_S):
+    wl = core_sim.uniform_pool_workload(SERVING_POOL, strict_frac=STRICT_FRAC)
+    cfg = EnvConfig(strict_frac=STRICT_FRAC, mean_rps=PPO_MEAN_RPS, duration_s=duration_s,
+                    violation_penalty=PPO_PENALTY)
+    return PoolServingEnv(wl, cfg, scenarios=list(SCENARIO_ZOO.values()), scenario_seed=1,
+                          catalog=core_sim.VariantCatalog.for_workload(wl))
+
+
+class TrainingProbe:
+    """Wrappers of the trainer's collector, update phase and minibatch step:
+    the host time of each collection and update phase (each ends in a copy
+    to the host), and host copies of the first collection's inputs and
+    buffer and of the first minibatch step's inputs, for the checks."""
+
+    def __init__(self):
+        self.rollout_s, self.update_s = [], []
+        self.first_rollout = self.first_step = None
+
+    def collect(self, fn):
+        def run(env, params, gen, **kw):
+            gen_state = gen.get_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            buf = fn(env, params, gen, **kw)
+            self.rollout_s.append(time.perf_counter() - t0)
+            if self.first_rollout is None:
+                self.first_rollout = {"gen_state": gen_state, "episode": env._episode,
+                                      "params": ppo.params_to_numpy(params), "buf": buf}
+            return buf
+        return run
+
+    def update(self, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.update_s.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def step(self, fn):
+        def run(params, opt_state, batch, cfg):
+            if self.first_step is None:
+                step, m, v = opt_state
+                self.first_step = (ppo.params_to_numpy(params),
+                                   (int(step), ppo.params_to_numpy(m), ppo.params_to_numpy(v)),
+                                   {k: x.cpu().numpy() for k, x in batch.items()})
+            return fn(params, opt_state, batch, cfg)
+        return run
+
+
+def replay_cell(env, first, cell):
+    """One cell of a zoo collection replayed through the NumPy env: from the
+    env's observation at each tick, the net's float64 NumPy forward and the
+    cell's uniforms must draw the collector's action; the features and
+    rewards must agree within PPO_REPLAY_TOL."""
+    S, A, T = len(env.scenarios), env.n_archs, env.cfg.duration_s
+    gen = torch.Generator()
+    gen.set_state(first["gen_state"])
+    u = torch.rand((S, T, A), generator=gen, dtype=torch.float64).numpy()[cell]
+    ep, sc = first["episode"], env.scenarios[cell]
+    arr = sc.build(A, seed=sc.seed + ep, duration_s=T, mean_rps=env.cfg.mean_rps)
+    numpy_env = PoolServingEnv(env.workload, env.cfg, arrivals=arr, catalog=env.catalog)
+    numpy_env._episode = ep * S + cell          # the collector's sim seed for the cell
+    net = {n: {k: v.astype(np.float64) for k, v in layer.items()}
+           for n, layer in first["params"].items()}
+    cols = slice(cell * A, (cell + 1) * A)
+    buf = {k: first["buf"][k][:, cols] for k in ("obs", "actions", "rewards")}
+    obs, obs_err, rew_err = numpy_env.reset(), 0.0, 0.0
+    for t in range(T):
+        obs_err = max(obs_err, float(np.abs(obs - buf["obs"][t]).max()))
+        logits = policy_logits(net, obs.astype(np.float64))
+        p = np.exp(logits - logits.max(-1, keepdims=True))
+        cdf = np.cumsum(p / p.sum(-1, keepdims=True), -1)
+        a = np.minimum((u[t][:, None] >= cdf).sum(-1), cdf.shape[-1] - 1)
+        if not np.array_equal(a, buf["actions"][t]):
+            raise AssertionError(f"ppo replay cell {cell} tick {t}: actions {a} from the NumPy "
+                                 f"env, {buf['actions'][t]} from the card")
+        obs, r, _, _ = numpy_env.step(a)
+        rew_err = max(rew_err, float(np.abs(r - buf["rewards"][t]).max()))
+    check(f"ppo replay cell {cell} features", obs_err, PPO_REPLAY_TOL)
+    check(f"ppo replay cell {cell} rewards", rew_err, PPO_REPLAY_TOL)
+    return {"cell": cell, "scenario": sc.name, "ticks": T, "actions_equal": True,
+            "max_abs_obs_err": obs_err, "max_abs_reward_err": rew_err}
+
+
+def update_card_vs_cpu(first_step, cfg):
+    """The trainer's first minibatch step again, on the card and on the CPU:
+    parameters, Adam's moments, the loss and its aux values must agree."""
+    params, (step, m, v), batch = first_step
+    outs = []
+    for dev in ("cuda", "cpu"):
+        p = ppo.params_from_jax(params, device=dev)
+        opt = (torch.tensor(step, dtype=torch.int32, device=dev),
+               ppo.params_from_jax(m, device=dev), ppo.params_from_jax(v, device=dev))
+        new, (_, m2, v2), loss, aux = ppo.ppo_update(
+            p, opt, {k: torch.as_tensor(x, device=dev) for k, x in batch.items()}, cfg)
+        outs.append([np.asarray(float(loss))] + [np.asarray(float(aux[k])) for k in sorted(aux)]
+                    + [x for tree in (new, m2, v2) for layer in ppo.params_to_numpy(tree).values()
+                       for x in layer.values()])
+    err = max(float(np.abs(a - b).max()) for a, b in zip(*outs))
+    check("ppo update card vs CPU", err, PPO_UPDATE_TOL)
+    return {"rows": int(len(batch["obs"])), "max_abs_err": err}
+
+
+def checkpoint_card_vs_cpu(env, params, seed):
+    """save_policy_params -> RLPoolPolicy(checkpoint=) -> run_scenario under
+    rl_pool on a held-out realization, on the card and on the CPU."""
+    with tempfile.TemporaryDirectory() as d:
+        path = save_policy_params(params, os.path.join(d, "pool_policy.json"),
+                                  rate_scale=env.cfg.rate_scale,
+                                  fleet_scale=env.cfg.fleet_scale)
+        policy = RLPoolPolicy(checkpoint=path)
+    sc = SCENARIO_ZOO["flash_correlated"]
+    arr = sc.build(env.n_archs, seed=sc.seed + PPO_HOLDOUT_SEED, duration_s=CHECKPOINT_TICKS,
+                   mean_rps=PPO_MEAN_RPS)
+    pol = {"net": policy.params, "rate_scale": policy.rate_scale,
+           "fleet_scale": policy.fleet_scale}
+    card, cpu = (torch_engine.run_scenario(arr, env.workload, "rl_pool", pol, catalog=env.catalog,
+                                           seed=seed, device=d) for d in ("cuda", "cpu"))
+    if card["summary"] != cpu["summary"]:
+        raise AssertionError(f"ppo checkpoint run: summary {card['summary']} on the card, "
+                             f"{cpu['summary']} on the CPU")
+    gap = max(abs(card["ledger"][k] - v) / max(abs(v), 1e-300) for k, v in cpu["ledger"].items())
+    check("ppo checkpoint run card vs CPU (relative ledger)", gap, SIM_RTOL)
+    return {"scenario": sc.name, "ticks": CHECKPOINT_TICKS, "trained": policy.trained,
+            "max_rel_ledger_err": gap, "cost_total": card["summary"]["cost_total"],
+            "violation_rate": card["summary"]["violation_rate"]}
+
+
+def rollout_throughput(env_cfg, params, dev):
+    """The benchmark's rollout metric: the step-wise env loop (NumPy env,
+    one forward pass a tick on the card) against the batched collector
+    (one tick loop of the engine) on the same 64-arch episode."""
+    wl = core_sim.replicate_pool(SERVING_POOL, ROLLOUT_ARCHS, strict_frac=STRICT_FRAC)
+    arr = SCENARIO_ZOO["mmpp_bursts"].build(ROLLOUT_ARCHS, duration_s=ROLLOUT_TICKS,
+                                            mean_rps=PPO_MEAN_RPS)
+    env = PoolServingEnv(wl, env_cfg, arrivals=arr)
+    net = ppo.params_from_jax(params, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    obs = env.reset()
+    ppo.pool_policy_action(net, obs, gen)        # warm-up, not timed
+    t0, steps, done = time.perf_counter(), 0, False
+    while not done:
+        a, _, _ = ppo.pool_policy_action(net, obs, gen)
+        obs, _, done, _ = env.step(a)
+        steps += 1
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()             # training ran the collector's ops already
+    t0 = time.perf_counter()
+    ppo.collect_rollouts_torch(env, net, gen, device=dev)
+    batched = time.perf_counter() - t0
+    return {"pool_size": ROLLOUT_ARCHS, "ticks": steps, "stepwise_wall_s": wall,
+            "stepwise_ticks_per_s": steps / wall, "collector_wall_s": batched,
+            "collector_ticks_per_s": steps / batched, "speedup_vs_env_loop": wall / batched}
+
+
+def profiled(fn, per):
+    """Device kernels (and copies) per ``per`` units of ``fn``'s work, its
+    device time and the device's busy share of its (profiled) wall time;
+    device activity only, which keeps the profiler's own cost small."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    busy_us = sum(e.self_device_time_total for e in device)
+    return {"wall_s": wall, "device_ms": busy_us / 1e3, "device_busy_share": busy_us / (1e6 * wall),
+            "kernels": sum(e.count for e in device),
+            "kernels_per_unit": sum(e.count for e in device) / per,
+            "device_ms_per_unit": busy_us / 1e3 / per}
+
+
+def phase_ppo(seed):
+    """PPO on the card: train the pool controller with full-zoo rollouts of
+    the torch engine, check a replayed cell, a minibatch update and the
+    trained checkpoint's run against NumPy and the CPU, time the rollout
+    metric and profile a rollout and an update phase."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    env = ppo_env()
+    cfg = ppo.PPOConfig(iterations=PPO_ITERATIONS, rollout_len=PPO_DURATION_S,
+                        entropy_coef=PPO_ENTROPY, seed=seed)
+    probe = TrainingProbe()
+    with wrapped(ppo, "collect_rollouts_torch_zoo", probe.collect), \
+            wrapped(ppo, "update_phase", probe.update), wrapped(ppo, "ppo_update", probe.step):
+        state = ppo.train_ppo_pool(env, cfg, torch_rollouts=True, full_zoo=True, device=dev)
+    S, T = len(env.scenarios), PPO_DURATION_S
+    iters = []
+    for it, h in enumerate(state.history):
+        row = {"iter": it, "rollout_s": probe.rollout_s[it], "ticks_per_s": T / probe.rollout_s[it],
+               "cell_ticks_per_s": S * T / probe.rollout_s[it], "update_s": probe.update_s[it],
+               "rollout_reward": h["rollout_reward"], **{k: h[k] for k in PPO_MEANS}}
+        if not np.isfinite(list(row.values())).all():
+            raise AssertionError(f"ppo iteration {it}: {row}")
+        iters.append(row)
+        print("[ppo] " + json.dumps(row))
+    result = {"reduced": {"iterations": [PPO_ITERATIONS, 192]},
+              "config": {"archs": env.n_archs, "cells": S, "ticks": T, "mean_rps": PPO_MEAN_RPS,
+                         "rows_per_update_phase": T * S * env.n_archs,
+                         "minibatch_steps": cfg.epochs * cfg.minibatches},
+              "iterations": iters, "best_reward": state.best_reward}
+    result["replay"] = replay_cell(env, probe.first_rollout, cell=0)
+    result["update_card_vs_cpu"] = update_card_vs_cpu(probe.first_step, cfg)
+    result["checkpoint_card_vs_cpu"] = checkpoint_card_vs_cpu(env, state.params, seed)
+    for key in ("replay", "update_card_vs_cpu", "checkpoint_card_vs_cpu"):
+        print(f"[ppo] {key}: " + json.dumps(result[key]))
+    result["rollout_64"] = rollout_throughput(env.cfg, state.params, dev)
+    print("[ppo] rollout_64: " + json.dumps(result["rollout_64"]))
+    # one rollout of the training env cut to PROFILE_TICKS ticks, and one
+    # update phase on the first iteration's buffer
+    short, net = ppo_env(PROFILE_TICKS), ppo.params_from_jax(state.params, device=dev)
+    gen = torch.Generator().manual_seed(seed)
+    result["profile_rollout"] = profiled(
+        lambda: ppo.collect_rollouts_torch_zoo(short, net, gen, device=dev), PROFILE_TICKS)
+    result["profile_update_phase"] = profiled(
+        lambda: ppo.update_phase(net, ppo.init_opt_state(net), probe.first_rollout["buf"], cfg, 0,
+                                 device=dev), cfg.epochs * cfg.minibatches)
+    # the device's busy share of the last timed rollout and update phase
+    result["profile_rollout"]["busy_share_of_timed_run"] = (
+        result["profile_rollout"]["device_ms_per_unit"] / (1e3 * iters[-1]["rollout_s"] / T))
+    result["profile_update_phase"]["busy_share_of_timed_run"] = (
+        result["profile_update_phase"]["device_ms"] / (1e3 * iters[-1]["update_s"]))
+    print("[ppo] profiles (per unit: a tick; a minibatch step): " + json.dumps(
+        {k: result[k] for k in ("profile_rollout", "profile_update_phase")}))
+    result["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    result["phase_s"] = time.perf_counter() - t_phase
+    return result
+
+
 def record_routes(into):
     """A wrapper of ``_route`` that appends each call's expert indices to ``into``."""
     def wrapper(route):
@@ -1647,9 +1918,11 @@ def main() -> None:
     for row in rows:
         row["launches"] = sum(res["launches"][row["name"]] for res in slices)
     control = phase_control_plane(args.seed)
+    ppo_run = phase_ppo(args.seed)
     for res in slices:
         print(json.dumps({"slice": res}))
     print(json.dumps({"control_plane": control}))
+    print(json.dumps({"ppo": ppo_run}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

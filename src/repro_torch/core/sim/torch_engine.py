@@ -854,6 +854,7 @@ def build_sim_inputs(
     warm_start: bool = True,
     needs_stats: bool = True,
     needs_uniforms: bool = False,
+    uniforms: Optional[np.ndarray] = None,
     stats: Optional[tuple] = None,
     _sim: Optional[ServingSim] = None,
 ):
@@ -866,7 +867,9 @@ def build_sim_inputs(
     arrivals and seed except the warm-start fleet, recomputed here), and
     ``stats`` injects precomputed ``(ewma, p2m)`` monitor trajectories.
     Policies that read no order statistic run the EWMA inside the tick
-    loop (``state0.ewma`` seeds it) and get no ``[T, A]`` EWMA input."""
+    loop (``state0.ewma`` seeds it) and get no ``[T, A]`` EWMA input.
+    A policy that draws actions (``needs_uniforms``) reads ``[T, A]``
+    float64 ``uniforms``; without them they are drawn from ``seed``."""
     arrivals = np.asarray(arrivals, dtype=np.float64)
     if arrivals.ndim != 2:
         raise ValueError(f"the batched engine needs an [A, T] arrival matrix, "
@@ -992,7 +995,12 @@ def build_sim_inputs(
     if needs_stats:
         xs["ewma"] = ewma
         xs["p2m"] = p2m
-    if needs_uniforms:
+    if needs_uniforms and uniforms is not None:
+        xs["u_act"] = np.asarray(uniforms, dtype=np.float64)
+        if xs["u_act"].shape != (T, A):
+            raise ValueError(f"action uniforms of shape {xs['u_act'].shape}, "
+                             f"need {(T, A)}")
+    elif needs_uniforms:
         gen = torch.Generator().manual_seed(int(seed))
         xs["u_act"] = torch.rand((T, A), generator=gen, dtype=F64).numpy()
     return statics, state0, xs
@@ -1033,19 +1041,25 @@ def _statics_to_device(statics: dict, state0: SimState, B: int, device):
 def _params_to_device(params_batch: List[dict], device) -> dict:
     """Stack per-cell policy parameters: a scalar becomes ``[B, 1]``
     (broadcasts over archs), a bias ``[O]`` becomes ``[B, 1, O]`` and a
-    weight ``[I, O]`` stays ``[B, I, O]``."""
+    weight ``[I, O]`` stays ``[B, I, O]``.  Leaves are NumPy values or
+    torch tensors (a live net is detached and cast where it lies, with no
+    trip through the host); floats become float64."""
     first = params_batch[0]
     out = {}
     for k in first:
         if isinstance(first[k], dict):
             out[k] = _params_to_device([p[k] for p in params_batch], device)
             continue
-        arr = np.stack([np.asarray(p[k]) for p in params_batch])
-        if arr.dtype.kind == "f":
-            arr = arr.astype(np.float64)
+        if isinstance(first[k], torch.Tensor):
+            arr = torch.stack([p[k].detach() for p in params_batch])
+        else:
+            arr = torch.as_tensor(np.stack([np.asarray(p[k])
+                                            for p in params_batch]))
+        if arr.is_floating_point():
+            arr = arr.to(F64)
         if arr.ndim <= 2:
             arr = arr[:, None] if arr.ndim == 1 else arr[:, None, :]
-        out[k] = torch.as_tensor(arr, device=device)
+        out[k] = arr.to(device)
     return out
 
 
@@ -1118,16 +1132,20 @@ def run_ticks(policy_apply, statics: dict, state0: SimState, xs: dict, *,
 def prepare_grid(arrivals_batch, workload, policy="portfolio",
                  params_batch=None, seeds=None, *, pricing=PRICING,
                  catalog=None, prewarm=True, warm_start=True,
-                 device="cuda"):
+                 uniforms=None, device="cuda"):
     """Build and move to ``device`` everything :func:`run_ticks` needs
     for a grid: ``(statics, state0, xs, variants)``, state ``[B, ...]``
-    and per-tick inputs ``[T, B, ...]``."""
+    and per-tick inputs ``[T, B, ...]``.  ``uniforms`` (``[B, T, A]``
+    float64) are the action draws of a sampling policy; without them
+    each cell draws its own from its seed."""
     arrivals_batch = np.asarray(arrivals_batch, dtype=np.float64)
     B, A, T = arrivals_batch.shape
     pol = TORCH_POLICIES[policy]
     seeds = list(seeds) if seeds is not None else [0] * B
     if len(seeds) != B:
         raise ValueError(f"{len(seeds)} seeds for {B} cells")
+    if uniforms is not None and not pol.needs_uniforms:
+        raise ValueError(f"policy {policy!r} draws no actions from uniforms")
     # one template sim serves the whole grid (cells share the workload);
     # the per-cell monitor streams run as ONE batched recurrence over
     # the stacked [B*A, T] matrix (rows are independent)
@@ -1147,6 +1165,7 @@ def prepare_grid(arrivals_batch, workload, policy="portfolio",
             arrivals_batch[i], workload, pricing=pricing, seed=seeds[i],
             prewarm=prewarm, warm_start=warm_start,
             needs_stats=pol.needs_stats, needs_uniforms=pol.needs_uniforms,
+            uniforms=None if uniforms is None else uniforms[i],
             stats=stats[i], _sim=sim,
         )
         for i in range(B)

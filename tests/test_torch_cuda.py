@@ -619,3 +619,76 @@ def test_tick_engine_on_the_card_matches_cpu(cuda, policy, catalog):
         for k in ("served_vm", "served_burst", "dropped", "violations", "acc_weight"):
             np.testing.assert_allclose(card["per_arch"][k], cpu["per_arch"][k],
                                        rtol=1e-6, atol=1e-6, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# The PPO controller: rollouts and updates on the card against the CPU.
+# ---------------------------------------------------------------------------
+def _ppo_env(catalog):
+    from repro_torch.core.rl import EnvConfig, PoolServingEnv
+
+    wl = core_sim.uniform_pool_workload(SIM_POOL, strict_frac=0.25)
+    wl = [dataclasses.replace(w, min_accuracy=0.5) for w in wl]
+    cat = core_sim.VariantCatalog.for_workload(wl) if catalog else None
+    scs = [SCENARIO_ZOO[n] for n in ("mmpp_bursts", "flash_anti", "trending_hotswap")]
+    return PoolServingEnv(wl, EnvConfig(mean_rps=200.0, duration_s=300,
+                                        accuracy_bonus=0.001),
+                          scenarios=scs, scenario_seed=1, catalog=cat)
+
+
+@pytest.mark.parametrize("catalog", [False, True])
+def test_ppo_collectors_on_the_card_match_cpu(cuda, catalog):
+    """Both collectors on the card (the live net on the card, the tick loop
+    under sync debug mode "error") equal the CPU: the same actions, the
+    other buffers at 1e-6."""
+    from repro_torch.core.rl import ppo
+
+    net = ppo.init_net(torch.Generator().manual_seed(0), ppo.PPOConfig())
+    net["pi"]["w"] = net["pi"]["w"] * 100.0
+    u = np.random.default_rng(1).random((3, 300, len(SIM_POOL)))
+    runs = []
+    for dev in (cuda, "cpu"):
+        params = ppo.params_from_jax(net, device=dev)
+        env = _ppo_env(catalog)
+        runs.append((ppo.collect_rollouts_torch(env, params, u[0], device=dev),
+                     ppo.collect_rollouts_torch_zoo(env, params, u, device=dev)))
+    for card, cpu in zip(*runs):
+        np.testing.assert_array_equal(card["actions"], cpu["actions"])
+        for k in ("obs", "logp", "values", "rewards"):
+            np.testing.assert_allclose(card[k], cpu[k], rtol=1e-6, atol=1e-6, err_msg=k)
+
+
+def test_ppo_update_on_the_card_matches_cpu(cuda):
+    """One minibatch update and one whole update phase on the card (float32,
+    TF32 off) against the CPU at 1e-5."""
+    from repro_torch.core.rl import ppo
+
+    cfg = ppo.PPOConfig(entropy_coef=0.01)
+    net = ppo.init_net(torch.Generator().manual_seed(3), cfg)
+    rng = np.random.default_rng(2)
+    T, W = 120, 56
+    buf = {"obs": rng.standard_normal((T, W, 16)).astype(np.float32),
+           "actions": rng.integers(0, 108, (T, W)).astype(np.int32),
+           "logp": (np.log(1 / 108) + 0.3 * rng.standard_normal((T, W))).astype(np.float32),
+           "values": rng.standard_normal((T, W)).astype(np.float32),
+           "rewards": rng.standard_normal((T, W)).astype(np.float32),
+           "dones": np.eye(1, T, T - 1, dtype=np.float32)[0],
+           "last_value": np.zeros(W, np.float32)}
+    batch = {"obs": buf["obs"][0], "actions": buf["actions"][0].astype(np.int64),
+             "logp_old": buf["logp"][0], "adv": buf["rewards"][0], "returns": buf["values"][0]}
+    outs = []
+    for dev in (cuda, "cpu"):
+        p = ppo.params_from_jax(net, device=dev)
+        one = ppo.ppo_update(p, ppo.init_opt_state(p),
+                             {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}, cfg)
+        phase = ppo.update_phase(p, ppo.init_opt_state(p), buf, cfg, 0, device=dev)
+        outs.append((ppo.params_to_numpy(one[0]), float(one[2]),
+                     ppo.params_to_numpy(phase[0]), phase[4]))
+    (p1, l1, q1, m1), (p2, l2, q2, m2) = outs
+    assert l1 == pytest.approx(l2, rel=1e-5, abs=1e-5)
+    np.testing.assert_allclose(m1, m2, rtol=1e-5, atol=1e-5)
+    for a, b in ((p1, p2), (q1, q2)):
+        for n in b:
+            for k in b[n]:
+                np.testing.assert_allclose(a[n][k], b[n][k], rtol=1e-5, atol=1e-5,
+                                           err_msg=f"{n}.{k}")

@@ -642,3 +642,34 @@ def test_rl_sample_run_is_seeded():
     assert (tr["action"] != c["trajectory"]["action"]).any()
     assert (tr["logp"] <= 1e-9).all()
     assert len(np.unique(tr["action"])) > 1
+
+
+def test_rl_sample_draws_from_passed_uniforms():
+    """``uniforms=`` replaces the seed's own draw: passing that draw gives
+    the same run, all-zero uniforms take the first action everywhere, and
+    each cell reads its own ``[T, A]`` block."""
+    A, T = 4, 80
+    wl = _port_workload(_workload(A))
+    arr = SCENARIO_ZOO["mmpp_bursts"].build(A, duration_s=T)
+    policy = te.TORCH_POLICIES["rl_sample"]
+
+    def actions(uniforms, seeds=(3, 3)):
+        statics, state0, xs, variants = te.prepare_grid(
+            np.stack([arr, arr]), wl, "rl_sample", seeds=list(seeds),
+            uniforms=uniforms, device=DEV)
+        out = te.run_ticks(policy.apply, statics, state0, xs,
+                           variants=variants, stack=True)
+        return out["ys"]["action"].numpy()          # [T, B, A]
+
+    own = torch.rand((T, A), generator=torch.Generator().manual_seed(3),
+                     dtype=torch.float64).numpy()
+    np.testing.assert_array_equal(actions(None), actions(np.stack([own, own])))
+    mixed = actions(np.stack([np.zeros((T, A)), own]))
+    assert (mixed[:, 0] == 0).all()
+    np.testing.assert_array_equal(mixed[:, 1], actions(None)[:, 1])
+    assert (actions(None, seeds=(3, 4))[:, 1] != mixed[:, 1]).any()
+    with pytest.raises(ValueError, match="uniforms"):
+        actions(np.zeros((2, T, A + 1)))
+    with pytest.raises(ValueError, match="draws no actions"):
+        te.prepare_grid(arr[None], wl, "portfolio", uniforms=np.zeros((1, T, A)),
+                        device=DEV)
