@@ -24,7 +24,8 @@ never prints its last line):
    at B = 8 over 1500 keys with Sq = 1500, 4 and 1, decode over a 448-slot
    cache); the RWKV-6 scan at ``RWKV_CASES``
    (with and without a state, ragged T), under strong
-   decay (also in bf16 at T = 100), at T = 1 with a state, at T = 2048, with
+   decay (also in bf16 at T = 100 and in f32 at rwkv6-1.6b's T = 500, H = 32,
+   the f32 prefill training runs), at T = 1 with a state, at T = 2048, with
    the state updated in place at T = 45 and T = 1, and at rwkv6-1.6b's
    prefill and decode shapes; the attention kernels' edge cases (rows that
    see no key, S = 1000 in bf16, a window with a q_offset, decode masks that
@@ -112,11 +113,32 @@ never prints its last line):
    ``rl_pool`` run on the card to the CPU; times the benchmark's rollout
    metric (64 archs, 600 ticks: the step-wise env loop against the
    collector) and profiles a 100-tick rollout and an update phase;
-6. print the device line ``{"ok": true, "device": {...}}`` last.
+6. training (``training/train_loop.py``, ``model.loss_fn``), every
+   attention and WKV call through ``kernels/ops.py``'s autograd Functions
+   (the hand-written kernel forward, the plain version's VJP backward):
+   6a trains qwen1.5-0.5b at full width and depth in f32 with
+   ``launch/train.py``'s configuration (AdamW lr 3e-4, wsd, remat on) on
+   ``SyntheticLM`` batches of 8 x 512 for 20 steps: the loss falls, every
+   parameter leaf gets a finite, non-zero gradient in the first step, the
+   flash launches equal 24 layers x 2 (forward, remat recompute) a step;
+   prints the median step of 5 after warm-up, tokens/s, peak memory, a
+   profiled step (device time, busy share, the flash forward's, the plain
+   backward's and the optimizer's device time) and the step's floor and
+   ``train_step_mfu``; 6c saves {params, opt_state} (5.6 GB) and restores it
+   onto the card bit-equal, steps from both, and serves a prompt and 8
+   decode steps from both (logits equal); 6b holds one step at B=1, S=128
+   on the card to the CPU; 6d trains rwkv6-1.6b at full width and depth in
+   f32 for 3 steps of 4 x 128 (scan launches 24 x 2 a step), profiles one
+   and holds a step at 4 layers, T=64 to the CPU; then both kernels are
+   timed at the training shapes (forward, plain backward, SDPA forward +
+   backward) into the ``{"kernels": ...}`` rows, whose launches add the
+   training runs';
+7. print the device line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import dataclasses
 import gc
@@ -151,6 +173,11 @@ from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.rwkv import F32_LEAVES  # noqa: E402
 from repro_torch.serving import ContinuousBatcher, Engine, EngineConfig, Request  # noqa: E402
+from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint  # noqa: E402
+from repro_torch.training import OptimizerConfig, ScheduleConfig, adamw_init  # noqa: E402
+from repro_torch.training import train_loop  # noqa: E402
+from repro_torch.training.data import SyntheticLM  # noqa: E402
+from repro_torch.training.optimizer import tree_leaves  # noqa: E402
 
 # tolerances of tests/test_kernels.py
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -160,8 +187,10 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # of size ~1-10, so 1e-3 leaves two orders of margin and still catches a
 # kernel that drops or misweights a single key (errors of order 1e-1).
 LOGIT_TOL = 1e-3
-# H100 SXM datasheet peaks: dense bf16 tensor cores, HBM3
+# H100 SXM datasheet peaks: dense bf16 tensor cores, f32 outside the
+# tensor cores (training runs f32 with TF32 off), HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 # b, sq, sk, nq, nkv, hd, causal, window  (tests/test_kernels.py FA_CASES)
@@ -296,8 +325,8 @@ def time_ms(fn, flush, iters=20, warmup=3) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -771,7 +800,10 @@ def phase_rwkv_kernel(seed):
             {name: {"max_abs_err": e, "max_abs_out": m} for name, (e, _, m) in main[dtype].items()}))
     edges["strong decay T=100 bf16"] = check_rwkv(
         gen, (1, 100, 4, 64, True), torch.bfloat16, strong=True)[0]
-    n += 1
+    # the f32 prefill (rwkv6::simt, which training runs) at the served shape
+    edges["strong decay T=500 H=32 f32"] = check_rwkv(
+        gen, RWKV_PREFILL, torch.float32, strong=True)[0]
+    n += 2
     print("[kernels] rwkv6_scan long T, strong decay, in place: max abs err " + json.dumps(edges))
     torch.cuda.synchronize()
     print(f"[kernels] rwkv6_scan: {n} checks passed in f32 and bf16")
@@ -1006,14 +1038,18 @@ def f32_check_rwkv(seed, prompt):
     attention: the same f32 arithmetic in another order (the chunked scan
     sums log-decays where the plain version multiplies decays, ~1e-6
     relative), through 4 residual layers to logits of size ~1."""
-    def fill(params, gen):
-        for layer in params["layers"]:
-            for name in F32_LEAVES:
-                leaf = layer["rwkv"][name]
-                leaf.copy_(0.3 * randn(gen, leaf.shape, torch.float32))
-
     cfg = dataclasses.replace(get_config(RWKV_ARCH), num_layers=RWKV_F32_LAYERS)
-    return f32_check(cfg, seed, np.resize(prompt, RWKV_F32_PROMPT), fill)
+    return f32_check(cfg, seed, np.resize(prompt, RWKV_F32_PROMPT), fill_rwkv_leaves)
+
+
+def fill_rwkv_leaves(params, gen):
+    """RWKV's zero-initialised leaves (``mu``, ``cm_mu``, ``w0``, ``u``)
+    filled with 0.3 N from ``gen``, so that the token shift and the bonus
+    carry weight."""
+    for layer in params["layers"]:
+        for name in F32_LEAVES:
+            leaf = layer["rwkv"][name]
+            leaf.copy_(0.3 * randn(gen, leaf.shape, torch.float32))
 
 
 def f32_check_moe(seed, prompt):
@@ -1722,6 +1758,483 @@ def phase_ppo(seed):
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: training on the card.
+# ---------------------------------------------------------------------------
+# launch/train.py's configuration (AdamW lr 3e-4, wsd, warmup
+# max(10, steps // 10), remat on) in f32, the JAX package's training
+# default, on SyntheticLM batches of TRAIN_BATCH x TRAIN_SEQ from --seed
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 512, 20, 3e-4
+TRAIN_TIMED = 5
+# card vs CPU: one make_train_step at full width and depth, B=1, S=128
+# (rwkv6-1.6b: full width, 4 layers, T=64).  The same f32 arithmetic in
+# another order (and the kernels' forwards ~1e-6 from the plain versions)
+# through 24 layers: loss and grad_norm within 1e-4 relative, every gradient
+# leaf within 1e-3 of its largest value, which still catches a lost or
+# misweighted gradient term (errors of order 1)
+CHECK_SEQ, RWKV_CHECK_LAYERS, RWKV_CHECK_SEQ = 128, 4, 64
+TRAIN_RTOL, GRAD_LEAF_TOL = 1e-4, 1e-3
+RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ, RWKV_TRAIN_STEPS = 4, 128, 3
+# the kernels of the training path, by name in a profile, and the profiler
+# ranges of their Functions' plain backwards (kernels/ops.py) and of the
+# optimizer (train_loop.adamw_update, wrapped here)
+TRAIN_KERNELS = {"flash_attention": FLASH_KERNELS, "rwkv6_scan": ("rwkv6::",)}
+BACKWARD_RANGES = {"flash_attention": "flash_attention.backward", "rwkv6_scan": "rwkv6.backward"}
+ADAMW_RANGE = "train.adamw_update"
+
+
+def train_config(steps):
+    return train_loop.TrainConfig(
+        optimizer=OptimizerConfig(lr=TRAIN_LR),
+        schedule=ScheduleConfig(kind="wsd", peak_lr=TRAIN_LR, warmup_steps=max(10, steps // 10),
+                                total_steps=steps))
+
+
+def leaf_names(tree, prefix=""):
+    """Dotted paths of a tree's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in leaf_names(v, f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+class GradProbe:
+    """A wrapper of ``train_loop.adamw_update`` that keeps the gradients of
+    the first step it sees."""
+
+    def __init__(self):
+        self.grads = None
+
+    def __call__(self, update):
+        def run(params, grads, opt_state, cfg, lr=None):
+            if self.grads is None:
+                self.grads = grads
+            return update(params, grads, opt_state, cfg, lr=lr)
+        return run
+
+
+def check_grads(params, grads):
+    """Raise unless every parameter leaf got a finite, non-zero gradient;
+    returns the count, the smallest leaf's largest |g| and layer 0's
+    attention projections'."""
+    names = leaf_names(params)
+    leaves = tree_leaves(grads)
+    missing = [n for n, g in zip(names, leaves) if g is None]
+    if missing:
+        raise AssertionError(f"no gradient for {missing}")
+    big = torch.stack([g.abs().max() for g in leaves]).cpu()
+    finite = torch.stack([torch.isfinite(g).all() for g in leaves]).cpu()
+    bad = [n for n, m, f in zip(names, big.tolist(), finite.tolist()) if not (f and m > 0)]
+    if bad:
+        raise AssertionError(f"gradients zero or not finite: {bad}")
+    named = {n: m for n, m in zip(names, big.tolist())
+             if n.startswith(("layers.0.attn.", "layers.0.rwkv.")) and n.split(".")[-1]
+             in ("wq", "wk", "wv", "bq", "bk", "bv", "wr", "wg", "decay_a", "w0", "u")}
+    return {"leaves": len(leaves), "all_finite_nonzero": True,
+            "min_leaf_max_abs_grad": float(big.min()), "layer0_max_abs_grad": named}
+
+
+def expected_train_launches(cfg, steps, remat=True):
+    """Each step runs every attention layer's flash call and every RWKV
+    layer's scan once in the forward and, under remat, once more in the
+    backward's recompute; the backward itself is the plain VJP."""
+    per = expected_launches(cfg, 1, 0)
+    return {name: n * steps * (1 + bool(remat)) for name, n in per.items()}
+
+
+def train_step_floor(cfg, params, b, s):
+    """Operations of a step, 6 x (non-embedding + unembedding parameters) x
+    tokens plus 3 x the causal attention's forward (4 hd per visible pair,
+    every head of every attention layer), at 67 TFLOP/s f32; the optimizer's
+    bytes (p, g, m, v read, p, m, v written, f32) at 3.35 TB/s after them.
+    Remat's recompute is not counted: the floor is of the step's work."""
+    numel = lambda tree: sum(t.numel() for t in tree_leaves(tree))
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    n_attn = sum(k in (ATTN, LOCAL_ATTN) for k in cfg.layer_kinds())
+    pairs = b * cfg.num_heads * s * (s + 1) // 2
+    flops = (6 * (numel(params["layers"]) + numel(params["final_norm"]) + head.numel()) * b * s
+             + 3 * 4 * cfg.resolved_head_dim * pairs * n_attn)
+    opt_bytes = 7 * 4 * numel(params)
+    return {"flops": flops, "ops_floor_ms": 1e3 * flops / PEAK_F32_FLOPS,
+            "optimizer_bytes": opt_bytes, "optimizer_floor_ms": 1e3 * opt_bytes / PEAK_BYTES,
+            "floor_ms": 1e3 * (flops / PEAK_F32_FLOPS + opt_bytes / PEAK_BYTES)}
+
+
+
+
+def read_profile(prof, ranges):
+    """Device time by kernel name, and of the kernels launched inside each
+    profiler range of ``ranges`` (a launch's runtime call on the range's
+    thread, within its span, matched to its kernel by correlation id), read
+    from the raw kineto events: the operator tree is never built, which at
+    ~10^5 kernels a step (phase 6d) would take minutes."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    by_kernel, by_corr, count = {}, {}, 0
+    spans = {label: {} for label in ranges}
+    for e in events:
+        if e.device_type() == cuda and not e.is_user_annotation():
+            count += 1
+            us = e.duration_ns() / 1e3
+            by_kernel[e.name()] = by_kernel.get(e.name(), 0.0) + us
+            by_corr[e.correlation_id()] = by_corr.get(e.correlation_id(), 0.0) + us
+        elif e.device_type() == cpu and e.is_user_annotation() and e.name() in spans:
+            spans[e.name()].setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), e.start_ns() + e.duration_ns()))
+    for per_thread in spans.values():
+        for sp in per_thread.values():
+            sp.sort()
+    in_range = {label: 0.0 for label in ranges}
+    for e in events:
+        if e.device_type() != cpu or not e.name().startswith("cu") or e.correlation_id() not in by_corr:
+            continue
+        for label, per_thread in spans.items():
+            sp = per_thread.get(e.start_thread_id(), ())
+            i = bisect.bisect_right(sp, (e.start_ns(), float("inf"))) - 1
+            if i >= 0 and e.start_ns() <= sp[i][1]:
+                in_range[label] += by_corr[e.correlation_id()]
+    return by_kernel, in_range, count
+
+
+def profile_train_step(fn, kernel):
+    """One step under ``torch.profiler``: its device time and busy share of
+    the host-clock window, the kernel forwards' device time, the plain
+    backwards' (the Functions' profiler range), AdamW's (a range around
+    ``train_loop.adamw_update``) and the kernels that take the most."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with wrapped(train_loop, "adamw_update", in_range(ADAMW_RANGE)), \
+            torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    by_kernel, ranges, count = read_profile(prof, (BACKWARD_RANGES[kernel], ADAMW_RANGE))
+    busy = sum(by_kernel.values())
+    fwd = kernel_time(by_kernel, TRAIN_KERNELS[kernel])
+    bwd, opt = ranges[BACKWARD_RANGES[kernel]], ranges[ADAMW_RANGE]
+    if not (0 < bwd < busy and 0 < opt < busy):
+        raise AssertionError(f"profiler ranges: backward {bwd} us, adamw {opt} us, of {busy} us")
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return out, {
+        "profiled_wall_ms": wall_us / 1e3, "device_ms": busy / 1e3,
+        "device_busy_share_profiled": busy / wall_us,
+        "device_kernels": count,
+        f"{kernel}_forward_ms": fwd / 1e3, f"{kernel}_forward_share_of_device": fwd / busy,
+        f"{kernel}_plain_backward_ms": bwd / 1e3,
+        f"{kernel}_plain_backward_share_of_device": bwd / busy,
+        "adamw_ms": opt / 1e3, "adamw_share_of_device": opt / busy,
+        "top_kernels_ms": {k[:80]: us / 1e3 for k, us in top},
+        "profile_read_s": time.perf_counter() - t0,
+    }
+
+
+def timed_steps(step, state, batches):
+    """Host ms of each step (a sync before, a sync at the end), chaining the
+    state; returns (the last state, the times)."""
+    times = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, _ = step(*state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        state = (params, opt)
+    return state, times
+
+
+def train_card_vs_cpu(cfg, seed, seq, fill=None):
+    """One make_train_step (launch/train.py's configuration) from the same
+    params and batch on the card and on the CPU: loss and grad_norm within
+    TRAIN_RTOL, every gradient leaf within GRAD_LEAF_TOL of its largest
+    value, and every card gradient finite and non-zero."""
+    params = model_lib.init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    if fill is not None:
+        fill(params, torch.Generator().manual_seed(seed + 1))
+    batch = next(SyntheticLM(cfg.vocab_size, seq, 1, seed=seed + 1))
+    tcfg = train_config(TRAIN_STEPS)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        probe = GradProbe()
+        p = _tree_to(params, dev)
+        with wrapped(train_loop, "adamw_update", probe):
+            _, _, m = train_loop.make_train_step(cfg, tcfg)(
+                p, adamw_init(p, tcfg.optimizer), train_loop.batch_to(batch, dev))
+        out[dev] = (float(m["loss"]), float(m["grad_norm"]), probe.grads)
+        del p, m
+    (loss_g, norm_g, grads_g), (loss_c, norm_c, grads_c) = out["cuda"], out["cpu"]
+    grads = check_grads(params, grads_g)
+    rel = {"loss": abs(loss_g - loss_c) / abs(loss_c),
+           "grad_norm": abs(norm_g - norm_c) / abs(norm_c)}
+    for k, e in rel.items():
+        check(f"{cfg.name} train step card vs CPU {k} (relative)", e, TRAIN_RTOL)
+    leaf = max(max_err(a.cpu(), b) / float(b.abs().max())
+               for a, b in zip(tree_leaves(grads_g), tree_leaves(grads_c)))
+    check(f"{cfg.name} train step card vs CPU gradients (of each leaf's max)", leaf, GRAD_LEAF_TOL)
+    del out, grads_g, grads_c
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "batch": 1, "seq": seq, "loss_card": loss_g,
+            "loss_cpu": loss_c, "grad_norm_card": norm_g, "grad_norm_cpu": norm_c,
+            "rel_err": rel, "max_grad_leaf_err_of_leaf_max": leaf,
+            "tol": {"loss_grad_norm_rel": TRAIN_RTOL, "grad_leaf": GRAD_LEAF_TOL},
+            "card_grads": grads}
+
+
+def checkpoint_round_trip(cfg, tcfg, state, batch, prompt):
+    """Save {params, opt_state} to a temporary directory and restore it onto
+    the card (bit-equal); one step from the restored state and from the one
+    in memory; prefill + F32_DECODE_STEPS decode steps from the restored and
+    the in-memory params through both attention kernels (logits equal)."""
+    params, opt = state
+    tree = {"params": params, "opt_state": opt}
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(d, int(opt["step"]), tree)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = restore_checkpoint(d, latest_step(d), tree)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    if not all(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+               for a, b in zip(tree_leaves(tree), tree_leaves(back))):
+        raise AssertionError("checkpoint: the restored state is not bit-equal to the saved one")
+    step = train_loop.make_train_step(cfg, tcfg)
+    a = step(params, opt, batch)
+    b = step(back["params"], back["opt_state"], batch)
+    gaps = [max_err(x, y) / max(float(x.abs().max()), 1e-30)
+            for x, y in zip(tree_leaves(a), tree_leaves(b))]
+    bit_equal = all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    check("checkpoint: a step from the restored state vs the in-memory one (of each leaf's max)",
+          max(gaps), 1e-6)
+    del a, b
+    before = launch_counts()
+    prompt = torch.as_tensor(prompt, dtype=torch.long)
+    mem_logits, tokens = _teacher_forced(cfg, params, prompt, None, torch.device("cuda"))
+    restored_logits, _ = _teacher_forced(cfg, back["params"], prompt, tokens, torch.device("cuda"))
+    ran = {k: n - before[k] for k, n in launch_counts().items()}
+    want = {k: 2 * n for k, n in expected_launches(cfg, 1, F32_DECODE_STEPS).items()}
+    if ran != want:
+        raise AssertionError(f"checkpoint serve check launches {ran} != {want}")
+    if not all(torch.equal(x, y) for x, y in zip(mem_logits, restored_logits)):
+        raise AssertionError("checkpoint: logits from the restored params differ")
+    del back
+    torch.cuda.empty_cache()
+    return {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s, "bit_equal_restore": True,
+            "resume_step_bit_equal": bit_equal, "resume_step_max_err_of_leaf_max": max(gaps),
+            "serve_prompt_tokens": len(prompt), "serve_decode_steps": F32_DECODE_STEPS,
+            "serve_logits_equal": True, "serve_launches": ran}
+
+
+def phase_train(seed, gpu, prompt):
+    """qwen1.5-0.5b trained at full width and depth in f32 (6a), one step
+    card vs CPU (6b), the checkpoint round trip (6c)."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_config(ARCH)
+    tcfg = train_config(TRAIN_STEPS)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+    probe, logged = GradProbe(), []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in KERNELS.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    with wrapped(train_loop, "adamw_update", probe):
+        params, opt, history = train_loop.train(
+            cfg, tcfg, iter(data), TRAIN_STEPS, seed=seed,
+            callback=lambda step, m: logged.append(step), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    expected = expected_train_launches(cfg, TRAIN_STEPS)
+    if launches != expected:
+        raise AssertionError(f"train launches {launches} != {expected}")
+    first, last = history[0]["loss"], history[-1]["loss"]
+    if not (np.isfinite([h["loss"] for h in history]).all() and last < first):
+        raise AssertionError(f"{cfg.name} training: loss {first} -> {last}")
+    grads = check_grads(params, probe.grads)
+    probe.grads = None
+    print(f"[train] {cfg.name}: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}, loss "
+          f"{first:.4f} -> {last:.4f}; kernel launches {json.dumps(launches)} = "
+          f"{json.dumps(expected_launches(cfg, 1, 0))} per step x {TRAIN_STEPS} steps x 2 "
+          "(forward, remat recompute)")
+    step = train_loop.make_train_step(cfg, tcfg)
+    batches = [train_loop.batch_to(next(data), dev) for _ in range(TRAIN_TIMED + 2)]
+    state, times = timed_steps(step, (params, opt), batches[:TRAIN_TIMED + 1])
+    del params, opt
+    step_ms = float(np.median(times[1:]))
+    floor = train_step_floor(cfg, state[0], TRAIN_BATCH, TRAIN_SEQ)
+    (p, o, _), prof = profile_train_step(lambda: step(*state, batches[-1]), "flash_attention")
+    del p, o
+    result = {
+        "model": cfg.name, "dtype": "float32", "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "params": model_lib.param_count(cfg), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "steps": TRAIN_STEPS, "schedule": dataclasses.asdict(tcfg.schedule),
+        "optimizer": {k: v for k, v in dataclasses.asdict(tcfg.optimizer).items()
+                      if k != "state_dtype"}, "remat": tcfg.remat,
+        "loss_first": first, "loss_last": last, "logged_steps": logged,
+        "history": [{k: h[k] for k in ("step", "loss", "ce", "grad_norm", "lr")} for h in history],
+        "train_wall_s": wall, "launches": launches,
+        "launch_formula": "per step: attention layers x (1 forward + 1 remat recompute)",
+        "first_step_grads": grads,
+        "step_ms_host": times, "step_ms_median": step_ms,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "step_floor": floor, "train_step_mfu": floor["flops"] / (step_ms / 1e3) / PEAK_F32_FLOPS,
+        "floor_share_of_step": floor["floor_ms"] / step_ms,
+        "profile": prof, "gpu": gpu,
+    }
+    result["profile"]["device_busy_share_of_median_step"] = prof["device_ms"] / step_ms
+    print("[train] 6a: " + json.dumps({k: result[k] for k in (
+        "step_ms_median", "tokens_per_s", "peak_mem_gib", "train_step_mfu", "floor_share_of_step",
+        "first_step_grads", "profile")}))
+    result["checkpoint"] = checkpoint_round_trip(cfg, tcfg, state, batches[0],
+                                                 np.resize(prompt, PROMPT_MIN))
+    print("[train] 6c checkpoint: " + json.dumps(result["checkpoint"]))
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    result["card_vs_cpu"] = train_card_vs_cpu(cfg, seed, CHECK_SEQ)
+    result["card_vs_cpu"]["s"] = time.perf_counter() - t0
+    print("[train] 6b card vs CPU: " + json.dumps(result["card_vs_cpu"]))
+    result["phase_s"] = time.perf_counter() - t_phase
+    return result
+
+
+def phase_train_rwkv(seed, gpu):
+    """rwkv6-1.6b trained at full width and depth in f32 (6d): every WKV
+    call through the scan's autograd Function, by the launch counter; one
+    profiled step; card vs CPU at full width and 4 layers."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_config(RWKV_ARCH)
+    tcfg = train_config(RWKV_TRAIN_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model_lib.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    data = SyntheticLM(cfg.vocab_size, RWKV_TRAIN_SEQ, RWKV_TRAIN_BATCH, seed=seed)
+    batches = [train_loop.batch_to(next(data), dev) for _ in range(RWKV_TRAIN_STEPS + 1)]
+    step = train_loop.make_train_step(cfg, tcfg)
+    losses = []
+
+    def run(p, o, batch):
+        out = step(p, o, batch)
+        losses.append(out[2]["loss"])
+        return out
+
+    for mod in KERNELS.values():
+        mod.launches = 0
+    state, times = timed_steps(run, (params, adamw_init(params, tcfg.optimizer)),
+                               batches[:RWKV_TRAIN_STEPS])
+    launches = launch_counts()
+    del params
+    expected = expected_train_launches(cfg, RWKV_TRAIN_STEPS)
+    if launches != expected:
+        raise AssertionError(f"{cfg.name} train launches {launches} != {expected}")
+    losses = [float(x) for x in losses]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{cfg.name} training: losses {losses}")
+    print(f"[train] {cfg.name}: {RWKV_TRAIN_STEPS} steps of {RWKV_TRAIN_BATCH} x "
+          f"{RWKV_TRAIN_SEQ}, losses {losses}; kernel launches {json.dumps(launches)} = "
+          f"{json.dumps(expected_launches(cfg, 1, 0))} per step x {RWKV_TRAIN_STEPS} steps x 2 "
+          "(forward, remat recompute)")
+    t0 = time.perf_counter()
+    (p, o, _), prof = profile_train_step(lambda: step(*state, batches[-1]), "rwkv6_scan")
+    prof["profile_s"] = time.perf_counter() - t0
+    del p, o
+    result = {"model": cfg.name, "dtype": "float32", "layers": cfg.num_layers,
+              "d_model": cfg.d_model, "params": model_lib.param_count(cfg),
+              "batch": RWKV_TRAIN_BATCH, "seq": RWKV_TRAIN_SEQ, "steps": RWKV_TRAIN_STEPS,
+              "losses": losses, "launches": launches, "step_ms_host": times,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "profile": prof, "gpu": gpu}
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    result["card_vs_cpu"] = train_card_vs_cpu(
+        dataclasses.replace(cfg, num_layers=RWKV_CHECK_LAYERS), seed, RWKV_CHECK_SEQ,
+        fill=fill_rwkv_leaves)
+    result["card_vs_cpu"]["s"] = time.perf_counter() - t0
+    print(f"[train] 6d {cfg.name}: " + json.dumps(result))
+    result["phase_s"] = time.perf_counter() - t_phase
+    return result
+
+
+def time_training_kernels(seed):
+    """The two kernels of the training path at its shapes, f32: flash
+    attention at qwen1.5-0.5b's (B=8, S=512, 16 heads of 64, causal) and the
+    scan at rwkv6-1.6b's (B=4, T=128, H=32, hd 64): the kernel forward, the
+    plain backward the Function runs (its recompute included), SDPA forward
+    + backward as the yardstick, and their floors at 67 TFLOP/s f32."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flush = L2Flush(dev)
+    f32 = torch.float32
+    b, s, h, hd = TRAIN_BATCH, TRAIN_SEQ, 16, 64
+    q, k, v, g = (randn(gen, (b, s, h, hd), f32) for _ in range(4))
+    err = max_err(fa.flash_attention(q, k, v), ref.mha_reference(q, k, v))
+    check("flash_attention f32 at the training shape", err, TOL[f32])
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    sdpa_in = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    g_t = g.transpose(1, 2)
+    pairs = b * h * s * (s + 1) // 2
+    es = 4
+    fwd_floor = bound(4 * hd * pairs, 4 * q.numel() * es, PEAK_F32_FLOPS)
+    # backward from q, k, v, dO: P recomputed, then dV, dP, dS, dQ, dK
+    bwd_floor = bound(10 * hd * pairs, 7 * q.numel() * es, PEAK_F32_FLOPS)
+    flash = {
+        "shape": f"train B={b} S={s} nq={h} nkv={h} hd={hd} causal float32",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: fa.flash_attention(q, k, v), flush),
+        "bound_ms": fwd_floor[0], "bound_by": fwd_floor[1],
+        "plain_backward_ms": time_ms(
+            lambda: torch.autograd.grad(ref.mha_reference(*leaves), leaves, g), flush),
+        "backward_bound_ms": bwd_floor[0], "backward_bound_by": bwd_floor[1],
+        "plain_forward_ms": time_ms(lambda: ref.mha_reference(q, k, v), flush),
+        "library_forward_backward_ms": time_ms(
+            lambda: torch.autograd.grad(F.scaled_dot_product_attention(*sdpa_in, is_causal=True),
+                                        sdpa_in, g_t), flush),
+    }
+    del q, k, v, g, leaves, sdpa_in, g_t
+    args = rwkv_inputs(gen, RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ, 32, 64, False, f32)
+    r = args[0]
+    err = max(max_err(x, y) for x, y in zip(rk.rwkv6_scan(*args), ref.rwkv6_reference(*args)))
+    check("rwkv6_scan f32 at the training shape", err, RWKV_TOL[f32])
+    bt, t, hh = r.shape[:3]
+    state_bytes = bt * hh * hd * hd * es
+    g_out, g_s = randn(gen, r.shape, f32), randn(gen, (bt, hh, hd, hd), f32)
+    leaves = [x.clone().requires_grad_() for x in args[:5]]
+    tok_ops = 4 * hd * hd * bt * t * hh
+    fwd_floor = bound(tok_ops, 5 * r.numel() * es + state_bytes, PEAK_F32_FLOPS)
+    # backward: the state's update and the output recomputed and the reverse
+    # pass's products, 12 hd^2 a token and head; r, k, v, w, dO and dS_T in,
+    # dr, dk, dv, dw out
+    bwd_floor = bound(3 * tok_ops, 9 * r.numel() * es + state_bytes, PEAK_F32_FLOPS)
+    scan = {
+        "shape": f"train B={bt} T={t} H={hh} hd={hd} no state float32", "max_abs_err": err,
+        "ms": time_ms(lambda: rk.rwkv6_scan(*args), flush),
+        "bound_ms": fwd_floor[0], "bound_by": fwd_floor[1],
+        "plain_backward_ms": time_ms(
+            lambda: torch.autograd.grad(ref.rwkv6_reference(*leaves), leaves, (g_out, g_s)),
+            flush, iters=5, warmup=1),
+        "backward_bound_ms": bwd_floor[0], "backward_bound_by": bwd_floor[1],
+        "plain_forward_ms": time_ms(lambda: ref.rwkv6_reference(*args), flush, iters=5, warmup=1),
+        "library_forward_backward_ms": None,
+    }
+    del flush
+    torch.cuda.empty_cache()
+    return {"flash_attention": flash, "rwkv6_scan": scan}
+
+
 def record_routes(into):
     """A wrapper of ``_route`` that appends each call's expert indices to ``into``."""
     def wrapper(route):
@@ -1915,14 +2428,19 @@ def main() -> None:
               phase_slice(moe, args.seed, moe_prompts, gpu, f32_check_moe),
               phase_slice(get_config(RG_ARCH), args.seed, rg_prompts, gpu, f32_check_rg),
               phase_whisper(args.seed, gpu)]
-    for row in rows:
-        row["launches"] = sum(res["launches"][row["name"]] for res in slices)
     control = phase_control_plane(args.seed)
     ppo_run = phase_ppo(args.seed)
+    trained = [phase_train(args.seed, gpu, prompts[0]), phase_train_rwkv(args.seed, gpu)]
+    at_training_shapes = time_training_kernels(args.seed)
+    for row in rows:
+        row["launches"] = sum(res["launches"][row["name"]] for res in slices + trained)
+        if row["name"] in at_training_shapes:
+            row["training"] = at_training_shapes[row["name"]]
     for res in slices:
         print(json.dumps({"slice": res}))
     print(json.dumps({"control_plane": control}))
     print(json.dumps({"ppo": ppo_run}))
+    print(json.dumps({"train": trained}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

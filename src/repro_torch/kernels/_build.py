@@ -118,6 +118,16 @@ def check_operand(name: str, t: torch.Tensor, device: torch.device, dtype: torch
         raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise if grad mode is on and an input requires a gradient: the
+    kernel's output would carry no autograd history, and every gradient
+    upstream of it would be silently lost.  ``ops``' autograd Functions call
+    the wrappers inside their forward, where grad mode is off."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} kernel has no backward: call it through kernels.ops, or under no_grad")
+
+
 def raise_on_error(kernel: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed with cudaError_t {err}")

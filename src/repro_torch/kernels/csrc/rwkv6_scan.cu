@@ -73,7 +73,14 @@
 // f32, T > 1: simt::rwkv6_kernel, the SIMT kernel of the first port: the
 //  f32 tolerance (1e-4) rules out bf16 or TF32 operands.  Grid (hd/16, H,
 //  B): each CTA owns 16 value columns of the state and walks every chunk in
-//  shared memory, the (C, C) scores reduced pairwise in f32.
+//  shared memory, the (C, C) scores reduced pairwise in f32.  Its
+//  exponents are differences of the chunk's prefixes P, so P is summed and
+//  kept in double: under strong decay (log2 w down to -80 a token) an f32
+//  P reaches ~2,500 within a chunk, where one f32 ulp is ~1e-4 of an
+//  exponent, and a pair with little decay between its ends but much
+//  before them missed the plain version by 1.7e-4 at T = 500, H = 32
+//  (tests/test_torch_cuda.py::test_rwkv6_kernel_f32_strong_decay_at_the_served_shape).
+//  Each difference is taken in double and rounded to f32 before exp2f.
 #include <type_traits>
 
 #include "common.cuh"
@@ -103,8 +110,8 @@ struct Smem {
   static constexpr int LD = HD + 4;                 // row stride of the (C, HD) tiles
   static constexpr int R = 0;                       // r, then r 2^P[t]          (C x LD)
   static constexpr int K = R + C * LD;              // k, then k 2^(P[L]-P[s+1])  (C x LD)
-  static constexpr int P = K + C * LD;              // log2 w, then P            ((C+1) x LD)
-  static constexpr int V = P + (C + 1) * LD;        // this CTA's v columns      (C x VS)
+  static constexpr int P = K + C * LD;              // log2 w, then P, double    ((C+1) x LD)
+  static constexpr int V = P + 2 * (C + 1) * LD;    // this CTA's v columns      (C x VS)
   static constexpr int S = V + C * VS;              // this CTA's state columns  (HD x VS)
   static constexpr int A = S + HD * VS;             // pair scores               (C x (C+1))
   static constexpr int U = A + C * (C + 1);         // bonus u                   (HD)
@@ -125,7 +132,7 @@ __global__ void __launch_bounds__(NT) rwkv6_kernel(
   extern __shared__ __align__(16) float sm[];
   float* rs = sm + L_::R;
   float* ks = sm + L_::K;
-  float* ps = sm + L_::P;
+  double* ps = reinterpret_cast<double*>(sm + L_::P);
   float* vs = sm + L_::V;
   float* ss = sm + L_::S;
   float* as = sm + L_::A;
@@ -146,7 +153,7 @@ __global__ void __launch_bounds__(NT) rwkv6_kernel(
     *reinterpret_cast<float4*>(ss + i * VS + jq) = x;
   }
   for (int i = tid; i < HD; i += NT) us[i] = u[h * HD + i];
-  for (int i = tid; i < HD; i += NT) ps[i] = 0.f;   // P[0] = 0
+  for (int i = tid; i < HD; i += NT) ps[i] = 0.0;   // P[0] = 0
 
   const long row_stride = (long)H * HD;             // between tokens
   const long seq_base = (long)b * Tn * row_stride + (long)h * HD;
@@ -171,7 +178,8 @@ __global__ void __launch_bounds__(NT) rwkv6_kernel(
       }
       *reinterpret_cast<float4*>(rs + t * LD + i) = make_float4(rf[0], rf[1], rf[2], rf[3]);
       *reinterpret_cast<float4*>(ks + t * LD + i) = make_float4(kf[0], kf[1], kf[2], kf[3]);
-      *reinterpret_cast<float4*>(ps + (t + 1) * LD + i) = make_float4(lw[0], lw[1], lw[2], lw[3]);
+      *reinterpret_cast<double2*>(ps + (t + 1) * LD + i) = make_double2(lw[0], lw[1]);
+      *reinterpret_cast<double2*>(ps + (t + 1) * LD + i + 2) = make_double2(lw[2], lw[3]);
     }
     for (int e = tid; e < C * (VS / VEC); e += NT) {
       const int t = e / (VS / VEC), jq = (e % (VS / VEC)) * VEC;
@@ -184,10 +192,10 @@ __global__ void __launch_bounds__(NT) rwkv6_kernel(
     // 2. P[t+1] = inclusive prefix of log2 w over the chunk: one warp per
     //    state row i, one lane per token
     for (int i = warp; i < HD; i += NW) {
-      float x = ps[(lane + 1) * LD + i];
+      double x = ps[(lane + 1) * LD + i];
 #pragma unroll
       for (int off = 1; off < 32; off *= 2) {
-        const float y = __shfl_up_sync(0xffffffffu, x, off);
+        const double y = __shfl_up_sync(0xffffffffu, x, off);
         if (lane >= off) x += y;
       }
       ps[(lane + 1) * LD + i] = x;
@@ -203,20 +211,22 @@ __global__ void __launch_bounds__(NT) rwkv6_kernel(
         const int s = lane < vr ? lane : lane - vr;
         if (lane < C - 1 && t < L) {
           const float* rt = rs + t * LD;
-          const float* pt = ps + t * LD;
+          const double* pt = ps + t * LD;
           const float* kq = ks + s * LD;
-          const float* pq = ps + (s + 1) * LD;
+          const double* pq = ps + (s + 1) * LD;
           float acc = 0.f;
 #pragma unroll 4
           for (int i = 0; i < HD; i += VEC) {
             const float4 a = *reinterpret_cast<const float4*>(rt + i);
-            const float4 la = *reinterpret_cast<const float4*>(pt + i);
             const float4 kk = *reinterpret_cast<const float4*>(kq + i);
-            const float4 lb = *reinterpret_cast<const float4*>(pq + i);
-            acc = fmaf(a.x * kk.x, exp2f(la.x - lb.x), acc);
-            acc = fmaf(a.y * kk.y, exp2f(la.y - lb.y), acc);
-            acc = fmaf(a.z * kk.z, exp2f(la.z - lb.z), acc);
-            acc = fmaf(a.w * kk.w, exp2f(la.w - lb.w), acc);
+            const double2 la0 = *reinterpret_cast<const double2*>(pt + i);
+            const double2 la1 = *reinterpret_cast<const double2*>(pt + i + 2);
+            const double2 lb0 = *reinterpret_cast<const double2*>(pq + i);
+            const double2 lb1 = *reinterpret_cast<const double2*>(pq + i + 2);
+            acc = fmaf(a.x * kk.x, exp2f(static_cast<float>(la0.x - lb0.x)), acc);
+            acc = fmaf(a.y * kk.y, exp2f(static_cast<float>(la0.y - lb0.y)), acc);
+            acc = fmaf(a.z * kk.z, exp2f(static_cast<float>(la1.x - lb1.x)), acc);
+            acc = fmaf(a.w * kk.w, exp2f(static_cast<float>(la1.y - lb1.y)), acc);
           }
           as[t * (C + 1) + s] = acc;
         }
@@ -232,11 +242,11 @@ __global__ void __launch_bounds__(NT) rwkv6_kernel(
     __syncthreads();
 
     // 4. r <- r 2^P[t] (carry-in weights), k <- k 2^(P[L] - P[s+1]) (carry-out)
-    const float* pL = ps + L * LD;
+    const double* pL = ps + L * LD;
     for (int e = tid; e < L * HD; e += NT) {
       const int t = e / HD, i = e % HD;
-      rs[t * LD + i] *= exp2f(ps[t * LD + i]);
-      ks[t * LD + i] *= exp2f(pL[i] - ps[(t + 1) * LD + i]);
+      rs[t * LD + i] *= exp2f(static_cast<float>(ps[t * LD + i]));
+      ks[t * LD + i] *= exp2f(static_cast<float>(pL[i] - ps[(t + 1) * LD + i]));
     }
     __syncthreads();
 
@@ -272,7 +282,7 @@ __global__ void __launch_bounds__(NT) rwkv6_kernel(
     // 6. S[i, j] <- 2^P[L,i] S[i, j] + sum_{s<L} k~_si v_s[j], on the owned slice
     for (int item = tid; item < HD * (VS / VEC); item += NT) {
       const int i = item / (VS / VEC), jq = (item % (VS / VEC)) * VEC;
-      const float decay = exp2f(pL[i]);
+      const float decay = exp2f(static_cast<float>(pL[i]));
       float4 acc = *reinterpret_cast<const float4*>(ss + i * VS + jq);
       acc.x *= decay; acc.y *= decay; acc.z *= decay; acc.w *= decay;
       for (int s = 0; s < L; ++s) {

@@ -9,7 +9,8 @@ the kernel cuts a group whose outputs one warp cannot hold (more than 1024
 heads x hd on the SIMT path) into chunks of heads, one CTA each.  It takes CUDA tensors only;
 ``ops.decode_attention`` sends CPU tensors to the plain version in
 ``ref.py`` (``ref.decode_attention_split_reference`` is the plain version
-of the split and combine).
+of the split and combine).  Decoding takes no gradient: the wrapper refuses
+an input that requires one under grad mode.
 """
 from __future__ import annotations
 
@@ -94,6 +95,7 @@ def decode_attention(
         _build.check_operand(name, t, q.device, q.dtype)
     if valid.device != q.device or not valid.is_contiguous():
         raise ValueError("valid must be contiguous and on q's device")
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     out = torch.empty_like(q)
     splits, chunk = split_plan(b, nkv, s, _sm_count(q.device))
     # per (sequence, q head, split): max and sum, then the hd accumulators

@@ -4,7 +4,9 @@ The CUDA kernel replaces the TPU kernel ``repro/kernels/flash_attention.py``
 (see the note at the top of the source).  This wrapper checks its operands,
 allocates the output, launches on the current stream and counts launches.
 It takes CUDA tensors only; ``ops.flash_attention`` sends CPU tensors to
-the plain version in ``ref.py``.
+the plain version in ``ref.py``, and differentiates CUDA ones through an
+autograd Function around this wrapper, which itself refuses an input that
+requires a gradient under grad mode.
 """
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ def flash_attention(
             f"empty input or negative window/offset: {b=} {sq=} {sk=} {window=} {q_offset=}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.check_operand(name, t, q.device, q.dtype)
+    _build.refuse_grad("flash_attention", q, k, v)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _build.function("flash_attention", "fa_forward", _ARGTYPES)(

@@ -4,6 +4,20 @@
   * a CUDA tensor launches the hand-written kernel, which raises on what it
     cannot take: there is no fallback to the plain version.
 
+Gradients.  On the card, ``flash_attention`` and ``rwkv6`` (without a
+``final_state`` to write) run through a ``torch.autograd.Function`` whose
+forward is the hand-written kernel and whose backward is the
+vector-Jacobian product of the plain version, recomputed from the saved
+inputs: the gradient the JAX package takes, which differentiates its jnp
+oracles under XLA (no Pallas kernel of it has a backward).  There is no
+``impl`` switch.  The kernel wrappers themselves refuse an input that
+requires a gradient while grad mode is on (``_build.refuse_grad``), so a
+call that no Function covers (``decode_attention``, the scan writing a
+decode cache in place) raises instead of returning an output with no
+history.  The flash kernel gives 0 for a query row that sees no key, where
+the plain version spreads its softmax over the masked keys; the backward
+gives such a row a zero gradient, the derivative of the kernel's output.
+
 The RG-LRU recurrence has no kernel: the JAX package runs it as an XLA
 associative scan for every ``impl``, and ``rglru`` here is the same
 log-depth scan in PyTorch ops on any device.
@@ -24,10 +38,76 @@ def _device_type(t: torch.Tensor) -> str:
     return t.device.type
 
 
+def rows_seeing_a_key(sq: int, sk: int, causal: bool, window: int, q_offset: int,
+                      device) -> torch.Tensor:
+    """(Sq,) bool: which query rows (absolute positions ``q_offset + i``) see
+    at least one of the Sk keys under the causal and window masks."""
+    if not window:           # q_offset >= 0, so key 0 is always visible
+        return torch.ones(sq, dtype=torch.bool, device=device)
+    qpos = q_offset + torch.arange(sq, device=device)
+    newest = torch.clamp(qpos, max=sk - 1) if causal else torch.full_like(qpos, sk - 1)
+    return newest > qpos - window
+
+
+def _vjp(plain, inputs, needs, grads):
+    """Gradients of ``plain(*inputs)`` against ``grads``, recomputed on
+    detached inputs; None where ``needs`` is False or the input is None."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(n) if x is not None else None
+                  for x, n in zip(inputs, needs)]
+        outs = plain(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        wrt = [x for x in leaves if x is not None and x.requires_grad]
+        got = iter(torch.autograd.grad(outs, wrt, grads, allow_unused=True))
+    return [next(got) if x is not None and x.requires_grad else None for x in leaves]
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the CUDA kernel.  Backward: the VJP of ``ref.mha_reference``
+    under the profiler range ``flash_attention.backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        q, k, v = (x.contiguous() for x in (q, k, v))
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = {"causal": causal, "window": window, "q_offset": q_offset}
+        return _fa.flash_attention(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.profiler.record_function("flash_attention.backward"):
+            seen = rows_seeing_a_key(q.shape[1], k.shape[1], device=q.device, **ctx.opts)
+            if not bool(seen.all()):
+                g = g * seen[None, :, None, None].to(g.dtype)
+            plain = lambda q_, k_, v_: ref.mha_reference(q_, k_, v_, **ctx.opts)
+            grads = _vjp(plain, (q, k, v), ctx.needs_input_grad[:3], (g,))
+        return (*grads, None, None, None)
+
+
+class _Rwkv6(torch.autograd.Function):
+    """Forward: the CUDA scan.  Backward: the VJP of ``ref.rwkv6_reference``
+    (output and final state) under the profiler range ``rwkv6.backward``."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        r, k, v, w, u = (x.contiguous() for x in (r, k, v, w, u))
+        state = state.contiguous() if state is not None else None
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return _rwkv.rwkv6_scan(r, k, v, w, u, state)
+
+    @staticmethod
+    def backward(ctx, g_out, g_state):
+        with torch.profiler.record_function("rwkv6.backward"):
+            grads = _vjp(ref.rwkv6_reference, ctx.saved_tensors, ctx.needs_input_grad,
+                         (g_out, g_state))
+        return tuple(grads)
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     """Full-sequence attention (B,Sq,nq,hd)x(B,Sk,nkv,hd)->(B,Sq,nq,hd)."""
     if _device_type(q) == "cuda":
-        return _fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset)
     if (
         causal and window > 0 and q.shape[1] == k.shape[1]
         and q.shape[1] > 2 * window and q_offset == 0
@@ -49,8 +129,11 @@ def rwkv6(r, k, v, w, u, state=None, *, final_state=None):
     """RWKV-6 WKV recurrence (B,T,H,hd) -> (out, final state f32).
 
     ``final_state``, when given, receives the final state (it may be
-    ``state`` itself: the decode cache is updated in place)."""
+    ``state`` itself: the decode cache is updated in place; no gradient
+    flows through that call on the card)."""
     if _device_type(r) == "cuda":
+        if final_state is None:
+            return _Rwkv6.apply(r, k, v, w, u, state)
         return _rwkv.rwkv6_scan(r, k, v, w, u, state, final_state=final_state)
     out, s = ref.rwkv6_reference(r, k, v, w, u, state)
     if final_state is None:

@@ -7,7 +7,9 @@ SIMT kernel in f32.  This wrapper checks its operands, allocates the output,
 the final state unless it is given one, and the bf16 prefill's scratch,
 launches on the current stream and counts one launch per call, however many
 kernels the call runs.  It takes CUDA tensors only; ``ops.rwkv6`` sends CPU
-tensors to the plain version in ``ref.py``.
+tensors to the plain version in ``ref.py``, and differentiates CUDA ones
+through an autograd Function around this wrapper, which itself refuses an
+input that requires a gradient under grad mode.
 """
 from __future__ import annotations
 
@@ -81,6 +83,7 @@ def rwkv6_scan(
             if tuple(x.shape) != (b, h, hd, hd):
                 raise ValueError(f"{name} must be ({b}, {h}, {hd}, {hd}), got {tuple(x.shape)}")
             _build.check_operand(name, x, dev, torch.float32)
+    _build.refuse_grad("rwkv6_scan", r, k, v, w, u, state)
     out = torch.empty_like(r)
     if final_state is None:
         final_state = torch.empty((b, h, hd, hd), dtype=torch.float32, device=dev)

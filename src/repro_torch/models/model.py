@@ -18,16 +18,19 @@ Entry points
 ``init_params``  — build the parameter tree from a ``torch.Generator``.
 ``param_count``  — exact parameter count from the shapes (no allocation).
 ``forward``      — full-sequence logits.
+``loss_fn``      — masked next-token cross-entropy plus the weighted aux loss.
 ``init_cache``   — decode cache for a (batch, cache_len).
 ``prefill``      — populate the cache from a prompt, return last logits.
 ``decode_step``  — one token for every sequence in the batch.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.registry import ATTN, LOCAL_ATTN, RGLRU, RWKV, ModelConfig
 from repro_torch.models import attention as attn_lib
@@ -228,11 +231,11 @@ def _window(cfg: ModelConfig, kind: str, window: int) -> int:
     return cfg.local_window if kind == LOCAL_ATTN else window
 
 
-def _ffn(cfg, p, x):
-    """The block's feed-forward: (y, aux loss), the MoE layer's sort path
-    where the block has one, else the MLP with aux 0."""
+def _ffn(cfg, p, x, moe_path="local"):
+    """The block's feed-forward: (y, aux loss), the MoE layer by
+    ``moe_path`` where the block has one, else the MLP with aux 0."""
     if "moe" in p:
-        return moe_lib.moe_apply(cfg, p["moe"], x, path="local")
+        return moe_lib.moe_apply(cfg, p["moe"], x, path=moe_path)
     return layers.apply_mlp(cfg, p["mlp"], x), 0.0
 
 
@@ -248,69 +251,126 @@ def _cross_block(cfg, p, x, enc_out, cache):
     return attn_lib.cross_attention(cfg, p["xattn"], hx, k, v)
 
 
-def _run_blocks_full(cfg, params, x, positions, caches, *, window, enc_out=None):
+# the products whose outputs remat="dots" keeps: JAX's
+# dots_with_no_batch_dims_saveable saves dot_generals without batch
+# dimensions, which PyTorch runs as mm / addmm (a (B, S, d) @ (d, n) product
+# is one mm over the flattened rows); batched products (bmm) are recomputed
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _maybe_checkpoint(fn, remat):
+    """remat: False | True/'full' (recompute everything in the backward) |
+    'dots' (save the matmul outputs, recompute the rest).  Only memory and
+    recompute differ, never values."""
+    if not remat:
+        return fn
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts, list(_DOTS_SAVED))
+    return functools.partial(torch_checkpoint.checkpoint, fn, use_reentrant=False, **kw)
+
+
+def _block_full(cfg, kind, p, x, positions, cache, window, enc_out, moe_path):
+    """One layer over a full sequence -> (x, its aux loss)."""
+    if kind == RWKV:
+        return _rwkv_block(cfg, p, x, cache), 0.0
+    if kind == RGLRU:
+        return _rglru_block(cfg, p, x, cache), 0.0
+    h = layers.apply_norm(cfg, p["norm1"], x)
+    y, _ = attn_lib.attention_full(
+        cfg, p["attn"], h, positions, window=_window(cfg, kind, window),
+        cache=cache["attn"] if cache is not None else None,
+    )
+    x = x + y
+    if "xattn" in p:
+        x = x + _cross_block(cfg, p, x, enc_out, cache)
+    h2 = layers.apply_norm(cfg, p["norm2"], x)
+    y2, a = _ffn(cfg, p, h2, moe_path)
+    return x + y2, a
+
+
+def _run_blocks_full(cfg, params, x, positions, caches, *, window, enc_out=None,
+                     moe_path="local", remat=False):
     """The layers over a full sequence -> (x, the sum of their aux losses).
     Whisper's decoder blocks attend to ``enc_out`` (or to the K/V a cache
-    holds) after their self-attention."""
+    holds) after their self-attention.  ``remat`` checkpoints each layer
+    (the JAX package each repetition of the block pattern) and applies only
+    without caches, whose in-place writes a recompute would repeat."""
+    block = _block_full if caches is not None else _maybe_checkpoint(_block_full, remat)
     aux = 0.0
     for i, (kind, p) in enumerate(zip(_layer_kinds(cfg), params["layers"])):
         cache = caches[i] if caches is not None else None
-        if kind == RWKV:
-            x = _rwkv_block(cfg, p, x, cache)
-            continue
-        if kind == RGLRU:
-            x = _rglru_block(cfg, p, x, cache)
-            continue
-        h = layers.apply_norm(cfg, p["norm1"], x)
-        y, _ = attn_lib.attention_full(
-            cfg, p["attn"], h, positions, window=_window(cfg, kind, window),
-            cache=cache["attn"] if cache is not None else None,
-        )
-        x = x + y
-        if "xattn" in p:
-            x = x + _cross_block(cfg, p, x, enc_out, cache)
-        h2 = layers.apply_norm(cfg, p["norm2"], x)
-        y2, a = _ffn(cfg, p, h2)
-        x, aux = x + y2, aux + a
+        x, a = block(cfg, kind, p, x, positions, cache, window, enc_out, moe_path)
+        aux = aux + a
     return x, aux
 
 
-def _encoder_output(cfg: ModelConfig, params, enc_inputs: Optional[torch.Tensor]):
+def _encoder_output(cfg: ModelConfig, params, enc_inputs: Optional[torch.Tensor], remat=False):
     """Whisper's encoder output (B, S_enc, d), None for a decoder-only model."""
     if not cfg.is_encoder_decoder:
         return None
     if enc_inputs is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder: pass enc_inputs (B, frames, d)")
-    return _encode(cfg, params, enc_inputs)
+    return _encode(cfg, params, enc_inputs, remat)
 
 
 def forward(cfg: ModelConfig, params, inputs: torch.Tensor, *,
-            enc_inputs: Optional[torch.Tensor] = None, window: int = 0):
+            enc_inputs: Optional[torch.Tensor] = None, window: int = 0,
+            moe_path: str = "local", remat=False):
     """Full-sequence forward -> (logits (B, S, vocab), the layers' summed
     aux loss: 0.0 without MoE layers).  Whisper takes its frame embeddings
-    (B, S_enc, d) as ``enc_inputs``."""
+    (B, S_enc, d) as ``enc_inputs``.  ``moe_path`` picks the MoE layers'
+    path (``moe.moe_apply``) and ``remat`` checkpoints each layer
+    (``_maybe_checkpoint``)."""
     positions = torch.arange(inputs.shape[1], device=inputs.device)
     x = _embed_in(cfg, params, inputs, positions)
     x, aux = _run_blocks_full(cfg, params, x, positions, None, window=window,
-                              enc_out=_encoder_output(cfg, params, enc_inputs))
+                              enc_out=_encoder_output(cfg, params, enc_inputs, remat),
+                              moe_path=moe_path, remat=remat)
     x = layers.apply_norm(cfg, params["final_norm"], x)
     return _unembed(cfg, params, x), aux
 
 
-def _encode(cfg: ModelConfig, params, enc_inputs: torch.Tensor) -> torch.Tensor:
+def loss_fn(cfg: ModelConfig, params, batch: dict, *, window: int = 0,
+            moe_path: str = "local", remat=True, aux_weight: float = 0.01):
+    """Next-token cross-entropy over f32 logits, averaged over the labels
+    >= 0 (a negative label is masked), plus ``aux_weight`` times the MoE
+    layers' aux loss.  ``batch``: ``inputs`` (B, S) tokens or (B, S, d)
+    embeddings, ``labels`` (B, S), whisper's ``enc_inputs`` (B, S_enc, d).
+
+    Returns (loss, {"ce": the cross-entropy, "aux": the aux loss}), all
+    0-d f32 tensors."""
+    logits, aux = forward(cfg, params, batch["inputs"], enc_inputs=batch.get("enc_inputs"),
+                          window=window, moe_path=moe_path, remat=remat)
+    labels = batch["labels"]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+
+
+def _encode(cfg: ModelConfig, params, enc_inputs: torch.Tensor, remat=False) -> torch.Tensor:
     """Whisper's encoder: absolute positions, then pre-norm blocks of
     non-causal self-attention over all frames and an MLP, then its final
-    norm."""
+    norm; ``remat`` checkpoints each block."""
     enc = params["encoder"]
     x = enc_inputs.to(params["embed"].dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     x = x + _abs_pos(positions, cfg.d_model).to(x.dtype)
-    for p in enc["blocks"]:
+
+    def block(p, x):
         h = layers.apply_norm(cfg, p["norm1"], x)
         y, _ = attn_lib.attention_full(cfg, p["attn"], h, positions, causal=False)
         x = x + y
         h2 = layers.apply_norm(cfg, p["norm2"], x)
-        x = x + layers.apply_mlp(cfg, p["mlp"], h2)
+        return x + layers.apply_mlp(cfg, p["mlp"], h2)
+
+    block = _maybe_checkpoint(block, remat)
+    for p in enc["blocks"]:
+        x = block(p, x)
     return layers.apply_norm(cfg, enc["final_norm"], x)
 
 

@@ -23,6 +23,8 @@ def normal(gen: torch.Generator, shape: Sequence[int], scale: float, dtype, devi
 
 
 def _leaf(a, dtype: Optional[torch.dtype], device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):      # e.g. a restored checkpoint's leaf
+        return a.to(device=device, dtype=dtype or a.dtype)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":       # ml_dtypes: no numpy->torch bridge
         t = torch.from_numpy(np.array(a, dtype=np.float32)).to(torch.bfloat16)
@@ -46,7 +48,9 @@ def params_from_jax(
     device="cpu",
 ) -> Dict[str, Any]:
     """The port's parameters from a JAX parameter tree of numpy arrays
-    (``jax.tree.map(np.asarray, params)``).
+    (``jax.tree.map(np.asarray, params)``) or of tensors (the JAX package's
+    parameter checkpoint as ``checkpoint.restore_checkpoint`` rebuilds it,
+    bf16 leaves included, with no ``ml_dtypes``).
 
     JAX stacks each block kind of the repeating pattern along axis 0
     (``blocks/p{i}_{kind}``, one entry per repetition; whisper's decoder
@@ -64,7 +68,7 @@ def params_from_jax(
 
     f32 = rwkv.F32_LEAVES + moe.F32_LEAVES + griffin.F32_LEAVES
     to_t = lambda a, name="": _leaf(a, None if name in f32 else dtype, device)
-    unstack = lambda stacked, r: _convert(stacked, lambda a, name: to_t(np.asarray(a)[r], name))
+    unstack = lambda stacked, r: _convert(stacked, lambda a, name: to_t(a[r], name))
     tail = cfg.tail_blocks
     layers = []
     for r in range((cfg.num_layers - len(tail)) // len(cfg.block_pattern)):

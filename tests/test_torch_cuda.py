@@ -13,7 +13,11 @@ f32 arithmetic summed in another order) and 2e-2 in bf16 for attention;
 log-space prefixes where the plain version multiplies them token by token.
 The MoE layer (PyTorch ops and cuBLAS, no kernel of its own) is held to its
 CPU run at 1e-5 in f32 and 2e-2 in bf16, as ``tests/test_torch_moe.py``
-holds it to the JAX package.
+holds it to the JAX package.  The autograd Functions of ``kernels/ops.py``
+(kernel forward, plain-VJP backward) give the plain version's gradients to
+1e-6 of their largest value (the backward is that VJP, on the same inputs),
+and a train step on the card is held to the CPU at ``chip_smoke.py``
+phase 6b's tolerances.
 """
 
 import dataclasses
@@ -108,7 +112,7 @@ def _randn(seed, *shapes, dtype, device):
 
 
 def _err(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
 
 
 @pytest.mark.parametrize("case", FA_CASES)
@@ -692,3 +696,159 @@ def test_ppo_update_on_the_card_matches_cpu(cuda):
             for k in b[n]:
                 np.testing.assert_allclose(a[n][k], b[n][k], rtol=1e-5, atol=1e-5,
                                            err_msg=f"{n}.{k}")
+
+
+# ---------------------------------------------------------------------------
+# Gradients through the kernels (kernels/ops.py's autograd Functions) and
+# training on the card.
+# ---------------------------------------------------------------------------
+FLASH_GRAD_CASES = [
+    # b, sq, sk, nq, nkv, causal, window
+    (2, 100, 100, 4, 4, True, 0),       # causal
+    (1, 130, 130, 4, 2, True, 32),      # windowed (GQA)
+    (2, 20, 70, 4, 4, False, 0),        # non-causal (cross-attention)
+    (1, 96, 96, 8, 2, True, 0),         # GQA 4:1
+]
+
+
+def _leaves(*xs):
+    return [x.clone().requires_grad_() for x in xs]
+
+
+@pytest.mark.parametrize("case", FLASH_GRAD_CASES)
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_function_forward_is_the_kernel_backward_the_plain_vjp(cuda, case, hd, dtype):
+    """``ops.flash_attention`` on CUDA tensors that require grad: one kernel
+    launch whose output is within the kernel tolerance of the plain
+    version, and gradients of q, k and v equal to autograd of the plain
+    version on the same inputs (the backward is that VJP)."""
+    b, sq, sk, nq, nkv, causal, window = case
+    q, k, v, g = _randn(hd, (b, sq, nq, hd), (b, sk, nkv, hd), (b, sk, nkv, hd),
+                        (b, sq, nq, hd), dtype=DTYPES[dtype], device=cuda)
+    launches = fa.launches
+    leaves = _leaves(q, k, v)
+    out = ops.flash_attention(*leaves, causal=causal, window=window)
+    assert fa.launches == launches + 1 and out.requires_grad
+    got = torch.autograd.grad(out, leaves, g)
+    plain = _leaves(q, k, v)
+    want_out = ref.mha_reference(*plain, causal=causal, window=window)
+    want = torch.autograd.grad(want_out, plain, g)
+    assert fa.launches == launches + 1                  # the backward launches no kernel
+    assert _err(out, want_out) < TOL[dtype]
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert bool(torch.isfinite(a.float()).all()) and bool(a.abs().max() > 0)
+        assert _err(a, w) <= 1e-6 * max(1.0, float(w.float().abs().max()))
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rwkv6_function_forward_is_the_kernel_backward_the_plain_vjp(cuda, with_state, dtype):
+    r, k, v, w, u, s0 = _rwkv_inputs((2, 45, 4, 64, with_state), DTYPES[dtype], cuda)
+    g_out, g_s = _randn(7, (2, 45, 4, 64), (2, 4, 64, 64), dtype=torch.float32, device=cuda)
+    g_out = g_out.to(DTYPES[dtype])
+    inputs = [r, k, v, w, u] + ([s0] if with_state else [])
+    launches = rk.launches
+    leaves = _leaves(*inputs)
+    out, s = ops.rwkv6(*leaves)
+    assert rk.launches == launches + 1 and out.requires_grad and s.requires_grad
+    got = torch.autograd.grad((out, s), leaves, (g_out, g_s))
+    plain = _leaves(*inputs)
+    want_out, want_s = ref.rwkv6_reference(*plain)
+    want = torch.autograd.grad((want_out, want_s), plain, (g_out, g_s))
+    assert rk.launches == launches + 1
+    assert _err(out, want_out) < RWKV_TOL[dtype] and _err(s, want_s) < RWKV_TOL[dtype]
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and bool(a.abs().max() > 0)
+        assert _err(a, b) <= 1e-6 * max(1.0, float(b.float().abs().max()))
+
+
+def test_kernels_without_a_function_refuse_a_gradient(cuda):
+    """The decode wrapper (and the scan writing a cache in place, and each
+    wrapper called directly) raises when grad mode is on and an input
+    requires a gradient, instead of returning an output with no history."""
+    q, kc, vc = _randn(0, (2, 4, 64), (2, 32, 4, 64), (2, 32, 4, 64),
+                       dtype=torch.float32, device=cuda)
+    valid = torch.ones((2, 32), dtype=torch.bool, device=cuda)
+    qg = q.clone().requires_grad_()
+    for fn in (da.decode_attention, ops.decode_attention):
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(qg, kc, vc, valid)
+    with torch.no_grad():
+        torch.testing.assert_close(ops.decode_attention(qg, kc, vc, valid),
+                                   ops.decode_attention(q, kc, vc, valid))
+    x = _randn(1, (1, 8, 2, 64), dtype=torch.float32, device=cuda)[0].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(x, x, x)
+    r, k, v, w, u, s0 = _rwkv_inputs((1, 8, 2, 64, True), torch.float32, cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        rk.rwkv6_scan(r.requires_grad_(), k, v, w, u, s0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.rwkv6(r, k, v, w, u, s0, final_state=s0)
+
+
+def test_rwkv6_kernel_f32_strong_decay_at_the_served_shape(cuda):
+    """The f32 prefill (``rwkv6::simt``, which training runs) under strong
+    decay, exp(-exp(U(-2, 4))) down to 1e-24, at rwkv6-1.6b's served prefill
+    (T = 500, H = 32, hd 64), within 1e-4 of the plain version."""
+    r, k, v, w, u, s0 = _rwkv_inputs((1, 500, 32, 64, True), torch.float32, cuda, strong=True)
+    out, s_t = rk.rwkv6_scan(r, k, v, w, u, s0)
+    exp_o, exp_s = ref.rwkv6_reference(r, k, v, w, u, s0)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(s_t).all())
+    assert _err(out, exp_o) < 1e-4 and _err(s_t, exp_s) < 1e-4
+
+
+def _grads_and_step(cfg, params, batch, device):
+    from repro_torch.training import OptimizerConfig, ScheduleConfig, adamw_init
+    from repro_torch.training.optimizer import tree_leaves, tree_unflatten
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    loss, _ = model.loss_fn(cfg, tree_unflatten(params, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    tcfg = TrainConfig(optimizer=OptimizerConfig(lr=1e-3),
+                       schedule=ScheduleConfig(kind="constant", peak_lr=1e-3, warmup_steps=1))
+    new, opt, metrics = make_train_step(cfg, tcfg)(params, adamw_init(params, tcfg.optimizer),
+                                                   batch)
+    return float(loss), grads, metrics, new, opt
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "rwkv6-1.6b", "phi3.5-moe-42b-a6.6b",
+                                  "whisper-small"])
+def test_train_step_on_the_card_matches_cpu(cuda, arch):
+    """``loss_fn``'s gradients and one ``make_train_step`` at ``reduced()``
+    in f32, on the card (kernel forwards, plain backwards) against the CPU
+    (plain versions): loss and grad_norm at 1e-4 relative, every gradient
+    leaf, m and v at 1e-3 of the leaf's largest value (``chip_smoke.py``
+    phase 6b's tolerances), every gradient leaf finite and non-zero, and the
+    step through the kernels (every attention layer's flash call, every
+    RWKV layer's scan, twice with remat)."""
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_loop import batch_to
+
+    cfg = get_config(arch).reduced()
+    params = model.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(3)
+    batch = {"inputs": rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)}
+    if cfg.is_encoder_decoder:
+        batch["enc_inputs"] = frontends.audio_frames(cfg, 2, seed=3)
+    before = (fa.launches, rk.launches)
+    card = _grads_and_step(cfg, _to(params, cuda), batch_to(batch, cuda), cuda)
+    kinds = cfg.layer_kinds()
+    n_attn = sum(kd in ("attn", "local") for kd in kinds)
+    if cfg.is_encoder_decoder:
+        n_attn += cfg.encoder_layers + cfg.num_layers       # encoder, cross-attention
+    # loss_fn once (remat: the forward and its recompute), then the step again
+    assert fa.launches - before[0] == 2 * 2 * n_attn
+    assert rk.launches - before[1] == 2 * 2 * kinds.count("rwkv")
+    cpu = _grads_and_step(cfg, params, batch_to(batch, "cpu"), "cpu")
+    assert card[0] == pytest.approx(cpu[0], rel=1e-4)
+    assert float(card[2]["grad_norm"]) == pytest.approx(float(cpu[2]["grad_norm"]), rel=1e-4)
+    for a, b in zip(card[1], cpu[1]):
+        assert a is not None and bool(torch.isfinite(a).all()) and bool(a.abs().max() > 0)
+        assert _err(a.cpu(), b) <= 1e-3 * float(b.abs().max())
+    for tree in ("m", "v"):
+        for a, b in zip(tree_leaves(card[4][tree]), tree_leaves(cpu[4][tree])):
+            assert _err(a.cpu(), b) <= 1e-3 * float(b.abs().max())

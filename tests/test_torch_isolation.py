@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, keeps
+"""The port stands alone: it imports neither JAX, the JAX package nor
+``ml_dtypes`` (which comes with JAX), keeps
 its own copy of the configs, runs on the card by default, and builds its
 kernels with nvcc or raises."""
 import ast
@@ -20,7 +21,7 @@ REPO = Path(__file__).resolve().parents[1]
 # not installed
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "chip_kernel_ab.py", REPO / "tests" / "test_torch_cuda.py"]
-BANNED_ROOTS = ("jax", "jaxlib", "repro")
+BANNED_ROOTS = ("jax", "jaxlib", "repro", "ml_dtypes")
 BANNED_CALLS = {"torch.manual_seed", "torch.cuda.manual_seed", "torch.cuda.manual_seed_all",
                 "torch.seed", "torch.random.manual_seed"}
 
