@@ -50,7 +50,14 @@
 //    decode (32 splits of 64 slots) every warp owns one sub-tile of a
 //    split, and the other CTA's warps keep loads in flight;
 //  - the warps' online-softmax states merge in shared memory at the end of
-//    the range.
+//    the range;
+//  - hd 112 (kimi-k2's 64 q heads over 8 kv heads, a group of 8): a row
+//    is 14 sixteen-byte chunks in bf16 and 28 in f32, which divide no
+//    warp, so 28 lanes copy (2 rows of 14 lanes a pass in bf16, 1 row of
+//    28 in f32) and 4 lanes idle; the tensor-core path takes hd 112 as it
+//    is (7 k-steps of q K^T, 7 x 16 output columns of P V, q fragments
+//    held: 28 registers), and the SIMT half-rows are 56 dims, whole chunks
+//    of either type.
 // What is left: the combine is a second launch whenever S is split; at
 // decode's small sizes the two launches and their cold reads (q, the
 // mask, K/V, then the partials) are most of the time.
@@ -141,7 +148,10 @@ __global__ void __launch_bounds__(NT) da_split_kernel(
   constexpr int LPR = CPR < 32 ? CPR : 32;   // lanes copying one row
   constexpr int CPL = CPR / LPR;  // chunks of a row per lane
   constexpr int RPP = 32 / LPR;   // rows per pass of a warp's copies
-  static_assert(32 % LPR == 0 && CPR % LPR == 0 && SUB % RPP == 0, "whole passes");
+  // lanes that copy: all 32 where LPR divides the warp; at hd 112 (14
+  // chunks a bf16 row, 28 an f32 row) 28, and the other 4 idle
+  constexpr int COPY_LANES = RPP * LPR;
+  static_assert(CPR % LPR == 0 && SUB % RPP == 0, "whole passes");
   constexpr int NS = stages<T, HD>();
   constexpr int KS = HD / 16;     // tensor cores: k-steps of q K^T
   constexpr int DB = HD / 8;      // tensor cores: 8-dim blocks of the output
@@ -242,17 +252,19 @@ __global__ void __launch_bounds__(NT) da_split_kernel(
         const int base = start + (g0 + i) * TS + warp * SUB;
         T* dk = wring + (size_t)stage * 2 * SUB * LD;
         T* dv = dk + SUB * LD;
-        // each lane copies CPL 16-byte columns, LPR chunks apart, of every
-        // RPP-th row
+        // each copying lane copies CPL 16-byte columns, LPR chunks apart,
+        // of every RPP-th row
+        if (COPY_LANES == 32 || lane < COPY_LANES) {
 #pragma unroll
-        for (int i = 0; i < SUB / RPP; ++i) {
-          const int rr = lane / LPR + i * RPP;
-          const bool ok = (bi >> rr) & 1u;
-          const long off = ok ? (long)(base + rr) * kv_stride + col : 0;
+          for (int i = 0; i < SUB / RPP; ++i) {
+            const int rr = lane / LPR + i * RPP;
+            const bool ok = (bi >> rr) & 1u;
+            const long off = ok ? (long)(base + rr) * kv_stride + col : 0;
 #pragma unroll
-          for (int c = 0; c < CPL; ++c) {
-            cp_async16(dk + rr * LD + col + c * LPR * EPC, kb + off + c * LPR * EPC, ok);
-            cp_async16(dv + rr * LD + col + c * LPR * EPC, vb + off + c * LPR * EPC, ok);
+            for (int c = 0; c < CPL; ++c) {
+              cp_async16(dk + rr * LD + col + c * LPR * EPC, kb + off + c * LPR * EPC, ok);
+              cp_async16(dv + rr * LD + col + c * LPR * EPC, vb + off + c * LPR * EPC, ok);
+            }
           }
         }
       }
@@ -569,6 +581,7 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, const 
     case 16: return launch<T, 16>(q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, stream);
     case 32: return launch<T, 32>(q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, stream);
     case 64: return launch<T, 64>(q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, stream);
+    case 112: return launch<T, 112>(q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, stream);
     case 128: return launch<T, 128>(q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, stream);
     case 256: return launch<T, 256>(q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, stream);
     default: return cudaErrorInvalidValue;

@@ -70,6 +70,21 @@
 //    (16 heads x S/64 row blocks, at most 128 CTAs at S = 512) fit in one
 //    wave of 132 SMs, so one CTA per SM costs no wave there.
 //
+// hd 112 (kimi-k2's 64 q heads over 8 kv heads): the tensor-core layout
+// above takes it as it is (7 k-steps of Q K^T, 7 x 16 output columns of
+// P V, 14 x 8 dims of O) except for the copy of a tile.  A bf16 row is 14
+// sixteen-byte chunks, which do not divide a pass of 128 threads, so
+// load_tile numbers the tile's chunks row-major and gives chunk c to
+// thread c % 128, with a guarded last pass where the chunks are not whole
+// passes (64 rows x 14 = 896 = 7 passes, so the guard compiles away at
+// hd 112).  The alternative, hd padded to 128 in shared memory, would copy
+// and multiply 14% of zeros.  Rows of 120 bf16 (240 bytes) keep the 8 rows
+// of an ldmatrix phase in 8 bank groups (15 r mod 8).  Shared memory is
+// 92,160 bytes a CTA, so two CTAs fit an SM (min_ctas); at that bound ptxas
+// keeps the kernel at 255 registers with 20 bytes of spill.  The f32 SIMT body
+// divides at hd 112 as it is: 28 four-float chunks a row in a loop that
+// does not assume whole passes, and 28 output dims a thread.
+//
 // f32 (fa_kernel<float>): the SIMT body of the first port, unchanged.  The
 // f32 tolerance (2e-5) rules out bf16 or TF32 products, so f32 stays on the
 // 67 TFLOP/s SIMT units; one CTA per (batch, q head, 64 rows), 4 threads a
@@ -235,27 +250,44 @@ __host__ __device__ constexpr int ld() { return HD + 8; }
 template <int HD>
 constexpr size_t smem_bytes() { return sizeof(bf16) * 2 * NS * BN * ld<HD>(); }
 
-// CTAs per SM the registers must allow (shared memory allows as many)
+// CTAs per SM the registers must allow (shared memory allows as many:
+// 3 x 55,296 bytes at hd 64, 2 x 92,160 at hd 112, 2 x 104,448 at hd 128)
 template <int HD>
-__host__ __device__ constexpr int min_ctas() { return HD >= 128 ? 2 : 3; }
+__host__ __device__ constexpr int min_ctas() { return HD >= 112 ? 2 : 3; }
 
 // ROWS rows of hd bf16 from rows [row0, row0 + ROWS) of `src` (`stride`
 // elements apart) into `dst`; rows at or past `rows` are zero-filled and
-// not read.  Each thread copies the same 16-byte column of every RPP-th
-// row, so its addresses advance by constant steps.
+// not read.  Where a row's 16-byte chunks divide a pass of the CTA, each
+// thread copies the same column of every RPP-th row, so its addresses
+// advance by constant steps; otherwise (hd 112: 14 chunks) chunk c of the
+// tile, row-major, goes to thread c % NT, the last pass guarded.
 template <int HD, int ROWS>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long stride, int row0,
                                           int rows, int tid) {
   constexpr int CPR = HD / 8;     // 16-byte chunks per row
-  constexpr int RPP = NT / CPR;   // rows per pass of the CTA
-  static_assert(NT % CPR == 0 && ROWS % RPP == 0, "whole passes");
-  const int r = tid / CPR, col = (tid % CPR) * 8;
-  const bf16* g = src + (long)(row0 + r) * stride + col;
-  bf16* sm = dst + r * ld<HD>() + col;
+  if constexpr (NT % CPR == 0) {
+    constexpr int RPP = NT / CPR; // rows per pass of the CTA
+    static_assert(ROWS % RPP == 0, "whole passes");
+    const int r = tid / CPR, col = (tid % CPR) * 8;
+    const bf16* g = src + (long)(row0 + r) * stride + col;
+    bf16* sm = dst + r * ld<HD>() + col;
 #pragma unroll
-  for (int i = 0; i < ROWS / RPP; ++i) {
-    const bool ok = row0 + r + i * RPP < rows;
-    cp_async16(sm + i * RPP * ld<HD>(), ok ? g + i * RPP * stride : src, ok);
+    for (int i = 0; i < ROWS / RPP; ++i) {
+      const bool ok = row0 + r + i * RPP < rows;
+      cp_async16(sm + i * RPP * ld<HD>(), ok ? g + i * RPP * stride : src, ok);
+    }
+  } else {
+    constexpr int CHUNKS = ROWS * CPR;
+#pragma unroll
+    for (int i = 0; i < (CHUNKS + NT - 1) / NT; ++i) {
+      const int c = tid + i * NT;
+      if (CHUNKS % NT == 0 || c < CHUNKS) {
+        const int r = c / CPR, col = (c % CPR) * 8;
+        const bool ok = row0 + r < rows;
+        cp_async16(dst + r * ld<HD>() + col, ok ? src + (long)(row0 + r) * stride + col : src,
+                   ok);
+      }
+    }
   }
 }
 
@@ -646,6 +678,7 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, void* 
     case 16: return launch<T, 16>(q, k, v, o, B, Sq, Sk, nq, nkv, causal, window, q_offset, scale, stream);
     case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, nq, nkv, causal, window, q_offset, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, nq, nkv, causal, window, q_offset, scale, stream);
+    case 112: return launch<T, 112>(q, k, v, o, B, Sq, Sk, nq, nkv, causal, window, q_offset, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, nq, nkv, causal, window, q_offset, scale, stream);
     case 256: return launch<T, 256>(q, k, v, o, B, Sq, Sk, nq, nkv, causal, window, q_offset, scale, stream);
     default: return cudaErrorInvalidValue;

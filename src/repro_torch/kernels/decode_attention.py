@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 MIN_SPLIT_SLOTS = 64     # a split owns at least one 64-slot tile
 CTAS_PER_SM = 2          # what the split count aims at
 

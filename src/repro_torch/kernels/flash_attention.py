@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 
 #: kernel launches in this process; ``chip_smoke.py`` resets and reads it
 launches = 0

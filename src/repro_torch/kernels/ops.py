@@ -2,7 +2,14 @@
 
   * a CPU tensor goes to the plain version in ``ref.py``;
   * a CUDA tensor launches the hand-written kernel, which raises on what it
-    cannot take: there is no fallback to the plain version.
+    cannot take: there is no fallback to the plain version;
+  * a meta tensor (shapes and dtypes, no values: the dry-run counts a
+    step's operations on them, ``launch/dryrun.py``) goes to the plain
+    version too, which hides no kernel, since nothing is computed; the WKV
+    recurrence takes its chunk-parallel plain form
+    (``ref.rwkv6_chunk_parallel_reference``), the arithmetic of the scan's
+    bf16 prefill, whose Python loop runs over 32-token chunks, not tokens;
+  * any other device raises.
 
 Gradients.  On the card, ``flash_attention`` and ``rwkv6`` (without a
 ``final_state`` to write) run through a ``torch.autograd.Function`` whose
@@ -33,7 +40,7 @@ from repro_torch.kernels import rwkv6_scan as _rwkv
 
 
 def _device_type(t: torch.Tensor) -> str:
-    if t.device.type not in ("cpu", "cuda"):
+    if t.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel path for device {t.device}")
     return t.device.type
 
@@ -135,7 +142,8 @@ def rwkv6(r, k, v, w, u, state=None, *, final_state=None):
         if final_state is None:
             return _Rwkv6.apply(r, k, v, w, u, state)
         return _rwkv.rwkv6_scan(r, k, v, w, u, state, final_state=final_state)
-    out, s = ref.rwkv6_reference(r, k, v, w, u, state)
+    plain = ref.rwkv6_chunk_parallel_reference if r.device.type == "meta" else ref.rwkv6_reference
+    out, s = plain(r, k, v, w, u, state)
     if final_state is None:
         return out, s
     return out, final_state.copy_(s)

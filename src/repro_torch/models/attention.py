@@ -24,7 +24,7 @@ import torch
 from repro_torch.configs.registry import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope
-from repro_torch.models.params import normal
+from repro_torch.models.params import boxed_normal, boxed_zeros
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, *, dtype=torch.float32,
@@ -35,15 +35,16 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, *, dtype=torch.float3
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     s = d ** -0.5
     p = {
-        "wq": normal(gen, (d, nq, hd), s, dtype, device),
-        "wk": normal(gen, (d, nkv, hd), s, dtype, device),
-        "wv": normal(gen, (d, nkv, hd), s, dtype, device),
-        "wo": normal(gen, (nq, hd, d), (nq * hd) ** -0.5, dtype, device),
+        "wq": boxed_normal(gen, (d, nq, hd), ("embed", "heads", None), s, dtype, device),
+        "wk": boxed_normal(gen, (d, nkv, hd), ("embed", "kv_heads", None), s, dtype, device),
+        "wv": boxed_normal(gen, (d, nkv, hd), ("embed", "kv_heads", None), s, dtype, device),
+        "wo": boxed_normal(gen, (nq, hd, d), ("heads", None, "embed"), (nq * hd) ** -0.5, dtype,
+                           device),
     }
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros((nq, hd), dtype=dtype, device=device)
-        p["bk"] = torch.zeros((nkv, hd), dtype=dtype, device=device)
-        p["bv"] = torch.zeros((nkv, hd), dtype=dtype, device=device)
+        p["bq"] = boxed_zeros((nq, hd), ("heads", None), dtype, device)
+        p["bk"] = boxed_zeros((nkv, hd), ("kv_heads", None), dtype, device)
+        p["bv"] = boxed_zeros((nkv, hd), ("kv_heads", None), dtype, device)
     return p
 
 

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.registry import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.params import normal
+from repro_torch.models.params import boxed_normal, boxed_value, boxed_zeros
 
 CONV_K = 4
 NUM_BLOCKS = 8
@@ -47,17 +47,22 @@ def init_rglru(gen: torch.Generator, cfg: ModelConfig, *, dtype=torch.float32,
     bs = w // NUM_BLOCKS
     s = d ** -0.5
     # Lambda such that softplus(Lambda) gives a decay a in [0.9, 0.999]^(1/c)
-    u = torch.rand((w,), generator=gen, device=gen.device) * (0.999 - 0.9) + 0.9
-    lam0 = torch.log(torch.expm1(-torch.log(u) / C_RGLRU))
+    # (on the meta device nothing is drawn)
+    if torch.device(device).type == "meta":
+        lam0 = torch.empty((w,), device="meta")
+    else:
+        u = torch.rand((w,), generator=gen, device=gen.device) * (0.999 - 0.9) + 0.9
+        lam0 = torch.log(torch.expm1(-torch.log(u) / C_RGLRU))
+    normal = lambda shape, axes, scale: boxed_normal(gen, shape, axes, scale, dtype, device)
     return {
-        "wx": normal(gen, (d, w), s, dtype, device),
-        "wgate": normal(gen, (d, w), s, dtype, device),
-        "conv_w": normal(gen, (CONV_K, w), 0.5, dtype, device),
-        "conv_b": torch.zeros((w,), dtype=dtype, device=device),
-        "gate_a": normal(gen, (NUM_BLOCKS, bs, bs), bs ** -0.5, dtype, device),
-        "gate_i": normal(gen, (NUM_BLOCKS, bs, bs), bs ** -0.5, dtype, device),
-        "lam": lam0.to(device=device, dtype=torch.float32),
-        "wo": normal(gen, (w, d), w ** -0.5, dtype, device),
+        "wx": normal((d, w), ("embed", "ff"), s),
+        "wgate": normal((d, w), ("embed", "ff"), s),
+        "conv_w": normal((CONV_K, w), (None, "ff"), 0.5),
+        "conv_b": boxed_zeros((w,), ("ff",), dtype, device),
+        "gate_a": normal((NUM_BLOCKS, bs, bs), (None, "ff", None), bs ** -0.5),
+        "gate_i": normal((NUM_BLOCKS, bs, bs), (None, "ff", None), bs ** -0.5),
+        "lam": boxed_value(lam0.to(device=device, dtype=torch.float32), ("ff",)),
+        "wo": normal((w, d), ("ff", "embed"), w ** -0.5),
     }
 
 

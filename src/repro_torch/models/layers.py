@@ -8,16 +8,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.registry import ModelConfig
-from repro_torch.models.params import normal
+from repro_torch.models.params import boxed_normal, boxed_ones, boxed_zeros
 
 
 # ---------------------------------------------------------------------------
 # Norms (always computed in f32, eps 1e-6, then cast back).
 # ---------------------------------------------------------------------------
 def init_norm(cfg: ModelConfig, dtype, device) -> dict:
-    p = {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    p = {"scale": boxed_ones((cfg.d_model,), ("embed",), dtype, device)}
     if cfg.norm == "layernorm":
-        p["bias"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+        p["bias"] = boxed_zeros((cfg.d_model,), ("embed",), dtype, device)
     return p
 
 
@@ -43,13 +43,13 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: Optional[int] = None,
     s_in, s_out = d ** -0.5, ff ** -0.5
     if cfg.mlp == "swiglu":
         return {
-            "wi_gate": normal(gen, (d, ff), s_in, dtype, device),
-            "wi_up": normal(gen, (d, ff), s_in, dtype, device),
-            "wo": normal(gen, (ff, d), s_out, dtype, device),
+            "wi_gate": boxed_normal(gen, (d, ff), ("embed", "ff"), s_in, dtype, device),
+            "wi_up": boxed_normal(gen, (d, ff), ("embed", "ff"), s_in, dtype, device),
+            "wo": boxed_normal(gen, (ff, d), ("ff", "embed"), s_out, dtype, device),
         }
     return {
-        "wi": normal(gen, (d, ff), s_in, dtype, device),
-        "wo": normal(gen, (ff, d), s_out, dtype, device),
+        "wi": boxed_normal(gen, (d, ff), ("embed", "ff"), s_in, dtype, device),
+        "wo": boxed_normal(gen, (ff, d), ("ff", "embed"), s_out, dtype, device),
     }
 
 
@@ -64,8 +64,8 @@ def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Embeddings.
 # ---------------------------------------------------------------------------
-def init_embed(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> torch.Tensor:
-    return normal(gen, (cfg.vocab_size, cfg.d_model), 1.0, dtype, device)
+def init_embed(gen: torch.Generator, cfg: ModelConfig, dtype, device):
+    return boxed_normal(gen, (cfg.vocab_size, cfg.d_model), ("vocab", "embed"), 1.0, dtype, device)
 
 
 def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

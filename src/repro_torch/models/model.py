@@ -15,7 +15,13 @@ over the layers like ``cache["blocks"]["dec"]``.
 
 Entry points
 ------------
-``init_params``  — build the parameter tree from a ``torch.Generator``.
+``init_params``  — build the parameter tree from a ``torch.Generator``
+                   (``init_params_boxed`` with each leaf's logical axes).
+``param_axes``   — logical-axes tree matching ``init_params`` (per-layer
+                   dicts: no leading ``"layers"`` axis, unlike the JAX
+                   package's stacked blocks).
+``abstract_params`` — the parameter tree on the ``meta`` device: shapes and
+                   dtypes, nothing allocated or drawn.
 ``param_count``  — exact parameter count from the shapes (no allocation).
 ``forward``      — full-sequence logits.
 ``loss_fn``      — masked next-token cross-entropy plus the weighted aux loss.
@@ -37,6 +43,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import griffin, layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models.params import axes_of, values_of
 
 
 def _pattern_layout(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...], Tuple[str, ...]]:
@@ -66,7 +73,7 @@ def _layer_kinds(cfg: ModelConfig) -> List[str]:
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype, device,
                 cross: bool = False) -> dict:
-    """One block's parameters; ``cross`` adds whisper's decoder
+    """One block's Boxed parameters; ``cross`` adds whisper's decoder
     cross-attention (``norm_x``, ``xattn``)."""
     if kind == RWKV:     # no MLP: the channel mix is part of the block's params
         return {
@@ -96,10 +103,10 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype, device
     return p
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator, *, dtype=torch.float32,
-                device="cuda") -> Dict[str, Any]:
-    """Random parameters with the JAX package's scales, drawn from ``gen``.
-    Whisper's encoder blocks are ``encoder/blocks``, a list like ``layers``."""
+def init_params_boxed(cfg: ModelConfig, gen: Optional[torch.Generator], *, dtype=torch.float32,
+                      device="cuda") -> Dict[str, Any]:
+    """``init_params``' tree with every leaf a ``Boxed(value, axes)``; on the
+    meta device ``gen`` may be None (nothing is drawn)."""
     enc_dec = cfg.is_encoder_decoder
     p: Dict[str, Any] = {
         "embed": layers.init_embed(gen, cfg, dtype, device),
@@ -116,6 +123,30 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, dtype=torch.float32,
             "final_norm": layers.init_norm(cfg, dtype, device),
         }
     return p
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, *, dtype=torch.float32,
+                device="cuda") -> Dict[str, Any]:
+    """Random parameters with the JAX package's scales, drawn from ``gen``.
+    Whisper's encoder blocks are ``encoder/blocks``, a list like ``layers``."""
+    return values_of(init_params_boxed(cfg, gen, dtype=dtype, device=device))
+
+
+@functools.lru_cache(maxsize=64)
+def _param_axes_cached(cfg: ModelConfig, dtype: torch.dtype):
+    return axes_of(init_params_boxed(cfg, None, dtype=dtype, device="meta"))
+
+
+def param_axes(cfg: ModelConfig, dtype=torch.float32):
+    """The logical axes of each leaf of ``init_params(cfg)``, a tree of the
+    same structure with a tuple at each leaf (built on the meta device)."""
+    return _param_axes_cached(cfg, dtype)
+
+
+def abstract_params(cfg: ModelConfig, dtype=torch.float32):
+    """``init_params(cfg)``'s tree on the meta device: shapes and dtypes,
+    no allocation (dry-run, cost model)."""
+    return values_of(init_params_boxed(cfg, None, dtype=dtype, device="meta"))
 
 
 def param_count(cfg: ModelConfig) -> int:
@@ -415,10 +446,12 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, window: int = 0,
 
 
 def prefill(cfg: ModelConfig, params, inputs: torch.Tensor, cache, *,
-            enc_inputs: Optional[torch.Tensor] = None, window: int = 0):
+            enc_inputs: Optional[torch.Tensor] = None, window: int = 0,
+            moe_path: str = "local"):
     """Run the prompt through the model, populating ``cache`` in place;
     whisper encodes ``enc_inputs`` and stores every decoder layer's
-    cross-attention K/V under ``cache["cross"]``.
+    cross-attention K/V under ``cache["cross"]``; ``moe_path`` picks the
+    MoE layers' path (``moe.moe_apply``).
 
     Returns (last-token logits (B, vocab), the cache)."""
     s = inputs.shape[1]
@@ -427,7 +460,8 @@ def prefill(cfg: ModelConfig, params, inputs: torch.Tensor, cache, *,
     enc_out = _encoder_output(cfg, params, enc_inputs)
     if enc_out is not None:
         cache["cross"] = _all_cross_kv(cfg, params, enc_out)
-    x, _ = _run_blocks_full(cfg, params, x, positions, _layer_caches(cfg, cache), window=window)
+    x, _ = _run_blocks_full(cfg, params, x, positions, _layer_caches(cfg, cache), window=window,
+                            moe_path=moe_path)
     cache["t"] = torch.full((inputs.shape[0],), s, dtype=torch.int32, device=inputs.device)
     x = layers.apply_norm(cfg, params["final_norm"], x[:, -1:, :])
     return _unembed(cfg, params, x)[:, 0], cache

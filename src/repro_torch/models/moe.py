@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.registry import ModelConfig
-from repro_torch.models.params import normal
+from repro_torch.models.params import boxed_normal
 
 # leaves kept in f32 whatever the model's dtype (the JAX package's router)
 F32_LEAVES = ("router",)
@@ -37,15 +37,16 @@ F32_LEAVES = ("router",)
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
     """Router (d, E) in f32 and the experts' SwiGLU weights, at the JAX
-    package's scales, drawn from ``gen``."""
+    package's scales, drawn from ``gen``; Boxed leaves (``params.values_of``
+    gives the tensors)."""
     d, e = cfg.d_model, cfg.num_experts
     e_ff = cfg.expert_d_ff or cfg.d_ff
     s_in, s_out = d ** -0.5, e_ff ** -0.5
     return {
-        "router": normal(gen, (d, e), s_in, torch.float32, device),
-        "wi_gate": normal(gen, (e, d, e_ff), s_in, dtype, device),
-        "wi_up": normal(gen, (e, d, e_ff), s_in, dtype, device),
-        "wo": normal(gen, (e, e_ff, d), s_out, dtype, device),
+        "router": boxed_normal(gen, (d, e), ("embed", None), s_in, torch.float32, device),
+        "wi_gate": boxed_normal(gen, (e, d, e_ff), ("experts", "embed", "ff"), s_in, dtype, device),
+        "wi_up": boxed_normal(gen, (e, d, e_ff), ("experts", "embed", "ff"), s_in, dtype, device),
+        "wo": boxed_normal(gen, (e, e_ff, d), ("experts", "ff", "embed"), s_out, dtype, device),
     }
 
 

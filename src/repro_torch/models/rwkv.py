@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.registry import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.params import normal
+from repro_torch.models.params import boxed_normal, boxed_zeros
 
 DECAY_LORA_RANK = 96
 #: leaves kept in f32 whatever the model's dtype
@@ -41,24 +41,25 @@ def init_rwkv(gen: torch.Generator, cfg: ModelConfig, *, dtype=torch.float32,
     h = d // hd
     s = d ** -0.5
     r = DECAY_LORA_RANK
-    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)
+    zeros = lambda shape, axes: boxed_zeros(shape, axes, torch.float32, device)
+    normal = lambda shape, axes, scale: boxed_normal(gen, shape, axes, scale, dtype, device)
     return {
         # time-mix
-        "mu": zeros(5, d),                       # r,k,v,w,g shifts
-        "wr": normal(gen, (d, d), s, dtype, device),
-        "wk": normal(gen, (d, d), s, dtype, device),
-        "wv": normal(gen, (d, d), s, dtype, device),
-        "wg": normal(gen, (d, d), s, dtype, device),
-        "wo": normal(gen, (d, d), s, dtype, device),
-        "decay_a": normal(gen, (d, r), s, dtype, device),
-        "decay_b": normal(gen, (r, d), r ** -0.5, dtype, device),
-        "w0": zeros(d),
-        "u": zeros(h, hd),
+        "mu": zeros((5, d), (None, "embed")),   # r,k,v,w,g shifts
+        "wr": normal((d, d), ("embed", "heads_flat"), s),
+        "wk": normal((d, d), ("embed", "heads_flat"), s),
+        "wv": normal((d, d), ("embed", "heads_flat"), s),
+        "wg": normal((d, d), ("embed", "heads_flat"), s),
+        "wo": normal((d, d), ("heads_flat", "embed"), s),
+        "decay_a": normal((d, r), ("embed", None), s),
+        "decay_b": normal((r, d), (None, "heads_flat"), r ** -0.5),
+        "w0": zeros((d,), ("heads_flat",)),
+        "u": zeros((h, hd), ("heads_flat", None)),
         # channel-mix
-        "cm_mu": zeros(d),
-        "cm_k": normal(gen, (d, cfg.d_ff), s, dtype, device),
-        "cm_v": normal(gen, (cfg.d_ff, d), cfg.d_ff ** -0.5, dtype, device),
-        "cm_r": normal(gen, (d, d), s, dtype, device),
+        "cm_mu": zeros((d,), ("embed",)),
+        "cm_k": normal((d, cfg.d_ff), ("embed", "ff"), s),
+        "cm_v": normal((cfg.d_ff, d), ("ff", "embed"), cfg.d_ff ** -0.5),
+        "cm_r": normal((d, d), ("embed", "embed_out"), s),
     }
 
 

@@ -36,6 +36,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rwkv6_scan as rk
 from repro_torch.models import frontends, model, moe
+from repro_torch.models.params import values_of
 from repro_torch.serving import ContinuousBatcher, Engine, EngineConfig, Request
 
 pytestmark = pytest.mark.cuda
@@ -57,6 +58,11 @@ FA_CASES = [
     (8, 1500, 1500, 12, 12, 64, False, 0, 0),  # whisper-small: the encoder over 1500 frames
     (8, 4, 1500, 12, 12, 64, False, 0, 0),     # cross-attention of the 4-token prompt
     (8, 1, 1500, 12, 12, 64, False, 0, 0),     # cross-attention of one decode step
+    (1, 512, 512, 64, 8, 112, True, 0, 0),     # kimi-k2: hd 112, 64 q heads over 8 kv heads
+    (1, 2048, 2048, 64, 8, 112, True, 0, 0),   # and a 2048-token prompt
+    (1, 200, 264, 16, 2, 112, True, 0, 64),    # hd 112, ragged tiles, a q_offset
+    (2, 4, 300, 8, 8, 112, False, 0, 0),       # hd 112 non-causal at Sq = 4
+    (1, 150, 150, 8, 2, 112, True, 48, 0),     # hd 112 under a window
 ]
 DA_CASES = [
     # b, s, nq, nkv, hd
@@ -68,6 +74,8 @@ DA_CASES = [
     (2, 300, 16, 1, 256),      # recurrentgemma-9b: hd 256, 16 q heads over 1 kv head
     (8, 2048, 16, 1, 256),     # and its 8-slot, 2048-slot ring
     (8, 448, 12, 12, 64),      # whisper-small's decoder self-attention: 448-token context
+    (8, 2048, 64, 8, 112),     # kimi-k2: hd 112, 64 q heads over 8 kv heads, 8 slots
+    (3, 300, 16, 2, 112),      # hd 112, a ragged cache
 ]
 
 
@@ -279,6 +287,25 @@ def test_decode_main_path_prefix_masks(cuda, dtype):
     _decode_check(cuda, dtype, 8, 2048, 16, 16, 64, valid, seed=5)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_decode_hd112_prefix_masks_and_empty_splits(cuda, dtype):
+    """kimi-k2 decode: 8 slots, cache 2048, 64 q heads over 8 kv heads of
+    112, each slot valid up to its prompt + generated tokens; then masks
+    that leave whole tiles and whole splits empty, one slot alone in the
+    last split and a sequence with none."""
+    lengths = torch.tensor([96, 544, 300, 65, 64, 1, 2048, 411])
+    valid = torch.arange(2048)[None, :] < lengths[:, None]
+    _decode_check(cuda, dtype, 8, 2048, 64, 8, 112, valid, seed=9)
+    valid = torch.zeros((4, 2048), dtype=torch.bool)
+    valid[0, :70] = True
+    valid[0, -100:] = True
+    valid[1, ::97] = True
+    valid[2, -1] = True
+    q, k, v, out = _decode_check(cuda, dtype, 4, 2048, 64, 8, 112, valid, seed=10)
+    assert not bool(out[3].any())
+    assert _err(out[2], v[2, -1].repeat_interleave(8, dim=0)) < TOL[dtype]
+
+
 def _ring_valid(positions, ring, window):
     """The decode mask of a ring of ``ring`` slots after each sequence wrote
     positions 0..t (slot = pos % ring, the latest write wins), for a window
@@ -301,7 +328,7 @@ def test_decode_ring_wrapped_window_mask_hd256(cuda, dtype):
     _decode_check(cuda, dtype, 8, 2048, 16, 1, 256, valid, seed=7)
 
 
-@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("hd", [64, 112, 256])
 def test_flash_bf16_rounding_margin_at_large_outputs(cuda, hd):
     """Outputs of |o| >= 16 made from a few keys (sharp logits, large values),
     held to the f32 attention of the same bf16 inputs within one bf16 step of
@@ -322,11 +349,11 @@ def test_flash_bf16_rounding_margin_at_large_outputs(cuda, hd):
         f"{float(steps.max())} bf16 steps")
 
 
-@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("hd", [64, 112, 256])
 def test_decode_bf16_rounding_margin_at_large_outputs(cuda, hd):
     """A decode step with outputs of |o| >= 16 made from a few slots
     (sharp logits, large values), 16 q heads over 4 kv heads at hd 64 and
-    over 1 at hd 256, held to the f32 attention of the same bf16 inputs
+    112 and over 1 at hd 256, held to the f32 attention of the same bf16 inputs
     within one bf16 step of that exact output,
     ``max(2e-2, 2^(floor(log2|o32|) - 7))``: the TPU kernel keeps P in f32
     and rounds once, at the output, and meets half of it
@@ -343,6 +370,26 @@ def test_decode_bf16_rounding_margin_at_large_outputs(cuda, hd):
         f"{float(steps.max())} bf16 steps")
     sweep = ref.decode_rounding_sweep(da.decode_attention, hd, cuda)
     assert sweep["max_err_in_steps"] <= 1.0, sweep
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_attention_wrappers_take_hd_112_and_refuse_hd_80(cuda, dtype):
+    """Both attention wrappers launch at kimi-k2's head size 112 and still
+    refuse a head size no kernel is built for (80)."""
+    for hd, ok in ((112, True), (80, False)):
+        q, k, v = _randn(hd, (1, 70, 8, hd), (1, 70, 2, hd), (1, 70, 2, hd),
+                         dtype=DTYPES[dtype], device=cuda)
+        qd = q[:, -1].contiguous()
+        valid = torch.ones((1, 70), dtype=torch.bool, device=cuda)
+        if ok:
+            assert _err(fa.flash_attention(q, k, v), ref.mha_reference(q, k, v)) < TOL[dtype]
+            assert (_err(da.decode_attention(qd, k, v, valid),
+                         ref.decode_attention_reference(qd, k, v, valid)) < TOL[dtype])
+        else:
+            with pytest.raises(ValueError, match="head_dim"):
+                fa.flash_attention(q, k, v)
+            with pytest.raises(ValueError, match="head_dim"):
+                da.decode_attention(qd, k, v, valid)
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -562,7 +609,7 @@ def _moe_layer(case, dtype, device):
     cfg = ModelConfig(name="moe-card", family="moe", num_layers=1, d_model=d, num_heads=4,
                       num_kv_heads=4, d_ff=ff, expert_d_ff=ff, vocab_size=64, num_experts=e,
                       num_experts_per_tok=k)
-    p = moe.init_moe(torch.Generator().manual_seed(e + k), cfg, DTYPES[dtype], "cpu")
+    p = values_of(moe.init_moe(torch.Generator().manual_seed(e + k), cfg, DTYPES[dtype], "cpu"))
     [x] = _randn(d + shape[1], (*shape, d), dtype=DTYPES[dtype], device="cpu")
     return cfg, p, x, {n: t.to(device) for n, t in p.items()}, x.to(device)
 
@@ -852,3 +899,57 @@ def test_train_step_on_the_card_matches_cpu(cuda, arch):
     for tree in ("m", "v"):
         for a, b in zip(tree_leaves(card[4][tree]), tree_leaves(cpu[4][tree])):
             assert _err(a.cpu(), b) <= 1e-3 * float(b.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The specs' steps (launch/specs.py) on the card.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "kimi-k2-1t-a32b", "whisper-small"])
+def test_spec_steps_on_the_card_equal_direct_calls(cuda, arch, kind):
+    """``build_step``'s step at ``reduced()`` on tensors made on the card
+    from its meta specs equals a direct call of the model's entry point bit
+    for bit, and the dry-run's parameter bytes are the tensors'."""
+    from repro_torch.configs.registry import InputShape
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import OptimizerConfig, adamw_init, tree_leaves
+
+    cfg = get_config(arch).reduced()
+    shape = InputShape(kind, 48, 2, kind)
+    step, args, _, _, _ = specs.build_step(cfg, shape, make_production_mesh())
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model.init_params(cfg, gen, dtype=args[0]["embed"].dtype, device=cuda)
+    assert (sum(t.numel() * t.element_size() for t in tree_leaves(params))
+            == dryrun.record(cfg, shape)["bytes"]["params"])
+    ints = lambda *sh: torch.randint(0, cfg.vocab_size, sh, generator=gen, device=cuda,
+                                     dtype=torch.int32)
+    extra = [torch.randn(a.shape, generator=gen, device=cuda).to(a.dtype) for a in args[3:]]
+    if kind == "train":
+        batch = {"inputs": ints(2, 48), "labels": ints(2, 48)}
+        if cfg.is_encoder_decoder:
+            enc = args[2]["enc_inputs"]
+            batch["enc_inputs"] = torch.randn(enc.shape, generator=gen, device=cuda).to(enc.dtype)
+        tcfg = train_loop.TrainConfig(moe_path="ep_a2a" if cfg.num_experts else "local",
+                                      optimizer=OptimizerConfig(state_dtype=torch.float32))
+        opt = adamw_init(params, tcfg.optimizer)
+        got, exp = step(params, opt, batch), train_loop.make_train_step(cfg, tcfg)(params, opt, batch)
+    else:
+        caches = [model.init_cache(cfg, 2, 48, dtype=params["embed"].dtype, device=cuda)
+                  for _ in range(2)]
+        if kind == "prefill":
+            tokens = ints(2, 48)
+            got = step(params, tokens, caches[0], *extra)
+            exp = model.prefill(cfg, params, tokens, caches[1],
+                                enc_inputs=extra[0] if extra else None,
+                                moe_path="ep_a2a" if cfg.num_experts else "local")
+        else:
+            tokens = ints(2)
+            if cfg.is_encoder_decoder:      # a decode step reads the cross K/V prefill stores
+                for c in caches:
+                    c["cross"] = {k: torch.zeros(v.shape, dtype=v.dtype, device=cuda)
+                                  for k, v in args[2]["cross"].items()}
+            got, exp = step(params, tokens, caches[0]), model.decode_step(cfg, params, tokens,
+                                                                          caches[1])
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(exp)))

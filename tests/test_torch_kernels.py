@@ -7,6 +7,8 @@ summed in another order) and 2e-2 in bf16 (one bf16 rounding of the output
 and of the probabilities).  The CUDA kernels themselves run only on the card
 (``tests/test_torch_cuda.py``; ``chip_smoke.py`` at the main path's shapes).
 """
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rwkv6_scan as rk
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -129,6 +132,38 @@ def test_decode_reference_matches_pallas_interpret(case, dtype):
     assert _err(exp, ref.decode_attention_reference(tq, tk, tv, tvalid)) < TOL[dtype]
 
 
+# kimi-k2's head size 112 (4 q heads over 2 kv heads), which the Pallas
+# kernels carry whole in one block: causal, windowed, non-causal at Sq = 4
+HD112_FA_CASES = [
+    # b, sq, sk, nq, nkv, hd, causal, window, bq, bk
+    (1, 96, 96, 4, 2, 112, True, 0, 32, 32),
+    (2, 64, 64, 4, 2, 112, True, 24, 32, 32),
+    (1, 4, 80, 4, 2, 112, False, 0, 4, 16),
+]
+
+
+@pytest.mark.parametrize("case", HD112_FA_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mha_reference_hd112_matches_pallas_interpret(case, dtype):
+    causal, window, bq, bk = case[6:]
+    (jq, jk, jv), (tq, tk, tv) = _fa_inputs(case, dtype, seed=sum(case))
+    exp = pallas_flash(jq, jk, jv, causal=causal, window=window, block_q=bq, block_k=bk,
+                       interpret=True)
+    out = ref.mha_reference(tq, tk, tv, causal=causal, window=window)
+    assert out.shape == tuple(case[:2]) + (4, 112)
+    assert _err(exp, out) < TOL[dtype]
+
+
+@pytest.mark.parametrize("case", [(3, 80, 4, 2, 112, 16), (2, 64, 4, 2, 112, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_reference_hd112_matches_pallas_interpret(case, dtype):
+    (jq, jk, jv, jvalid), (tq, tk, tv, tvalid) = _da_inputs(case, dtype, seed=sum(case))
+    exp = pallas_decode(jq, jk, jv, jvalid, block_k=case[5], interpret=True)
+    out = ops.decode_attention(tq, tk, tv, tvalid)
+    assert out.shape == (case[0], 4, 112)
+    assert _err(exp, out) < TOL[dtype]
+
+
 @pytest.mark.parametrize("s,window", [(40, 8), (37, 16), (64, 32)])
 def test_local_attention_blocked_matches_jax(s, window):
     (jq, jk, jv), (tq, tk, tv) = _fa_inputs((2, s, s, 4, 2, 16), "float32", seed=s)
@@ -174,6 +209,43 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_ops_refuses_other_devices():
-    q = torch.empty((1, 4, 2, 16), device="meta")
-    with pytest.raises(ValueError, match="device"):
-        ops.flash_attention(q, q, q)
+    """A device with neither a kernel nor a plain path raises: no tensor of
+    such a device can be made here, so the operand is a stand-in that has
+    only a ``device``."""
+    q = types.SimpleNamespace(device=torch.device("xpu"))
+    for call in (lambda: ops.flash_attention(q, q, q), lambda: ops.decode_attention(q, q, q, q),
+                 lambda: ops.rwkv6(q, q, q, q, q)):
+        with pytest.raises(ValueError, match="device"):
+            call()
+
+
+def test_meta_tensors_reach_the_plain_versions(monkeypatch):
+    """A meta tensor computes no value, so it takes the plain path (the
+    dry-run counts a step's operations on meta tensors): flash and decode
+    attention reach ``ref``'s plain versions, the WKV recurrence its
+    chunk-parallel plain form, the RG-LRU its log-depth scan; no kernel
+    launches, and the shapes and dtypes are the plain versions'."""
+    called = []
+
+    def spy(name):
+        fn = getattr(ref, name)
+        monkeypatch.setattr(ref, name, lambda *a, **k: called.append(name) or fn(*a, **k))
+
+    for name in ("mha_reference", "decode_attention_reference",
+                 "rwkv6_chunk_parallel_reference"):
+        spy(name)
+    launched = (fa.launches, da.launches, rk.launches)
+    meta = lambda *shape, dtype=torch.bfloat16: torch.empty(shape, dtype=dtype, device="meta")
+    q, k = meta(2, 40, 8, 112), meta(2, 40, 2, 112)
+    assert ops.flash_attention(q, k, k).shape == q.shape
+    o = ops.decode_attention(meta(2, 8, 112), k, k, meta(2, 40, dtype=torch.bool))
+    assert o.shape == (2, 8, 112) and o.device.type == "meta"
+    r = meta(2, 70, 4, 64)
+    out, state = ops.rwkv6(r, r, r, r, meta(4, 64, dtype=torch.float32))
+    assert out.shape == r.shape and state.shape == (2, 4, 64, 64)
+    assert state.dtype == torch.float32 and state.device.type == "meta"
+    h, last = ops.rglru(meta(2, 33, 16), meta(2, 33, 16))
+    assert h.shape == (2, 33, 16) and last.shape == (2, 16) and h.device.type == "meta"
+    assert called == ["mha_reference", "decode_attention_reference",
+                      "rwkv6_chunk_parallel_reference"]
+    assert (fa.launches, da.launches, rk.launches) == launched

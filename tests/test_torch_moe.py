@@ -200,6 +200,42 @@ def test_forward_prefill_decode_match_jax(arch):
     assert np.array_equal(np.asarray(jcache["t"]), tcache["t"].numpy())
 
 
+def test_kimi_k2_at_head_dim_112_matches_jax():
+    """kimi-k2 at ``reduced()`` with its full-size head size 112 (reduced()
+    takes 64), the one the card's attention kernels were widened to:
+    logits, every attention cache leaf after prefill and two decode steps,
+    and the JAX engine's greedy tokens on ragged requests."""
+    jcfg, tcfg, jp, tp = _pair("kimi-k2-1t-a32b", head_dim=112)
+    assert tcfg.resolved_head_dim == 112
+    toks = _tokens(jcfg, seed=3)
+    jl, _ = jmodel.forward(jcfg, jp, jnp.asarray(toks))
+    tl, _ = model.forward(tcfg, tp, torch.from_numpy(toks).long())
+    assert _err(jl, tl) < LOGIT_TOL
+    jcache, tcache = jmodel.init_cache(jcfg, 2, 32), model.init_cache(tcfg, 2, 32, device="cpu")
+    jlast, jcache = jmodel.prefill(jcfg, jp, jnp.asarray(toks), jcache)
+    tlast, tcache = model.prefill(tcfg, tp, torch.from_numpy(toks).long(), tcache)
+    assert _err(jlast, tlast) < LOGIT_TOL
+    nxt = np.asarray(jnp.argmax(jlast, -1)).astype(np.int32)
+    for _ in range(2):
+        jd, jcache = jmodel.decode_step(jcfg, jp, jnp.asarray(nxt), jcache)
+        td, tcache = model.decode_step(tcfg, tp, torch.from_numpy(nxt).long(), tcache)
+        assert _err(jd, td) < LOGIT_TOL
+        nxt = np.asarray(jnp.argmax(jd, -1)).astype(np.int32)
+    jattn, tattn = jcache["blocks"]["p0_attn"]["attn"], tcache["blocks"]["p0_attn"]["attn"]
+    assert tattn["k"].shape[-1] == 112
+    for key in ("k", "v"):
+        assert _err(jattn[key], tattn[key]) < LOGIT_TOL
+    assert np.array_equal(np.asarray(jattn["slot_pos"]), tattn["slot_pos"].numpy())
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, tcfg.vocab_size, size=n).astype(np.int32) for n in (7, 30)]
+    ecfg = dict(slots=2, cache_len=48, max_new_tokens=4)
+    jout = _run(JaxEngine(jcfg, jp, JaxEngineConfig(**ecfg)),
+                [JaxRequest(rid=i, prompt=p, max_new_tokens=4) for i, p in enumerate(prompts)])
+    tout = _run(Engine(tcfg, tp, EngineConfig(device="cpu", **ecfg)),
+                [Request(rid=i, prompt=p, max_new_tokens=4) for i, p in enumerate(prompts)])
+    assert tout == jout and all(len(o) == 5 for o in tout)
+
+
 def test_prefill_at_a_capacity_that_drops_matches_jax():
     """At capacity factor 0.5 the batch-1 prefill drops assignments in every
     layer; the port drops the same ones."""
