@@ -6,6 +6,10 @@
 Phases, each raising on a failed check (the script then exits non-zero and
 never prints its last line):
 
+0. the port's static analysis, on the host: ``repro_torch.analysis`` over
+   ``src/repro_torch`` of this checkout against ``analysis_baseline_torch.txt``
+   (its five passes; a finding fails the run), printed on an ``analysis:``
+   line;
 1. build the three hand-written CUDA kernel libraries from
    ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, in parallel; print
    each kernel instantiation's registers and spill bytes (``ptxas -v``),
@@ -166,6 +170,7 @@ import bisect
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import re
@@ -180,6 +185,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
+from repro_torch.analysis.__main__ import main as analysis_main  # noqa: E402
 from repro_torch.configs import INPUT_SHAPES, get_config, list_architectures  # noqa: E402
 from repro_torch.configs.registry import InputShape  # noqa: E402
 from repro_torch.core import sim as core_sim  # noqa: E402
@@ -415,6 +421,31 @@ def kernel_names(mangled):
         return {n: n for n in mangled}
     short = lambda d: d.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
     return {n: short(d) for n, d in zip(mangled, lines)}
+
+
+# ---------------------------------------------------------------------------
+# Phase 0: the port's static analysis.
+# ---------------------------------------------------------------------------
+def phase_analysis() -> None:
+    """``python -m repro_torch.analysis src/repro_torch`` on this checkout;
+    its findings and stale-baseline warnings pass through, its summary line
+    is read back."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = analysis_main([os.path.join(root, "src", "repro_torch"), "--repo-root", root])
+    lines = err.getvalue().splitlines()
+    for line in lines[:-1]:
+        print(line, file=sys.stderr)
+    m = re.fullmatch(r"(\d+) modules, (\d+) passes: (\d+) finding\(s\)(?:, (\d+) baselined)?.*",
+                     lines[-1] if lines else "")
+    if m is None:
+        raise AssertionError(f"repro_torch.analysis printed no summary: {err.getvalue()!r}")
+    modules, passes, findings, baselined = (int(g or 0) for g in m.groups())
+    print(f"analysis: {modules} modules, {passes} passes, {findings} finding(s), "
+          f"{baselined} baselined")
+    if rc != 0 or findings:
+        raise AssertionError(f"repro_torch.analysis: exit {rc}, {findings} finding(s)")
 
 
 def phase_build() -> str:
@@ -2636,6 +2667,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    phase_analysis()
     gpu = phase_build()
     rng = np.random.default_rng(args.seed)
     vocab = get_config(ARCH).vocab_size
