@@ -10,7 +10,8 @@ its kernels are built into that checkout's ``build/``.  Timing is
 ``chip_smoke.py``'s: median of CUDA events around single calls, the L2
 flushed and ~0.1 ms of device sleep queued before each.  Run the trees in
 turns (A, B, B, A) in one command on one card, so that both see the same
-card and host.  Prints one JSON line: ms per kernel and shape, the bf16
+card and host.  Prints one JSON line: ms per kernel and shape, the flash
+wrapper's host microseconds a call at the main path's shape, the bf16
 flash kernel's rounding at large outputs (``rounding_margin``) and the bf16
 decode kernel's over ``ref.DECODE_ROUNDING_SEEDS`` (``decode_rounding``).
 """
@@ -21,6 +22,7 @@ import importlib.util
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -31,6 +33,7 @@ import torch
 # its 4-token prompt + 32)
 FLASH = {"qwen1.5-0.5b": (1, 512, 512, 16, 16, 64, True),
          "phi3.5-moe": (1, 512, 512, 32, 8, 128, True),
+         "kimi-k2": (1, 512, 512, 64, 8, 112, True),
          "llama3-8b": (1, 2048, 2048, 32, 8, 128, True),
          "recurrentgemma-9b": (1, 512, 512, 16, 1, 256, True),
          "whisper-small encoder": (8, 1500, 1500, 12, 12, 64, False),
@@ -56,6 +59,19 @@ def time_ms(fn, flush, iters, warmup=3) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
 
 
+def host_us(fn, calls=200) -> float:
+    """Host microseconds of one call (the wrapper, its launch), the card left
+    to run behind."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return us
+
+
 def own_ref():
     """This checkout's ``kernels/ref.py`` (torch and numpy only), loaded by
     path: the probe's inputs and bound come from here, so that a tree from
@@ -75,7 +91,7 @@ def rounding_margin(fa, dev):
     in bf16 steps of o32 (``ref.bf16_step``), and how many outputs lie more
     than one step away."""
     probe, out = own_ref(), {}
-    for hd in (64, 256):
+    for hd in (64, 112, 128, 256):
         q, k, v = probe.large_output_inputs(hd, dev)
         o = fa.flash_attention(q, k, v, causal=True)
         o32 = probe.mha_reference(q.float(), k.float(), v.float(), causal=True)
@@ -111,6 +127,9 @@ def main() -> None:
         q, k, v = rand(b, sq, nq, hd), rand(b, sk, nkv, hd), rand(b, sk, nkv, hd)
         out[f"flash {name}"] = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
                                        flush, args.iters)
+        if name == "qwen1.5-0.5b":
+            out["flash host us per call"] = host_us(
+                lambda: fa.flash_attention(q, k, v, causal=causal))
     for name, (b, s, nq, nkv, hd) in DECODE.items():
         if hd not in da.SUPPORTED_HEAD_DIMS:
             out[f"decode {name}"] = None

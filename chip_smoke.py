@@ -14,9 +14,13 @@ never prints its last line):
    ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, in parallel; print
    each kernel instantiation's registers and spill bytes (``ptxas -v``),
    the attention libraries' hd-256 ones among them, and count the
-   tensor-core instructions (``HMMA``) in each library's SASS
-   (``cuobjdump -sass``); the bf16 flash kernel and the bf16 RWKV-6
-   prefill must have some;
+   tensor-core instructions in each library's SASS (``cuobjdump -sass``):
+   ``HMMA`` (mma.sync), ``HGMMA`` (wgmma) and the TMA loads (``UTMALDG``);
+   the bf16 flash kernel and the bf16 RWKV-6 prefill must have tensor-core
+   instructions, the flash library wgmma and TMA loads, the flash kernel's
+   wgmma instantiations (``fa_wgmma_kernel``, hd <= 128) no spill, and
+   ptxas must neither ignore their ``setmaxnreg`` nor serialise their
+   wgmma;
 2. hold each kernel against its plain PyTorch version on the card, in f32
    and bf16: the attention kernels at the shapes of ``tests/test_kernels.py``,
    at the main path's shapes, at phi3.5-moe's and llama3-8b's GQA shapes
@@ -33,7 +37,10 @@ never prints its last line):
    the state updated in place at T = 45 and T = 1, and at rwkv6-1.6b's
    prefill and decode shapes; the attention kernels' edge cases (rows that
    see no key, S = 1000 in bf16, a window with a q_offset, decode masks that
-   leave whole tiles and whole splits empty in the middle of the cache),
+   leave whole tiles and whole splits empty in the middle of the cache;
+   flash at the edges of its 128-row blocks and 64-key tiles, Sq and Sk
+   in {1, 127, 128, 129} causal and not, windows with a q_offset across a
+   tile edge, GQA at 64:8 and 16:1),
    and the bf16 flash kernel within one bf16 step of the f32 attention of
    its inputs, as the TPU kernel rounds, at outputs of |o| up to ~27 and at
    whisper-small's three flash shapes, and the bf16 decode kernel the same
@@ -50,14 +57,18 @@ never prints its last line):
    (its encoder and its cross-attention of a decode step in the flash row),
    under those names in each attention row; kimi-k2's, 64 q heads over 8 kv
    heads of 112, under ``"kimi_k2"``), and print them on one ``{"kernels": ...}``
-   line; for the scan also the device time of each of its kernels, and a
-   copy of the decode state as the floor of its decode step;
+   line; for flash also the wrapper's host microseconds a call and the
+   kernels SDPA ran (``library_kernels``); for the scan also the device
+   time of each of its kernels, and a copy of the decode state as the
+   floor of its decode step;
 3. serve qwen1.5-0.5b at full width and depth in bf16 through
    ``ContinuousBatcher`` (16 requests, 8 slots, cache 2048, 32 new tokens
    each), with the kernels' launch counters proving every prefill and
    decode attention call went through them; profile 8 decode steps (device
    time against the step's host time) and one 512-token prefill (device
-   time, flash attention's share); then hold f32 logits of one prompt
+   time, flash attention's share; every flash kernel in it must be
+   ``fa_wgmma_kernel``, as in every served prefill profile at hd <= 128);
+   then hold f32 logits of one prompt
    (prefill + 8 decode steps) on the card against the same port code on
    the CPU;
 3b. the same for rwkv6-1.6b at full width and depth in bf16 (same traffic),
@@ -306,18 +317,19 @@ RWKV_PREFILL, RWKV_DECODE = (1, 500, 32, 64, True), (SLOTS, 1, 32, 64, True)
 # 64 chunks carried through the prefill's scratch; the state updated in place
 # over two chunks and a ragged tail, and in one decode step
 RWKV_LONG, RWKV_IN_PLACE = (1, 2048, 4, 64, True), ((2, 45, 4, 64, True), (8, 1, 4, 64, True))
-# each slice's own kernels in a profile, by name: flash attention's and
-# decode attention's, and every kernel of the rwkv6_scan library, all of
-# which live in its namespace rwkv6
+# each slice's own kernels in a profile, by name: flash attention's (the
+# bf16 kernel its head size runs: wgmma at hd <= 128, the mma.sync kernel at
+# hd 256) and decode attention's, and every kernel of the rwkv6_scan
+# library, all of which live in its namespace rwkv6
 PROFILED = {
-    ARCH: {"prefill": ("flash_attention", ("fa_mma_kernel", "fa_kernel")),
+    ARCH: {"prefill": ("flash_attention", ("fa_wgmma_kernel",)),
            "decode": ("decode_attention", ("da_split_kernel", "da_combine_kernel"))},
     RWKV_ARCH: {"prefill": ("rwkv6_scan", ("rwkv6::",)), "decode": ("rwkv6_scan", ("rwkv6::",))},
-    MOE_ARCH: {"prefill": ("flash_attention", ("fa_mma_kernel", "fa_kernel")),
+    MOE_ARCH: {"prefill": ("flash_attention", ("fa_wgmma_kernel",)),
                "decode": ("decode_attention", ("da_split_kernel", "da_combine_kernel"))},
-    KIMI_ARCH: {"prefill": ("flash_attention", ("fa_mma_kernel", "fa_kernel")),
+    KIMI_ARCH: {"prefill": ("flash_attention", ("fa_wgmma_kernel",)),
                 "decode": ("decode_attention", ("da_split_kernel", "da_combine_kernel"))},
-    RG_ARCH: {"prefill": ("flash_attention", ("fa_mma_wide_kernel", "fa_kernel")),
+    RG_ARCH: {"prefill": ("flash_attention", ("fa_mma_wide_kernel",)),
               "decode": ("decode_attention", ("da_split_kernel", "da_combine_kernel"))},
 }
 # the MoE layer's parts, each run inside a profiler range of this name:
@@ -381,13 +393,20 @@ def bound(flops: float, nbytes: float, peak=PEAK_BF16_FLOPS):
 # ---------------------------------------------------------------------------
 # Phase 1: build.
 # ---------------------------------------------------------------------------
-def hmma_count(path) -> int:
-    """Tensor-core (HMMA) instructions in a built library's SASS, read with
-    the ``cuobjdump`` of the toolkit that built it."""
+# SASS opcodes counted in each library: mma.sync, wgmma and TMA tensor loads
+SASS_OPCODES = ("HMMA", "HGMMA", "UTMALDG")
+# what ptxas says when a kernel's design is not in effect: setmaxnreg
+# ignored (C7508), wgmma serialised (C7510)
+PTXAS_DESIGN_WARNINGS = ("C7508", "C7510")
+
+
+def sass_counts(path) -> dict:
+    """Instructions of each SASS_OPCODES opcode in a built library's SASS,
+    read with the ``cuobjdump`` of the toolkit that built it."""
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
                           check=True, timeout=120).stdout
-    return sum("HMMA" in line for line in sass.splitlines())
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPCODES}
 
 
 def ptxas_report(log: str):
@@ -421,6 +440,27 @@ def kernel_names(mangled):
         return {n: n for n in mangled}
     short = lambda d: d.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
     return {n: short(d) for n, d in zip(mangled, lines)}
+
+
+def check_flash_design(counts, log) -> None:
+    """The flash library's bf16 kernel is the Hopper design it claims: wgmma
+    and TMA loads in its SASS, each ``fa_wgmma_kernel`` instantiation (hd
+    16, 32, 64, 112, 128) compiled without spill, and no ptxas warning that
+    setmaxnreg was ignored or wgmma serialised.  Prints the instantiations'
+    registers (at launch; setmaxnreg moves them later) and spill bytes."""
+    if not (counts["HGMMA"] and counts["UTMALDG"]):
+        raise AssertionError(f"the flash_attention library lacks wgmma or TMA loads: {counts}")
+    report = ptxas_report(log)
+    readable = kernel_names(list(report))
+    wg = {readable[k]: v for k, v in report.items() if "fa_wgmma_kernel" in k}
+    print("[build] flash_attention fa_wgmma_kernel: " + json.dumps(
+        {k: {"registers": r, "spill_store_bytes": st, "spill_load_bytes": ld}
+         for k, (r, st, ld) in wg.items()}))
+    if len(wg) != 5 or any(st or ld for _, st, ld in wg.values()):
+        raise AssertionError(f"fa_wgmma_kernel instantiations missing or spilling: {wg}")
+    warned = [line for line in log.splitlines() if any(w in line for w in PTXAS_DESIGN_WARNINGS)]
+    if warned:
+        raise AssertionError("ptxas: " + " | ".join(warned))
 
 
 # ---------------------------------------------------------------------------
@@ -467,10 +507,12 @@ def phase_build() -> str:
                 {k: {"registers": r, "spill_store_bytes": st, "spill_load_bytes": ld}
                  for k, (r, st, ld) in wide.items()}))
     for name in paths:
-        n = hmma_count(paths[name])
-        print(f"[build] {name}: {n} HMMA instructions in its SASS")
-        if name in ("flash_attention", "rwkv6_scan") and n == 0:
+        n = sass_counts(paths[name])
+        print(f"[build] {name}: " + ", ".join(f"{c} {op}" for op, c in n.items())
+              + " instructions in its SASS")
+        if name in ("flash_attention", "rwkv6_scan") and not (n["HMMA"] or n["HGMMA"]):
             raise AssertionError(f"the {name} library has no tensor-core instruction")
+    check_flash_design(sass_counts(paths["flash_attention"]), _build.build_log("flash_attention"))
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -546,6 +588,7 @@ def check_attention_edges(gen, dtype) -> int:
     # that excludes the oldest slots
     check_decode(gen, SLOTS, CACHE_LEN, 16, 1, 256, dtype,
                  ring_valid(RING_POSITIONS, CACHE_LEN, RING_WINDOW, dev))
+    n_edges = check_flash_tile_edges(gen, dtype)
     # decode: whole 64-slot tiles and whole splits empty in the middle of a
     # 2048-slot cache, a sequence valid only at its last slot, one with none
     valid = torch.zeros((4, 2048), dtype=torch.bool, device=dev)
@@ -561,7 +604,31 @@ def check_attention_edges(gen, dtype) -> int:
         raise AssertionError("decode_attention: a sequence with no valid slot is not 0")
     check("decode_attention single valid slot in the last split",
           max_err(out[2], v[2, -1].repeat_interleave(4, dim=0)), TOL[dtype])
-    return 8 + check_kimi_attention(gen, dtype)
+    return 8 + n_edges + check_kimi_attention(gen, dtype)
+
+
+# the edges of the bf16 flash kernel's 128-row blocks and 64-key tiles
+TILE_EDGES = (1, 127, 128, 129)
+
+
+def check_flash_tile_edges(gen, dtype) -> int:
+    """Flash at the edges of its row blocks and KV tiles: Sq and Sk each in
+    TILE_EDGES, causal and not (8 q heads over 2 kv heads of 64); windows
+    whose edge and q_offset cross tile edges (hd 64 and 128); GQA at 64:8
+    (hd 112 and 128) and 16:1 (hd 64) across a tile edge.  Returns the
+    number of checks."""
+    n = 0
+    for sq in TILE_EDGES:
+        for sk in TILE_EDGES:
+            for causal in (True, False):
+                check_flash(gen, 2, sq, sk, 8, 2, 64, causal, 0, dtype)
+                n += 1
+    check_flash(gen, 1, 200, 300, 8, 2, 64, True, 100, dtype, q_offset=70)
+    check_flash(gen, 1, 129, 300, 4, 4, 128, True, 64, dtype, q_offset=37)
+    check_flash(gen, 1, 129, 129, 64, 8, 112, True, 0, dtype)
+    check_flash(gen, 1, 129, 129, 64, 8, 128, True, 0, dtype)
+    check_flash(gen, 2, 129, 300, 16, 1, 64, False, 0, dtype)
+    return n + 5
 
 
 def check_kimi_attention(gen, dtype) -> int:
@@ -608,13 +675,13 @@ def check_one_step(name, qkv, causal) -> float:
 
 
 def check_flash_rounding(dev):
-    """bf16 outputs of |o| up to ~27 made from a few keys, hd 64, 112 (kimi-k2)
-    and 256 (the inputs of
+    """bf16 outputs of |o| up to ~27 made from a few keys, hd 64, 112 (kimi-k2),
+    128 and 256 (the inputs of
     tests/test_torch_cuda.py::test_flash_bf16_rounding_margin_at_large_outputs,
     ``ref.large_output_inputs``) within one bf16 step of the f32 attention;
     returns the largest error in steps per hd."""
     return {f"hd {hd}": check_one_step(f"hd {hd}", ref.large_output_inputs(hd, dev), True)
-            for hd in (64, 112, 256)}
+            for hd in (64, 112, 128, 256)}
 
 
 def check_decode_rounding(dev):
@@ -655,6 +722,27 @@ def timings(kernel, plain, library, flops, nbytes, flush):
     return t
 
 
+def host_us_per_call(fn, calls=100) -> float:
+    """Host time of one call of ``fn`` (a wrapper's checks, its tensor maps
+    and its launch) in microseconds, the card left to run behind."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def kernels_of(fn) -> list:
+    """Names of the kernels one call of ``fn`` runs on the card: which
+    backend a library call took."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted(device_times(prof))
+
+
 def time_flash(err, qkv, flush, causal=True):
     q, k, v = qkv
     b, sq, nq, hd = q.shape
@@ -670,6 +758,9 @@ def time_flash(err, qkv, flush, causal=True):
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, **gqa),
         4 * hd * pairs, nbytes, flush,
     )
+    t["host_us_per_call"] = host_us_per_call(lambda: fa.flash_attention(q, k, v, causal=causal))
+    t["library_kernels"] = kernels_of(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, **gqa))
     kind = "causal" if causal else "non-causal"
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1262,7 +1353,19 @@ def whisper_generate(cfg, params, frames, prompt, steps, spent):
     return torch.stack(out, dim=1).cpu()
 
 
-FLASH_KERNELS = ("fa_mma_kernel", "fa_kernel")
+# every kernel of the flash library, by name: bf16 at hd <= 128 and at hd
+# 256, f32 SIMT
+FLASH_KERNELS = ("fa_wgmma_kernel", "fa_mma_wide_kernel", "fa_kernel")
+
+
+def check_only_kernel(by_kernel, family, expected) -> None:
+    """Every kernel of ``family`` (name patterns) in a profile is one of
+    ``expected``: the bf16 flash launches of a served run at hd <= 128 are
+    all the wgmma kernel."""
+    other = [k for k in by_kernel if any(p in k for p in family)
+             and not any(p in k for p in expected)]
+    if other:
+        raise AssertionError(f"kernels other than {expected} in the profile: {other}")
 
 
 FLASH_KINDS = ("encoder", "self", "cross")
@@ -1331,7 +1434,8 @@ def profile_whisper(cfg, params, frames, prompt, steps=8):
                 wall_us = 1e6 * (time.perf_counter() - t0)
             by_kernel = device_times(prof)
             busy = sum(by_kernel.values())
-            flash = kernel_time(by_kernel, FLASH_KERNELS)
+            flash = kernel_time(by_kernel, ("fa_wgmma_kernel",))
+            check_only_kernel(by_kernel, FLASH_KERNELS, ("fa_wgmma_kernel",))
             dec = kernel_time(by_kernel, ("da_split_kernel", "da_combine_kernel")) if per > 1 else 0
             top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
             suffix = "_ms" if per == 1 else "_ms_per_step"
@@ -2622,6 +2726,8 @@ def profile_prefill(engine, prompt, kernel, length=PROMPT_MAX):
     by_kernel = device_times(prof)
     busy = sum(by_kernel.values())
     own = kernel_time(by_kernel, kernel[1])
+    if kernel[0] == "flash_attention":
+        check_only_kernel(by_kernel, FLASH_KERNELS, kernel[1])
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     return {
         "prompt_tokens": length, "profiled_wall_ms": wall_us / 1e3, "device_ms": busy / 1e3,

@@ -11,86 +11,79 @@
 // What bounds it on this card: at prefill lengths (S >= 512, hd >= 64) the
 // work is 4*S^2*hd/2 operations per causal head against 4*S*hd elements
 // moved, far above the H100's ~295 operations per byte, so operations bound
-// it: the bf16 tensor cores' 989 TFLOP/s.  Shorter prompts at batch 1 fill
-// few CTAs (16 heads x S/64), so there the latency of one CTA's KV loop
-// bounds it.
+// it: the bf16 tensor cores' 989 TFLOP/s, which only wgmma reaches.  Short
+// prompts at batch 1 fill few CTAs (16 heads x S/128 at the main path), so
+// there the latency of one CTA's KV loop bounds it.
 //
-// bf16 (tc::fa_mma_kernel), in the FlashAttention-2 layout:
-//  - one CTA of 4 warps per (batch, q head, 64 query rows); a warp owns 16
-//    rows and keeps their Q fragments in registers for the whole KV loop;
-//  - both products run on the tensor cores as mma.sync m16n8k16 (bf16 in,
-//    f32 accumulate), fed by ldmatrix (.trans for V in P V);
-//  - S = Q K^T stays in the accumulator registers; the online softmax runs
-//    there in log2 units (row max and sum over the 4 lanes of a quad, the
-//    scale folded into the exponent's FMA, ex2.approx), and P is split in
-//    registers into a bf16 high part and a bf16 low part, both used
-//    directly as A operands of P V: no (Sq, Sk) tile reaches shared or
-//    device memory.  The TPU kernel multiplies the f32 P by V and rounds
-//    once, at the output; P rounded to bf16 alone (relative error 2^-9 on
-//    each weight) put outputs of |o| in [2, 4) up to 0.0255 from the f32
-//    attention of the same inputs, more than one bf16 step there, and the
-//    low part's product (half again as many mma.sync per tile; its time
-//    on an H100 is in PERF.md) brings them back within half a step
-//    (tests/test_torch_cuda.py,
-//    test_flash_bf16_rounding_margin_at_large_outputs);
-//  - K and V tiles of 64 keys move as bf16 with 16-byte cp.async into a
-//    3-stage ring (tiles n+1 and n+2 in flight while n computes, one
-//    barrier per tile); rows are padded by 16 bytes, so the 8 rows an
-//    ldmatrix phase reads fall in 8 different bank groups;
-//  - the products of tile n+1's S are issued in the same basic block as
-//    tile n's softmax, so that the tensor cores work while the FMA and MUFU
-//    units exponentiate;
+// bf16 at hd <= 128 (tc::fa_wgmma_kernel), built from what Hopper added:
+//  - one CTA of three warpgroups per (batch, q head, 128 query rows, the
+//    JAX kernel's block_q); warpgroup 2 is the producer, and one of its
+//    threads issues every copy; warpgroups 0 and 1 are consumers of 64 rows
+//    each.  setmaxnreg moves registers from the producer (24) to the
+//    consumers (240), which hold S, O and P in the wgmma accumulators;
+//  - copies are TMA loads of 4-D tensor maps (hd, heads, S, B) over the
+//    contiguous (B, S, n, hd) tensors, encoded on the host for each call
+//    (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, no -lcuda):
+//    Q once per CTA, then K and V tiles of BN keys into a ring of 4 stages
+//    with a full and an empty mbarrier each; the tensor map's zero fill past
+//    Sq, Sk and hd takes the ragged edges, so no copy is guarded;
+//  - rows are 64-column boxes of 128 bytes under 128-byte swizzle: hd 64 is
+//    one box, hd 128 two; hd 112 (224-byte rows, which no swizzle span
+//    divides) takes two boxes, the last 16 columns zero-filled by the
+//    tensor map.  No product reads them: Q K^T runs 7 k-steps and P V's
+//    second product is n48, so hd 112 costs smem, not work.  hd 16 and 32
+//    use one box, zero-filled past hd;
+//  - S = Q K^T is wgmma m64nBNk16 with both operands in shared memory
+//    (K-major descriptors, 32 bytes a k-step inside the swizzled row);
+//  - O += P V is wgmma with A from registers: P's bf16 high part, then its
+//    bf16 low part, into the same f32 accumulators, so that P V is the
+//    product of the f32 P as the TPU kernel's is (P rounded once to bf16
+//    put outputs of |o| in [2, 4) more than one bf16 step from the f32
+//    attention); V is MN-major in shared memory (the transpose flag), one
+//    wgmma of N <= 64 per box;
+//  - the online softmax runs on the accumulators in log2 units (row max and
+//    sum over the 4 lanes that share a row, the scale folded into the
+//    exponent's FMA, ex2.approx); tile n+1's Q K^T is issued before tile
+//    n's P V, and tile n+1's softmax runs while the tensor cores do that
+//    P V; a stage goes back to the producer when the P V that read it has
+//    completed;
+//  - KV tiles of BN = 64 keys at every hd: S, the next S, O and both parts
+//    of P stay well within the 240 registers without spill at hd 128, and
+//    at the main path's batch-1 prompt, where one CTA's KV loop sets the
+//    time, shorter steps overlap the softmax of one tile with the products
+//    of the next more finely;
 //  - the KV loop runs only over [window edge, causal horizon), and only the
-//    tiles that cross the diagonal, the window's edge or Sk evaluate the
-//    mask; interior tiles take the unmasked path;
+//    tiles that cross the diagonal, the window's edge or Sk for a
+//    consumer's rows evaluate the mask; a consumer whose 64 rows all lie
+//    at or past Sq (Sq = 1 or 4, a ragged last block) does not run, and
+//    the empty barriers count one consumer fewer;
 //  - the longest causal rows of every head are scheduled first (row blocks
-//    are the grid's slowest axis, in reverse), so the last wave is short.
-// What is left: mma.sync reaches about half of what SDPA (wgmma) reaches on
-// this card; wgmma fed by TMA with warp-specialised producers is the next
-// step (ROADMAP Queue 2).
+//    are the grid's slowest axis, in reverse), so the last wave is short;
+//  - O / l is rounded to bf16 once and stored from the registers; no row at
+//    or past Sq is written.
+// One CTA fills an SM (384 threads at 168 registers at launch).
 //
 // bf16 at hd 256 (tc::fa_mma_wide_kernel, recurrentgemma-9b's 16 q heads
-// over 1 kv head): the layout above does not fit.  Per thread it would hold
-// the Q fragments (HD/16 x 4 = 64 registers), the O accumulators (HD/8 x 4
-// = 128 f32) and S of two tiles (2 x 32): more than the 255 registers a
-// thread may have, so it would spill.  The wide kernel keeps the CTA shape
-// (4 warps x 16 rows, 64-key tiles, the same masks and online softmax) and
-// changes three things:
-//  - Q stays in its own shared-memory tile for the whole KV loop and each
-//    k-step reloads its fragment by ldmatrix, so no register holds Q;
-//  - S of the next tile is not computed ahead (one S tile, 32 registers):
-//    128 + 32 registers of accumulators and S and the fragments in flight
-//    fit the cap of 255 at one CTA per SM (__launch_bounds__(128, 1));
-//    ptxas kept it at 245 registers with no spill, and with P's low part
-//    (four more fragment registers) at 255 and 76 bytes of spill;
-//  - K and V pass through a 2-stage ring (tile n+1 in flight while n
-//    computes; two barriers per tile, the second before the stage is
-//    refilled).  Shared memory: Q 64 x 264 + 2 stages x (K + V) 64 x 264
-//    bf16 = 168,960 bytes, one CTA per SM.  recurrentgemma-9b's prefills
-//    (16 heads x S/64 row blocks, at most 128 CTAs at S = 512) fit in one
-//    wave of 132 SMs, so one CTA per SM costs no wave there.
-//
-// hd 112 (kimi-k2's 64 q heads over 8 kv heads): the tensor-core layout
-// above takes it as it is (7 k-steps of Q K^T, 7 x 16 output columns of
-// P V, 14 x 8 dims of O) except for the copy of a tile.  A bf16 row is 14
-// sixteen-byte chunks, which do not divide a pass of 128 threads, so
-// load_tile numbers the tile's chunks row-major and gives chunk c to
-// thread c % 128, with a guarded last pass where the chunks are not whole
-// passes (64 rows x 14 = 896 = 7 passes, so the guard compiles away at
-// hd 112).  The alternative, hd padded to 128 in shared memory, would copy
-// and multiply 14% of zeros.  Rows of 120 bf16 (240 bytes) keep the 8 rows
-// of an ldmatrix phase in 8 bank groups (15 r mod 8).  Shared memory is
-// 92,160 bytes a CTA, so two CTAs fit an SM (min_ctas); at that bound ptxas
-// keeps the kernel at 255 registers with 20 bytes of spill.  The f32 SIMT body
-// divides at hd 112 as it is: 28 four-float chunks a row in a loop that
-// does not assume whole passes, and 28 output dims a thread.
+// over 1 kv head): the wgmma kernel would hold O (128 f32) besides S and P
+// in each consumer thread, so hd 256 keeps the Ampere-style kernel of the
+// first redesign: one CTA of 4 warps x 16 rows, 64-key tiles, mma.sync
+// m16n8k16 fed by ldmatrix, Q in its own shared-memory tile for the whole
+// KV loop (each k-step reloads its fragment), one S tile at a time (128 +
+// 32 registers of accumulators), K and V through a 2-stage cp.async ring
+// (two barriers per tile), the same masks, online softmax and P split as
+// above.  Shared memory: Q 64 x 264 + 2 stages x (K + V) 64 x 264 bf16 =
+// 168,960 bytes, one CTA per SM; ptxas keeps it at 255 registers with 76
+// bytes of spill.  recurrentgemma-9b's prefills (16 heads x S/64 row
+// blocks, at most 128 CTAs at S = 512) fit in one wave of 132 SMs.
 //
 // f32 (fa_kernel<float>): the SIMT body of the first port, unchanged.  The
 // f32 tolerance (2e-5) rules out bf16 or TF32 products, so f32 stays on the
 // 67 TFLOP/s SIMT units; one CTA per (batch, q head, 64 rows), 4 threads a
 // row, f32 tiles in shared memory, probabilities exchanged by shuffles.  At
 // hd 256 its tiles take 4 x (64 x 257 + 64 x 257 + 64 x 256) = 197,120 bytes
-// of shared memory (opted in above 48 KB), one CTA per SM.
+// of shared memory (opted in above 48 KB), one CTA per SM.  hd 112 divides
+// as it is: 28 four-float chunks a row, 28 output dims a thread.
+#include <cuda.h>                 // CUtensorMap and its enums (types only)
 #include <type_traits>
 
 #include "common.cuh"
@@ -232,92 +225,20 @@ __global__ void __launch_bounds__(NT) fa_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16) in the FlashAttention-2 layout.
+// bf16: the tensor cores.
 // ---------------------------------------------------------------------------
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-constexpr int NW = 4;             // warps per CTA, 16 query rows each
-constexpr int NT = 32 * NW;
-constexpr int NS = 3;             // ring stages of K and V tiles
 
-// Shared-memory row of a tile: hd bf16 and 16 bytes of padding.
-template <int HD>
-__host__ __device__ constexpr int ld() { return HD + 8; }
-
-// NS stages of a K and a V tile each; Q passes through the last V tile on
-// its way to the registers
-template <int HD>
-constexpr size_t smem_bytes() { return sizeof(bf16) * 2 * NS * BN * ld<HD>(); }
-
-// CTAs per SM the registers must allow (shared memory allows as many:
-// 3 x 55,296 bytes at hd 64, 2 x 92,160 at hd 112, 2 x 104,448 at hd 128)
-template <int HD>
-__host__ __device__ constexpr int min_ctas() { return HD >= 112 ? 2 : 3; }
-
-// ROWS rows of hd bf16 from rows [row0, row0 + ROWS) of `src` (`stride`
-// elements apart) into `dst`; rows at or past `rows` are zero-filled and
-// not read.  Where a row's 16-byte chunks divide a pass of the CTA, each
-// thread copies the same column of every RPP-th row, so its addresses
-// advance by constant steps; otherwise (hd 112: 14 chunks) chunk c of the
-// tile, row-major, goes to thread c % NT, the last pass guarded.
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long stride, int row0,
-                                          int rows, int tid) {
-  constexpr int CPR = HD / 8;     // 16-byte chunks per row
-  if constexpr (NT % CPR == 0) {
-    constexpr int RPP = NT / CPR; // rows per pass of the CTA
-    static_assert(ROWS % RPP == 0, "whole passes");
-    const int r = tid / CPR, col = (tid % CPR) * 8;
-    const bf16* g = src + (long)(row0 + r) * stride + col;
-    bf16* sm = dst + r * ld<HD>() + col;
-#pragma unroll
-    for (int i = 0; i < ROWS / RPP; ++i) {
-      const bool ok = row0 + r + i * RPP < rows;
-      cp_async16(sm + i * RPP * ld<HD>(), ok ? g + i * RPP * stride : src, ok);
-    }
-  } else {
-    constexpr int CHUNKS = ROWS * CPR;
-#pragma unroll
-    for (int i = 0; i < (CHUNKS + NT - 1) / NT; ++i) {
-      const int c = tid + i * NT;
-      if (CHUNKS % NT == 0 || c < CHUNKS) {
-        const int r = c / CPR, col = (c % CPR) * 8;
-        const bool ok = row0 + r < rows;
-        cp_async16(dst + r * ld<HD>() + col, ok ? src + (long)(row0 + r) * stride + col : src,
-                   ok);
-      }
-    }
-  }
-}
-
-// S = Q K^T of one 64-key tile: x4 matrices (keys 0-7 | 8-15 of a 16-key
-// pair) x (dims 0-7 | 8-15)
-template <int HD>
-__device__ __forceinline__ void qk(float (&s)[BN / 8][4], const uint32_t (&qf)[HD / 16][4],
-                                   const bf16* Kt, int lane) {
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-#pragma unroll
-    for (int j2 = 0; j2 < BN / 16; ++j2) {
-      uint32_t kf[4];
-      ldmatrix_x4(kf, Kt + (j2 * 16 + (lane & 7) + (lane >> 4) * 8) * ld<HD>() + ks * 16 +
-                          ((lane >> 3) & 1) * 8);
-      mma_bf16_16816(s[2 * j2], qf[ks], kf[0], kf[1]);
-      mma_bf16_16816(s[2 * j2 + 1], qf[ks], kf[2], kf[3]);
-    }
-  }
-}
-
-// Masked logits of one S tile to -inf: keys at or past Sk, past the causal
-// horizon, or at or before the window's edge.  Rows gid (qpos0) and gid + 8
-// (qpos1) of the warp's 16.
-__device__ __forceinline__ void mask_tile(float (&s)[BN / 8][4], int n0, int Sk, int causal,
+// Masked logits of one S tile of NB 8-key column blocks to -inf: keys at or
+// past Sk, past the causal horizon, or at or before the window's edge.
+// Rows gid (qpos0) and gid + 8 (qpos1) of the warp's 16.
+template <int NB>
+__device__ __forceinline__ void mask_tile(float (&s)[NB][4], int n0, int Sk, int causal,
                                           int window, int qpos0, int qpos1, int tig) {
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
+  for (int j = 0; j < NB; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int kpos = n0 + j * 8 + 2 * tig + (e & 1);
@@ -329,20 +250,17 @@ __device__ __forceinline__ void mask_tile(float (&s)[BN / 8][4], int n0, int Sk,
   }
 }
 
-// The online softmax of one S tile over the quad that holds each row (the
-// scale goes into the exponent's FMA; m starts finite (-1e30), so a row
-// masked so far keeps exp2(-inf) = 0 and alpha = 1), then O += P V: P from
-// the S registers as two bf16 A fragments, its high and low parts, each
-// multiplied by V (ldmatrix.trans, x4 matrices (keys 0-7 | 8-15) x (dims
-// 0-7 | 8-15)) into the same f32 accumulators, so that P V is the product
-// of the f32 P, as the TPU kernel's is.
-template <int HD>
-__device__ __forceinline__ void softmax_pv(float (&s)[BN / 8][4], float (&acc)[HD / 8][4],
-                                           float& m0, float& m1, float& l0, float& l1,
-                                           const bf16* Vt, float scale_log2, int frag_row,
-                                           int frag_col) {
-  constexpr int NB = BN / 8;
-  constexpr int DB = HD / 8;
+// The online softmax of one S tile over the quad that holds each row, in
+// log2 units (the scale goes into the exponent's FMA): the running maxima
+// m0, m1 move to the tile's, s becomes the tile's exponentials and this
+// lane's part of the running sums l0, l1 is rescaled and extended; returns
+// the factors alpha0, alpha1 by which the output accumulators must be
+// rescaled.  m starts finite (-1e30), so a row masked so far keeps
+// exp2(-inf) = 0 and alpha = 1.
+template <int NB>
+__device__ __forceinline__ void online_softmax(float (&s)[NB][4], float& m0, float& m1, float& l0,
+                                               float& l1, float& alpha0, float& alpha1,
+                                               float scale_log2) {
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
   for (int j = 0; j < NB; ++j) {
@@ -351,7 +269,8 @@ __device__ __forceinline__ void softmax_pv(float (&s)[BN / 8][4], float (&acc)[H
   }
   mx0 = fmaxf(m0, group_max(mx0, 4) * scale_log2);
   mx1 = fmaxf(m1, group_max(mx1, 4) * scale_log2);
-  const float alpha0 = fast_exp2(m0 - mx0), alpha1 = fast_exp2(m1 - mx1);
+  alpha0 = fast_exp2(m0 - mx0);
+  alpha1 = fast_exp2(m1 - mx1);
   m0 = mx0;
   m1 = mx1;
   float ps0 = 0.f, ps1 = 0.f;
@@ -366,31 +285,33 @@ __device__ __forceinline__ void softmax_pv(float (&s)[BN / 8][4], float (&acc)[H
   }
   l0 = l0 * alpha0 + ps0;
   l1 = l1 * alpha1 + ps1;
+}
+
+template <int DB>
+__device__ __forceinline__ void rescale(float (&acc)[DB][4], float alpha0, float alpha1) {
 #pragma unroll
   for (int j = 0; j < DB; ++j) {
     acc[j][0] *= alpha0; acc[j][1] *= alpha0;
     acc[j][2] *= alpha1; acc[j][3] *= alpha1;
   }
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
-    uint32_t ph[4], pl[4];
-    split_bf16x2(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-    split_bf16x2(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-    split_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-    split_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-#pragma unroll
-    for (int d2 = 0; d2 < DB / 2; ++d2) {
-      uint32_t vf[4];
-      ldmatrix_x4_trans(vf, Vt + (kk * 16 + frag_row) * ld<HD>() + d2 * 16 + frag_col);
-      mma_bf16_16816(acc[2 * d2], ph, vf[0], vf[1]);
-      mma_bf16_16816(acc[2 * d2 + 1], ph, vf[2], vf[3]);
-      mma_bf16_16816(acc[2 * d2], pl, vf[0], vf[1]);
-      mma_bf16_16816(acc[2 * d2 + 1], pl, vf[2], vf[3]);
-    }
-  }
 }
 
-// The normalised output rows gid and gid + 8 of the warp's 16 as bf16.
+// P of the 16 keys 16 kk..16 kk + 15 as A fragments: its bf16 high part
+// and its bf16 low part (the rounded remainder).  Multiplied by the same V
+// into the same f32 accumulators, the two give the product of the f32 P,
+// as the TPU kernel's is (one bf16 P put outputs of |o| in [2, 4) more
+// than one bf16 step from the f32 attention).
+template <int NB>
+__device__ __forceinline__ void split_p(const float (&s)[NB][4], int kk, uint32_t (&ph)[4],
+                                        uint32_t (&pl)[4]) {
+  split_bf16x2(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+  split_bf16x2(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+  split_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+  split_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+}
+
+// The normalised output rows gid and gid + 8 of the warp's 16 as bf16;
+// rows at or past Sq are not written.
 template <int HD>
 __device__ __forceinline__ void store_rows(bf16* ob, const float (&acc)[HD / 8][4], float l0,
                                            float l1, int row0, int Sq, long q_stride) {
@@ -409,123 +330,347 @@ __device__ __forceinline__ void store_rows(bf16* ob, const float (&acc)[HD / 8][
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at hd <= 128: wgmma on TMA-fed tiles, warp-specialised (see the note
+// at the top).
+// ---------------------------------------------------------------------------
+constexpr int WG_THREADS = 384;   // consumer warpgroups 0 and 1, producer 2
+
 template <int HD>
-__global__ void __launch_bounds__(NT, min_ctas<HD>()) fa_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, int Sq, int Sk, int nq, int nkv, int causal, int window,
-    int q_offset, float scale_log2) {
-  constexpr int LD = ld<HD>();
-  constexpr int KS = HD / 16;     // k-steps of Q K^T
-  constexpr int NB = BN / 8;      // 8-key column blocks of S
-  constexpr int DB = HD / 8;      // 8-dim column blocks of O
-  static_assert(BM == BN, "Q takes one V tile");
+struct Wg {
+  static constexpr int BM = 128;                  // query rows a CTA, 64 a consumer
+  static constexpr int BN = 64;                   // keys a KV tile
+  static constexpr int NS = 4;                    // stages of the K/V ring
+  static constexpr int NBOX = (HD + 63) / 64;     // 64-column (128-byte) boxes a row
+  static constexpr int BOX_Q = BM * 128;          // bytes of a Q box
+  static constexpr int BOX_KV = BN * 128;         // bytes of a K or V box
+  static constexpr int Q_BYTES = NBOX * BOX_Q;
+  static constexpr int STAGE_BYTES = 2 * NBOX * BOX_KV;   // the K boxes, then the V boxes
+  // 1024 bytes to align the tiles to the swizzle's atom, Q, the ring, and
+  // the barriers (Q full, NS full, NS empty)
+  static constexpr size_t SMEM = 1024 + Q_BYTES + NS * STAGE_BYTES + 8 * (1 + 2 * NS);
+};
+
+// S = Q K^T of one tile into s: HD / 16 k-steps; step kk reads 16 columns
+// of 64-column box kk / 4 of Q's rows and of the tile's keys, 32 bytes
+// into the swizzled row per step.  The first step ignores s's old value.
+template <int HD>
+__device__ __forceinline__ void issue_qk(float (&s)[Wg<HD>::BN / 8][4], uint32_t q_addr,
+                                         uint32_t k_addr) {
+  using C = Wg<HD>;
+  float(&d)[C::BN / 2] = *reinterpret_cast<float(*)[C::BN / 2]>(&s[0][0]);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss<C::BN>(d, desc_sw128(q_addr + (kk / 4) * C::BOX_Q + off, 16, 1024),
+                    desc_sw128(k_addr + (kk / 4) * C::BOX_KV + off, 16, 1024), kk > 0);
+  }
+}
+
+// O += P V over one V box (64 columns, fewer in the last box where HD is
+// not a multiple of 64) for the 16 keys of k-step kk, P's high part then
+// its low part
+template <int HD, int BX>
+__device__ __forceinline__ void issue_pv_box(float (&acc)[HD / 8][4], const uint32_t (&ph)[4],
+                                             const uint32_t (&pl)[4], uint32_t v_addr, int kk) {
+  using C = Wg<HD>;
+  constexpr int N = HD - 64 * BX < 64 ? HD - 64 * BX : 64;
+  float(&d)[N / 2] = *reinterpret_cast<float(*)[N / 2]>(&acc[8 * BX][0]);
+  const uint64_t b = desc_sw128(v_addr + BX * C::BOX_KV + kk * 16 * 128, 1024, 1024);
+  wgmma_rs<N>(d, ph, b);
+  wgmma_rs<N>(d, pl, b);
+}
+
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&acc)[HD / 8][4],
+                                         const uint32_t (&ph)[Wg<HD>::BN / 16][4],
+                                         const uint32_t (&pl)[Wg<HD>::BN / 16][4],
+                                         uint32_t v_addr) {
+#pragma unroll
+  for (int kk = 0; kk < Wg<HD>::BN / 16; ++kk) {
+    issue_pv_box<HD, 0>(acc, ph[kk], pl[kk], v_addr, kk);
+    if constexpr (Wg<HD>::NBOX > 1) issue_pv_box<HD, 1>(acc, ph[kk], pl[kk], v_addr, kk);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(WG_THREADS, 1) fa_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int Sq, int Sk, int nq,
+    int nkv, int causal, int window, int q_offset, float scale_log2) {
+  using C = Wg<HD>;
+  constexpr int BN = C::BN, NS = C::NS, NB = BN / 8, KB = BN / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // NS x BN x LD
-  bf16* Vs = Ks + NS * BN * LD;                    // NS x BN x LD
-  bf16* Qs = Vs + (NS - 1) * BN * LD;              // BM x LD, the last V tile
+  unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* Qs = base;                       // NBOX boxes of BM rows
+  unsigned char* ring = base + C::Q_BYTES;        // NS stages: K boxes, V boxes
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + NS * C::STAGE_BYTES);
+  uint64_t* full = q_full + 1;                    // stage s holds its tile
+  uint64_t* empty = full + NS;                    // every consumer is done with stage s
 
   // the grid's slowest axis is the row block, last first: every head's
   // longest causal rows start before any shorter ones
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * BM;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int kvh = h / (nq / nkv);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gid = lane / 4, tig = lane % 4;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * C::BM;
+  const int h = blockIdx.x, b = blockIdx.y, kvh = h / (nq / nkv);
+  const int wg = threadIdx.x / 128;
+  // consumer warpgroups with a row before Sq (the second has none where
+  // Sq - q0 <= 64: a decode step's or a ragged last block's rows)
+  const int consumers = q0 + 64 < Sq ? 2 : 1;
 
-  const long q_stride = (long)nq * HD;
-  const long kv_stride = (long)nkv * HD;
-  const bf16* qb = q + (long)b * Sq * q_stride + (long)h * HD;
-  const bf16* kb = k + (long)b * Sk * kv_stride + (long)kvh * HD;
-  const bf16* vb = v + (long)b * Sk * kv_stride + (long)kvh * HD;
-
-  // Keys that some row of this tile can see, from a tile boundary: [k_lo, k_hi).
+  // Keys that some row of this CTA can see, from a tile boundary: [k_lo, k_hi).
   const int qpos_first = q_offset + q0;
-  const int qpos_last = q_offset + min(q0 + BM, Sq) - 1;
+  const int qpos_last = q_offset + min(q0 + C::BM, Sq) - 1;
   const int k_hi = causal ? min(Sk, qpos_last + 1) : Sk;
   const int k_lo = window > 0 ? max(0, qpos_first - window + 1) / BN * BN : 0;
   const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + BN - 1) / BN : 0;
 
-  // Q, tile 0 and tile 1 into stages 0 and 1: one commit group each, empty
-  // or not, so that the wait counts stay fixed
-  load_tile<HD, BM>(Qs, qb, q_stride, q0, Sq, tid);
-  cp_async_commit();
-#pragma unroll
-  for (int st = 0; st < NS - 1; ++st) {
-    if (st < n_tiles) {
-      load_tile<HD, BN>(Ks + st * BN * LD, kb, kv_stride, k_lo + st * BN, Sk, tid);
-      load_tile<HD, BN>(Vs + st * BN * LD, vb, kv_stride, k_lo + st * BN, Sk, tid);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, consumers);
     }
-    cp_async_commit();
+    mbar_fence_init();
   }
-  cp_async_wait<NS - 1>();        // Q has landed
   __syncthreads();
 
-  // Q fragments of this warp's 16 rows: x4 matrices (rows 0-7 | 8-15) x
-  // (dims 0-7 | 8-15) of each 16-dim k-step
-  const int frag_row = (lane & 7) + ((lane >> 3) & 1) * 8, frag_col = (lane >> 4) * 8;
-  uint32_t qf[KS][4];
+  if (wg == 2) {
+    // producer: one thread issues every copy; Q once, then each tile into
+    // the next stage once both consumers have released it
+    regs_dec<24>();
+    if (threadIdx.x == 256) {
+      tma_prefetch(&tq);
+      tma_prefetch(&tk);
+      tma_prefetch(&tv);
+      mbar_arrive_expect_tx(q_full, C::Q_BYTES);
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    ldmatrix_x4(qf[ks], Qs + (warp * 16 + frag_row) * LD + ks * 16 + frag_col);
-
-  // rows gid and gid + 8 of the warp's 16: running max (log2 units), this
-  // lane's part of the running sum, and the output accumulator
-  const int qpos0 = qpos_first + warp * 16 + gid, qpos1 = qpos0 + 8;
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
-  float acc[DB][4];
+      for (int bx = 0; bx < C::NBOX; ++bx)
+        tma_load_4d(Qs + bx * C::BOX_Q, &tq, q_full, 64 * bx, h, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % NS;
+        if (it >= NS) mbar_wait(empty + st, (it / NS - 1) & 1);
+        unsigned char* kv = ring + st * C::STAGE_BYTES;
+        mbar_arrive_expect_tx(full + st, C::STAGE_BYTES);
+        const int n0 = k_lo + it * BN;
 #pragma unroll
-  for (int j = 0; j < DB; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  // S of tile it+1 is multiplied while the softmax of tile it runs, so the
-  // tensor cores and the FMA/MUFU units overlap within a warp
-  float s[NB][4];
-  if (n_tiles > 0) {
-    cp_async_wait<NS - 2>();      // tile 0 has landed
-    __syncthreads();
-    qk<HD>(s, qf, Ks, lane);
-  }
-#pragma unroll 2                  // s and sn trade places without moves
-  for (int it = 0; it < n_tiles; ++it) {
-    const int n0 = k_lo + it * BN;
-    cp_async_wait<0>();           // tile it+1 has landed
-    // after this barrier every warp sees tile it+1 and is done with tile
-    // it-1 (and, at it = 0, with Q), whose stage tile it+2 takes
-    __syncthreads();
-    if (it + NS - 1 < n_tiles) {
-      const int st = (it + NS - 1) % NS;
-      load_tile<HD, BN>(Ks + st * BN * LD, kb, kv_stride, n0 + (NS - 1) * BN, Sk, tid);
-      load_tile<HD, BN>(Vs + st * BN * LD, vb, kv_stride, n0 + (NS - 1) * BN, Sk, tid);
+        for (int bx = 0; bx < C::NBOX; ++bx) {
+          tma_load_4d(kv + bx * C::BOX_KV, &tk, full + st, 64 * bx, kvh, n0, b);
+          tma_load_4d(kv + (C::NBOX + bx) * C::BOX_KV, &tv, full + st, 64 * bx, kvh, n0, b);
+        }
+      }
     }
-    cp_async_commit();
-    // Only a tile that crosses Sk, the causal diagonal or the window's edge
-    // evaluates the mask; a masked logit becomes -inf, so exp2 makes it 0.
-    const bool masked = n0 + BN > Sk || (causal && n0 + BN - 1 > qpos_first) ||
-                        (window > 0 && n0 <= qpos_last - window);
-    if (masked) mask_tile(s, n0, Sk, causal, window, qpos0, qpos1, tig);
+  } else if (wg < consumers) {
+    // consumer: 64 rows, S and O in the wgmma accumulators
+    regs_inc<240>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int gid = lane / 4, tig = lane % 4;
+    const int row0 = q0 + 64 * wg;
+    const int qw_first = q_offset + row0;
+    const int qw_last = q_offset + min(row0 + 64, Sq) - 1;
+    const int qpos0 = qw_first + warp * 16 + gid, qpos1 = qpos0 + 8;
+    const uint32_t q_addr = smem_addr(Qs) + wg * 64 * 128;
+    const uint32_t ring_addr = smem_addr(ring);
 
-    // S of tile it+1 (a stale stage after the last tile, never used): in
-    // one basic block with the softmax below, so that the two interleave
-    float sn[NB][4];
-    qk<HD>(sn, qf, Ks + ((it + 1) % NS) * BN * LD, lane);
+    float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f, alpha0, alpha1;
+    float acc[HD / 8][4];
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    uint32_t ph[KB][4], pl[KB][4];      // P of the tile before, its high and low parts
 
-    softmax_pv<HD>(s, acc, m0, m1, l0, l1, Vs + (it % NS) * BN * LD, scale_log2, frag_row,
-                   frag_col);
+    // S of tile `it` with its masks (only where the tile crosses Sk, the
+    // causal diagonal or the window's edge for this warpgroup's rows) and
+    // the online softmax; the caller waits for the product first
+    auto softmax_of = [&](float (&s)[NB][4], int it) {
+      const int n0 = k_lo + it * BN;
+      const bool masked = n0 + BN > Sk || (causal && n0 + BN - 1 > qw_first) ||
+                          (window > 0 && n0 <= qw_last - window);
+      if (masked) mask_tile<NB>(s, n0, Sk, causal, window, qpos0, qpos1, tig);
+      online_softmax<NB>(s, m0, m1, l0, l1, alpha0, alpha1, scale_log2);
+    };
+
+    mbar_wait(q_full, 0);
+    if (n_tiles > 0) {
+      float s[NB][4];
+      mbar_wait(full, 0);
+      wgmma_fence();
+      issue_qk<HD>(s, q_addr, ring_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(reinterpret_cast<float(&)[BN / 2]>(s));
+      softmax_of(s, 0);
 #pragma unroll
-    for (int j = 0; j < NB; ++j)
+      for (int kk = 0; kk < KB; ++kk) split_p<NB>(s, kk, ph[kk], pl[kk]);
+    }
+    for (int it = 1; it < n_tiles; ++it) {
+      const int st = it % NS, prev = (it - 1) % NS;
+      // zeros: the product ignores them, but the compiler keeps no old
+      // value of s alive into it
+      float s[NB][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = sn[j][e];
+      for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      mbar_wait(full + st, (it / NS) & 1);
+      // S of this tile, then O += P V of the tile before: S completes
+      // first, and its softmax runs while the tensor cores do P V
+      fence_regs(reinterpret_cast<float(&)[BN / 2]>(s));
+      fence_regs(reinterpret_cast<float(&)[HD / 2]>(acc));
+      fence_regs(reinterpret_cast<uint32_t(&)[BN / 4]>(ph));
+      fence_regs(reinterpret_cast<uint32_t(&)[BN / 4]>(pl));
+      wgmma_fence();
+      issue_qk<HD>(s, q_addr, ring_addr + st * C::STAGE_BYTES);
+      wgmma_commit();
+      issue_pv<HD>(acc, ph, pl, ring_addr + prev * C::STAGE_BYTES + C::NBOX * C::BOX_KV);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(reinterpret_cast<float(&)[BN / 2]>(s));
+      softmax_of(s, it);
+      wgmma_wait<0>();
+      fence_regs(reinterpret_cast<float(&)[HD / 2]>(acc));
+      if (t == 0) mbar_arrive(empty + prev);    // both reads of stage prev are done
+      rescale<HD / 8>(acc, alpha0, alpha1);
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk) split_p<NB>(s, kk, ph[kk], pl[kk]);
+    }
+    if (n_tiles > 0) {
+      const int last = (n_tiles - 1) % NS;
+      fence_regs(reinterpret_cast<float(&)[HD / 2]>(acc));
+      fence_regs(reinterpret_cast<uint32_t(&)[BN / 4]>(ph));
+      fence_regs(reinterpret_cast<uint32_t(&)[BN / 4]>(pl));
+      wgmma_fence();
+      issue_pv<HD>(acc, ph, pl, ring_addr + last * C::STAGE_BYTES + C::NBOX * C::BOX_KV);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(reinterpret_cast<float(&)[HD / 2]>(acc));
+      if (t == 0) mbar_arrive(empty + last);
+    }
+    const long q_stride = (long)nq * HD;
+    store_rows<HD>(o + (long)b * Sq * q_stride + (long)h * HD + 2 * tig, acc, l0, l1,
+                   row0 + warp * 16 + gid, Sq, q_stride);
   }
-  cp_async_wait<0>();             // no copy outlives the CTA, even an empty group
-  store_rows<HD>(o + (long)b * Sq * q_stride + (long)h * HD + 2 * tig, acc, l0, l1,
-                 q0 + warp * 16 + gid, Sq, q_stride);
+}
+
+// cuTensorMapEncodeTiled, a driver API function, reached through the
+// runtime so that the library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// The contiguous (B, S, heads, hd) bf16 tensor at `ptr` as a 4-D tensor map
+// (hd, heads, S, B), innermost first, read in boxes of 64 columns x `rows`
+// positions of one head of one batch, with 128-byte swizzle.  Columns past
+// hd and positions past S read as zeros: hd 112 fills its second box with
+// 16 zero columns, and a ragged tile's rows are zeros.
+cudaError_t encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, int hd, int rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t es = sizeof(bf16);
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {hd * es, (cuuint64_t)heads * hd * es,
+                                 (cuuint64_t)S * heads * hd * es};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int HD>
+cudaError_t launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int Sq,
+                         int Sk, int nq, int nkv, int causal, int window, int q_offset,
+                         float scale, cudaStream_t stream) {
+  using C = Wg<HD>;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = encode(&mq, q, B, Sq, nq, HD, C::BM);
+  if (err == cudaSuccess) err = encode(&mk, k, B, Sk, nkv, HD, C::BN);
+  if (err == cudaSuccess) err = encode(&mv, v, B, Sk, nkv, HD, C::BN);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fa_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)C::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid(nq, B, (Sq + C::BM - 1) / C::BM);
+  fa_wgmma_kernel<HD><<<grid, WG_THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, o, Sq, Sk, nq, nkv, causal, window, q_offset, scale * LOG2E);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at hd 256: Q in shared memory, one S tile, a 2-stage K/V ring (see
-// the note at the top).
+// bf16 at hd 256: mma.sync m16n8k16 fed by ldmatrix, Q in shared memory, one
+// S tile, a 2-stage cp.async K/V ring (see the note at the top).
 // ---------------------------------------------------------------------------
+constexpr int NW = 4;             // warps per CTA, 16 query rows each
+constexpr int NT = 32 * NW;
 constexpr int NS_WIDE = 2;
+
+// Shared-memory row of a tile: hd bf16 and 16 bytes of padding.
+template <int HD>
+__host__ __device__ constexpr int ld() { return HD + 8; }
+
+// ROWS rows of hd bf16 from rows [row0, row0 + ROWS) of `src` (`stride`
+// elements apart) into `dst`; rows at or past `rows` are zero-filled and
+// not read.  Each thread copies the same 16-byte column of every RPP-th
+// row, so its addresses advance by constant steps.
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long stride, int row0,
+                                          int rows, int tid) {
+  constexpr int CPR = HD / 8;     // 16-byte chunks per row
+  static_assert(NT % CPR == 0, "a row's chunks divide a pass of the CTA");
+  constexpr int RPP = NT / CPR;   // rows per pass of the CTA
+  static_assert(ROWS % RPP == 0, "whole passes");
+  const int r = tid / CPR, col = (tid % CPR) * 8;
+  const bf16* g = src + (long)(row0 + r) * stride + col;
+  bf16* sm = dst + r * ld<HD>() + col;
+#pragma unroll
+  for (int i = 0; i < ROWS / RPP; ++i) {
+    const bool ok = row0 + r + i * RPP < rows;
+    cp_async16(sm + i * RPP * ld<HD>(), ok ? g + i * RPP * stride : src, ok);
+  }
+}
+
+// The online softmax of one S tile, then O += P V: P's high and low parts
+// each multiplied by V (ldmatrix.trans, x4 matrices (keys 0-7 | 8-15) x
+// (dims 0-7 | 8-15)) into the same f32 accumulators.
+template <int HD>
+__device__ __forceinline__ void softmax_pv(float (&s)[BN / 8][4], float (&acc)[HD / 8][4],
+                                           float& m0, float& m1, float& l0, float& l1,
+                                           const bf16* Vt, float scale_log2, int frag_row,
+                                           int frag_col) {
+  float alpha0, alpha1;
+  online_softmax<BN / 8>(s, m0, m1, l0, l1, alpha0, alpha1, scale_log2);
+  rescale<HD / 8>(acc, alpha0, alpha1);
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    uint32_t ph[4], pl[4];
+    split_p<BN / 8>(s, kk, ph, pl);
+#pragma unroll
+    for (int d2 = 0; d2 < HD / 16; ++d2) {
+      uint32_t vf[4];
+      ldmatrix_x4_trans(vf, Vt + (kk * 16 + frag_row) * ld<HD>() + d2 * 16 + frag_col);
+      mma_bf16_16816(acc[2 * d2], ph, vf[0], vf[1]);
+      mma_bf16_16816(acc[2 * d2 + 1], ph, vf[2], vf[3]);
+      mma_bf16_16816(acc[2 * d2], pl, vf[0], vf[1]);
+      mma_bf16_16816(acc[2 * d2 + 1], pl, vf[2], vf[3]);
+    }
+  }
+}
 
 template <int HD>
 constexpr size_t smem_bytes_wide() { return sizeof(bf16) * (BM + 2 * NS_WIDE * BN) * ld<HD>(); }
@@ -608,7 +753,7 @@ __global__ void __launch_bounds__(NT, 1) fa_mma_wide_kernel(
     }
     const bool masked = n0 + BN > Sk || (causal && n0 + BN - 1 > qpos_first) ||
                         (window > 0 && n0 <= qpos_last - window);
-    if (masked) mask_tile(s, n0, Sk, causal, window, qpos0, qpos1, tig);
+    if (masked) mask_tile<NB>(s, n0, Sk, causal, window, qpos0, qpos1, tig);
     softmax_pv<HD>(s, acc, m0, m1, l0, l1, Vs + st * BN * LD, scale_log2, frag_row, frag_col);
     __syncthreads();              // every warp is done with stage st: refill it
     if (it + NS_WIDE < n_tiles) {
@@ -622,29 +767,23 @@ __global__ void __launch_bounds__(NT, 1) fa_mma_wide_kernel(
                  q0 + warp * 16 + gid, Sq, q_stride);
 }
 
-using KernelFn = void (*)(const bf16*, const bf16*, const bf16*, bf16*, int, int, int, int,
-                         int, int, int, float);
-
 template <int HD>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int Sq, int Sk,
                    int nq, int nkv, int causal, int window, int q_offset, float scale,
                    cudaStream_t stream) {
-  KernelFn kernel;
-  size_t smem;
-  if constexpr (HD > 128) {       // only the kernel each head size runs is compiled
-    kernel = fa_mma_wide_kernel<HD>;
-    smem = smem_bytes_wide<HD>();
+  if constexpr (HD <= 128) {      // only the kernel each head size runs is compiled
+    return launch_wgmma<HD>(q, k, v, o, B, Sq, Sk, nq, nkv, causal, window, q_offset, scale,
+                            stream);
   } else {
-    kernel = fa_mma_kernel<HD>;
-    smem = smem_bytes<HD>();
+    constexpr size_t smem = smem_bytes_wide<HD>();
+    cudaError_t err = cudaFuncSetAttribute(fa_mma_wide_kernel<HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid(nq, B, (Sq + BM - 1) / BM);
+    fa_mma_wide_kernel<HD><<<grid, NT, smem, stream>>>(q, k, v, o, Sq, Sk, nq, nkv, causal,
+                                                       window, q_offset, scale * LOG2E);
+    return cudaGetLastError();
   }
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(nq, B, (Sq + BM - 1) / BM);
-  kernel<<<grid, NT, smem, stream>>>(q, k, v, o, Sq, Sk, nq, nkv, causal, window, q_offset,
-                                     scale * LOG2E);
-  return cudaGetLastError();
 }
 
 }  // namespace tc
@@ -688,7 +827,7 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, void* 
 }  // namespace
 
 // Returns a cudaError_t: the launch's own, or the error of setting the
-// device or the kernel's shared-memory limit.  Shapes, dtypes, contiguity
+// device, of encoding a tensor map, or of the kernel's shared-memory limit.  Shapes, dtypes, contiguity
 // and alignment are checked by the Python wrapper.
 extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, int dtype,
                           int B, int Sq, int Sk, int nq, int nkv, int hd, int causal,

@@ -1,6 +1,8 @@
 """Plain PyTorch versions of the kernels (attention and the RWKV-6 scan),
-the RG-LRU's sequential oracle, and the one-bf16-step bound (with its
-large-output inputs) that the bf16 flash kernel is held to.
+the RG-LRU's sequential oracle, the one-bf16-step bound (with its
+large-output inputs) that the bf16 flash kernel is held to, and plain
+models of the kernels' own schedules (the flash kernel's tile walk, split
+decode, the chunked scan), which only the tests call.
 
 These are (1) the path ``ops`` takes for tensors on the CPU, and (2) the
 oracles every CUDA kernel is held against on the card (``chip_smoke.py``).
@@ -26,6 +28,20 @@ def _softmax_pv(logits: torch.Tensor, v_dtype: torch.dtype) -> torch.Tensor:
     return probs.to(v_dtype).float()
 
 
+def attention_mask(sq: int, sk: int, *, causal: bool, window: int = 0, q_offset: int = 0,
+                   device=None) -> torch.Tensor:
+    """(Sq, Sk) bool: which keys each query row sees (row i at position
+    q_offset + i): causal kpos <= qpos, window kpos > qpos - window."""
+    qpos = q_offset + torch.arange(sq, device=device)
+    kpos = torch.arange(sk, device=device)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    return mask
+
+
 def mha_reference(
     q: torch.Tensor,                 # (B, Sq, nq, hd)
     k: torch.Tensor,                 # (B, Sk, nkv, hd)
@@ -42,17 +58,106 @@ def mha_reference(
         raise ValueError(f"num q heads {nq} is not a multiple of kv heads {nkv}")
     qg = q.reshape(b, sq, nkv, nq // nkv, hd)
     logits = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * hd ** -0.5
-    qpos = q_offset + torch.arange(sq, device=q.device)
-    kpos = torch.arange(sk, device=q.device)
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos[None, :] <= qpos[:, None]
-    if window:
-        mask &= kpos[None, :] > qpos[:, None] - window
+    mask = attention_mask(sq, sk, causal=causal, window=window, q_offset=q_offset,
+                          device=q.device)
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     probs = _softmax_pv(logits, v.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.float())
     return out.reshape(b, sq, nq, hd).to(q.dtype)
+
+
+#: classes of a KV tile for a row block in ``flash_tile_plan``
+TILE_SKIPPED, TILE_INTERIOR, TILE_MASKED = 0, 1, 2
+
+
+def flash_tile_plan(sq: int, sk: int, *, causal: bool, window: int = 0, q_offset: int = 0,
+                    bm: int = 128, bn: int = 64) -> np.ndarray:
+    """The tile walk of ``csrc/flash_attention.cu``'s bf16 kernel: for each
+    row block of ``bm`` query rows (the last one ragged) and each KV tile of
+    ``bn`` keys, whether the block skips the tile (``TILE_SKIPPED``: it
+    lies outside [window edge, causal horizon)), runs it unmasked
+    (``TILE_INTERIOR``) or evaluates the mask on it (``TILE_MASKED``: it
+    crosses Sk, the causal diagonal or the window's edge for some row of
+    the block).  The walk starts at the window edge rounded down to a tile
+    boundary.  Returns (ceil(sq / bm), ceil(sk / bn)) int8."""
+    n_blocks, n_tiles = -(-sq // bm), -(-sk // bn)
+    plan = np.full((n_blocks, n_tiles), TILE_SKIPPED, dtype=np.int8)
+    for r in range(n_blocks):
+        qpos_first = q_offset + r * bm
+        qpos_last = q_offset + min((r + 1) * bm, sq) - 1
+        k_hi = min(sk, qpos_last + 1) if causal else sk
+        k_lo = max(0, qpos_first - window + 1) // bn * bn if window > 0 else 0
+        for n0 in range(k_lo, k_hi, bn):
+            masked = (n0 + bn > sk or (causal and n0 + bn - 1 > qpos_first)
+                      or (window > 0 and n0 <= qpos_last - window))
+            plan[r, n0 // bn] = TILE_MASKED if masked else TILE_INTERIOR
+    return plan
+
+
+def flash_tiled_reference(
+    q: torch.Tensor,                 # (B, Sq, nq, hd)
+    k: torch.Tensor,                 # (B, Sk, nkv, hd)
+    v: torch.Tensor,                 # (B, Sk, nkv, hd)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+    bm: int = 128,
+    bn: int = 64,
+) -> torch.Tensor:
+    """Attention by the schedule of ``csrc/flash_attention.cu``'s bf16
+    kernel, in plain PyTorch: row blocks of ``bm``, KV tiles of ``bn`` walked
+    as ``flash_tile_plan`` says (masks on the masked tiles only), the online
+    softmax in log2 units (running max m, alpha = 2^(m_old - m), the scale
+    folded into the exponent), P V from P's bf16 high part plus its bf16 low
+    part where v is bf16 (the f32 kernel multiplies the f32 P), and O / l,
+    0 where a row sees no key.  Nothing on the card's path calls it; the
+    tests hold it to the JAX kernel and oracle.  Returns (B, Sq, nq, hd) in
+    q's dtype."""
+    b, sq, nq, hd = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    if nq % nkv:
+        raise ValueError(f"num q heads {nq} is not a multiple of kv heads {nkv}")
+    scale_log2 = hd ** -0.5 * 1.4426950408889634
+    plan = flash_tile_plan(sq, sk, causal=causal, window=window, q_offset=q_offset, bm=bm, bn=bn)
+    kh = k.float().repeat_interleave(nq // nkv, dim=2).transpose(1, 2)   # (B, nq, Sk, hd)
+    vh = v.float().repeat_interleave(nq // nkv, dim=2).transpose(1, 2)
+    qh = q.float().transpose(1, 2)                                       # (B, nq, Sq, hd)
+    split = v.dtype == torch.bfloat16
+    out = torch.zeros((b, nq, sq, hd), dtype=torch.float32, device=q.device)
+    for r in range(plan.shape[0]):
+        rows = slice(r * bm, min((r + 1) * bm, sq))
+        qpos = q_offset + torch.arange(rows.start, rows.stop, device=q.device)[:, None]
+        m = torch.full((b, nq, rows.stop - rows.start), NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, nq, rows.stop - rows.start, hd), device=q.device)
+        for t in np.flatnonzero(plan[r]):
+            keys = slice(t * bn, min((t + 1) * bn, sk))
+            s = qh[:, :, rows] @ kh[:, :, keys].transpose(-1, -2)
+            if plan[r, t] == TILE_MASKED:
+                kpos = torch.arange(t * bn, (t + 1) * bn, device=q.device)[None, : s.shape[-1]]
+                ok = kpos < sk
+                if causal:
+                    ok = ok & (kpos <= qpos)
+                if window > 0:
+                    ok = ok & (kpos > qpos - window)
+                s = torch.where(ok, s, torch.full_like(s, -float("inf")))
+            m_new = torch.maximum(m, s.amax(dim=-1) * scale_log2)
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s * scale_log2 - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None]
+            if split:
+                hi = p.to(torch.bfloat16).float()
+                lo = (p - hi).to(torch.bfloat16).float()
+                acc = acc + hi @ vh[:, :, keys] + lo @ vh[:, :, keys]
+            else:
+                acc = acc + p @ vh[:, :, keys]
+            m = m_new
+        safe = torch.where(l > 0, l, torch.ones_like(l))
+        out[:, :, rows] = torch.where(l[..., None] > 0, acc / safe[..., None],
+                                      torch.zeros_like(acc))
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def bf16_step(o32: torch.Tensor, floor: float = 2e-2) -> torch.Tensor:

@@ -174,8 +174,9 @@ FA_BF16_VARIANTS = {
 @pytest.mark.parametrize("s", [1, 63, 65, 1000])
 @pytest.mark.parametrize("hd", fa.SUPPORTED_HEAD_DIMS)
 def test_flash_bf16_tensor_core_path(cuda, hd, s, variant):
-    """The bf16 tensor-core kernel at ragged lengths around its 64-row and
-    64-key tiles, for every head dim; keys = queries + q_offset."""
+    """The bf16 tensor-core kernels at ragged lengths around their row
+    blocks (64 rows a warpgroup or CTA) and 64-key tiles, for every head
+    dim; keys = queries + q_offset."""
     nq, nkv, causal, window, q_offset = FA_BF16_VARIANTS[variant]
     q, k, v = _randn(hd + s, (1, s, nq, hd), (1, s + q_offset, nkv, hd),
                      (1, s + q_offset, nkv, hd), dtype=torch.bfloat16, device=cuda)
@@ -197,6 +198,65 @@ def test_flash_bf16_full_grid(cuda, hd, variant):
     out = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     exp = ref.mha_reference(q, k, v, causal=causal, window=window, q_offset=q_offset)
     assert _err(out, exp) < TOL["bfloat16"]
+
+
+TILE_EDGES = (1, 127, 128, 129)
+
+
+@pytest.mark.parametrize("sq", TILE_EDGES)
+@pytest.mark.parametrize("sk", TILE_EDGES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_bf16_tile_edges(cuda, sq, sk, causal, hd):
+    """The wgmma kernel's 128-row blocks (two consumers of 64 rows) and
+    64-key tiles: Sq and Sk on either side of each edge, 8 q heads over 2
+    kv heads, causal and not."""
+    q, k, v = _randn(sq * 1000 + sk, (2, sq, 8, hd), (2, sk, 2, hd), (2, sk, 2, hd),
+                     dtype=torch.bfloat16, device=cuda)
+    out = fa.flash_attention(q, k, v, causal=causal)
+    exp = ref.mha_reference(q, k, v, causal=causal)
+    assert out.shape == q.shape
+    assert _err(out, exp) < TOL["bfloat16"]
+
+
+FA_GQA_WINDOW_CASES = [
+    # b, sq, sk, nq, nkv, hd, causal, window, q_offset
+    (1, 129, 129, 64, 8, 112, True, 0, 0),     # kimi-k2's 64:8 across a row block
+    (1, 129, 129, 64, 8, 128, True, 0, 0),
+    (2, 129, 300, 16, 1, 64, False, 0, 0),     # MQA 16:1
+    (1, 300, 300, 16, 1, 128, True, 0, 0),
+    (1, 200, 300, 8, 2, 64, True, 100, 70),    # window edge and q_offset across tiles
+    (1, 129, 300, 4, 4, 128, True, 64, 37),
+    (1, 129, 300, 64, 8, 112, True, 48, 150),
+]
+
+
+@pytest.mark.parametrize("case", FA_GQA_WINDOW_CASES)
+def test_flash_bf16_gqa_and_windows_across_tiles(cuda, case):
+    b, sq, sk, nq, nkv, hd, causal, window, q_offset = case
+    q, k, v = _randn(sum(case), (b, sq, nq, hd), (b, sk, nkv, hd), (b, sk, nkv, hd),
+                     dtype=torch.bfloat16, device=cuda)
+    out = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    exp = ref.mha_reference(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    assert _err(out, exp) < TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("hd", [64, 112, 128])
+def test_flash_bf16_rows_without_visible_key_across_a_row_block(cuda, hd):
+    """Rows 79 and on see no key under a window past Sk, so the second row
+    block (rows 128-199) walks no KV tile at all: they give 0, and the rows
+    before them match the plain version; and a CTA whose second consumer
+    has no row (Sq = 4)."""
+    sq, sk, q_offset, window = 200, 100, 40, 20
+    q, k, v = _randn(hd, (1, sq, 8, hd), (1, sk, 2, hd), (1, sk, 2, hd),
+                     dtype=torch.bfloat16, device=cuda)
+    out = fa.flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset)
+    exp = ref.mha_reference(q, k, v, causal=True, window=window, q_offset=q_offset)
+    seen = sk + window - 1 - q_offset          # rows [0, seen) see a key
+    assert not bool(out[:, seen:].any())
+    assert _err(out[:, :seen], exp[:, :seen]) < TOL["bfloat16"]
+    short = fa.flash_attention(q[:, :4].contiguous(), k, v, causal=False)
+    assert _err(short, ref.mha_reference(q[:, :4], k, v, causal=False)) < TOL["bfloat16"]
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -328,7 +388,7 @@ def test_decode_ring_wrapped_window_mask_hd256(cuda, dtype):
     _decode_check(cuda, dtype, 8, 2048, 16, 1, 256, valid, seed=7)
 
 
-@pytest.mark.parametrize("hd", [64, 112, 256])
+@pytest.mark.parametrize("hd", [64, 112, 128, 256])
 def test_flash_bf16_rounding_margin_at_large_outputs(cuda, hd):
     """Outputs of |o| >= 16 made from a few keys (sharp logits, large values),
     held to the f32 attention of the same bf16 inputs within one bf16 step of
