@@ -172,7 +172,22 @@ never prints its last line):
    for all ten archs x four input shapes (meta tensors, on the host,
    ``launch/dryrun.py``), printed on a ``[dryrun]`` line and timed in the
    phase's seconds (``{"specs": ...}``);
-8. print the device line ``{"ok": true, "device": {...}}`` last.
+8. the multi-device paths at one rank: an NCCL process group of one rank
+   (a ``FileStore`` in a temporary directory) and ``make_test_mesh((1,
+   1))``, a ``DeviceMesh`` on the card, under rules mapping ``experts`` to
+   ``model``: phi3.5-moe at full width and 2 layers in f32 through
+   ``moe_path="ep_a2a"`` (``models/moe.py:moe_ep_a2a``, two
+   ``all_to_all_single`` calls a layer) against the sort path, ``forward``
+   and one ``loss_fn`` gradient, logits, aux, loss and every gradient leaf
+   within 1e-5 relative; then phase 3c's bf16 slice (16 layers) through EP
+   on a 512-token prompt, with the launch counters from 0 (flash attention
+   once a layer), the forward's and the MoE layers' device time (the
+   all-to-alls in a profiler range of their own) beside the sort path's and
+   the largest logit difference; the group is destroyed, and
+   ``torch_engine.run_grid`` without one runs the grid as one dispatch
+   (``sharded=None`` equal to ``False``) and refuses ``sharded=True``
+   (``{"multi_device": ...}``);
+9. print the device line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
@@ -192,7 +207,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
@@ -211,7 +228,8 @@ from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rk  # noqa: E402
 from repro_torch.launch import dryrun, specs  # noqa: E402
-from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
+from repro_torch.distributed import AxisRules, axis_rules, device_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_production_mesh, make_test_mesh  # noqa: E402
 from repro_torch.models import frontends  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
@@ -2603,6 +2621,200 @@ def phase_specs(seed, gpu):
             "phase_s": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the multi-device paths at one rank.
+# ---------------------------------------------------------------------------
+# phi3.5-moe through expert parallelism on a (1, 1) mesh of one NCCL rank:
+# its f32 check at full width and EP_F32_LAYERS layers (forward and one
+# loss_fn gradient), then phase 3c's bf16 slice on one EP_TOKENS-token prompt
+EP_F32_LAYERS, EP_TOKENS = 2, PROMPT_MAX
+# relative to each leaf's largest magnitude: at one shard the capacity is
+# the batch's, aux is the same and the exchange is a copy, so EP runs the
+# sort path's arithmetic
+EP_TOL = 1e-5
+EP_RULES = {"experts": "model", "batch": ("data",)}
+# each MoE path's layer and parts, each inside a profiler range "ep.<label>"
+EP_RANGES = {"ep_a2a": {"layer": "moe_ep_a2a", "all_to_all": "_all_to_all",
+                        "route": "_route", "experts": "_expert_ffn"},
+             "local": {"layer": "moe_sort_local", "route": "_route", "experts": "_expert_ffn"}}
+# the sharded grid's check: three archs over 120 ticks, two zoo cells
+GRID_CHECK_ARCHS, GRID_CHECK_TICKS = ["llama3-8b", "minicpm-2b", "qwen1.5-0.5b"], 120
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+
+
+def ep_f32_check(seed, rules, tokens):
+    """phi3.5-moe at full width and EP_F32_LAYERS layers in f32: ``forward``
+    and one ``loss_fn`` gradient through ``moe_path="ep_a2a"`` on the
+    one-rank mesh against ``"local"``: logits, aux, loss and every gradient
+    leaf within EP_TOL of the leaf's largest magnitude."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=EP_F32_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model_lib.init_params(cfg, gen, dtype=torch.float32, device="cuda")
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)], dim=1)
+    batch = {"inputs": tokens, "labels": labels}
+    out = {}
+    for path in ("ep_a2a", "local"):
+        with axis_rules(rules):
+            with torch.no_grad():
+                logits, aux = model_lib.forward(cfg, params, tokens, moe_path=path)
+            loss, _ = model_lib.loss_fn(cfg, params, batch, moe_path=path)
+            grads = torch.autograd.grad(loss, leaves)
+        out[path] = {"logits": logits, "aux": aux, "loss": loss.detach(), "grads": grads}
+    ep, local = out["ep_a2a"], out["local"]
+    errs = {k: rel_err(ep[k], local[k]) for k in ("logits", "aux", "loss")}
+    grad_errs = [rel_err(a, b) for a, b in zip(ep["grads"], local["grads"])]
+    errs["grads_max"] = max(grad_errs)
+    names = leaf_names(params)
+    bad = {k: v for k, v in errs.items() if not v <= EP_TOL}
+    bad.update({names[i]: e for i, e in enumerate(grad_errs) if not e <= EP_TOL})
+    if bad:
+        raise AssertionError(f"EP at one rank departs from the sort path by more than "
+                             f"{EP_TOL} relative: {bad}")
+    check_grads(params, list(ep["grads"]))
+    del params, out, ep, local
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"model": cfg.name, "layers": EP_F32_LAYERS, "tokens": tokens.shape[1],
+            "tolerance": EP_TOL, "rel_err": errs, "grad_leaves": len(grad_errs)}
+
+
+def ep_profile(fwd, path):
+    """Device time of one forward through ``path`` with each of EP_RANGES'
+    parts in its profiler range: the whole forward's and each range's."""
+    with contextlib.ExitStack() as stack:
+        for label, name in EP_RANGES[path].items():
+            stack.enter_context(wrapped(moe_lib, name, in_range(f"ep.{label}")))
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            fwd(path)
+            torch.cuda.synchronize()
+    busy = sum(device_times(prof).values())
+    ranges = {label: 0.0 for label in EP_RANGES[path]}
+    for e in prof.events():
+        label = e.name[len("ep."):]
+        if e.name.startswith("ep.") and label in ranges and \
+                e.device_type == torch.autograd.DeviceType.CPU:
+            ranges[label] += e.device_time_total
+    if not (ranges["layer"] and ranges["experts"]) or ranges["layer"] > busy:
+        raise AssertionError(f"{path}: the MoE profiler ranges hold no device time, or more "
+                             f"than the {busy} us of the forward: {ranges}")
+    return {"forward_device_ms": busy / 1e3,
+            **{f"moe_{label}_ms": us / 1e3 for label, us in ranges.items()}}
+
+
+def ep_bf16_run(seed, rules, tokens):
+    """Phase 3c's slice (phi3.5-moe, full width, MOE_LAYERS layers, bf16):
+    one forward through EP on the one-rank mesh with the launch counters
+    from 0 (flash attention once a layer), then the forward's and the MoE
+    layers' device time through EP (the all-to-alls in a range of their
+    own) beside the sort path's, and the largest logit difference."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model_lib.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+
+    def fwd(path):
+        with axis_rules(rules), torch.no_grad():
+            return model_lib.forward(cfg, params, tokens, moe_path=path)[0]
+
+    for path in ("ep_a2a", "local"):                 # warm-up
+        fwd(path)
+    torch.cuda.synchronize()
+    for mod in KERNELS.values():
+        mod.launches = 0
+    logits = fwd("ep_a2a")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    expected = expected_launches(cfg, 1, 0)
+    if launches != expected:
+        raise AssertionError(f"EP forward: kernel launches {launches} != {expected}")
+    if logits.shape != (1, tokens.shape[1], cfg.vocab_size) or \
+            not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"EP forward: logits {tuple(logits.shape)} or not finite")
+    diff = float((logits.float() - fwd("local").float()).abs().max())
+    prof = {path: ep_profile(fwd, path) for path in ("ep_a2a", "local")}
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"model": cfg.name, "layers": MOE_LAYERS, "dtype": "bfloat16",
+            "tokens": tokens.shape[1], "launches": launches,
+            "max_abs_logit_diff_ep_vs_local": diff, "profile": prof,
+            "ep_minus_local_forward_device_ms": (prof["ep_a2a"]["forward_device_ms"]
+                                                 - prof["local"]["forward_device_ms"]),
+            "ep_minus_local_moe_device_ms": (prof["ep_a2a"]["moe_layer_ms"]
+                                             - prof["local"]["moe_layer_ms"])}
+
+
+def grid_without_a_group(seed):
+    """``run_grid`` on the card with no process group: ``sharded=None`` is
+    the one-dispatch run, bit for bit, and ``sharded=True`` raises, as the
+    reference's assert does."""
+    if device_mesh() is not None:
+        raise AssertionError("a device mesh without a process group")
+    a = len(GRID_CHECK_ARCHS)
+    wl = [core_sim.ArchLoad(name, 1.0 / a, 0.25, name=f"m@{i}")
+          for i, name in enumerate(GRID_CHECK_ARCHS)]
+    arrs = np.stack([SCENARIO_ZOO[n].build(a, duration_s=GRID_CHECK_TICKS, seed=seed + i)
+                     for i, n in enumerate(("shared_berkeley", "mmpp_bursts"))])
+    try:
+        torch_engine.run_grid(arrs, wl, "portfolio", seeds=[5, 6], sharded=True)
+    except ValueError as err:
+        refused = str(err)
+    else:
+        raise AssertionError("run_grid(sharded=True) ran without a process group")
+    auto = torch_engine.run_grid(arrs, wl, "portfolio", seeds=[5, 6])
+    one = torch_engine.run_grid(arrs, wl, "portfolio", seeds=[5, 6], sharded=False)
+    for i, (x, y) in enumerate(zip(auto, one)):
+        if x["summary"] != y["summary"] or x["ledger"] != y["ledger"]:
+            raise AssertionError(f"grid cell {i}: sharded=None differs from sharded=False")
+    return {"cells": len(auto), "ticks": GRID_CHECK_TICKS, "archs": a,
+            "auto_equals_one_dispatch": True, "sharded_true_raises": refused}
+
+
+def phase_multi_device(seed, gpu, prompt):
+    """Expert parallelism and the sharded grid at one rank: an NCCL group
+    of one (a FileStore in a temporary directory) and ``make_test_mesh((1,
+    1))`` on the card, rules mapping ``experts`` to ``model``; the f32
+    check, the bf16 run, then the group destroyed and the grid run without
+    one."""
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_test_mesh((1, 1))
+            if not isinstance(mesh, DeviceMesh) or mesh.device_type != "cuda":
+                raise AssertionError(f"make_test_mesh under a group gave {mesh!r}")
+            rules = AxisRules(mesh, dict(EP_RULES))
+            tokens = torch.as_tensor(np.resize(prompt, EP_TOKENS), dtype=torch.long,
+                                     device="cuda")[None, :]
+            result = {"backend": dist.get_backend(), "world_size": dist.get_world_size(),
+                      "mesh": {"names": list(mesh.mesh_dim_names),
+                               "shape": list(mesh.shape), "device_type": mesh.device_type},
+                      "rules": EP_RULES}
+            result["f32_check"] = ep_f32_check(seed, rules, tokens)
+            result["bf16"] = ep_bf16_run(seed, rules, tokens)
+        finally:
+            dist.destroy_process_group()
+    result["grid"] = grid_without_a_group(seed)
+    result["launches"] = result["bf16"]["launches"]
+    result["gpu"] = gpu
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(f"[multi-device] EP at one NCCL rank: f32 rel err {json.dumps(result['f32_check']['rel_err'])}; "
+          f"bf16 MoE device ms EP {result['bf16']['profile']['ep_a2a']['moe_layer_ms']:.4f} "
+          f"(all-to-alls {result['bf16']['profile']['ep_a2a']['moe_all_to_all_ms']:.4f}) vs "
+          f"sort {result['bf16']['profile']['local']['moe_layer_ms']:.4f}")
+    return result
+
+
 def record_routes(into):
     """A wrapper of ``_route`` that appends each call's expert indices to ``into``."""
     def wrapper(route):
@@ -2808,8 +3020,9 @@ def main() -> None:
     trained = [phase_train(args.seed, gpu, prompts[0]), phase_train_rwkv(args.seed, gpu)]
     at_training_shapes = time_training_kernels(args.seed)
     spec_run = phase_specs(args.seed, gpu)
+    multi = phase_multi_device(args.seed, gpu, moe_prompts[0])
     for row in rows:
-        row["launches"] = sum(res["launches"][row["name"]] for res in slices + trained)
+        row["launches"] = sum(res["launches"][row["name"]] for res in slices + trained + [multi])
         if row["name"] in at_training_shapes:
             row["training"] = at_training_shapes[row["name"]]
     for res in slices:
@@ -2818,6 +3031,7 @@ def main() -> None:
     print(json.dumps({"ppo": ppo_run}))
     print(json.dumps({"train": trained}))
     print(json.dumps({"specs": spec_run}))
+    print(json.dumps({"multi_device": multi}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

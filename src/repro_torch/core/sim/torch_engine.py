@@ -54,9 +54,16 @@ float32), so integer fields are cast to float64 before such operations
 and float scalars ride in as 0-d float64 tensors.  The global default
 dtype is never changed.
 
+With a process group of n > 1 ranks up (``distributed.device_mesh``),
+:func:`run_grid` splits its cells across the ranks, as the reference's
+sharded runner splits them across a mesh's devices: rank r runs its B/n
+contiguous cells on its own device, and the ranks exchange the assembled
+cells once at the end (cells never communicate, so the sharded and
+unsharded grids give the same cells, bit for bit).
+
 Left out against the reference: its XLA-only runner flavours
 (``make_runner``'s legacy/unroll/donation options, the runner trace
-counters and their telemetry gauge) and the sharded grid runner.
+counters and their telemetry gauge).
 """
 from __future__ import annotations
 
@@ -64,6 +71,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.hardware import PRICING, FleetPricing
 from repro_torch.core.load_monitor import LoadMonitor, pool_stats_trajectory
@@ -90,6 +98,7 @@ from repro_torch.core.sim.fleet import (
     spot_reclaim_uniforms,
 )
 from repro_torch.core.sim.types import ArchLoad
+from repro_torch.distributed.sharding import device_mesh
 
 __all__ = [
     "SimState",
@@ -1132,12 +1141,13 @@ def run_ticks(policy_apply, statics: dict, state0: SimState, xs: dict, *,
 def prepare_grid(arrivals_batch, workload, policy="portfolio",
                  params_batch=None, seeds=None, *, pricing=PRICING,
                  catalog=None, prewarm=True, warm_start=True,
-                 uniforms=None, device="cuda"):
+                 uniforms=None, device="cuda", cells=None):
     """Build and move to ``device`` everything :func:`run_ticks` needs
     for a grid: ``(statics, state0, xs, variants)``, state ``[B, ...]``
     and per-tick inputs ``[T, B, ...]``.  ``uniforms`` (``[B, T, A]``
     float64) are the action draws of a sampling policy; without them
-    each cell draws its own from its seed."""
+    each cell draws its own from its seed.  ``cells`` (a slice) builds
+    only those cells, each exactly as the whole grid builds it."""
     arrivals_batch = np.asarray(arrivals_batch, dtype=np.float64)
     B, A, T = arrivals_batch.shape
     pol = TORCH_POLICIES[policy]
@@ -1154,22 +1164,24 @@ def prepare_grid(arrivals_batch, workload, policy="portfolio",
         warm_start=warm_start, seed=seeds[0], catalog=catalog,
     )
     variants = sim._variants_live
+    rows = range(B)[cells or slice(None)]
     if pol.needs_stats:
-        ew, _, p2 = pool_stats_trajectory(arrivals_batch.reshape(B * A, T))
-        stats = [(ew[:, i * A:(i + 1) * A], p2[:, i * A:(i + 1) * A])
-                 for i in range(B)]
+        ew, _, p2 = pool_stats_trajectory(arrivals_batch[rows.start:rows.stop].reshape(-1, T))
+        stats = [(ew[:, j * A:(j + 1) * A], p2[:, j * A:(j + 1) * A])
+                 for j in range(len(rows))]
     else:
-        stats = [None] * B
+        stats = [None] * len(rows)
     cells = [
         build_sim_inputs(
             arrivals_batch[i], workload, pricing=pricing, seed=seeds[i],
             prewarm=prewarm, warm_start=warm_start,
             needs_stats=pol.needs_stats, needs_uniforms=pol.needs_uniforms,
             uniforms=None if uniforms is None else uniforms[i],
-            stats=stats[i], _sim=sim,
+            stats=stats[j], _sim=sim,
         )
-        for i in range(B)
+        for j, i in enumerate(rows)
     ]
+    B = len(rows)
     state0 = SimState(*(
         None if leaves[0] is None
         else torch.as_tensor(np.stack(leaves), device=device)
@@ -1181,7 +1193,9 @@ def prepare_grid(arrivals_batch, workload, policy="portfolio",
     statics = _statics_to_device(cells[0][0], cells[0][1], B, device)
     if params_batch is None:
         params_batch = [pol.default_params() for _ in range(B)]
-    statics["policy"] = _params_to_device(list(params_batch), device)
+    else:
+        params_batch = list(params_batch)[rows.start:rows.stop]
+    statics["policy"] = _params_to_device(params_batch, device)
     return statics, state0, xs, variants
 
 
@@ -1321,28 +1335,52 @@ def run_grid(
     warm_start: bool = True,
     record_trajectory: bool = False,
     device="cuda",
+    sharded: Optional[bool] = None,
 ) -> List[dict]:
     """A whole (scenario x seed x policy-params) grid in one tick loop
     over a leading cell axis: cell ``i`` runs ``arrivals_batch[i]`` under
     ``params_batch[i]`` with spot/harvest realizations from
     ``seeds[i]``.  Returns one :func:`run_scenario`-shaped dict per
-    cell.  Runs on the card unless ``device`` says otherwise."""
+    cell.  Runs on the card unless ``device`` says otherwise.
+
+    With a process group of n > 1 ranks up, the cells split across the
+    ranks: rank r runs cells [r·B/n, (r+1)·B/n) on ``device`` (its own),
+    and every rank returns all B cells (``all_gather_object``).
+    ``sharded=None`` splits when n divides B, ``True`` requires it and
+    raises otherwise, ``False`` runs every cell on every rank.  Cells never
+    communicate, so the split and unsplit grids give the same cells."""
     arrivals_batch = np.asarray(arrivals_batch, dtype=np.float64)
+    B = arrivals_batch.shape[0]
+    mesh = device_mesh()
+    if sharded is None:
+        sharded = mesh is not None and B % mesh.size() == 0
+    if sharded and mesh is None:
+        raise ValueError("sharded run_grid needs a process group of more than one rank")
+    n, r = (mesh.size(), mesh.get_local_rank()) if sharded else (1, 0)
+    if B % n:
+        raise ValueError(f"sharded run_grid needs a cell count ({B}) that the rank "
+                         f"count ({n}) divides")
+    rows = range(B)[r * B // n:(r + 1) * B // n]
     statics, state0, xs, variants = prepare_grid(
         arrivals_batch, workload, policy, params_batch, seeds,
         pricing=pricing, catalog=catalog, prewarm=prewarm,
         warm_start=warm_start, device=device,
+        cells=slice(rows.start, rows.stop),
     )
     out = _to_host(run_ticks(TORCH_POLICIES[policy].apply, statics, state0,
                              xs, variants=variants, stack=record_trajectory))
     results = []
-    for i in range(arrivals_batch.shape[0]):
-        cell = _cell(out, i)
+    for j, i in enumerate(rows):
+        cell = _cell(out, j)
         trajectory = cell.pop("ys", None)
         result = _assemble(cell, arrivals_batch[i])
         if trajectory is not None:
             result["trajectory"] = trajectory
         results.append(result)
+    if sharded:
+        parts = [None] * n
+        dist.all_gather_object(parts, results, group=mesh.get_group())
+        results = [cell for part in parts for cell in part]
     return results
 
 

@@ -1,10 +1,12 @@
 from repro_torch.distributed.sharding import (  # noqa: F401
     AxisRules,
     MeshShape,
+    axis_group,
     axis_rules,
     current_rules,
     device_mesh,
     logical_to_spec,
+    mesh_shape,
     shard,
     spec_for_axes,
 )

@@ -2,17 +2,24 @@
 
 The JAX package's target fleet is TPU v5e: a single pod of 16 x 16 = 256
 chips (``data`` x ``model``), or two pods, 512 chips (``pod`` x ``data`` x
-``model``).  The port runs on one card, so the meshes here are records of
-those shapes (``distributed.MeshShape``), never devices: ``make_rules``
-computes, from the config and the mesh's sizes alone, the same logical-axis
-rules the JAX package computes for them.
+``model``).  The production meshes here are records of those shapes
+(``distributed.MeshShape``), never devices: ``make_rules`` computes, from
+the config and the mesh's sizes alone, the same logical-axis rules the JAX
+package computes for them.  ``make_test_mesh`` builds a real
+``DeviceMesh`` over the ranks of a process group when one is up, as
+``jax.make_mesh`` builds one over the local devices, and ``make_rules``
+gives the same rules for it as for the record of its shape.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
+
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.configs.registry import ModelConfig
-from repro_torch.distributed.sharding import AxisRules, MeshShape
+from repro_torch.distributed.sharding import (AxisRules, MeshShape, group_backend_device,
+                                              mesh_shape)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
@@ -21,8 +28,14 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
     return MeshShape(axes, shape)
 
 
-def make_test_mesh(shape: Tuple[int, ...] = (1, 1), axes=("data", "model")) -> MeshShape:
-    return MeshShape(tuple(axes), tuple(shape))
+def make_test_mesh(shape: Tuple[int, ...] = (1, 1),
+                   axes=("data", "model")) -> Union[MeshShape, DeviceMesh]:
+    """A ``DeviceMesh`` of ``shape`` over the ranks of the default process
+    group (whose size must be the shape's product), on ``cuda`` under NCCL
+    and ``cpu`` under gloo; without a group, the record of that shape."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return MeshShape(tuple(axes), tuple(shape))
+    return init_device_mesh(group_backend_device(), tuple(shape), mesh_dim_names=tuple(axes))
 
 
 def make_rules(
@@ -40,12 +53,14 @@ def make_rules(
     otherwise it stays replicated (e.g. minicpm's 36 heads and whisper's
     51865 vocab don't divide 16).
     """
-    names = mesh.axis_names
-    n_model = mesh.shape["model"]
+    mesh_sizes = mesh_shape(mesh)
+    names = mesh_sizes.axis_names
+    sizes = mesh_sizes.shape
+    n_model = sizes["model"]
     data_axes = tuple(a for a in names if a != "model")
     n_data = 1
     for a in data_axes:
-        n_data *= mesh.shape[a]
+        n_data *= sizes[a]
 
     def fits_model(*dims: int) -> bool:
         return all(d > 0 and d % n_model == 0 for d in dims)
@@ -79,7 +94,7 @@ def make_rules(
         # axis does not replicate optimizer state
         if cfg.d_model % n_data == 0:
             rules["embed"] = data_axes
-        elif cfg.d_model % mesh.shape[data_axes[-1]] == 0:
+        elif cfg.d_model % sizes[data_axes[-1]] == 0:
             rules["embed"] = (data_axes[-1],)
         else:
             rules["embed"] = None

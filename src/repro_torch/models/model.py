@@ -39,6 +39,7 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.registry import ATTN, LOCAL_ATTN, RGLRU, RWKV, ModelConfig
+from repro_torch.distributed.sharding import axis_rules, current_rules
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import griffin, layers
 from repro_torch.models import moe as moe_lib
@@ -292,14 +293,22 @@ _DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 def _maybe_checkpoint(fn, remat):
     """remat: False | True/'full' (recompute everything in the backward) |
     'dots' (save the matmul outputs, recompute the rest).  Only memory and
-    recompute differ, never values."""
+    recompute differ, never values: the backward's recompute runs under the
+    axis rules of the forward (which pick the MoE path's partition), wherever
+    the backward is called."""
     if not remat:
         return fn
     kw = {}
     if remat == "dots":
         kw["context_fn"] = functools.partial(
             torch_checkpoint.create_selective_checkpoint_contexts, list(_DOTS_SAVED))
-    return functools.partial(torch_checkpoint.checkpoint, fn, use_reentrant=False, **kw)
+    rules = current_rules()
+
+    def under_rules(*args):
+        with axis_rules(rules):
+            return fn(*args)
+
+    return functools.partial(torch_checkpoint.checkpoint, under_rules, use_reentrant=False, **kw)
 
 
 def _block_full(cfg, kind, p, x, positions, cache, window, enc_out, moe_path):

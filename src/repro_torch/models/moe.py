@@ -2,7 +2,7 @@
 
 Routing: router logits in f32 -> top-k -> softmax over the k selected
 logits (Mixtral convention); the aux output is the Switch load-balance loss
-E · Σ_e f_e·p_e.  Two execution paths compute the same semantics:
+E · Σ_e f_e·p_e.  Three execution paths compute the same semantics:
 
 1. ``moe_dense_oracle`` — every expert over every token, weighted by its
    gate.  Exact, small shapes only; the tests' oracle.
@@ -10,10 +10,12 @@ E · Σ_e f_e·p_e.  Two execution paths compute the same semantics:
    by expert (stable, so earlier tokens keep their place), at most
    ``capacity`` per expert, the rest dropped; every expert runs over its
    (capacity, d) rows of one (E, C, d) buffer.
-
-The reference's third path, ``moe_ep_a2a``, exchanges tokens between the
-devices of a mesh; with no mesh it is ``moe_sort_local``, which is all one
-card runs (``moe_apply(path="ep_a2a")``).
+3. ``moe_ep_a2a``       — expert parallelism over the ``experts`` axis of
+   a ``DeviceMesh`` (the reference's ``shard_map``): each rank routes its
+   own slice of the tokens with a per-shard capacity, sends each expert's
+   rows to the rank that owns it and gets them back with two
+   ``all_to_all_single`` calls, and every rank returns the global ``y``.
+   Without such a mesh it is ``moe_sort_local``.
 
 No step of the sort path waits on the card: the per-expert counts are a
 fixed-length ``scatter_add_`` (not ``bincount``), dropped assignments land
@@ -23,12 +25,16 @@ so it does not depend on the order of atomics.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.configs.registry import ModelConfig
+from repro_torch.distributed.sharding import axis_group, current_rules, mesh_shape
 from repro_torch.models.params import boxed_normal
 
 # leaves kept in f32 whatever the model's dtype (the JAX package's router)
@@ -105,19 +111,13 @@ def moe_dense_oracle(cfg: ModelConfig, p: dict, x: torch.Tensor):
     return y.reshape(b, s, d).to(x.dtype), aux
 
 
-def moe_sort_local(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                   capacity: Optional[int] = None):
-    """Sort-based capacity dispatch of x (B, S, d) -> (y (B, S, d), aux).
-
-    All B·S tokens share one capacity, as in the reference: at decode the
-    engine routes every slot together."""
-    b, s, d = x.shape
-    t, k, e = b * s, cfg.num_experts_per_tok, cfg.num_experts
-    c = capacity or _capacity(cfg, t)
-    dev = x.device
-
-    xf = x.reshape(t, d)
-    gates, topi, aux = _route(cfg, p["router"], xf)
+def _dispatch(cfg: ModelConfig, xf: torch.Tensor, topi: torch.Tensor, c: int):
+    """The (E, C, d) buffer of xf's (T, d) rows by expert, at most ``c``
+    rows an expert, and ``row_tok`` (T·k,): the buffer row of each
+    assignment in token order, E·C where it was dropped."""
+    t, d = xf.shape
+    k, e = cfg.num_experts_per_tok, cfg.num_experts
+    dev = xf.device
     flat_e = topi.reshape(t * k)
     flat_tok = torch.arange(t * k, device=dev) // k
     # stable: within an expert, assignments keep token order, so the
@@ -132,25 +132,219 @@ def moe_sort_local(cfg: ModelConfig, p: dict, x: torch.Tensor,
     # row of the (E·C + 1, d) buffer: the last row takes every dropped
     # assignment and is sliced off
     row = torch.where(keep, se * c + pos, torch.full_like(se, e * c))
-    buf = torch.zeros((e * c + 1, d), dtype=x.dtype, device=dev)
+    buf = torch.zeros((e * c + 1, d), dtype=xf.dtype, device=dev)
     buf.index_copy_(0, row, xf[st])
-    out = _expert_ffn(cfg, p, buf[: e * c].view(e, c, d)).reshape(e * c, d)
-
     # back to token order: assignment j of the flat (T·k) order sits at
-    # row_tok[j]; dropped ones contribute 0
+    # row_tok[j]
     row_tok = torch.empty_like(row).scatter_(0, order, row)
+    return buf[: e * c].view(e, c, d), row_tok
+
+
+def _combine(out: torch.Tensor, gates: torch.Tensor, row_tok: torch.Tensor) -> torch.Tensor:
+    """The experts' (E, C, d) rows back in token order, weighted by their
+    gates (T, k) and summed over the k slots: y (T, d) in f32; dropped
+    assignments contribute 0."""
+    e, c, d = out.shape
+    t, k = gates.shape
     keep_tok = row_tok < e * c
-    rows = out.index_select(0, row_tok.clamp(max=e * c - 1))
+    rows = out.reshape(e * c, d).index_select(0, row_tok.clamp(max=e * c - 1))
     rows = torch.where(keep_tok[:, None], rows, torch.zeros_like(rows))
-    y = (gates[..., None] * rows.view(t, k, d).float()).sum(dim=1)
+    return (gates[..., None] * rows.view(t, k, d).float()).sum(dim=1)
+
+
+def moe_sort_local(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                   capacity: Optional[int] = None):
+    """Sort-based capacity dispatch of x (B, S, d) -> (y (B, S, d), aux).
+
+    All B·S tokens share one capacity, as in the reference: at decode the
+    engine routes every slot together."""
+    b, s, d = x.shape
+    t = b * s
+    c = capacity or _capacity(cfg, t)
+    xf = x.reshape(t, d)
+    gates, topi, aux = _route(cfg, p["router"], xf)
+    buf, row_tok = _dispatch(cfg, xf, topi, c)
+    y = _combine(_expert_ffn(cfg, p, buf), gates, row_tok)
     return y.reshape(b, s, d).to(x.dtype), aux
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism.  Every rank holds the same global inputs and computes
+# the same global loss, as JAX's global view does, so each collective's
+# backward is chosen to give every rank the whole gradient once:
+#   * ``_Replicated`` marks a tensor every rank holds whole; its backward
+#     sums the ranks' (partial, zero-padded) gradients over the mesh, which
+#     is ``shard_map``'s transpose of an input: concatenation along the axes
+#     that split it and a sum along the axes that replicate it.
+#   * ``_GatherY`` and ``_MeanAux`` give every rank the global output; every
+#     rank then holds the whole cotangent, so their backwards take this
+#     rank's part of it with no exchange (a backward that reduced would count
+#     it once per rank), scaled by 1/size of each mesh axis the output is not
+#     split along, as ``shard_map`` scales an output's cotangent.
+#   * ``_AllToAll`` with equal splits is its own adjoint.
+# Every rank runs the same graph, so the collectives of the backward meet in
+# the same order on every rank.
+# ---------------------------------------------------------------------------
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` of dim 0 in equal parts over ``group`` (the
+    reference's ``all_to_all(split_axis=0, concat_axis=0, tiled=True)``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g.contiguous(), group=ctx.group)
+        return out, None
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``_AllToAll`` of ``x`` over ``group`` (a module function, which a
+    profiler can wrap in a range of its own)."""
+    return _AllToAll.apply(x, group)
+
+
+class _Replicated(torch.autograd.Function):
+    """The identity on a tensor every rank holds whole; its backward sums
+    the gradient over every axis group of the mesh."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        for group in ctx.groups:
+            dist.all_reduce(g, group=group)
+        return g, None
+
+
+class _GatherY(torch.autograd.Function):
+    """This rank's (B_loc, S_loc, d) block gathered into the global
+    (B, S, d): along the sequence over the EP group, then along the batch
+    over each batch axis's group, the minor axis first."""
+
+    @staticmethod
+    def forward(ctx, y, ep_group, batch_groups, index, scale):
+        ctx.shape, ctx.index, ctx.scale = y.shape, index, scale
+        y = y.contiguous()
+        for dim, group in [(1, ep_group)] + [(0, g) for g in reversed(batch_groups)]:
+            parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+            dist.all_gather(parts, y, group=group)
+            y = torch.cat(parts, dim=dim)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (bi, si), (b, s, _) = ctx.index, ctx.shape
+        return g[bi * b:(bi + 1) * b, si * s:(si + 1) * s] * ctx.scale, None, None, None, None
+
+
+class _MeanAux(torch.autograd.Function):
+    """The per-shard aux averaged over the EP group, then over each batch
+    axis's group (the reference's ``pmean``s)."""
+
+    @staticmethod
+    def forward(ctx, aux, groups, scale):
+        ctx.scale = scale
+        aux = aux.detach().clone()
+        for group in groups:
+            dist.all_reduce(aux, group=group)
+            aux = aux / dist.get_world_size(group)
+        return aux
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None, None
+
+
+def moe_ep_a2a(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """Expert-parallel MoE of x (B, S, d) -> (y (B, S, d), aux), the twin of
+    the reference's ``shard_map`` body.  Needs axis rules whose ``experts``
+    axis is an axis of a ``DeviceMesh``, ``num_experts`` and S divisible by
+    its size n_ep; otherwise the sort path.  Each rank takes the block of x
+    its mesh coordinates give it (the batch split over the rules' batch
+    axes, the sequence over the EP axis), routes it with the capacity of
+    its own B_loc·S_loc tokens, runs the experts it owns (e_loc =
+    num_experts / n_ep of them, a contiguous slice) over the rows every rank
+    of its EP group sent it, and returns the global y and the aux averaged
+    over the shards.  Differentiable: every rank gets the whole gradient."""
+    rules = current_rules()
+    if rules is None:
+        return moe_sort_local(cfg, p, x)
+    ep_axis = rules.mesh_axes("experts")
+    if ep_axis is None:
+        return moe_sort_local(cfg, p, x)
+    if isinstance(ep_axis, tuple):
+        ep_axis = ep_axis[0]
+    mesh = rules.mesh
+    if not isinstance(mesh, DeviceMesh):             # a record: no ranks to run on
+        return moe_sort_local(cfg, p, x)
+    shape = mesh_shape(mesh)
+    sizes = shape.shape
+    n_ep = sizes[ep_axis]
+    if cfg.num_experts % n_ep or x.shape[1] % n_ep:
+        return moe_sort_local(cfg, p, x)
+
+    batch_axes = rules.mesh_axes("batch") or ()
+    if isinstance(batch_axes, str):
+        batch_axes = (batch_axes,)
+    batch_axes = tuple(a for a in batch_axes if a in shape.axis_names)
+    b, s, d = x.shape
+    n_b = math.prod(sizes[a] for a in batch_axes)
+    if b % n_b:
+        raise ValueError(f"batch {b} does not split over the mesh axes {batch_axes} ({n_b})")
+    coord = dict(zip(shape.axis_names, mesh.get_coordinate()))
+    bi = 0
+    for a in batch_axes:                             # major to minor, as P((a0, a1))
+        bi = bi * sizes[a] + coord[a]
+    si = coord[ep_axis]
+    b_loc, s_loc = b // n_b, s // n_ep
+    e, e_loc = cfg.num_experts, cfg.num_experts // n_ep
+
+    ep_group = axis_group(mesh, ep_axis)
+    batch_groups = [axis_group(mesh, a) for a in batch_axes]
+    all_groups = [axis_group(mesh, a) for a in shape.axis_names]
+    unsplit_y = math.prod(n for a, n in sizes.items() if a != ep_axis and a not in batch_axes)
+
+    def whole(t):
+        return _Replicated.apply(t, all_groups)
+
+    xs = whole(x)[bi * b_loc:(bi + 1) * b_loc, si * s_loc:(si + 1) * s_loc]
+    p_loc = {name: whole(p[name])[si * e_loc:(si + 1) * e_loc]
+             for name in ("wi_gate", "wi_up", "wo")}
+    t_loc = b_loc * s_loc
+    c = _capacity(cfg, t_loc)
+    xf = xs.reshape(t_loc, d)
+    gates, topi, aux = _route(cfg, whole(p["router"]), xf)
+    # the buffer by destination shard: (E, C, d) == (n_ep·e_loc, C, d); after
+    # the exchange dim 0 is the source shard
+    buf, row_tok = _dispatch(cfg, xf, topi, c)
+    recv = _all_to_all(buf, ep_group)
+    recv = recv.view(n_ep, e_loc, c, d).transpose(0, 1).reshape(e_loc, n_ep * c, d)
+    out = _expert_ffn(cfg, p_loc, recv)                                 # (e_loc, n_src·C, d)
+    out = out.view(e_loc, n_ep, c, d).transpose(0, 1).reshape(e, c, d)
+    back = _all_to_all(out, ep_group)
+    y = _combine(back, gates, row_tok).reshape(b_loc, s_loc, d).to(x.dtype)
+    y = _GatherY.apply(y, ep_group, batch_groups, (bi, si), 1.0 / unsplit_y)
+    aux = _MeanAux.apply(aux, [ep_group] + batch_groups, 1.0 / math.prod(sizes.values()))
+    return y, aux
 
 
 def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, path: str = "local"):
     """The MoE layer by ``path``: "dense" (the oracle), "local" (the sort
-    path) or "ep_a2a" (expert parallelism; on one device the sort path)."""
+    path) or "ep_a2a" (expert parallelism, ``moe_ep_a2a``)."""
     if path == "dense":
         return moe_dense_oracle(cfg, p, x)
-    if path in ("local", "ep_a2a"):
+    if path == "ep_a2a":
+        return moe_ep_a2a(cfg, p, x)
+    if path == "local":
         return moe_sort_local(cfg, p, x)
     raise ValueError(f"unknown MoE path {path!r}")

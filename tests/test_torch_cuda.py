@@ -701,6 +701,37 @@ def test_moe_forward_does_not_wait_on_the_card(cuda, case):
 
 
 
+
+def test_ep_a2a_at_one_nccl_rank_is_the_sort_path(cuda, tmp_path):
+    """Expert parallelism on a (1, 1) ``DeviceMesh`` of one NCCL rank (the
+    JAX package's ``test_ep_a2a_single_device_mesh``): one shard's capacity
+    is the batch's, aux is the same and the all-to-alls copy, so y, aux and
+    the gradients of ``sum(y²) + 0.01·aux`` are the sort path's, at the f32
+    tolerance, on phi's routing at a 64-token prefill."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import AxisRules, axis_rules
+    from repro_torch.launch.mesh import make_test_mesh
+
+    cfg, _, _, p_card, x_card = _moe_layer(MOE_CASES[5], "float32", cuda)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        rules = AxisRules(make_test_mesh((1, 1)), {"experts": "model", "batch": ("data",)})
+        runs = {}
+        for path in ("ep_a2a", "local"):
+            inputs = {k: v.clone().requires_grad_(True) for k, v in {**p_card, "x": x_card}.items()}
+            with axis_rules(rules):
+                y, aux = moe.moe_apply(cfg, {k: v for k, v in inputs.items() if k != "x"},
+                                       inputs["x"], path=path)
+                ((y ** 2).sum() + 0.01 * aux).backward()
+            runs[path] = {"y": y.detach(), "aux": aux.detach(),
+                          **{f"grad_{k}": v.grad for k, v in inputs.items()}}
+    finally:
+        dist.destroy_process_group()
+    for key, want in runs["local"].items():
+        assert _err(runs["ep_a2a"][key], want) <= MOE_TOL["float32"] * float(want.abs().max()), key
+
 # ---------------------------------------------------------------------------
 # The control plane: the batched tick engine on the card against the CPU.
 # ---------------------------------------------------------------------------
