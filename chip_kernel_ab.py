@@ -11,9 +11,10 @@ its kernels are built into that checkout's ``build/``.  Timing is
 flushed and ~0.1 ms of device sleep queued before each.  Run the trees in
 turns (A, B, B, A) in one command on one card, so that both see the same
 card and host.  Prints one JSON line: ms per kernel and shape, the flash
-wrapper's host microseconds a call at the main path's shape, the bf16
-flash kernel's rounding at large outputs (``rounding_margin``) and the bf16
-decode kernel's over ``ref.DECODE_ROUNDING_SEEDS`` (``decode_rounding``).
+and decode wrappers' host microseconds a call at the main path's shape,
+the bf16 flash kernel's rounding at large outputs (``rounding_margin``) and
+the bf16 decode kernel's over ``ref.DECODE_ROUNDING_SEEDS``
+(``decode_rounding``, hd 64, 112 and 256).
 """
 from __future__ import annotations
 
@@ -28,9 +29,9 @@ import numpy as np
 import torch
 
 # chip_smoke.py's shapes: (B, Sq, Sk, nq, nkv, hd, causal) for flash (from
-# position 0) and (B, cache slots, nq, nkv, hd) for decode over prefix
-# masks (8 slots, each valid up to its prompt + 32 tokens; whisper's up to
-# its 4-token prompt + 32)
+# position 0) and (B, cache slots, nq, nkv, hd, valid lengths) for decode
+# over prefix masks (8 slots, each valid up to its prompt + 32 tokens;
+# whisper's up to its 4-token prompt + 32; llama3-8b's whole 2048-slot cache)
 FLASH = {"qwen1.5-0.5b": (1, 512, 512, 16, 16, 64, True),
          "phi3.5-moe": (1, 512, 512, 32, 8, 128, True),
          "kimi-k2": (1, 512, 512, 64, 8, 112, True),
@@ -38,9 +39,13 @@ FLASH = {"qwen1.5-0.5b": (1, 512, 512, 16, 16, 64, True),
          "recurrentgemma-9b": (1, 512, 512, 16, 1, 256, True),
          "whisper-small encoder": (8, 1500, 1500, 12, 12, 64, False),
          "whisper-small cross decode": (8, 1, 1500, 12, 12, 64, False)}
-DECODE = {"qwen1.5-0.5b": (8, 2048, 16, 16, 64), "phi3.5-moe": (8, 2048, 32, 8, 128),
-          "recurrentgemma-9b": (8, 2048, 16, 1, 256), "whisper-small": (8, 448, 12, 12, 64)}
-PREFIX = {2048: [96, 544, 300, 65, 64, 1, 2048, 411], 448: [36] * 8}
+SERVED = [96, 544, 300, 65, 64, 1, 2048, 411]
+DECODE = {"qwen1.5-0.5b": (8, 2048, 16, 16, 64, SERVED),
+          "phi3.5-moe": (8, 2048, 32, 8, 128, SERVED),
+          "kimi-k2": (8, 2048, 64, 8, 112, SERVED),
+          "recurrentgemma-9b": (8, 2048, 16, 1, 256, SERVED),
+          "whisper-small": (8, 448, 12, 12, 64, [36] * 8),
+          "llama3-8b full cache": (8, 2048, 32, 8, 128, [2048] * 8)}
 HOST_AHEAD_CYCLES = 200_000
 
 
@@ -130,19 +135,21 @@ def main() -> None:
         if name == "qwen1.5-0.5b":
             out["flash host us per call"] = host_us(
                 lambda: fa.flash_attention(q, k, v, causal=causal))
-    for name, (b, s, nq, nkv, hd) in DECODE.items():
+    for name, (b, s, nq, nkv, hd, lengths) in DECODE.items():
         if hd not in da.SUPPORTED_HEAD_DIMS:
             out[f"decode {name}"] = None
             continue
         valid = (torch.arange(s, device=dev)[None, :]
-                 < torch.tensor(PREFIX[s], device=dev)[:, None])
+                 < torch.tensor(lengths, device=dev)[:, None])
         q, k, v = rand(b, nq, hd), rand(b, s, nkv, hd), rand(b, s, nkv, hd)
         out[f"decode {name}"] = time_ms(lambda: da.decode_attention(q, k, v, valid), flush,
                                         args.iters)
+        if name == "qwen1.5-0.5b":
+            out["decode host us per call"] = host_us(lambda: da.decode_attention(q, k, v, valid))
     out["rounding"] = rounding_margin(fa, dev)
     probe = own_ref()
     out["decode_rounding"] = {f"hd {hd}": probe.decode_rounding_sweep(da.decode_attention, hd, dev)
-                              for hd in (64, 256)}
+                              for hd in (64, 112, 256)}
     print(json.dumps(out))
 
 

@@ -20,7 +20,10 @@ never prints its last line):
    instructions, the flash library wgmma and TMA loads, the flash kernel's
    wgmma instantiations (``fa_wgmma_kernel``, hd <= 128) no spill, and
    ptxas must neither ignore their ``setmaxnreg`` nor serialise their
-   wgmma;
+   wgmma; the decode library wgmma and TMA loads, its bf16 instantiations
+   (``da_cluster_kernel``) no spill and no serialised wgmma, and the card
+   must hold a cluster of each size the plan gives the served shapes
+   (``cudaOccupancyMaxActiveClusters``, printed);
 2. hold each kernel against its plain PyTorch version on the card, in f32
    and bf16: the attention kernels at the shapes of ``tests/test_kernels.py``,
    at the main path's shapes, at phi3.5-moe's and llama3-8b's GQA shapes
@@ -37,7 +40,8 @@ never prints its last line):
    the state updated in place at T = 45 and T = 1, and at rwkv6-1.6b's
    prefill and decode shapes; the attention kernels' edge cases (rows that
    see no key, S = 1000 in bf16, a window with a q_offset, decode masks that
-   leave whole tiles and whole splits empty in the middle of the cache;
+   leave whole tiles and whole cluster ranks empty in the middle of the
+   cache;
    flash at the edges of its 128-row blocks and 64-key tiles, Sq and Sk
    in {1, 127, 128, 129} causal and not, windows with a q_offset across a
    tile edge, GQA at 64:8 and 16:1),
@@ -48,8 +52,7 @@ never prints its last line):
    16:1); both attention kernels at kimi-k2's hd 112 (64 q heads over 8 kv
    heads): flash causal at S = 512 and 2048, with a q_offset and
    non-causal at Sq = 4, decode over the 8-slot, 2048-slot cache with the
-   main path's prefix masks and with masks that leave whole tiles and
-   splits empty.
+   main path's prefix masks and with masks that leave whole tiles empty.
    Time kernel, plain version, one PyTorch call for the same function where
    there is one (SDPA, a yardstick the port never calls) and the card's
    bound, at the main path's shapes (and the attention kernels also at
@@ -335,20 +338,22 @@ RWKV_PREFILL, RWKV_DECODE = (1, 500, 32, 64, True), (SLOTS, 1, 32, 64, True)
 # 64 chunks carried through the prefill's scratch; the state updated in place
 # over two chunks and a ragged tail, and in one decode step
 RWKV_LONG, RWKV_IN_PLACE = (1, 2048, 4, 64, True), ((2, 45, 4, 64, True), (8, 1, 4, 64, True))
+# the decode library's one kernel: a call launches it once, never another
+DECODE_KERNELS = ("da_cluster_kernel",)
 # each slice's own kernels in a profile, by name: flash attention's (the
 # bf16 kernel its head size runs: wgmma at hd <= 128, the mma.sync kernel at
 # hd 256) and decode attention's, and every kernel of the rwkv6_scan
 # library, all of which live in its namespace rwkv6
 PROFILED = {
     ARCH: {"prefill": ("flash_attention", ("fa_wgmma_kernel",)),
-           "decode": ("decode_attention", ("da_split_kernel", "da_combine_kernel"))},
+           "decode": ("decode_attention", DECODE_KERNELS)},
     RWKV_ARCH: {"prefill": ("rwkv6_scan", ("rwkv6::",)), "decode": ("rwkv6_scan", ("rwkv6::",))},
     MOE_ARCH: {"prefill": ("flash_attention", ("fa_wgmma_kernel",)),
-               "decode": ("decode_attention", ("da_split_kernel", "da_combine_kernel"))},
+               "decode": ("decode_attention", DECODE_KERNELS)},
     KIMI_ARCH: {"prefill": ("flash_attention", ("fa_wgmma_kernel",)),
-                "decode": ("decode_attention", ("da_split_kernel", "da_combine_kernel"))},
+                "decode": ("decode_attention", DECODE_KERNELS)},
     RG_ARCH: {"prefill": ("flash_attention", ("fa_mma_wide_kernel",)),
-              "decode": ("decode_attention", ("da_split_kernel", "da_combine_kernel"))},
+              "decode": ("decode_attention", DECODE_KERNELS)},
 }
 # the MoE layer's parts, each run inside a profiler range of this name:
 # the whole layer, its routing (router product, top-k, softmax, aux) and
@@ -481,6 +486,56 @@ def check_flash_design(counts, log) -> None:
         raise AssertionError("ptxas: " + " | ".join(warned))
 
 
+# the served decode shapes (B, S, nq, nkv, hd): qwen1.5-0.5b (the main
+# path), phi3.5-moe, kimi-k2, recurrentgemma-9b, whisper-small, and
+# llama3-8b's phase-2 shape
+DECODE_SHAPES = {"main": (SLOTS, CACHE_LEN, 16, 16, 64), MOE_ARCH: (SLOTS, CACHE_LEN, 32, 8, 128),
+                 KIMI_ARCH: (SLOTS, CACHE_LEN, 64, 8, 112), RG_ARCH: (SLOTS, CACHE_LEN, 16, 1, 256),
+                 WHISPER_ARCH: (SLOTS, WHISPER_CACHE, 12, 12, 64),
+                 "llama3_8b": (8, 4096, 32, 8, 128)}
+
+
+def check_decode_design(counts, log) -> None:
+    """The decode library is the Hopper design it claims: wgmma and TMA
+    loads in its SASS, each bf16 ``da_cluster_kernel`` instantiation (the
+    tensor-core ones, 8 or 16 heads a product, and the SIMT one for larger
+    groups) compiled without spill, no ptxas warning that wgmma was
+    serialised, and the card able to hold a cluster of each size
+    ``cluster_plan`` gives the served shapes, in bf16 and f32
+    (``cudaOccupancyMaxActiveClusters``, printed)."""
+    if not (counts["HGMMA"] and counts["UTMALDG"]):
+        raise AssertionError(f"the decode_attention library lacks wgmma or TMA loads: {counts}")
+    report = ptxas_report(log)
+    readable = kernel_names(list(report))
+    bf = {readable[k]: v for k, v in report.items()
+          if "da_cluster_kernel" in k and "nv_bfloat16" in readable[k]}
+    print("[build] decode_attention bf16 da_cluster_kernel: " + json.dumps(
+        {k: {"registers": r, "spill_store_bytes": st, "spill_load_bytes": ld}
+         for k, (r, st, ld) in bf.items()}))
+    if len(bf) != 3 * len(da.SUPPORTED_HEAD_DIMS) or any(st or ld for _, st, ld in bf.values()):
+        raise AssertionError(f"da_cluster_kernel bf16 instantiations missing or spilling: {bf}")
+    warned = [line for line in log.splitlines() if any(w in line for w in PTXAS_DESIGN_WARNINGS)]
+    if warned:
+        raise AssertionError("ptxas: " + " | ".join(warned))
+    dev = torch.device("cuda")
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    fits = {}
+    for name, (b, s, nq, nkv, hd) in DECODE_SHAPES.items():
+        shaped = da.cluster_plan(b, nkv, s, sm)
+        for dtype in (torch.bfloat16, torch.float32):
+            c = da.clusters_for(b, s, nq, nkv, hd, dtype, dev)
+            at_once = {n: da.max_active_clusters(dtype, hd, nq // nkv, n, dev)
+                       for n in sorted({1, c, shaped})}
+            chunks = nq // nkv // da.heads_per_cta(dtype, nq // nkv, hd)
+            fits[f"{name} {str(dtype)[6:]}"] = {"shape_plan": shaped, "clusters": c,
+                                                "ctas": b * nkv * chunks * c,
+                                                "max_active_clusters": at_once}
+            if min(at_once.values()) < 1:
+                raise AssertionError(f"decode_attention {name} {dtype}: the card holds no "
+                                     f"cluster of some size in {at_once}")
+    print("[build] decode_attention cluster sizes: " + json.dumps(fits))
+
+
 # ---------------------------------------------------------------------------
 # Phase 0: the port's static analysis.
 # ---------------------------------------------------------------------------
@@ -531,6 +586,8 @@ def phase_build() -> str:
         if name in ("flash_attention", "rwkv6_scan") and not (n["HMMA"] or n["HGMMA"]):
             raise AssertionError(f"the {name} library has no tensor-core instruction")
     check_flash_design(sass_counts(paths["flash_attention"]), _build.build_log("flash_attention"))
+    check_decode_design(sass_counts(paths["decode_attention"]),
+                        _build.build_log("decode_attention"))
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -607,20 +664,21 @@ def check_attention_edges(gen, dtype) -> int:
     check_decode(gen, SLOTS, CACHE_LEN, 16, 1, 256, dtype,
                  ring_valid(RING_POSITIONS, CACHE_LEN, RING_WINDOW, dev))
     n_edges = check_flash_tile_edges(gen, dtype)
-    # decode: whole 64-slot tiles and whole splits empty in the middle of a
-    # 2048-slot cache, a sequence valid only at its last slot, one with none
+    # decode: whole 64-slot tiles empty in the middle of a 2048-slot cache
+    # (cluster ranks that see none of the valid slots), a sequence valid
+    # only at its last slot, one with none
     valid = torch.zeros((4, 2048), dtype=torch.bool, device=dev)
     valid[0, :70] = True
     valid[0, -100:] = True
     valid[1, ::97] = True
     valid[2, -1] = True
     _, (q, k, v, valid) = check_decode(gen, 4, 2048, 8, 2, 64, dtype, valid)
-    if da.split_plan(4, 2, 2048, torch.cuda.get_device_properties(dev).multi_processor_count)[0] < 3:
-        raise AssertionError("decode_attention edge case: expected the cache split in 3 or more")
+    if da.cluster_plan(4, 2, 2048, torch.cuda.get_device_properties(dev).multi_processor_count) < 3:
+        raise AssertionError("decode_attention edge case: expected clusters of 3 or more CTAs")
     out = da.decode_attention(q, k, v, valid)
     if bool(out[3].any()):
         raise AssertionError("decode_attention: a sequence with no valid slot is not 0")
-    check("decode_attention single valid slot in the last split",
+    check("decode_attention single valid slot in the last tile",
           max_err(out[2], v[2, -1].repeat_interleave(4, dim=0)), TOL[dtype])
     return 8 + n_edges + check_kimi_attention(gen, dtype)
 
@@ -653,9 +711,9 @@ def check_kimi_attention(gen, dtype) -> int:
     """kimi-k2's attention (64 q heads over 8 kv heads of 112): flash causal
     at S = 2048 (S = 512 is among the main-path shapes), with a q_offset
     (a prompt's second half against the whole), non-causal at Sq = 4; decode
-    over an 8-slot, 2048-slot cache with masks that leave whole tiles and
-    whole splits empty, one slot alone in the last split and a sequence with
-    none.  Returns the number of checks."""
+    over an 8-slot, 2048-slot cache with masks that leave whole tiles
+    empty, one slot alone in the last tile and a sequence with none.
+    Returns the number of checks."""
     dev = gen.device
     check_flash(gen, 1, 2048, 2048, 64, 8, 112, True, 0, dtype)
     q, k, v = (randn(gen, (1, 300, n, 112), dtype) for n in (64, 8, 8))
@@ -673,7 +731,7 @@ def check_kimi_attention(gen, dtype) -> int:
     out = da.decode_attention(q, k, v, valid)
     if bool(out[3].any()):
         raise AssertionError("decode_attention hd 112: a sequence with no valid slot is not 0")
-    check("decode_attention hd 112 single valid slot in the last split",
+    check("decode_attention hd 112 single valid slot in the last tile",
           max_err(out[2], v[2, -1].repeat_interleave(8, dim=0)), TOL[dtype])
     return 4
 
@@ -804,6 +862,8 @@ def time_decode(err, qkvm, flush):
         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, **gqa),
         4 * hd * nq * n_valid, nbytes, flush,
     )
+    t["host_us_per_call"] = host_us_per_call(lambda: da.decode_attention(q, k, v, valid))
+    t["clusters"] = da.clusters_for(b, s, nq, nkv, hd, q.dtype, q.device)
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:71",
@@ -1436,7 +1496,7 @@ def profile_whisper(cfg, params, frames, prompt, steps=8):
     with wrapped(fa, "flash_attention", flash_by_kind(kinds)):
         for name, per in (("prefill", 1), ("decode", steps)):
             kinds.clear()
-            before = fa.launches
+            before, dec_before = fa.launches, da.launches
             with torch.profiler.profile(activities=acts) as prof:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1454,7 +1514,7 @@ def profile_whisper(cfg, params, frames, prompt, steps=8):
             busy = sum(by_kernel.values())
             flash = kernel_time(by_kernel, ("fa_wgmma_kernel",))
             check_only_kernel(by_kernel, FLASH_KERNELS, ("fa_wgmma_kernel",))
-            dec = kernel_time(by_kernel, ("da_split_kernel", "da_combine_kernel")) if per > 1 else 0
+            dec = kernel_time(by_kernel, DECODE_KERNELS) if per > 1 else 0
             top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
             suffix = "_ms" if per == 1 else "_ms_per_step"
             r = {"profiled_wall" + suffix: wall_us / per / 1e3, "device" + suffix: busy / per / 1e3,
@@ -1465,7 +1525,8 @@ def profile_whisper(cfg, params, frames, prompt, steps=8):
                  "top_kernels" + suffix: {k[:80]: us / per / 1e3 for k, us in top}}
             if per > 1:
                 r.update({"steps": steps, "decode_attention" + suffix: dec / per / 1e3,
-                          "decode_attention_share_of_device": dec / busy})
+                          "decode_attention_share_of_device": dec / busy,
+                          **decode_kernels_a_call(prof, da.launches - dec_before)})
             result[name] = r
     return result
 
@@ -2859,6 +2920,7 @@ def profile_decode(engine, prompts, kernel, steps=8):
     for i, p in enumerate(prompts[:SLOTS]):
         engine.insert(Request(rid=1000 + i, prompt=p, max_new_tokens=steps + 1))
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    before = da.launches
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2870,14 +2932,29 @@ def profile_decode(engine, prompts, kernel, steps=8):
     busy = sum(by_kernel.values())
     own = kernel_time(by_kernel, kernel[1])
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    per_call = (decode_kernels_a_call(prof, da.launches - before)
+                if kernel[0] == "decode_attention" else {})
     return {
-        "steps": steps, "profiled_wall_ms_per_step": wall_us / steps / 1e3,
+        "steps": steps, "profiled_wall_ms_per_step": wall_us / steps / 1e3, **per_call,
         "device_ms_per_step": busy / steps / 1e3,
         "device_busy_share_profiled": busy / wall_us,
         f"{kernel[0]}_ms_per_step": own / steps / 1e3, f"{kernel[0]}_share_of_device": own / busy,
         "top_kernels_ms_per_step": {k[:80]: us / steps / 1e3 for k, us in top},
         **moe_breakdown(prof, busy, steps, "_ms_per_step"),
     }
+
+
+def decode_kernels_a_call(prof, calls) -> dict:
+    """The decode library's kernels in a profile of ``calls`` decode calls:
+    each is ``da_cluster_kernel``, one launch a call (the profiler may drop
+    a kernel's record, never add one, so the count may fall short of the
+    calls but never exceed them)."""
+    found = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and "namespace)::da_" in e.key}
+    n = sum(found.values())
+    if calls < 1 or n > calls or any(not any(p in k for p in DECODE_KERNELS) for k in found):
+        raise AssertionError(f"{calls} decode calls ran the decode kernels {found}")
+    return {"decode_calls": calls, "decode_kernels_in_profile": n}
 
 
 def device_times(prof):

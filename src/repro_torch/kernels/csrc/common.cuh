@@ -1,10 +1,13 @@
 // Helpers shared by the kernels: element types, 4-wide loads
 // into f32 registers, stores back to the element type, warp reductions,
 // and the Ampere/Hopper instructions written as inline PTX (cp.async,
-// ldmatrix, mma.sync, griddepcontrol; mbarriers, TMA tensor loads, wgmma
-// and setmaxnreg) so that no header beyond the toolkit's is needed.
+// ldmatrix, mma.sync, griddepcontrol; mbarriers, TMA tensor loads, wgmma,
+// setmaxnreg, cluster barriers and distributed shared memory) so that no
+// header beyond the toolkit's is needed; on the host, the TMA tensor-map
+// encoder both attention kernels use.
 #pragma once
 
+#include <cuda.h>                 // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -205,6 +208,46 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t
       : "memory");
 }
 
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (a wgmma operand written by st.shared); the
+// readers' side then needs only a barrier.
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A named barrier of `count` threads (a multiple of 32) other than barrier 0,
+// which __syncthreads uses: lets some warps of a CTA meet without the rest.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Thread-block clusters (sm_90).  Every thread of every CTA of the cluster
+// arrives (release: its earlier writes, shared memory included, and its
+// stores into its peers' shared memory become visible cluster-wide) and
+// waits (acquire).  cluster_map gives the address in CTA `rank`'s shared
+// memory of this CTA's shared address `addr`, which st_cluster writes.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+
+// four floats at a 16-byte aligned address
+__device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch(const void* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
@@ -279,6 +322,57 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
 // ignores d's old value.
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
+
+// d += A B with A in shared memory MN-major (the transpose flag of A set:
+// the M index contiguous, as a V tile read as V^T is) and B K-major.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_at(float (&d)[N / 2], uint64_t a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<8>(float (&d)[4], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_at<32>(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, "
+      "1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_at<16>(float (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
 
 // d += A B with A from registers (four bf16x2 of the A layout) and B in
 // shared memory MN-major (the transpose flag of 16-bit types set).
@@ -357,3 +451,55 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+
+// ---------------------------------------------------------------------------
+// Host: TMA tensor maps.  cuTensorMapEncodeTiled, a driver API function, is
+// reached through the runtime so that no library needs -lcuda.
+// ---------------------------------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// The contiguous (B, S, heads, hd) tensor at `ptr` of `elem_bytes`-byte
+// elements (4: f32, 2: bf16) as a 4-D tensor map (hd, heads, S, B),
+// innermost first, read in boxes of 128 bytes of a row (64 bf16 or 32 f32
+// columns) x `rows` positions of one head of one batch, with 128-byte
+// swizzle.  Columns past hd and positions past S read as zeros: hd 112 in
+// bf16 fills its second box with 16 zero columns, and a ragged tile's rows
+// are zeros.
+inline cudaError_t tma_encode_bshd(CUtensorMap* map, const void* ptr, int elem_bytes, int B,
+                                   int S, int heads, int hd, int rows) {
+  const EncodeTiled fn = tensor_map_encoder();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t es = elem_bytes;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {hd * es, (cuuint64_t)heads * hd * es,
+                                 (cuuint64_t)S * heads * hd * es};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / elem_bytes), 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map,
+                        elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                        4, const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}

@@ -1,5 +1,6 @@
 // Flash-decode for Hopper (sm_90a): one query token per sequence against
-// its KV cache, f32 or bf16 in, f32 softmax, the cache split across CTAs.
+// its KV cache, f32 or bf16 in, f32 softmax, one launch a call over
+// thread-block clusters.
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py:decode_attention
 // (body _decode_kernel): for q (B,nq,hd), a cache k, v (B,S,nkv,hd) and a
@@ -10,110 +11,127 @@
 // What bounds it on this card: bytes.  Each cached K/V element is used for
 // 2*(nq/nkv) operations, far below the H100's ~295 operations per byte, so
 // the least time is the valid part of the cache over 3.35 TB/s.  Reaching
-// it takes enough bytes in flight on every SM, and at decode batch sizes
-// there are few (batch, kv head) pairs: 128 for qwen1.5-0.5b at 8 slots, 64
-// for llama3-8b, on 132 SMs.  What the design does about it:
-//  - split S: the grid is (splits, nkv, B) and each CTA owns a contiguous
-//    range of slots; the wrapper picks the split count from B, nkv, S and
-//    the SM count alone (never from `valid`, so no host sync).  Each split
-//    writes its f32 partials (running max, sum, unnormalised accumulator
-//    per query head) to scratch, and da_combine_kernel merges them per
-//    (b, q head); with one split the CTA writes the output itself;
-//  - skip what is empty: each warp owns 16 slots of every 64-slot tile of
-//    its range and reads the mask of 32 such sub-tiles at once (16 bytes a
-//    lane, one ballot); empty sub-tiles are never visited, a split with no
-//    valid slot exits after that read, and masked slots inside a sub-tile
-//    are zero-filled by cp.async without being read.  Ring holes anywhere
-//    in the cache work the same as prefix masks;
-//  - loads in flight: each warp streams its non-empty sub-tiles' K and V
-//    rows with 16-byte cp.async through its own ring of 3 stages (2 at
-//    hd 128 and in f32, 1 at hd 256), so only __syncwarp orders a warp's
-//    work and up to 2 sub-tiles per warp are in flight while one computes;
-//    no load waits on a probability;
-//  - each K/V row is read once and serves the whole GQA group of nq/nkv
-//    query heads.  In bf16 a group of <= 16 heads is the 16 rows of
-//    mma.sync m16n8k16: q K^T and P V of a 16-slot sub-tile are 2 * hd/16
-//    and 2 * hd/8 tensor-core products (P as a bf16 high and a bf16 low
-//    part, so that the output is within one bf16 step of the f32
-//    attention, as the TPU kernel's f32 P is), with the online softmax in
-//    the accumulator registers; f32 (held to 2e-5) and larger groups score on
-//    the SIMT units, two half-warps per slot.  A SIMT warp holds at most
-//    MAX_PAIRS x 64 = 1024 outputs (heads x hd), so a larger group (f32 at
-//    recurrentgemma-9b's 16 heads of 256) is cut into chunks of heads, one
-//    CTA each, every chunk reading the K/V rows again;
-//  - hd 256 in bf16 (16 q heads over 1 kv head): the P V accumulators take
-//    hd/8 x 4 = 128 f32 registers a lane, so the q fragments are reloaded
-//    from shared memory at each k-step instead of held (64 registers).
-//    Each warp's ring has one stage: shared memory 89,344 bytes (K/V
-//    67,584, q 16,896, warp state), two CTAs per SM.  A warp's copy of its
-//    next sub-tile then waits for its compute, but at recurrentgemma-9b's
-//    decode (32 splits of 64 slots) every warp owns one sub-tile of a
-//    split, and the other CTA's warps keep loads in flight;
-//  - the warps' online-softmax states merge in shared memory at the end of
-//    the range;
-//  - hd 112 (kimi-k2's 64 q heads over 8 kv heads, a group of 8): a row
-//    is 14 sixteen-byte chunks in bf16 and 28 in f32, which divide no
-//    warp, so 28 lanes copy (2 rows of 14 lanes a pass in bf16, 1 row of
-//    28 in f32) and 4 lanes idle; the tensor-core path takes hd 112 as it
-//    is (7 k-steps of q K^T, 7 x 16 output columns of P V, q fragments
-//    held: 28 registers), and the SIMT half-rows are 56 dims, whole chunks
-//    of either type.
-// What is left: the combine is a second launch whenever S is split; at
-// decode's small sizes the two launches and their cold reads (q, the
-// mask, K/V, then the partials) are most of the time.
+// it takes enough bytes in flight on every SM in one launch, and at decode
+// batch sizes there are few (batch, kv head) pairs: 128 for qwen1.5-0.5b at
+// 8 slots, 8 for recurrentgemma-9b, on 132 SMs.  What the design does about
+// the four things that held the split kernel of the first redesign back:
+//  1. the split plan cut S by shape, so a prefix mask left most splits
+//     empty: here 64-slot tile t belongs to cluster rank t % C, dealt round
+//     robin, so a prefix mask, a ring hole or a window spreads evenly over
+//     the C CTAs of a cluster (one per (sequence, kv head, chunk of heads);
+//     grid (C, nkv x chunks, B), cluster (C, 1, 1), cudaLaunchKernelEx).
+//     The wrapper's cluster_plan picks C from B, nkv, S and the card (about
+//     two CTAs an SM, C <= 16, one wave where an SM holds one CTA; never
+//     from `valid`, so no host sync).  The producer warp first reads the
+//     mask bytes of its CTA's tiles (a 64-bit word a tile, 32 tiles a pass)
+//     and issues no copy for an empty tile;
+//  2. the combine was a second launch over f32 partials in scratch: here
+//     each CTA keeps its state (per head m and l, its accumulators in its
+//     idle ring), pushes each rank's slice of the accumulators into that
+//     rank's shared memory with 16-byte st.shared::cluster stores (and
+//     every head's m and l to every rank), and after one cluster barrier
+//     (release/acquire) rank r merges its slice from its own shared memory
+//     and writes q's dtype.  A rank that saw no valid slot pushes l = 0; a
+//     row whose ranks all saw nothing gives 0; with C = 1 the CTA writes
+//     the output itself.  No scratch, no second launch;
+//  3. the copies were per-lane cp.async in a ring of 3, 2 or 1 stages:
+//     here TMA tensor loads of K and V tiles (tensor maps over the
+//     (B, S, nkv, hd) cache, 128-byte boxes under 128-byte swizzle: 1, 2
+//     and 4 boxes a bf16 row at hd <= 64, 112/128, 256, hd 112 padded by
+//     the map's zero fill; encoded on the host and cached by pointer, shape
+//     and dtype) fill a ring of full/empty mbarriers, 4 stages at hd <= 64
+//     and 2 above, hd 256 included, kept full by one producer warp beside
+//     the consumer warpgroup.  Masked slots inside a loaded tile are read,
+//     as the TPU kernel reads whole blocks, and get probability exactly 0
+//     (its jnp.where(valid, exp(...), 0)): unlike the split kernel, a
+//     masked slot is no longer skipped unread, only a wholly masked tile;
+//  4. the mma.sync A operand was 16 rows of heads, one of them live at a
+//     group of 1: here, in bf16 with a GQA group <= 16 (every model of the
+//     repo), wgmma with the operands swapped, so that its 64 rows are slots
+//     and head dims.  S^T (64 slots x N) = K_tile Q^T with N = the group
+//     rounded up to 8 or 16 (A = K, B = q, both K-major; q written swizzled
+//     into shared memory by the consumers; even and odd k-steps in two
+//     accumulators); O^T (hd x 2N) += V^T [P_hi; P_lo]^T with A = the V
+//     tile MN-major (the transpose flag) and B = P's bf16 high part in its
+//     first N rows and its low part in the next N, which the consumers
+//     write to one swizzled shared tile: one product gives both, and their
+//     sum keeps P V within one bf16 step of the f32 result, as the TPU
+//     kernel's f32 P is.  At hd 256 the O accumulators are 256 x 32 / 128
+//     = 64 floats a thread.  A head's max over a tile's 64 rows reduces
+//     within a warp, then across the warpgroup's 4 warps through shared
+//     memory; its sum stays per thread until the end.  Tile n+1's S^T is
+//     issued with tile n's P V.
+// f32 (held to 2e-5) and groups > 16 keep the SIMT scoring body (two
+// half-warps a slot, 16 slots a warp), fed by the same schedule, copies and
+// merge, at a chunk of heads whose outputs the warpgroup holds (heads x hd
+// <= 1024), one cluster each; f32 at hd 256 has one ring stage (a stage is
+// 128 KB).  Its speed is not an aim.
+// What is left (PERF.md §6): a call's fixed latencies (the mask read, then
+// the first tile's TMA, then the push and the cluster barrier) and, on a
+// long sequence's CTAs, the wgmma issue, softmax and barriers of each
+// 64-slot tile, not the bytes.
+#include <mutex>
 #include <type_traits>
+#include <unordered_map>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int NW = 4;             // warps per CTA
-constexpr int NT = 32 * NW;
-constexpr int SUB = 16;           // cache slots of a warp's sub-tile
-constexpr int TS = NW * SUB;      // slots of a CTA tile
-constexpr int MAX_PAIRS = 16;     // SIMT output pairs per lane: heads x hd <= 1024 a CTA
+using bf16 = __nv_bfloat16;
+
+constexpr int TILE = 64;                  // cache slots of a tile
+constexpr int NCW = 4;                    // consumer warps: one warpgroup
+constexpr int NCT = 32 * NCW;             // consumer threads
+constexpr int NT = NCT + 32;              // and the producer warp
+constexpr int MAX_CLUSTER = 16;
+constexpr int SIMT_OUTPUTS = 1024;        // SIMT: heads x hd a CTA at most
+constexpr int MAX_PAIRS = SIMT_OUTPUTS / (2 * NCT);   // SIMT: output pairs a thread
+constexpr int BAR_CONSUMERS = 1;          // named barrier of the consumer warpgroup
 constexpr unsigned FULL = 0xffffffffu;
 
-// ring stages per warp: 3 in bf16 (2 sub-tiles in flight while one
-// computes), 2 where 3 would cost CTAs per SM (hd 128, f32), 1 at hd 256,
-// where a stage of the 4 warps' K and V rows is 67,584 bytes in bf16 and
-// 133,120 in f32 (two would not fit in f32, nor two CTAs an SM in bf16)
-template <typename T, int HD>
-__host__ __device__ constexpr int stages() {
-  return HD >= 256 ? 1 : (sizeof(T) == 2 && HD < 128 ? 3 : 2);
-}
-
-// elements per 16-byte chunk, and a shared-memory row: hd and 16 bytes of pad
-template <typename T>
-__host__ __device__ constexpr int epc() { return 16 / (int)sizeof(T); }
-template <typename T, int HD>
-__host__ __device__ constexpr int ld() { return HD + epc<T>(); }
-
-template <typename T, int HD>
-__host__ __device__ constexpr size_t ring_bytes() {
-  return (size_t)NW * stages<T, HD>() * 2 * SUB * ld<T, HD>() * sizeof(T);
-}
-
-// q: on the SIMT path f32, two halves of hd per head padded by 4 floats
-// (the two half-warps read them in different banks); on the tensor-core
-// path 16 rows of hd + 8 bf16, rows past the group zero
-template <int HD>
-__host__ __device__ constexpr int q_row() { return HD + 8; }
-
-template <typename T, int HD>
-size_t smem_bytes(int g) {
-  // the ring, reused at the end for the warps' accumulators (NW x g x hd f32)
-  const size_t ring = ring_bytes<T, HD>() > (size_t)NW * g * HD * sizeof(float)
-                          ? ring_bytes<T, HD>() : (size_t)NW * g * HD * sizeof(float);
-  // q, then per warp: probabilities (g x SUB), m, l, alpha (g each)
-  return ring + sizeof(float) * ((g > 8 ? g : 8) * q_row<HD>() + NW * (g * SUB + 3 * g));
-}
+// The shared-memory layout of one instantiation: T the element type, HD the
+// head size, NQ the heads of a tensor-core product (8 or 16; 0 for the SIMT
+// path).  Offsets from a 1024-byte aligned base; the tiles and q and P
+// boxes stay 1024-byte aligned, the swizzle's atom.  Ring stages: 4 of 16
+// KB at hd <= 64 and 2 above on the tensor cores, so that three CTAs fit an
+// SM up to hd 128 (the plan's aim of two, with room); the SIMT path keeps
+// 4, 3, 2 and 1 of 16, 32, 64 and 128 KB.
+template <typename T, int HD, int NQ>
+struct Cfg {
+  static constexpr bool TC = NQ > 0;
+  static constexpr int BOXC = 128 / (int)sizeof(T);                // columns of a box
+  static constexpr int NBOX = (HD * (int)sizeof(T) + 127) / 128;   // boxes a row
+  static constexpr int BOX = TILE * 128;                           // bytes of a tile's box
+  static constexpr int STAGE = 2 * NBOX * BOX;                     // K boxes, then V boxes
+  static constexpr int NS = NBOX == 1 ? 4 : TC || NBOX == 4 ? 2 : NBOX == 2 ? 3 : 1;
+  // heads a CTA serves at most
+  static constexpr int GMAX = TC ? NQ : (SIMT_OUTPUTS / HD < 64 ? SIMT_OUTPUTS / HD : 64);
+  static constexpr int QBOX = NQ * 128;   // tensor cores: a box of NQ swizzled q rows
+  static constexpr int PBUF = NQ * 128;   // tensor cores: P (NQ heads x 64 slots) in bf16
+  static constexpr int QR = HD + 8;       // SIMT: an f32 q row, its halves 4 floats apart
+  static constexpr int Q = NS * STAGE;
+  static constexpr int P = Q + (TC ? NBOX * QBOX : GMAX * QR * 4);
+  // tensor cores: P's high part, then its low part; SIMT: g x 64 f32
+  static constexpr int RED = P + (TC ? 2 * PBUF : GMAX * TILE * 4);   // [4 warps][GMAX]
+  static constexpr int AUX = RED + NCW * GMAX * 4;   // TC: partial sums [4][GMAX]; SIMT: alpha
+  static constexpr int MS = AUX + NCW * GMAX * 4;    // running max [GMAX], log2 units
+  static constexpr int LS = MS + GMAX * 4;           // sum [GMAX]
+  // the merge: what each rank c pushes into the rank that owns a slice of
+  // the g x hd outputs, its accumulators [c][per] (per a multiple of 4, so
+  // C x per <= g hd + 4 C), then m [c][GMAX] and l [c][GMAX]
+  static constexpr int RCV = (LS + GMAX * 4 + 15) / 16 * 16;
+  static constexpr int RCV_ML = RCV + (GMAX * HD + 4 * MAX_CLUSTER) * 4;
+  static constexpr int INFO = RCV_ML + 2 * MAX_CLUSTER * GMAX * 4;   // per stage: tile, mask
+  static constexpr int BARS = INFO + NS * 16;        // full[NS], empty[NS]
+  static constexpr size_t SMEM = 1024 + BARS + 2 * NS * 8;
+};
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ void load_chunk(const float* p, float (&o)[4]) { load4(p, o); }
-__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float (&o)[8]) {
+__device__ __forceinline__ void load_chunk(const bf16* p, float (&o)[8]) {
   uint4 t = *reinterpret_cast<const uint4*>(p);
   const uint32_t w[4] = {t.x, t.y, t.z, t.w};
 #pragma unroll
@@ -127,484 +145,773 @@ __device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float (&o)[8]
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+__device__ __forceinline__ float2 load2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// TC: scores and P V on the tensor cores (bf16, a group of <= 16 heads as
-// the 16 rows of mma.sync m16n8k16); else on the SIMT units.  The CTA
-// serves `g` heads of its kv head's group of nq/nkv (a chunk of the group
-// on the SIMT path, the whole group on the tensor cores): grid (splits,
-// nkv x chunks, B).
-template <typename T, int HD, bool TC>
-__global__ void __launch_bounds__(NT) da_split_kernel(
-    const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
-    const uint8_t* __restrict__ valid, T* __restrict__ o, float* __restrict__ part_ml,
-    float* __restrict__ part_acc, int S, int nq, int nkv, int g, int splits, int chunk,
-    float scale_log2) {
-  constexpr int EPC = epc<T>();
-  constexpr int LD = ld<T, HD>();
-  constexpr int CPR = HD / EPC;   // 16-byte chunks per row
-  constexpr int LPR = CPR < 32 ? CPR : 32;   // lanes copying one row
-  constexpr int CPL = CPR / LPR;  // chunks of a row per lane
-  constexpr int RPP = 32 / LPR;   // rows per pass of a warp's copies
-  // lanes that copy: all 32 where LPR divides the warp; at hd 112 (14
-  // chunks a bf16 row, 28 an f32 row) 28, and the other 4 idle
-  constexpr int COPY_LANES = RPP * LPR;
-  static_assert(CPR % LPR == 0 && SUB % RPP == 0, "whole passes");
-  constexpr int NS = stages<T, HD>();
-  constexpr int KS = HD / 16;     // tensor cores: k-steps of q K^T
-  constexpr int DB = HD / 8;      // tensor cores: 8-dim blocks of the output
-  constexpr bool Q_IN_REGS = HD <= 128;   // tensor cores: q fragments held, else reloaded
-  constexpr int HALF = HD / 2;    // dims each half-warp scores
-  constexpr int QR = q_row<HD>();
-  static_assert(HALF % EPC == 0, "a half row is whole chunks");
+// Element (row, col) of a tile as TMA wrote it: boxes of 128 bytes a row,
+// the 16-byte chunks of row r permuted by r % 8 (128-byte swizzle).
+template <typename T>
+__device__ __forceinline__ const T* tile_at(const unsigned char* tile, int row, int col) {
+  constexpr int BOXC = 128 / (int)sizeof(T), EPC = 16 / (int)sizeof(T);
+  const int c = col % BOXC;
+  return reinterpret_cast<const T*>(tile + (col / BOXC) * TILE * 128 + row * 128 +
+                                    (((c / EPC) ^ (row & 7)) << 4)) + c % EPC;
+}
 
-  const int group = nq / nkv, chunks = TC ? 1 : group / g;   // the tensor cores take a group whole
-  const int split = blockIdx.x, kvh = blockIdx.y / chunks, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ring = reinterpret_cast<T*>(smem_raw);
-  size_t ring_sz = ring_bytes<T, HD>();
-  if (ring_sz < (size_t)NW * g * HD * sizeof(float)) ring_sz = (size_t)NW * g * HD * sizeof(float);
-  float* qs = reinterpret_cast<float*>(smem_raw + ring_sz);   // max(g, 8) x QR
-  float* wst = qs + (g > 8 ? g : 8) * QR;                     // per-warp state
-  float* my_p = wst + warp * (g * SUB + 3 * g);               // g x SUB
-  float* my_m = my_p + g * SUB;                               // log2 units
-  float* my_l = my_m + g;
-  float* my_a = my_l + g;
+// bit i set where byte i of w is not 0
+__device__ __forceinline__ uint32_t nonzero_bits4(uint32_t w) {
+  const uint32_t t = __vcmpne4(w, 0u) & 0x08040201u;
+  return (t | (t >> 8) | (t >> 16) | (t >> 24)) & 0xFu;
+}
 
-  const int start = split * chunk;
-  const int end = split == splits - 1 ? S : start + chunk;
-  const long kv_stride = (long)nkv * HD;
-  const T* kb = kc + (long)b * S * kv_stride + (long)kvh * HD;
-  const T* vb = vc + (long)b * S * kv_stride + (long)kvh * HD;
-  const uint8_t* vmask = valid + (long)b * S;
-  // the CTA's first q head
-  const long row0 = (long)b * nq + (long)kvh * group + (long)(blockIdx.y % chunks) * g;
-
-  if constexpr (TC) {
-    T* qt = reinterpret_cast<T*>(qs);
-    for (int idx = tid; idx < 16 * HD; idx += NT) {
-      const int h = idx / HD, d = idx % HD;
-      qt[h * LD + d] = h < g ? q[row0 * HD + idx] : __float2bfloat16(0.f);
+// Valid bits of slots [s0, s0 + 64) of one sequence's mask row; slots at
+// or past S are invalid and not read.
+__device__ __forceinline__ uint64_t tile_mask(const uint8_t* row, int s0, int S) {
+  const uint8_t* p = row + s0;
+  uint64_t bits = 0;
+  if (s0 + TILE <= S && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint4 w = reinterpret_cast<const uint4*>(p)[c];
+      const uint32_t b = nonzero_bits4(w.x) | (nonzero_bits4(w.y) << 4) |
+                         (nonzero_bits4(w.z) << 8) | (nonzero_bits4(w.w) << 12);
+      bits |= (uint64_t)b << (16 * c);
     }
   } else {
-    for (int idx = tid; idx < g * HD; idx += NT) {
-      const int h = idx / HD, d = idx % HD;
-      qs[h * QR + d + (d >= HALF ? 4 : 0)] = to_float(q[row0 * HD + idx]);
-    }
+    for (int i = 0; i < TILE; ++i)
+      if (s0 + i < S && p[i]) bits |= 1ull << i;
   }
-  for (int h = lane; h < g; h += 32) {
-    my_m[h] = NEG_INF;
-    my_l[h] = 0.f;
+  return bits;
+}
+
+// The producer warp: the CTA's tiles rank, rank + C, ..., each non-empty
+// one into the next ring stage (its index and mask bits into `info`), then
+// a stage with tile -1 that ends the stream.
+template <typename T, int HD, int NQ>
+__device__ __forceinline__ void produce(const CUtensorMap* tk, const CUtensorMap* tv,
+                                        const uint8_t* vrow, unsigned char* ring, int4* info,
+                                        uint64_t* full, uint64_t* empty, int S, int rank, int ncl,
+                                        int kvh, int b, int lane) {
+  using C = Cfg<T, HD, NQ>;
+  if (lane == 0) {
+    tma_prefetch(tk);
+    tma_prefetch(tv);
   }
-  __syncthreads();
-
-  float acc[MAX_PAIRS][2];         // SIMT: this lane's output pairs
-#pragma unroll
-  for (int j = 0; j < MAX_PAIRS; ++j) acc[j][0] = acc[j][1] = 0.f;
-  // tensor cores: q fragments, and for heads gid and gid + 8 the running
-  // max (log2 units), this lane's part of the sum and the output fragments
-  const int gid = lane / 4, tig = lane % 4;
-  uint32_t qf[Q_IN_REGS ? KS : 1][4];
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
-  float oacc[DB][4];
-  // this lane's ldmatrix address of the q rows; a k-step adds 16
-  const T* qp = reinterpret_cast<const T*>(qs) + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                (lane >> 4) * 8;
-  if constexpr (TC) {
-    if constexpr (Q_IN_REGS) {
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(qf[ks], qp + ks * 16);
-    }
-#pragma unroll
-    for (int j = 0; j < DB; ++j) oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
-  }
-
-  const int n_sub = (end - start + TS - 1) / TS;   // sub-tiles of this warp
-  T* wring = ring + (size_t)warp * NS * 2 * SUB * LD;
-  const int r = lane % SUB, half = lane / SUB;     // scoring: slot r, half of hd
-  const int col = (lane % LPR) * EPC;              // copies: this lane's first 16 bytes of a row
-  bool any = false;
-
-  for (int g0 = 0; g0 < n_sub; g0 += 32) {
-    // valid bits of sub-tile g0 + lane: one mask read per 32 sub-tiles
-    unsigned bits = 0;
-    if (g0 + lane < n_sub) {
-      const int base = start + (g0 + lane) * TS + warp * SUB;
-#pragma unroll
-      for (int i = 0; i < SUB; ++i)
-        if (base + i < end && vmask[base + i]) bits |= 1u << i;
-    }
-    unsigned pend = __ballot_sync(FULL, bits != 0);   // sub-tiles to visit
-    if (!pend) continue;
-    any = true;
-    unsigned todo = pend;                              // sub-tiles to fetch
-
-    // fetch the next non-empty sub-tile into `stage`; always commit a group,
-    // empty or not, so that wait_group counts stay fixed
-    auto fetch = [&](int stage) {
-      if (todo) {
-        const int i = __ffs(todo) - 1;
-        todo &= todo - 1;
-        const unsigned bi = __shfl_sync(FULL, bits, i);
-        const int base = start + (g0 + i) * TS + warp * SUB;
-        T* dk = wring + (size_t)stage * 2 * SUB * LD;
-        T* dv = dk + SUB * LD;
-        // each copying lane copies CPL 16-byte columns, LPR chunks apart,
-        // of every RPP-th row
-        if (COPY_LANES == 32 || lane < COPY_LANES) {
-#pragma unroll
-          for (int i = 0; i < SUB / RPP; ++i) {
-            const int rr = lane / LPR + i * RPP;
-            const bool ok = (bi >> rr) & 1u;
-            const long off = ok ? (long)(base + rr) * kv_stride + col : 0;
-#pragma unroll
-            for (int c = 0; c < CPL; ++c) {
-              cp_async16(dk + rr * LD + col + c * LPR * EPC, kb + off + c * LPR * EPC, ok);
-              cp_async16(dv + rr * LD + col + c * LPR * EPC, vb + off + c * LPR * EPC, ok);
-            }
-          }
-        }
-      }
-      cp_async_commit();
-    };
-
-#pragma unroll
-    for (int st = 0; st < NS - 1; ++st) fetch(st);
-    int stage = 0;
+  const int n_tiles = (S + TILE - 1) / TILE;
+  const int mine = rank < n_tiles ? (n_tiles - rank + ncl - 1) / ncl : 0;
+  int it = 0;
+  for (int j0 = 0; j0 < mine; j0 += 32) {
+    const uint64_t bits =
+        j0 + lane < mine ? tile_mask(vrow, (rank + (j0 + lane) * ncl) * TILE, S) : 0;
+    unsigned pend = __ballot_sync(FULL, bits != 0);
     while (pend) {
       const int i = __ffs(pend) - 1;
       pend &= pend - 1;
-      fetch((stage + NS - 1) % NS);
-      cp_async_wait<NS - 1>();                    // sub-tile i has landed
-      __syncwarp();
-      const unsigned bi = __shfl_sync(FULL, bits, i);
-      const T* tk = wring + (size_t)stage * 2 * SUB * LD;
-      const T* tv = tk + SUB * LD;
-      if constexpr (TC) {
-        // S (16 heads x 16 slots) = Q K^T; x4 matrices (slots 0-7 | 8-15) x
-        // (dims 0-7 | 8-15) of each k-step
-        float sc[2][4];
+      const uint32_t lo = __shfl_sync(FULL, (uint32_t)bits, i);
+      const uint32_t hi = __shfl_sync(FULL, (uint32_t)(bits >> 32), i);
+      if (lane == 0) {
+        const int st = it % C::NS;
+        if (it >= C::NS) mbar_wait(empty + st, (it / C::NS - 1) & 1);
+        const int t = rank + (j0 + i) * ncl;
+        info[st] = make_int4(t, (int)lo, (int)hi, 0);
+        unsigned char* kv = ring + st * C::STAGE;
+        mbar_arrive_expect_tx(full + st, C::STAGE);
 #pragma unroll
-        for (int j = 0; j < 2; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          if constexpr (!Q_IN_REGS) ldmatrix_x4(qf[0], qp + ks * 16);
-          const uint32_t(&qa)[4] = qf[Q_IN_REGS ? ks : 0];
-          uint32_t kf[4];
-          ldmatrix_x4(kf, tk + ((lane & 7) + (lane >> 4) * 8) * LD + ks * 16 +
-                              ((lane >> 3) & 1) * 8);
-          mma_bf16_16816(sc[0], qa, kf[0], kf[1]);
-          mma_bf16_16816(sc[1], qa, kf[2], kf[3]);
-        }
-        // online softmax of rows gid, gid + 8 over the quad that holds them
-        float mx0 = m0, mx1 = m1;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const bool ok = (bi >> (j * 8 + 2 * tig + (e & 1))) & 1u;
-            sc[j][e] = ok ? sc[j][e] * scale_log2 : NEG_INF;
-          }
-          mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
-          mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
-        }
-        mx0 = group_max(mx0, 4);
-        mx1 = group_max(mx1, 4);
-        const float alpha0 = exp2f(m0 - mx0), alpha1 = exp2f(m1 - mx1);
-        m0 = mx0;
-        m1 = mx1;
-        float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float p = is_live(sc[j][e]) ? exp2f(sc[j][e] - (e < 2 ? m0 : m1)) : 0.f;
-            sc[j][e] = p;
-            if (e < 2) ps0 += p; else ps1 += p;
-          }
-        }
-        l0 = l0 * alpha0 + ps0;
-        l1 = l1 * alpha1 + ps1;
-        // O += P V: P as bf16 A fragments from the S registers, split into
-        // high and low parts (two products, ~16 bits of P, as the f32 P of
-        // the TPU kernel: one bf16 part alone moves o by over a bf16 step
-        // where |o| is small and sum p|v| large), V by ldmatrix.trans, x4
-        // matrices (slots 0-7 | 8-15) x (dims 0-7 | 8-15)
-        uint32_t ph[4], pl[4];
-        split_bf16x2(sc[0][0], sc[0][1], ph[0], pl[0]);
-        split_bf16x2(sc[0][2], sc[0][3], ph[1], pl[1]);
-        split_bf16x2(sc[1][0], sc[1][1], ph[2], pl[2]);
-        split_bf16x2(sc[1][2], sc[1][3], ph[3], pl[3]);
-#pragma unroll
-        for (int d2 = 0; d2 < DB / 2; ++d2) {
-          uint32_t vf[4];
-          ldmatrix_x4_trans(vf, tv + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + d2 * 16 +
-                                    (lane >> 4) * 8);
-#pragma unroll
-          for (int jj = 0; jj < 2; ++jj) {
-            float* a = oacc[2 * d2 + jj];
-            a[0] *= alpha0; a[1] *= alpha0; a[2] *= alpha1; a[3] *= alpha1;
-          }
-          mma_bf16_16816(oacc[2 * d2], ph, vf[0], vf[1]);
-          mma_bf16_16816(oacc[2 * d2 + 1], ph, vf[2], vf[3]);
-          mma_bf16_16816(oacc[2 * d2], pl, vf[0], vf[1]);
-          mma_bf16_16816(oacc[2 * d2 + 1], pl, vf[2], vf[3]);
-        }
-        __syncwarp();                             // the stage is free again
-        stage = (stage + 1) % NS;
-        continue;
-      }
-      const bool ok = (bi >> r) & 1u;
-
-      // 1. logits of slot r, half-warps on the two halves of hd; then the
-      //    online softmax of each head over the sub-tile's 16 slots
-      for (int h = 0; h < g; ++h) {
-        const T* krow = tk + r * LD + half * HALF;
-        const float* qh = qs + h * QR + half * (HALF + 4);
-        float part = 0.f;
-#pragma unroll
-        for (int c = 0; c < HALF; c += EPC) {
-          float kf[EPC];
-          load_chunk(krow + c, kf);
-#pragma unroll
-          for (int e = 0; e < EPC; e += 4) {
-            const float4 qv = *reinterpret_cast<const float4*>(qh + c + e);
-            part = fmaf(qv.x, kf[e], part);
-            part = fmaf(qv.y, kf[e + 1], part);
-            part = fmaf(qv.z, kf[e + 2], part);
-            part = fmaf(qv.w, kf[e + 3], part);
-          }
-        }
-        part += __shfl_xor_sync(FULL, part, 16);
-        const float sv = ok ? part * scale_log2 : NEG_INF;
-        const float m_old = my_m[h];
-        const float m_new = fmaxf(m_old, group_max(sv, SUB));
-        const float p = ok ? exp2f(sv - m_new) : 0.f;
-        const float psum = group_sum(p, SUB);
-        __syncwarp();                             // every lane has read my_m[h]
-        if (lane == 0) {
-          const float alpha = exp2f(m_old - m_new);
-          my_m[h] = m_new;
-          my_l[h] = my_l[h] * alpha + psum;
-          my_a[h] = alpha;
-        }
-        if (half == 0) my_p[h * SUB + r] = p;
-      }
-      __syncwarp();
-
-      // 2. P V: this lane's output pairs e = 2 lane + 64 j of the g x hd
-      //    outputs; masked slots have p = 0 and zero-filled rows
-#pragma unroll
-      for (int j = 0; j < MAX_PAIRS; ++j) {
-        const int e = 2 * lane + 64 * j;
-        if (e < g * HD) {
-          const int h = e / HD, d = e % HD;
-          const float alpha = my_a[h];
-          float a0 = acc[j][0] * alpha, a1 = acc[j][1] * alpha;
-          const float* ph = my_p + h * SUB;
-#pragma unroll
-          for (int rr = 0; rr < SUB; ++rr) {
-            const float2 vv = load2(tv + rr * LD + d);
-            a0 = fmaf(ph[rr], vv.x, a0);
-            a1 = fmaf(ph[rr], vv.y, a1);
-          }
-          acc[j][0] = a0;
-          acc[j][1] = a1;
+        for (int bx = 0; bx < C::NBOX; ++bx) {
+          tma_load_4d(kv + bx * C::BOX, tk, full + st, C::BOXC * bx, kvh, t * TILE, b);
+          tma_load_4d(kv + (C::NBOX + bx) * C::BOX, tv, full + st, C::BOXC * bx, kvh, t * TILE, b);
         }
       }
-      __syncwarp();                               // the stage and my_p are free again
-      stage = (stage + 1) % NS;
+      ++it;
     }
   }
-  cp_async_wait<0>();
-  if constexpr (TC) {             // the warp's state of the group's heads to shared memory
-    l0 = group_sum(l0, 4);
-    l1 = group_sum(l1, 4);
-    if (tig == 0 && gid < g) {
-      my_m[gid] = m0;
-      my_l[gid] = l0;
-    }
-    if (tig == 0 && gid + 8 < g) {
-      my_m[gid + 8] = m1;
-      my_l[gid + 8] = l1;
-    }
+  if (lane == 0) {
+    const int st = it % C::NS;
+    if (it >= C::NS) mbar_wait(empty + st, (it / C::NS - 1) & 1);
+    info[st].x = -1;
+    mbar_arrive(full + st);
   }
+  __syncwarp();
+}
 
-  T* ob = o + row0 * HD;
-  if (!__syncthreads_or(any)) {
-    // no valid slot in this range: one split writes 0, as the Pallas
-    // kernel does; otherwise an empty partial (max -1e30, sum 0)
-    if (splits == 1) {
-      for (int idx = tid; idx < g * HD; idx += NT) store(ob + idx, 0.f);
-    } else {
-      for (int h = tid; h < g; h += NT) {
-        part_ml[((row0 + h) * splits + split) * 2] = NEG_INF;
-        part_ml[((row0 + h) * splits + split) * 2 + 1] = 0.f;
-      }
+// ---------------------------------------------------------------------------
+// bf16, a group of <= 16 heads: the consumer warpgroup on the tensor cores.
+// Thread (warp w, lane 4 gid + tig) holds rows (slots of S^T, dims of O^T)
+// 16 w + gid and + 8 of each 64-row block, and columns (heads) 8 (j / 2) +
+// 2 tig + j % 2, j < NQ / 4; element i of an accumulator is column j =
+// 2 (i / 4) + i % 2, row + 8 where (i / 2) % 2.
+// ---------------------------------------------------------------------------
+// S^T = K Q^T of one tile: even k-steps into s, odd ones into s2 (two
+// independent chains of products; the caller adds them)
+template <int HD, int NQ>
+__device__ __forceinline__ void issue_s(float (&s)[NQ / 2], float (&s2)[NQ / 2], uint32_t k_addr,
+                                        uint32_t q_addr) {
+  using C = Cfg<bf16, HD, NQ>;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss<NQ>(kk % 2 ? s2 : s, desc_sw128(k_addr + (kk / 4) * C::BOX + off, 16, 1024),
+                 desc_sw128(q_addr + (kk / 4) * C::QBOX + off, 16, 1024), kk > 1);
+  }
+}
+
+// O^T += V^T P^T over the tile's 4 k-steps of 16 slots, for each 64-dim
+// block of hd.  B holds P's high part in its first NQ rows and its low part
+// in the next NQ (the P tile is those 2 NQ head rows), so one product of N
+// = 2 NQ gives both: columns [0, NQ) of o from the high part, [NQ, 2 NQ)
+// from the low part, which the caller adds at the end
+template <int HD, int NQ>
+__device__ __forceinline__ void issue_pv(float (&o)[Cfg<bf16, HD, NQ>::NBOX][NQ], uint32_t v_addr,
+                                         uint32_t p_addr) {
+  using C = Cfg<bf16, HD, NQ>;
+#pragma unroll
+  for (int kk = 0; kk < TILE / 16; ++kk) {
+#pragma unroll
+    for (int mb = 0; mb < C::NBOX; ++mb)
+      wgmma_ss_at<2 * NQ>(o[mb], desc_sw128(v_addr + mb * C::BOX + kk * 16 * 128, 1024, 1024),
+                          desc_sw128(p_addr + kk * 32, 16, 1024));
+  }
+}
+
+// The end of a CTA's work, by its consumer warpgroup, once its state is in
+// shared memory: the accumulators (head, dim) row-major in the idle ring,
+// m and l per head.  With one CTA, the outputs o / l; in a cluster, each
+// rank's slice of the accumulators pushed into that rank's receiving area
+// (16 bytes a store), and every head's m and l into every rank's.
+template <typename T, int HD, int NQ>
+__device__ __forceinline__ void finish_cta(unsigned char* base, T* ob, int g, int ncl, int rank,
+                                           int per, int tid) {
+  using C = Cfg<T, HD, NQ>;
+  const float* accs = reinterpret_cast<const float*>(base);
+  const float* ms = reinterpret_cast<const float*>(base + C::MS);
+  const float* ls = reinterpret_cast<const float*>(base + C::LS);
+  const int total = g * HD;
+  if (ncl == 1) {
+    for (int idx = tid; idx < total; idx += NCT) {
+      const float l = ls[idx / HD];
+      store(ob + idx, l > 0.f ? accs[idx] / l : 0.f);
     }
     return;
   }
+  const uint32_t rcv = smem_addr(base + C::RCV), rml = smem_addr(base + C::RCV_ML);
+  for (int i = tid; i < total / 4; i += NCT) {
+    const int idx = 4 * i, r = idx / per;
+    st_cluster(cluster_map(rcv + 4 * (rank * per + idx - r * per), r),
+               *reinterpret_cast<const float4*>(accs + idx));
+  }
+  for (int i = tid; i < ncl * g; i += NCT) {
+    const int r = i / g, n = i % g;
+    const uint32_t a = rml + 4 * (rank * C::GMAX + n);
+    st_cluster(cluster_map(a, r), ms[n]);
+    st_cluster(cluster_map(a + 4 * MAX_CLUSTER * C::GMAX, r), ls[n]);
+  }
+}
 
-  // merge the warps' states: accumulators through the (now idle) ring
-  float* cs = reinterpret_cast<float*>(smem_raw);
-  if constexpr (TC) {
+template <int HD, int NQ>
+__device__ __forceinline__ void consume_tc(const bf16* qh, bf16* ob, int g, unsigned char* base,
+                                           const int4* info, uint64_t* full, uint64_t* empty,
+                                           float scale_log2, int tid, int ncl, int rank, int per) {
+  using C = Cfg<bf16, HD, NQ>;
+  constexpr int NS = C::NS, NB = C::NBOX, NC = NQ / 4, NA = NQ / 2;
+  const int warp = tid / 32, lane = tid % 32, gid = lane / 4, tig = lane % 4;
+  const int r0 = 16 * warp + gid;
+  unsigned char* Qs = base + C::Q;
+  unsigned char* Pb = base + C::P;
+  float* red = reinterpret_cast<float*>(base + C::RED);
+
+  // q: NQ rows of hd in NB boxes, swizzled as TMA writes a tile; rows past
+  // the group and columns past hd are zeros
+  for (int idx = tid; idx < NB * NQ * 8; idx += NCT) {
+    const int bx = idx / (NQ * 8), n = idx / 8 % NQ, ch = idx % 8, d0 = 64 * bx + 8 * ch;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (n < g && d0 < HD) val = *reinterpret_cast<const uint4*>(qh + n * HD + d0);
+    *reinterpret_cast<uint4*>(Qs + bx * C::QBOX + n * 128 + ((ch ^ (n & 7)) << 4)) = val;
+  }
+  fence_proxy_async_smem();
+  named_bar_sync(BAR_CONSUMERS, NCT);
+
+  const uint32_t q_addr = smem_addr(Qs), ring_addr = smem_addr(base), p_addr = smem_addr(Pb);
+  // O^T: element i < NA from P's high part, i + NA from its low part, of
+  // the same (head, dim)
+  float o[NB][NQ];
 #pragma unroll
-    for (int j = 0; j < DB; ++j) {
-      const int d = j * 8 + 2 * tig;
-      if (gid < g) {
-        cs[warp * g * HD + gid * HD + d] = oacc[j][0];
-        cs[warp * g * HD + gid * HD + d + 1] = oacc[j][1];
+  for (int mb = 0; mb < NB; ++mb)
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) o[mb][i] = 0.f;
+  float m[NC], l[NC], alpha[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    m[j] = NEG_INF;
+    l[j] = 0.f;
+  }
+  auto col = [&](int j) { return 8 * (j / 2) + 2 * tig + j % 2; };
+
+  // the online softmax of one tile's S^T in log2 units, in two halves
+  // around the warpgroup's exchange of the heads' tile max: first the
+  // masked logits and this warp's column max, then (after the caller's
+  // barrier) the new max, alpha, P (in s) and this thread's part of l
+  float cm[NC];
+  auto softmax_local = [&](float (&s)[NA], int4 inf) {
+    const uint64_t mask = (uint64_t)(uint32_t)inf.y | ((uint64_t)(uint32_t)inf.z << 32);
+    const bool ok0 = (mask >> r0) & 1u, ok1 = (mask >> (r0 + 8)) & 1u;
+#pragma unroll
+    for (int i = 0; i < NA; ++i) s[i] = ((i / 2) % 2 ? ok1 : ok0) ? s[i] * scale_log2 : NEG_INF;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int i = 4 * (j / 2) + j % 2;
+      cm[j] = fmaxf(s[i], s[i + 2]);
+      cm[j] = fmaxf(cm[j], __shfl_xor_sync(FULL, cm[j], 4));
+      cm[j] = fmaxf(cm[j], __shfl_xor_sync(FULL, cm[j], 8));
+      cm[j] = fmaxf(cm[j], __shfl_xor_sync(FULL, cm[j], 16));
+    }
+  };
+  auto exchange_max = [&]() {
+    if (gid == 0) {
+#pragma unroll
+      for (int j = 0; j < NC; ++j) red[warp * NQ + col(j)] = cm[j];
+    }
+    named_bar_sync(BAR_CONSUMERS, NCT);
+  };
+  auto softmax_shared = [&](float (&s)[NA]) {
+    float ps[NC];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int c = col(j);
+      const float mx = fmaxf(m[j], fmaxf(fmaxf(red[c], red[NQ + c]),
+                                         fmaxf(red[2 * NQ + c], red[3 * NQ + c])));
+      alpha[j] = fast_exp2(m[j] - mx);
+      m[j] = mx;
+      ps[j] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int j = 2 * (i / 4) + i % 2;
+      const float p = is_live(s[i]) ? fast_exp2(s[i] - m[j]) : 0.f;
+      s[i] = p;
+      ps[j] += p;
+    }
+#pragma unroll
+    for (int j = 0; j < NC; ++j) l[j] = l[j] * alpha[j] + ps[j];
+  };
+
+  // P^T as the B operand of P V: head rows of 64 slots in bf16, 128 bytes,
+  // swizzled; the high part's NQ rows, then the low part's
+  auto write_p = [&](const float (&s)[NA]) {
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int c = col(2 * (i / 4) + i % 2), row = r0 + 8 * ((i / 2) % 2);
+      const int off = c * 128 + (((row >> 3) ^ (c & 7)) << 4) + ((row & 7) << 1);
+      const bf16 hi = __float2bfloat16(s[i]);
+      *reinterpret_cast<bf16*>(Pb + off) = hi;
+      *reinterpret_cast<bf16*>(Pb + C::PBUF + off) = __float2bfloat16(s[i] - __bfloat162float(hi));
+    }
+    fence_proxy_async_smem();
+    named_bar_sync(BAR_CONSUMERS, NCT);
+  };
+
+  mbar_wait(full, 0);
+  int4 inf = info[0];
+  if (inf.x >= 0) {
+    {
+      float s[NA], s2[NA];
+#pragma unroll
+      for (int i = 0; i < NA; ++i) s[i] = s2[i] = 0.f;
+      fence_regs(s);
+      fence_regs(s2);
+      wgmma_fence();
+      issue_s<HD, NQ>(s, s2, ring_addr, q_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(s2);
+#pragma unroll
+      for (int i = 0; i < NA; ++i) s[i] += s2[i];
+      softmax_local(s, inf);
+      exchange_max();
+      softmax_shared(s);
+      write_p(s);
+    }
+    int prev = 0;
+    for (int it = 1;; ++it) {
+      const int st = it % NS;
+      mbar_wait(full + st, (it / NS) & 1);
+      inf = info[st];
+      if (inf.x < 0) break;
+      float s[NA], s2[NA];
+#pragma unroll
+      for (int i = 0; i < NA; ++i) s[i] = s2[i] = 0.f;
+      // S^T of this tile, then O^T += V^T P^T of the one before: S^T
+      // completes first, and its masking and warp max run while the tensor
+      // cores do P V; every warp has waited for P V before the exchange, so
+      // after it P and stage prev are free
+      fence_regs(s);
+      fence_regs(s2);
+      fence_regs(reinterpret_cast<float(&)[NB * NQ]>(o));
+      wgmma_fence();
+      issue_s<HD, NQ>(s, s2, ring_addr + st * C::STAGE, q_addr);
+      wgmma_commit();
+      issue_pv<HD, NQ>(o, ring_addr + prev * C::STAGE + NB * C::BOX, p_addr);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+      fence_regs(s2);
+#pragma unroll
+      for (int i = 0; i < NA; ++i) s[i] += s2[i];
+      softmax_local(s, inf);
+      wgmma_wait<0>();
+      fence_regs(reinterpret_cast<float(&)[NB * NQ]>(o));
+      exchange_max();
+      if (tid == 0) mbar_arrive(empty + prev);
+      softmax_shared(s);
+#pragma unroll
+      for (int mb = 0; mb < NB; ++mb)
+#pragma unroll
+        for (int i = 0; i < NQ; ++i) o[mb][i] *= alpha[2 * (i % NA / 4) + i % 2];
+      write_p(s);
+      prev = st;
+    }
+    fence_regs(reinterpret_cast<float(&)[NB * NQ]>(o));
+    wgmma_fence();
+    issue_pv<HD, NQ>(o, ring_addr + prev * C::STAGE + NB * C::BOX, p_addr);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(reinterpret_cast<float(&)[NB * NQ]>(o));
+  }
+
+  // l over the warpgroup (m is the same in every thread of it): over gid
+  // by shuffles, over the warps through shared memory; then the state into
+  // shared memory, the accumulators into the idle ring
+  float* aux = reinterpret_cast<float*>(base + C::AUX);
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    l[j] += __shfl_xor_sync(FULL, l[j], 4);
+    l[j] += __shfl_xor_sync(FULL, l[j], 8);
+    l[j] += __shfl_xor_sync(FULL, l[j], 16);
+  }
+  if (gid == 0) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j) aux[warp * NQ + col(j)] = l[j];
+  }
+  named_bar_sync(BAR_CONSUMERS, NCT);             // and every warp's last P V is done
+  if (warp == 0 && gid == 0) {
+    float* ms = reinterpret_cast<float*>(base + C::MS);
+    float* ls = reinterpret_cast<float*>(base + C::LS);
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int c = col(j);
+      ms[c] = m[j];
+      ls[c] = aux[c] + aux[NQ + c] + aux[2 * NQ + c] + aux[3 * NQ + c];
+    }
+  }
+  float* accs = reinterpret_cast<float*>(base);
+#pragma unroll
+  for (int mb = 0; mb < NB; ++mb)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int n = col(2 * (i / 4) + i % 2), d = 64 * mb + r0 + 8 * ((i / 2) % 2);
+      if (n < g && d < HD) accs[n * HD + d] = o[mb][i] + o[mb][i + NA];
+    }
+  named_bar_sync(BAR_CONSUMERS, NCT);
+  finish_cta<bf16, HD, NQ>(base, ob, g, ncl, rank, per, tid);
+}
+
+// ---------------------------------------------------------------------------
+// f32, and bf16 groups > 16: the consumer warpgroup on the SIMT units.  Warp
+// w scores slots 16 w .. 16 w + 15 of a tile, lane r % 16 one slot, the two
+// half-warps each half of hd; one warp a head forms the tile's P and sums;
+// then each thread accumulates its output pairs of the g x hd outputs.
+// ---------------------------------------------------------------------------
+template <typename T, int HD>
+__device__ __forceinline__ void consume_simt(const T* qh, T* ob, int g, unsigned char* base,
+                                             const int4* info, uint64_t* full, uint64_t* empty,
+                                             float scale_log2, int tid, int ncl, int rank,
+                                             int per) {
+  using C = Cfg<T, HD, 0>;
+  constexpr int NS = C::NS, HALF = HD / 2, EPC = 16 / (int)sizeof(T), QR = C::QR;
+  static_assert(HALF % EPC == 0, "a half row is whole chunks");
+  const int warp = tid / 32, lane = tid % 32, half = lane / 16;
+  const int slot = 16 * warp + lane % 16;
+  float* qs = reinterpret_cast<float*>(base + C::Q);
+  float* P = reinterpret_cast<float*>(base + C::P);       // [g][64]: scores, then P
+  float* red = reinterpret_cast<float*>(base + C::RED);   // [4][g] partial max
+  float* alph = reinterpret_cast<float*>(base + C::AUX);  // [g]
+  float* ms = reinterpret_cast<float*>(base + C::MS);
+  float* ls = reinterpret_cast<float*>(base + C::LS);
+
+  for (int idx = tid; idx < g * HD; idx += NCT) {
+    const int h = idx / HD, d = idx % HD;
+    qs[h * QR + d + (d >= HALF ? 4 : 0)] = to_float(qh[idx]);
+  }
+  for (int h = tid; h < g; h += NCT) {
+    ms[h] = NEG_INF;
+    ls[h] = 0.f;
+  }
+  named_bar_sync(BAR_CONSUMERS, NCT);
+
+  float acc[MAX_PAIRS][2];
+#pragma unroll
+  for (int j = 0; j < MAX_PAIRS; ++j) acc[j][0] = acc[j][1] = 0.f;
+
+  for (int it = 0;; ++it) {
+    const int st = it % NS;
+    mbar_wait(full + st, (it / NS) & 1);
+    const int4 inf = info[st];
+    if (inf.x < 0) break;
+    const uint64_t mask = (uint64_t)(uint32_t)inf.y | ((uint64_t)(uint32_t)inf.z << 32);
+    const bool ok = (mask >> slot) & 1u;
+    const unsigned char* tk = base + st * C::STAGE;
+    const unsigned char* tv = tk + C::NBOX * C::BOX;
+
+    // 1. the logits of this lane's slot, each head's max over the warp's 16
+    for (int h = 0; h < g; ++h) {
+      const float* qrow = qs + h * QR + half * (HALF + 4);
+      float part = 0.f;
+#pragma unroll
+      for (int c = 0; c < HALF; c += EPC) {
+        float kf[EPC];
+        load_chunk(tile_at<T>(tk, slot, half * HALF + c), kf);
+#pragma unroll
+        for (int e = 0; e < EPC; e += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qrow + c + e);
+          part = fmaf(qv.x, kf[e], part);
+          part = fmaf(qv.y, kf[e + 1], part);
+          part = fmaf(qv.z, kf[e + 2], part);
+          part = fmaf(qv.w, kf[e + 3], part);
+        }
       }
-      if (gid + 8 < g) {
-        cs[warp * g * HD + (gid + 8) * HD + d] = oacc[j][2];
-        cs[warp * g * HD + (gid + 8) * HD + d + 1] = oacc[j][3];
+      part += __shfl_xor_sync(FULL, part, 16);
+      const float sv = ok ? part * scale_log2 : NEG_INF;
+      const float wm = group_max(sv, 16);
+      if (lane == 0) red[warp * g + h] = wm;
+      if (half == 0) P[h * TILE + slot] = sv;
+    }
+    named_bar_sync(BAR_CONSUMERS, NCT);
+
+    // 2. one warp a head: the new running max, P and its sum
+    for (int h = warp; h < g; h += NCW) {
+      const float m_old = ms[h];
+      const float mx = fmaxf(m_old, fmaxf(fmaxf(red[h], red[g + h]),
+                                          fmaxf(red[2 * g + h], red[3 * g + h])));
+      float sum = 0.f;
+      for (int sl = lane; sl < TILE; sl += 32) {
+        const float sv = P[h * TILE + sl];
+        const float p = is_live(sv) ? exp2f(sv - mx) : 0.f;
+        P[h * TILE + sl] = p;
+        sum += p;
+      }
+      sum = group_sum(sum, 32);
+      if (lane == 0) {
+        const float a = exp2f(m_old - mx);
+        ms[h] = mx;
+        ls[h] = ls[h] * a + sum;
+        alph[h] = a;
       }
     }
-  } else {
+    named_bar_sync(BAR_CONSUMERS, NCT);
+
+    // 3. P V: this thread's output pairs e = 2 tid + 256 j of the g x hd
 #pragma unroll
     for (int j = 0; j < MAX_PAIRS; ++j) {
-      const int e = 2 * lane + 64 * j;
+      const int e = 2 * tid + 2 * NCT * j;
       if (e < g * HD) {
-        cs[warp * g * HD + e] = acc[j][0];
-        cs[warp * g * HD + e + 1] = acc[j][1];
+        const int h = e / HD, d = e % HD;
+        const float a = alph[h];
+        float a0 = acc[j][0] * a, a1 = acc[j][1] * a;
+        const float* ph = P + h * TILE;
+#pragma unroll 8
+        for (int sl = 0; sl < TILE; ++sl) {
+          const float2 vv = load2(tile_at<T>(tv, sl, d));
+          a0 = fmaf(ph[sl], vv.x, a0);
+          a1 = fmaf(ph[sl], vv.y, a1);
+        }
+        acc[j][0] = a0;
+        acc[j][1] = a1;
       }
     }
+    named_bar_sync(BAR_CONSUMERS, NCT);           // the stage, P and alpha are free
+    if (tid == 0) mbar_arrive(empty + st);
+  }
+  // ms and ls are final (the last tile ended with a barrier); the
+  // accumulators into the idle ring
+  float* accs = reinterpret_cast<float*>(base);
+#pragma unroll
+  for (int j = 0; j < MAX_PAIRS; ++j) {
+    const int e = 2 * tid + 2 * NCT * j;
+    if (e < g * HD) *reinterpret_cast<float2*>(accs + e) = make_float2(acc[j][0], acc[j][1]);
+  }
+  named_bar_sync(BAR_CONSUMERS, NCT);
+  finish_cta<T, HD, 0>(base, ob, g, ncl, rank, per, tid);
+}
+
+// One CTA of a cluster of C = gridDim.x; rank = blockIdx.x.  Serves q heads
+// row0 .. row0 + g - 1 (of all B x nq) of kv head kvh of sequence b.
+template <typename T, int HD, int NQ>
+__global__ void __launch_bounds__(NT) da_cluster_kernel(
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const T* __restrict__ q, const uint8_t* __restrict__ valid, T* __restrict__ o, int S,
+    int nq, int nkv, int g, float scale_log2) {
+  using C = Cfg<T, HD, NQ>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int ncl = gridDim.x, rank = blockIdx.x;
+  const int group = nq / nkv, chunks = group / g;
+  const int kvh = blockIdx.y / chunks, b = blockIdx.z;
+  const long row0 = (long)b * nq + (long)kvh * group + (long)(blockIdx.y % chunks) * g;
+  const int tid = threadIdx.x;
+  // rank r merges outputs [r per, (r + 1) per) of the CTA's g x hd, per a
+  // multiple of 4 (the pushes are 16 bytes)
+  const int total = g * HD, per = ((total + ncl - 1) / ncl + 3) / 4 * 4;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + C::BARS);
+  uint64_t* empty = full + C::NS;
+  int4* info = reinterpret_cast<int4*>(base + C::INFO);
+
+  if (tid == 0) {
+    for (int s = 0; s < C::NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 1);
+    }
+    mbar_fence_init();
   }
   __syncthreads();
-  for (int idx = tid; idx < g * HD; idx += NT) {
-    const int h = idx / HD;
-    float m = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) m = fmaxf(m, wst[w * (g * SUB + 3 * g) + g * SUB + h]);
-    float l = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float* st = wst + w * (g * SUB + 3 * g) + g * SUB;
-      const float f = exp2f(st[h] - m);           // 0 for a warp that saw no slot
-      l += st[g + h] * f;
-      a += cs[w * g * HD + idx] * f;
-    }
-    if (splits == 1) {
-      store(ob + idx, l > 0.f ? a / l : 0.f);
-    } else {
-      part_acc[((row0 + h) * splits + split) * HD + idx % HD] = a;
-      if (idx % HD == 0) {
-        part_ml[((row0 + h) * splits + split) * 2] = m;
-        part_ml[((row0 + h) * splits + split) * 2 + 1] = l;
-      }
-    }
-  }
-}
 
-// out[row, d] for row = b * nq + h: the splits' partials merged.  A split
-// with sum 0 (no valid slot) contributes nothing and its accumulator, never
-// written, is not read; a row whose splits are all empty gives 0.
-template <typename T>
-__global__ void __launch_bounds__(256) da_combine_kernel(
-    const float* __restrict__ part_ml, const float* __restrict__ part_acc, T* __restrict__ o,
-    int rows, int hd, int splits) {
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long)rows * hd) return;
-  const long row = idx / hd;
-  const int d = idx % hd;
-  const float* ml = part_ml + row * splits * 2;
-  float m = NEG_INF;
-  for (int s = 0; s < splits; ++s) m = fmaxf(m, ml[2 * s]);
-  float l = 0.f, a = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    const float ls = ml[2 * s + 1];
-    if (ls > 0.f) {
-      const float f = exp2f(ml[2 * s] - m);
-      l += ls * f;
-      a += part_acc[(row * splits + s) * hd + d] * f;
-    }
-  }
-  store(o + idx, l > 0.f ? a / l : 0.f);
-}
-
-template <typename T, int HD, bool TC>
-cudaError_t launch_split(const void* q, const void* k, const void* v, const void* valid,
-                         void* o, float* part_ml, float* part_acc, int B, int S, int nq,
-                         int nkv, int splits, int chunk, float scale, cudaStream_t stream) {
-  // heads per CTA: the whole group on the tensor cores (<= 16), else the
-  // largest divisor of the group whose outputs a warp holds (<= 1024)
-  const int group = nq / nkv;
-  int g = group;
-  if (!TC)
-    while (g * HD > 64 * MAX_PAIRS || group % g) --g;
-  const size_t smem = smem_bytes<T, HD>(g);
-  cudaError_t err = cudaFuncSetAttribute(
-      da_split_kernel<T, HD, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(splits, nkv * (group / g), B);
-  da_split_kernel<T, HD, TC><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(valid), static_cast<T*>(o), part_ml, part_acc, S, nq, nkv, g,
-      splits, chunk, scale * LOG2E);
-  return cudaGetLastError();
-}
-
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* valid, void* o,
-                   void* part, int B, int S, int nq, int nkv, int splits, int chunk,
-                   float scale, cudaStream_t stream) {
-  float* part_ml = static_cast<float*>(part);
-  float* part_acc = part_ml ? part_ml + (size_t)B * nq * splits * 2 : nullptr;
-  // bf16 groups of up to 16 heads fill the 16 rows of an mma; f32 (held to
-  // 2e-5) and larger groups run on the SIMT units
-  cudaError_t err;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    err = nq / nkv <= 16
-              ? launch_split<T, HD, true>(q, k, v, valid, o, part_ml, part_acc, B, S, nq, nkv,
-                                          splits, chunk, scale, stream)
-              : launch_split<T, HD, false>(q, k, v, valid, o, part_ml, part_acc, B, S, nq, nkv,
-                                           splits, chunk, scale, stream);
+  T* ob = o + row0 * HD;
+  if (tid >= NCT) {
+    produce<T, HD, NQ>(&tk, &tv, valid + (long)b * S, base, info, full, empty, S, rank, ncl,
+                       kvh, b, tid % 32);
+  } else if constexpr (C::TC) {
+    consume_tc<HD, NQ>(q + row0 * HD, ob, g, base, info, full, empty, scale_log2, tid, ncl,
+                       rank, per);
   } else {
-    err = launch_split<T, HD, false>(q, k, v, valid, o, part_ml, part_acc, B, S, nq, nkv,
-                                     splits, chunk, scale, stream);
+    consume_simt<T, HD>(q + row0 * HD, ob, g, base, info, full, empty, scale_log2, tid, ncl,
+                        rank, per);
   }
-  if (err != cudaSuccess || splits == 1) return err;
-  const long n = (long)B * nq * HD;
-  da_combine_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      part_ml, part_acc, static_cast<T*>(o), B * nq, HD, splits);
-  return cudaGetLastError();
+  if (ncl == 1) return;                           // the consumers wrote the output
+
+  // merge: every rank has pushed its m, l and its accumulators of this
+  // rank's slice here; the barrier's release/acquire makes them visible
+  cluster_sync();
+  const float* acc = reinterpret_cast<const float*>(base + C::RCV);
+  const float* rm = reinterpret_cast<const float*>(base + C::RCV_ML);
+  const float* rl = rm + MAX_CLUSTER * C::GMAX;
+  const int lo = rank * per, hi = min(total, lo + per);
+  for (int idx = lo + tid; idx < hi; idx += NT) {
+    const int n = idx / HD;
+    float mx = NEG_INF;
+    for (int c = 0; c < ncl; ++c) mx = fmaxf(mx, rm[c * C::GMAX + n]);
+    float l = 0.f, a = 0.f;
+    for (int c = 0; c < ncl; ++c) {
+      const float f = exp2f(rm[c * C::GMAX + n] - mx);   // 0 for a rank that saw no slot
+      l += rl[c * C::GMAX + n] * f;
+      a += acc[c * per + idx - lo] * f;
+    }
+    store(ob + idx, l > 0.f ? a / l : 0.f);
+  }
 }
 
-template <typename T>
-cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, const void* valid,
-                     void* o, void* part, int B, int S, int nq, int nkv, int splits, int chunk,
-                     float scale, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// Host side.
+// ---------------------------------------------------------------------------
+// Tensor maps of the caches, encoded once per (pointer, shape, dtype): a
+// map is a function of these alone (the wrapper checks contiguity).
+struct MapKey {
+  const void* ptr;
+  int B, S, heads, hd, es;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && B == o.B && S == o.S && heads == o.heads && hd == o.hd && es == o.es;
+  }
+};
+
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    size_t h = std::hash<const void*>()(k.ptr);
+    for (int v : {k.B, k.S, k.heads, k.hd, k.es}) h = h * 1000003u ^ (size_t)v;
+    return h;
+  }
+};
+
+std::mutex host_cache_mutex;   // the tensor maps' and the occupancy caches'
+
+cudaError_t cached_map(CUtensorMap* out, const void* ptr, int es, int B, int S, int heads,
+                       int hd) {
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> maps;
+  const MapKey key{ptr, B, S, heads, hd, es};
+  std::lock_guard<std::mutex> lock(host_cache_mutex);
+  auto found = maps.find(key);
+  if (found != maps.end()) {
+    *out = found->second;
+    return cudaSuccess;
+  }
+  const cudaError_t err = tma_encode_bshd(out, ptr, es, B, S, heads, hd, TILE);
+  if (err != cudaSuccess) return err;
+  if (maps.size() >= 4096) maps.clear();
+  maps.emplace(key, *out);
+  return cudaSuccess;
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// The kernel's shared-memory limit and non-portable cluster sizes (above
+// 8), set once per device; then the number of clusters of `ncl` CTAs the
+// card can hold at once (cudaOccupancyMaxActiveClusters), once per device
+// and size.
+template <typename T, int HD, int NQ>
+cudaError_t active_clusters(int ncl, int device, int* out) {
+  using C = Cfg<T, HD, NQ>;
+  static bool ready[MAX_DEVICES] = {};
+  static int known[MAX_DEVICES][MAX_CLUSTER + 1] = {};
+  if (device < 0 || device >= MAX_DEVICES || ncl < 1 || ncl > MAX_CLUSTER)
+    return cudaErrorInvalidValue;
+  std::lock_guard<std::mutex> lock(host_cache_mutex);
+  if (!ready[device]) {
+    cudaError_t err = cudaFuncSetAttribute(da_cluster_kernel<T, HD, NQ>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)C::SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(da_cluster_kernel<T, HD, NQ>,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    ready[device] = true;
+  }
+  if (known[device][ncl] == 0) {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = ncl;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(ncl, 1, 1);
+    cfg.blockDim = dim3(NT, 1, 1);
+    cfg.dynamicSmemBytes = C::SMEM;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int n = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, da_cluster_kernel<T, HD, NQ>, &cfg);
+    if (err != cudaSuccess) return err;
+    known[device][ncl] = n + 1;                 // 0: not asked yet
+  }
+  *out = known[device][ncl] - 1;
+  return cudaSuccess;
+}
+
+template <typename T, int HD, int NQ>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* valid, void* o,
+                   int B, int S, int nq, int nkv, int g, int ncl, float scale, int device,
+                   cudaStream_t stream) {
+  using C = Cfg<T, HD, NQ>;
+  int fits = 0;
+  cudaError_t err = active_clusters<T, HD, NQ>(ncl, device, &fits);
+  if (err != cudaSuccess) return err;
+  if (fits == 0) return cudaErrorInvalidConfiguration;   // the card cannot hold one cluster
+  CUtensorMap mk, mv;
+  err = cached_map(&mk, k, sizeof(T), B, S, nkv, HD);
+  if (err == cudaSuccess) err = cached_map(&mv, v, sizeof(T), B, S, nkv, HD);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ncl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(ncl, nkv * (nq / nkv / g), B);
+  cfg.blockDim = dim3(NT, 1, 1);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = ncl > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, da_cluster_kernel<T, HD, NQ>, mk, mv, static_cast<const T*>(q),
+                           static_cast<const uint8_t*>(valid), static_cast<T*>(o), S, nq, nkv, g,
+                           scale * LOG2E);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// heads a CTA serves: the whole group on the tensor cores (bf16, <= 16),
+// else the largest divisor of the group whose outputs the SIMT warpgroup
+// holds (heads x hd <= 1024)
+int heads_per_cta(bool tc, int group, int hd) {
+  int g = group;
+  if (!tc)
+    while (g * hd > SIMT_OUTPUTS || group % g) --g;
+  return g;
+}
+
+// fn.run<T, HD, NQ>() of the instantiation a call of (dtype, hd, group)
+// launches: bf16 groups of <= 8 and <= 16 heads on the tensor cores, the
+// rest on the SIMT units
+template <typename T, int HD, typename F>
+cudaError_t with_path(int group, const F& fn) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (group <= 8) return fn.template run<T, HD, 8>();
+    if (group <= 16) return fn.template run<T, HD, 16>();
+  }
+  return fn.template run<T, HD, 0>();
+}
+
+template <typename T, typename F>
+cudaError_t with_hd(int hd, int group, const F& fn) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, stream);
-    case 112: return launch<T, 112>(q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, stream);
+    case 16: return with_path<T, 16>(group, fn);
+    case 32: return with_path<T, 32>(group, fn);
+    case 64: return with_path<T, 64>(group, fn);
+    case 112: return with_path<T, 112>(group, fn);
+    case 128: return with_path<T, 128>(group, fn);
+    case 256: return with_path<T, 256>(group, fn);
     default: return cudaErrorInvalidValue;
   }
 }
 
+template <typename F>
+cudaError_t with_instance(int dtype, int hd, int group, const F& fn) {
+  if (dtype == DTYPE_F32) return with_hd<float>(hd, group, fn);
+  if (dtype == DTYPE_BF16) return with_hd<bf16>(hd, group, fn);
+  return cudaErrorInvalidValue;
+}
+
+struct Forward {
+  const void *q, *k, *v, *valid;
+  void* o;
+  int B, S, nq, nkv, clusters;
+  float scale;
+  int device;
+  cudaStream_t stream;
+  template <typename T, int HD, int NQ>
+  cudaError_t run() const {
+    return launch<T, HD, NQ>(q, k, v, valid, o, B, S, nq, nkv,
+                             heads_per_cta(NQ > 0, nq / nkv, HD), clusters, scale, device, stream);
+  }
+};
+
+struct ActiveClusters {
+  int clusters, device;
+  int* out;
+  template <typename T, int HD, int NQ>
+  cudaError_t run() const {
+    return active_clusters<T, HD, NQ>(clusters, device, out);
+  }
+};
+
 }  // namespace
 
-// Returns a cudaError_t: the first launch's or the combine's, or the error
-// of setting the device or the shared-memory limit.  Shapes, dtypes,
-// contiguity, alignment and the split plan (splits ranges of `chunk` slots, the last one to S; scratch
-// `part` of B*nq*splits*(hd+2) floats when splits > 1) come from the
-// Python wrapper.
+// Returns a cudaError_t: the launch's own, or the error of setting the
+// device, the kernel's attributes or a tensor map;
+// cudaErrorInvalidConfiguration where the card cannot hold one cluster of
+// `clusters` CTAs.  Shapes, dtypes, contiguity, alignment and the cluster
+// size (1..16, from cluster_plan) come from the Python wrapper.
 extern "C" int da_forward(const void* q, const void* k, const void* v, const void* valid,
-                          void* o, void* part, int dtype, int B, int S, int nq, int nkv, int hd,
-                          int splits, int chunk, float scale, int device, void* stream) {
+                          void* o, int dtype, int B, int S, int nq, int nkv, int hd, int clusters,
+                          float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32)
-    return (int)dispatch<float>(hd, q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk, scale, st);
-  if (dtype == DTYPE_BF16)
-    return (int)dispatch<__nv_bfloat16>(hd, q, k, v, valid, o, part, B, S, nq, nkv, splits, chunk,
-                                        scale, st);
-  return (int)cudaErrorInvalidValue;
+  const Forward fwd{q, k, v, valid, o, B, S, nq, nkv, clusters, scale, device,
+                    static_cast<cudaStream_t>(stream)};
+  return (int)with_instance(dtype, hd, nq / nkv, fwd);
+}
+
+// How many clusters of `clusters` CTAs the card holds at once for the
+// instantiation a call of (dtype, hd, group) launches, into *out.
+extern "C" int da_max_active_clusters(int dtype, int hd, int group, int clusters, int device,
+                                      int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)with_instance(dtype, hd, group, ActiveClusters{clusters, device, out});
 }

@@ -83,7 +83,6 @@
 // hd 256 its tiles take 4 x (64 x 257 + 64 x 257 + 64 x 256) = 197,120 bytes
 // of shared memory (opted in above 48 KB), one CTA per SM.  hd 112 divides
 // as it is: 28 four-float chunks a row, 28 output dims a thread.
-#include <cuda.h>                 // CUtensorMap and its enums (types only)
 #include <type_traits>
 
 #include "common.cuh"
@@ -548,60 +547,15 @@ __global__ void __launch_bounds__(WG_THREADS, 1) fa_wgmma_kernel(
   }
 }
 
-// cuTensorMapEncodeTiled, a driver API function, reached through the
-// runtime so that the library needs no -lcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// The contiguous (B, S, heads, hd) bf16 tensor at `ptr` as a 4-D tensor map
-// (hd, heads, S, B), innermost first, read in boxes of 64 columns x `rows`
-// positions of one head of one batch, with 128-byte swizzle.  Columns past
-// hd and positions past S read as zeros: hd 112 fills its second box with
-// 16 zero columns, and a ragged tile's rows are zeros.
-cudaError_t encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, int hd, int rows) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t es = sizeof(bf16);
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {hd * es, (cuuint64_t)heads * hd * es,
-                                 (cuuint64_t)S * heads * hd * es};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int HD>
 cudaError_t launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int Sq,
                          int Sk, int nq, int nkv, int causal, int window, int q_offset,
                          float scale, cudaStream_t stream) {
   using C = Wg<HD>;
   CUtensorMap mq, mk, mv;
-  cudaError_t err = encode(&mq, q, B, Sq, nq, HD, C::BM);
-  if (err == cudaSuccess) err = encode(&mk, k, B, Sk, nkv, HD, C::BN);
-  if (err == cudaSuccess) err = encode(&mv, v, B, Sk, nkv, HD, C::BN);
+  cudaError_t err = tma_encode_bshd(&mq, q, sizeof(bf16), B, Sq, nq, HD, C::BM);
+  if (err == cudaSuccess) err = tma_encode_bshd(&mk, k, sizeof(bf16), B, Sk, nkv, HD, C::BN);
+  if (err == cudaSuccess) err = tma_encode_bshd(&mv, v, sizeof(bf16), B, Sk, nkv, HD, C::BN);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(fa_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)C::SMEM);

@@ -2,66 +2,95 @@
 
 The CUDA kernel replaces the TPU kernel ``repro/kernels/decode_attention.py``
 (see the note at the top of the source).  This wrapper checks its operands,
-allocates the output and the split partials, launches on the current
-stream and counts launches: one per call, whether the call runs one CUDA
-kernel or the split kernel and its combine.  Any GQA group size is taken:
-the kernel cuts a group whose outputs one warp cannot hold (more than 1024
-heads x hd on the SIMT path) into chunks of heads, one CTA each.  It takes CUDA tensors only;
-``ops.decode_attention`` sends CPU tensors to the plain version in
-``ref.py`` (``ref.decode_attention_split_reference`` is the plain version
-of the split and combine).  Decoding takes no gradient: the wrapper refuses
-an input that requires one under grad mode.
+allocates the output, picks the cluster size (``cluster_plan``), launches
+one kernel on the current stream and counts launches: one per call.  Any
+GQA group size is taken: the kernel cuts a group whose outputs its SIMT
+warpgroup cannot hold (more than 1024 heads x hd) into chunks of heads, one
+cluster each.  It takes CUDA tensors only; ``ops.decode_attention`` sends
+CPU tensors to the plain version in ``ref.py``
+(``ref.decode_attention_cluster_reference`` is the plain version of the
+kernel's tile schedule and merge).  Decoding takes no gradient: the wrapper
+refuses an input that requires one under grad mode.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 112, 128, 256)
-MIN_SPLIT_SLOTS = 64     # a split owns at least one 64-slot tile
-CTAS_PER_SM = 2          # what the split count aims at
+TILE = 64                # cache slots of a tile; tile t belongs to cluster rank t % C
+CTAS_PER_SM = 2          # what the cluster size aims at
+MAX_CLUSTER = 16         # the largest cluster Hopper launches (above 8: non-portable)
+SIMT_OUTPUTS = 1024      # heads x hd one CTA of the SIMT path holds
 
 #: kernel launches in this process; ``chip_smoke.py`` resets and reads it
 launches = 0
 
-# (q, k, v, valid, out, partials) pointers, dtype code and shape and split
-# ints, scale, device, stream
+# (q, k, v, valid, out) pointers, dtype code, shape and cluster ints,
+# scale, device, stream
 _ARGTYPES = (
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
+_CLUSTER_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
 
 _sm_counts = {}
+_at_once = {}
 
 
-def split_plan(b: int, nkv: int, s: int, sm_count: int) -> Tuple[int, int]:
-    """``(splits, chunk)``: how the kernel cuts each sequence's S cache slots.
+def cluster_plan(b: int, nkv: int, s: int, sm_count: int, clusters_at_once=None) -> int:
+    """``C``, the CTAs of the cluster that serves one (sequence, kv head):
+    tile ``t`` (slots ``[64 t, 64 t + 64)``) belongs to rank ``t % C``
+    (``ref.decode_tile_owners``).  C aims at ``CTAS_PER_SM`` CTAs per SM, is
+    1 once ``b * nkv`` alone reaches that, and is at most ``MAX_CLUSTER``
+    and the number of tiles.
 
-    Split ``i`` owns slots ``[i * chunk, (i + 1) * chunk)``, the last one up
-    to ``s`` (``ref.split_ranges``); every range holds at least ``MIN_SPLIT_SLOTS`` slots (or all
-    ``s`` when there is one split).  The count aims at ``CTAS_PER_SM`` CTAs
-    of (split, kv head, sequence) per SM and is 1 once ``b * nkv`` alone
-    reaches that.  It depends on shapes only, never on ``valid``, so
-    choosing it costs no host sync."""
+    ``clusters_at_once(C)``, where given, is how many clusters of C CTAs the
+    card holds at once for the call's kernel (``max_active_clusters``, per
+    chunk of heads).  Where it holds fewer than two a SM of the call's
+    one-CTA clusters (``clusters_at_once(1) < 2 * sm_count``: one CTA an SM
+    at hd 256 and in f32 from hd 112), a cluster needs C whole SMs of one
+    GPC, so a second wave waits for a GPC to drain; C then shrinks until
+    the ``b * nkv`` clusters run in one wave.  It depends on
+    shapes and the card only, never on ``valid``, so choosing it costs no
+    host sync."""
     want = -(-CTAS_PER_SM * sm_count // (b * nkv))
-    k = min(want, s // MIN_SPLIT_SLOTS)
-    if k <= 1:
-        return 1, s
-    chunk = MIN_SPLIT_SLOTS * -(-s // (MIN_SPLIT_SLOTS * k))   # whole tiles, <= k ranges
-    splits = -(-s // chunk)
-    if s - (splits - 1) * chunk < MIN_SPLIT_SLOTS:               # the last one joins its neighbour
-        splits -= 1
-    return (splits, chunk) if splits > 1 else (1, s)
+    c = max(1, min(want, MAX_CLUSTER, -(-s // TILE)))
+    if clusters_at_once is not None and clusters_at_once(1) < CTAS_PER_SM * sm_count:
+        while c > 1 and clusters_at_once(c) < b * nkv:
+            c -= 1
+    return c
+
+
+def heads_per_cta(dtype: torch.dtype, group: int, hd: int) -> int:
+    """The q heads one cluster serves (the kernel's ``heads_per_cta``): a
+    bf16 group of <= 16 whole on the tensor cores, else the largest divisor
+    of the group whose outputs the SIMT warpgroup holds (heads x hd <= 1024)."""
+    if dtype == torch.bfloat16 and group <= 16:
+        return group
+    g = group
+    while g * hd > SIMT_OUTPUTS or group % g:
+        g -= 1
+    return g
 
 
 def _sm_count(device: torch.device) -> int:
     if device.index not in _sm_counts:
         _sm_counts[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
     return _sm_counts[device.index]
+
+
+def clusters_for(b: int, s: int, nq: int, nkv: int, hd: int, dtype: torch.dtype,
+                 device: torch.device) -> int:
+    """The cluster size a call of these shapes launches on ``device``:
+    ``cluster_plan`` with this card's cluster occupancy."""
+    group = nq // nkv
+    chunks = group // heads_per_cta(dtype, group, hd)
+    return cluster_plan(b, nkv, s, _sm_count(device),
+                        lambda c: max_active_clusters(dtype, hd, group, c, device) // chunks)
 
 
 def decode_attention(
@@ -97,17 +126,30 @@ def decode_attention(
         raise ValueError("valid must be contiguous and on q's device")
     _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     out = torch.empty_like(q)
-    splits, chunk = split_plan(b, nkv, s, _sm_count(q.device))
-    # per (sequence, q head, split): max and sum, then the hd accumulators
-    part = (torch.empty(b * nq * splits * (hd + 2), dtype=torch.float32, device=q.device)
-            if splits > 1 else None)
+    clusters = clusters_for(b, s, nq, nkv, hd, q.dtype, q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _build.function("decode_attention", "da_forward", _ARGTYPES)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid.data_ptr(),
-        out.data_ptr(), None if part is None else part.data_ptr(),
-        _build.DTYPE_CODES[q.dtype], b, s, nq, nkv, hd, splits, chunk,
+        out.data_ptr(), _build.DTYPE_CODES[q.dtype], b, s, nq, nkv, hd, clusters,
         hd ** -0.5, q.device.index, stream,
     )
     _build.raise_on_error("decode_attention", err)
     launches += 1
     return out
+
+
+def max_active_clusters(dtype: torch.dtype, hd: int, group: int, clusters: int,
+                        device: torch.device) -> int:
+    """How many clusters of ``clusters`` CTAs the card holds at once for the
+    kernel a call of (dtype, hd, GQA group) launches
+    (``cudaOccupancyMaxActiveClusters`` at its shared memory); 0 means a
+    call with that cluster size raises.  Asked of the card once per
+    argument set, then remembered."""
+    key = (dtype, hd, group, clusters, device.index or 0)
+    if key not in _at_once:
+        n = ctypes.c_int(0)
+        err = _build.function("decode_attention", "da_max_active_clusters", _CLUSTER_ARGTYPES)(
+            _build.DTYPE_CODES[dtype], hd, group, clusters, key[-1], ctypes.byref(n))
+        _build.raise_on_error("decode_attention", err)
+        _at_once[key] = n.value
+    return _at_once[key]

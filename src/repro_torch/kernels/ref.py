@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the kernels (attention and the RWKV-6 scan),
 the RG-LRU's sequential oracle, the one-bf16-step bound (with its
 large-output inputs) that the bf16 flash kernel is held to, and plain
-models of the kernels' own schedules (the flash kernel's tile walk, split
-decode, the chunked scan), which only the tests call.
+models of the kernels' own schedules (the flash kernel's tile walk, the
+decode kernel's cluster of ranks, the chunked scan), which only the tests
+call.
 
 These are (1) the path ``ops`` takes for tensors on the CPU, and (2) the
 oracles every CUDA kernel is held against on the card (``chip_smoke.py``).
@@ -253,47 +254,65 @@ def decode_attention_reference(
     return out.reshape(b, nq, hd).to(q.dtype)
 
 
-def split_ranges(s: int, splits: int, chunk: int) -> List[Tuple[int, int]]:
-    """The ``[start, end)`` cache slots of each split of split-S decode:
-    ``chunk`` slots each, the last split up to ``s``."""
-    return [(i * chunk, s if i == splits - 1 else (i + 1) * chunk) for i in range(splits)]
+def decode_tile_owners(s: int, clusters: int, tile: int = 64) -> List[List[int]]:
+    """The tiles each cluster rank of the decode kernel reads: tile ``t``
+    (slots ``[tile t, tile (t + 1))``, the last one up to ``s``) belongs to
+    rank ``t % clusters``; a rank past the last tile gets none."""
+    if clusters < 1 or s < 1:
+        raise ValueError(f"{clusters} ranks cannot cut {s} slots")
+    n = -(-s // tile)
+    return [list(range(r, n, clusters)) for r in range(clusters)]
 
 
-def decode_attention_split_reference(
+def decode_attention_cluster_reference(
     q: torch.Tensor,                 # (B, nq, hd)
     k_cache: torch.Tensor,           # (B, S, nkv, hd)
     v_cache: torch.Tensor,           # (B, S, nkv, hd)
     valid: torch.Tensor,             # (B, S) bool
-    splits: int,
-    chunk: Optional[int] = None,     # slots per split; default S // splits
+    clusters: int,
+    tile: int = 64,
 ) -> torch.Tensor:
-    """Split-and-combine decode, the arithmetic of ``csrc/decode_attention.cu``.
+    """The decode kernel's schedule and merge (``csrc/decode_attention.cu``)
+    in f32.
 
-    Split ``i`` owns slots ``[i * chunk, (i + 1) * chunk)``, the last one up
-    to S.  Each split keeps its running max m, sum l and unnormalised
-    accumulator a per query head (a split with no valid slot: m = -1e30,
-    l = 0, a = 0); the combine weighs split i by exp(m_i - max m) where
-    l_i > 0 and divides by the weighted sum.  A sequence with no valid slot
-    gives 0, as the kernels do.  Nothing on the main path calls it; the
-    tests hold it to the JAX oracle.  Returns (B, nq, hd) in q's dtype."""
+    Rank r of the cluster walks its tiles (``decode_tile_owners``) in order
+    and skips a tile with no valid slot.  Per tile, in log2 units (logits
+    times ``hd^-0.5 log2 e``): the running max m becomes max(m, the tile's
+    max), the old state is scaled by alpha = 2^(m_old - m), and each valid
+    slot adds p = 2^(s - m) to the sum l and p v to the accumulator; masked
+    slots of the tile add exactly 0.  A rank that saw no valid slot keeps
+    m = -1e30, l = 0.  The merge weighs rank c by 2^(m_c - max m) and
+    divides the weighted accumulators by the weighted sum; a sequence with
+    no valid slot gives 0, as the kernels do.  Nothing on the main path
+    calls it; the tests hold it to the JAX oracle.  Returns (B, nq, hd) in
+    q's dtype."""
     b, nq, hd = q.shape
     s, nkv = k_cache.shape[1], k_cache.shape[2]
-    chunk = s // splits if chunk is None else chunk
-    if not (1 <= splits and 1 <= chunk and (splits - 1) * chunk < s):
-        raise ValueError(f"{splits} splits of {chunk} slots do not cut {s} slots")
     qg = q.reshape(b, nkv, nq // nkv, hd).float()
+    scale_log2 = hd ** -0.5 * 1.4426950408889634
     ms, ls, accs = [], [], []
-    for lo, hi in split_ranges(s, splits, chunk):
-        logits = torch.einsum("bkgh,bskh->bkgs", qg, k_cache[:, lo:hi].float()) * hd ** -0.5
-        ok = valid[:, None, None, lo:hi]
-        logits = torch.where(ok, logits, torch.full_like(logits, NEG_INF))
-        m = logits.amax(dim=-1)                                     # (B, nkv, g)
-        p = torch.where(ok, torch.exp(logits - m[..., None]), torch.zeros_like(logits))
+    for tiles in decode_tile_owners(s, clusters, tile):
+        m = torch.full((b, nkv, nq // nkv), NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(m.shape + (hd,))
+        for t in tiles:
+            lo, hi = t * tile, min(s, (t + 1) * tile)
+            ok = valid[:, None, None, lo:hi]
+            logits = torch.einsum("bkgh,bskh->bkgs", qg, k_cache[:, lo:hi].float()) * scale_log2
+            logits = torch.where(ok, logits, torch.full_like(logits, NEG_INF))
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.where(ok, torch.exp2(logits - m_new[..., None]), torch.zeros_like(logits))
+            seen = ok.any(dim=-1)                                   # the tile is not skipped
+            l = torch.where(seen, l * alpha + p.sum(dim=-1), l)
+            acc = torch.where(seen[..., None], acc * alpha[..., None]
+                              + torch.einsum("bkgs,bskh->bkgh", p, v_cache[:, lo:hi].float()), acc)
+            m = torch.where(seen, m_new, m)
         ms.append(m)
-        ls.append(p.sum(dim=-1))
-        accs.append(torch.einsum("bkgs,bskh->bkgh", p, v_cache[:, lo:hi].float()))
+        ls.append(l)
+        accs.append(acc)
     m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
-    w = torch.where(l > 0, torch.exp(m - m.amax(dim=0)), torch.zeros_like(m))
+    w = torch.exp2(m - m.amax(dim=0))
     total = (w * l).sum(dim=0)
     out = (w[..., None] * acc).sum(dim=0)
     out = torch.where(total[..., None] > 0, out / total.clamp_min(1e-30)[..., None],

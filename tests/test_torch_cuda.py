@@ -282,7 +282,7 @@ def _decode_check(cuda, dtype, b, s, nq, nkv, hd, valid, seed=0):
     valid = valid.to(cuda)
     launches = da.launches
     out = da.decode_attention(q, k, v, valid)
-    assert da.launches == launches + 1          # one per call, even with a combine
+    assert da.launches == launches + 1          # one per call
     exp = ref.decode_attention_reference(q, k, v, valid)
     empty = ~valid.any(dim=1)
     exp = torch.where(empty[:, None, None], torch.zeros_like(exp), exp)
@@ -292,17 +292,18 @@ def _decode_check(cuda, dtype, b, s, nq, nkv, hd, valid, seed=0):
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_decode_empty_tiles_and_splits_in_the_middle(cuda, dtype):
-    """Whole 64-slot tiles and whole splits empty between valid slots, a
-    sequence with only a single slot in the last split, and one with none."""
+    """Whole 64-slot tiles empty between valid slots (a cluster rank may see
+    none of the valid ones), a sequence with only a single slot in the last
+    tile, and one with none."""
     b, s, nq, nkv, hd = 4, 2048, 8, 2, 64
-    splits, chunk = da.split_plan(b, nkv, s, torch.cuda.get_device_properties(cuda)
-                                  .multi_processor_count)
-    assert splits > 2
+    clusters = da.cluster_plan(b, nkv, s, torch.cuda.get_device_properties(cuda)
+                               .multi_processor_count)
+    assert clusters > 2
     valid = torch.zeros((b, s), dtype=torch.bool)
     valid[0, :70] = True
-    valid[0, s - 100:] = True                   # tiles and splits between are empty
+    valid[0, s - 100:] = True                   # tiles between are empty
     valid[1, ::97] = True                       # one slot every 97: most tiles empty
-    valid[2, s - 1] = True                      # a single slot, in the last split
+    valid[2, s - 1] = True                      # a single slot, in the last tile
     q, k, v, out = _decode_check(cuda, dtype, b, s, nq, nkv, hd, valid)  # row 3: none
     assert not bool(out[3].any())
     assert _err(out[2], v[2, s - 1].repeat_interleave(nq // nkv, dim=0)) < TOL[dtype]
@@ -328,14 +329,75 @@ def test_decode_single_slot_cache(cuda, dtype):
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_decode_one_split_when_the_grid_is_full(cuda, dtype):
-    """S = 4096 at B * nkv = 264 = 2 x 132: the wrapper gives one split on
-    an H100, and the CTA writes the output itself."""
+    """S = 4096 at B * nkv = 264 = 2 x 132: the wrapper gives clusters of
+    one CTA on an H100, which writes the output itself."""
     b, nkv, s = 33, 8, 4096
     sm = torch.cuda.get_device_properties(cuda).multi_processor_count
     if b * nkv >= da.CTAS_PER_SM * sm:
-        assert da.split_plan(b, nkv, s, sm) == (1, s)
+        assert da.cluster_plan(b, nkv, s, sm) == 1
     valid = torch.from_numpy(np.random.default_rng(2).uniform(size=(b, s)) < 0.5)
     _decode_check(cuda, dtype, b, s, 8, nkv, 64, valid, seed=2)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_decode_cluster_of_16_at_recurrentgemma(cuda, dtype, monkeypatch):
+    """recurrentgemma-9b's decode: 8 (sequence, kv head) pairs, so the shape
+    rule asks clusters of 16 CTAs (above 8: a non-portable size), which the
+    card must be able to hold.  Launched at 16, then at the size the
+    wrapper picks (one wave on this card); prefix masks of the main path's
+    lengths, then a window over a wrapped ring."""
+    b, s, nq, nkv, hd = 8, 2048, 16, 1, 256
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert da.cluster_plan(b, nkv, s, sm) > 8
+    assert da.max_active_clusters(DTYPES[dtype], hd, nq // nkv, 16, cuda) >= 1
+    lengths = torch.tensor([96, 544, 300, 65, 64, 1, 2048, 411])
+    masks = (torch.arange(s)[None, :] < lengths[:, None],
+             _ring_valid([2100, 4095, 3000, 2047, 100, 5000, 2048, 10], s, 1536))
+    with monkeypatch.context() as patch:
+        patch.setattr(da, "cluster_plan", lambda *args: 16)
+        for i, valid in enumerate(masks):
+            _decode_check(cuda, dtype, b, s, nq, nkv, hd, valid, seed=16 + i)
+    assert da.clusters_for(b, s, nq, nkv, hd, DTYPES[dtype], cuda) >= 1
+    for i, valid in enumerate(masks):
+        _decode_check(cuda, dtype, b, s, nq, nkv, hd, valid, seed=18 + i)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_decode_cluster_ranks_without_a_tile(cuda, dtype):
+    """Whole cluster ranks get no valid tile: prefixes of 1, 64 and 65
+    slots (one or two tiles of a 16-rank cluster), and a sequence whose
+    valid slots all lie in the tiles of rank 0 (tiles 0, C, 2C, ...)."""
+    b, s, nq, nkv, hd = 4, 2048, 16, 1, 64
+    clusters = da.cluster_plan(b, nkv, s, torch.cuda.get_device_properties(cuda)
+                               .multi_processor_count)
+    assert clusters > 2
+    valid = torch.zeros((b, s), dtype=torch.bool)
+    valid[0, :1] = True
+    valid[1, :64] = True
+    valid[2, :65] = True
+    for t in range(0, s // 64, clusters):
+        valid[3, 64 * t + 5:64 * t + 40] = True
+    _decode_check(cuda, dtype, b, s, nq, nkv, hd, valid, seed=18)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_decode_masked_slots_hold_large_values(cuda, dtype):
+    """The kernel reads whole 64-slot tiles, masked slots too, and gives
+    them probability exactly 0: masked K/V slots holding +-1e4 do not move
+    the output (bit for bit against the same call with them zero)."""
+    b, s, nq, nkv = 8, 1000, 16, 2
+    for hd in (64, 128):
+        valid = torch.from_numpy(np.random.default_rng(hd).uniform(size=(b, s)) < 0.5)
+        valid[:, 0] = True
+        q, k, v, out = _decode_check(cuda, dtype, b, s, nq, nkv, hd, valid, seed=hd)
+        masked = ~valid.to(cuda)[:, :, None, None]
+        zero = da.decode_attention(q, torch.where(masked, 0, k), torch.where(masked, 0, v),
+                                   valid.to(cuda))
+        sign = torch.where(torch.rand(k.shape, device=cuda) < 0.5, -1e4, 1e4).to(k.dtype)
+        big = da.decode_attention(q, torch.where(masked, sign, k), torch.where(masked, -sign, v),
+                                  valid.to(cuda))
+        assert torch.equal(big, zero)
+        assert _err(big, out) < TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -351,8 +413,8 @@ def test_decode_main_path_prefix_masks(cuda, dtype):
 def test_decode_hd112_prefix_masks_and_empty_splits(cuda, dtype):
     """kimi-k2 decode: 8 slots, cache 2048, 64 q heads over 8 kv heads of
     112, each slot valid up to its prompt + generated tokens; then masks
-    that leave whole tiles and whole splits empty, one slot alone in the
-    last split and a sequence with none."""
+    that leave whole tiles empty, one slot alone in the last tile and a
+    sequence with none."""
     lengths = torch.tensor([96, 544, 300, 65, 64, 1, 2048, 411])
     valid = torch.arange(2048)[None, :] < lengths[:, None]
     _decode_check(cuda, dtype, 8, 2048, 64, 8, 112, valid, seed=9)

@@ -11,10 +11,10 @@ and ``chip_smoke.py`` phase 2, the same inputs).  The plain versions round
 the probabilities to bf16 before P V and miss that bound on their own side.
 
 The card's kernel multiplies V by unnormalised P on the tensor cores,
-16 slots at a time.  Rounding that P to bf16 misses one step over
-``ref.DECODE_ROUNDING_SEEDS``; P as a bf16 high and low part, as
+64 slots (one tile) at a time.  Rounding that P to bf16 misses one step
+over ``ref.DECODE_ROUNDING_SEEDS``; P as a bf16 high and low part, as
 ``csrc/decode_attention.cu`` multiplies it, stays within half a step.  The
-last test shows both on the CPU with the kernel's sub-tile arithmetic.
+last test shows both on the CPU with the kernel's per-tile arithmetic.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -59,10 +59,10 @@ def test_tpu_decode_kernel_rounds_once(hd):
 
 def _subtile_decode(q, k, v, valid, *, hi_lo: bool):
     """The bf16 tensor-core path of ``csrc/decode_attention.cu`` in f32 on
-    the CPU, in one range of slots: an online softmax over 16-slot
-    sub-tiles, unnormalised P rounded to bf16 (or split into a bf16 high
-    and low part) before it multiplies V, the sum l of P in f32, o / l
-    rounded once to bf16."""
+    the CPU, on one rank's slots: an online softmax over 64-slot tiles,
+    unnormalised P rounded to bf16 (or split into a bf16 high and low part)
+    before it multiplies V, the sum l of P in f32, o / l rounded once to
+    bf16."""
     b, nq, hd = q.shape
     nkv = k.shape[2]
     s = torch.einsum("bkgh,bskh->bkgs", q.float().reshape(b, nkv, nq // nkv, hd),
@@ -71,8 +71,8 @@ def _subtile_decode(q, k, v, valid, *, hi_lo: bool):
     m = torch.full(s.shape[:-1], -torch.inf)
     l = torch.zeros(s.shape[:-1])
     o = torch.zeros(s.shape[:-1] + (hd,))
-    for t in range(0, s.shape[-1], 16):
-        st = s[..., t:t + 16]
+    for t in range(0, s.shape[-1], 64):
+        st = s[..., t:t + 64]
         mn = torch.maximum(m, st.amax(-1))
         alpha = torch.nan_to_num(torch.exp2(m - mn))
         p = torch.nan_to_num(torch.exp2(st - mn[..., None]))
@@ -81,7 +81,7 @@ def _subtile_decode(q, k, v, valid, *, hi_lo: bool):
             pb = pb + (p - pb).bfloat16().float()
         l = l * alpha + p.sum(-1)
         o = o * alpha[..., None] + torch.einsum("bkgs,bskh->bkgh", pb,
-                                                v[:, t:t + 16].float())
+                                                v[:, t:t + 64].float())
         m = mn
     return (o / l[..., None]).reshape(b, nq, hd).bfloat16()
 
