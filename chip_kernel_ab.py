@@ -6,15 +6,21 @@ the shapes ``chip_smoke.py`` times them, to compare two trees in one run.
 
 ``SRC_DIR`` is the ``src`` directory of a checkout (this one, or a parent
 commit unpacked with ``git archive``); its ``repro_torch`` is imported and
-its kernels are built into that checkout's ``build/``.  Timing is
-``chip_smoke.py``'s: median of CUDA events around single calls, the L2
-flushed and ~0.1 ms of device sleep queued before each.  Run the trees in
+its kernels are built into that checkout's ``build/``.  The measurement is
+this checkout's ``chip_smoke.py``'s, imported over SRC_DIR's package: its
+``time_ms`` (median of CUDA events around single calls, the L2 flushed and
+device sleep queued before each), its wrappers' host time, and phase 6a's
+training configuration, timed steps and profile reader.  Run the trees in
 turns (A, B, B, A) in one command on one card, so that both see the same
-card and host.  Prints one JSON line: ms per kernel and shape, the flash
+card and host.  Prints one JSON line: ms per kernel and shape (flash in
+bf16 at the served shapes and in f32 at the training shape and at the
+served prefill shapes of hd 64, 128 and 112), the flash
 and decode wrappers' host microseconds a call at the main path's shape,
 the bf16 flash kernel's rounding at large outputs (``rounding_margin``) and
 the bf16 decode kernel's over ``ref.DECODE_ROUNDING_SEEDS``
-(``decode_rounding``, hd 64, 112 and 256).
+(``decode_rounding``, hd 64, 112 and 256), and qwen1.5-0.5b's f32
+training step through the tree's kernels as phase 6a measures it
+(``train_step``: the end-to-end number the f32 flash forward should move).
 """
 from __future__ import annotations
 
@@ -23,7 +29,6 @@ import importlib.util
 import json
 import os
 import sys
-import time
 
 import numpy as np
 import torch
@@ -39,6 +44,12 @@ FLASH = {"qwen1.5-0.5b": (1, 512, 512, 16, 16, 64, True),
          "recurrentgemma-9b": (1, 512, 512, 16, 1, 256, True),
          "whisper-small encoder": (8, 1500, 1500, 12, 12, 64, False),
          "whisper-small cross decode": (8, 1, 1500, 12, 12, 64, False)}
+# the f32 flash forward: every training step's (qwen1.5-0.5b, B=8, S=512)
+# and the served prefill shapes at hd 64, 128 and 112
+FLASH_F32 = {"train qwen1.5-0.5b": (8, 512, 512, 16, 16, 64, True),
+             "qwen1.5-0.5b": (1, 512, 512, 16, 16, 64, True),
+             "phi3.5-moe": (1, 512, 512, 32, 8, 128, True),
+             "kimi-k2": (1, 512, 512, 64, 8, 112, True)}
 SERVED = [96, 544, 300, 65, 64, 1, 2048, 411]
 DECODE = {"qwen1.5-0.5b": (8, 2048, 16, 16, 64, SERVED),
           "phi3.5-moe": (8, 2048, 32, 8, 128, SERVED),
@@ -46,37 +57,6 @@ DECODE = {"qwen1.5-0.5b": (8, 2048, 16, 16, 64, SERVED),
           "recurrentgemma-9b": (8, 2048, 16, 1, 256, SERVED),
           "whisper-small": (8, 448, 12, 12, 64, [36] * 8),
           "llama3-8b full cache": (8, 2048, 32, 8, 128, [2048] * 8)}
-HOST_AHEAD_CYCLES = 200_000
-
-
-def time_ms(fn, flush, iters, warmup=3) -> float:
-    for _ in range(warmup):
-        fn()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    for s, e in zip(starts, ends):
-        flush()
-        torch.cuda._sleep(HOST_AHEAD_CYCLES)
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
-
-
-def host_us(fn, calls=200) -> float:
-    """Host microseconds of one call (the wrapper, its launch), the card left
-    to run behind."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    us = 1e6 * (time.perf_counter() - t0) / calls
-    torch.cuda.synchronize()
-    return us
-
-
 def own_ref():
     """This checkout's ``kernels/ref.py`` (torch and numpy only), loaded by
     path: the probe's inputs and bound come from here, so that a tree from
@@ -107,6 +87,44 @@ def rounding_margin(fa, dev):
     return out
 
 
+def load_smoke(src):
+    """This checkout's ``chip_smoke.py`` over SRC's ``repro_torch``: SRC's
+    package is imported first, so that the script's own ``src`` (which it
+    puts first on the path) never shadows it."""
+    sys.path.insert(0, os.path.abspath(src))
+    import repro_torch  # noqa: F401
+    import chip_smoke
+    return chip_smoke
+
+
+def train_step(smoke, dev, steps=6) -> dict:
+    """qwen1.5-0.5b's f32 training step as ``chip_smoke.py`` phase 6a
+    measures it (its configuration, B=8, S=512, AdamW lr 3e-4, wsd, remat;
+    ``timed_steps``; ``read_profile``) through this tree's kernels, after
+    one step of ``train_loop.train`` in place of phase 6a's 20: the host ms
+    of each further step between syncs, their median after the first, and
+    of one profiled step the device ms of all its kernels and of the flash
+    forwards (``FLASH_KERNELS``)."""
+    from repro_torch.training import train_loop
+
+    cfg = smoke.get_config(smoke.ARCH)
+    tcfg = smoke.train_config(smoke.TRAIN_STEPS)
+    data = smoke.SyntheticLM(cfg.vocab_size, smoke.TRAIN_SEQ, smoke.TRAIN_BATCH, seed=0)
+    params, opt, _ = train_loop.train(cfg, tcfg, iter(data), 1, seed=0, device="cuda")
+    step = train_loop.make_train_step(cfg, tcfg)
+    batches = [train_loop.batch_to(next(data), dev) for _ in range(steps)]
+    state, times = smoke.timed_steps(step, (params, opt), batches)
+    del params, opt
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step(*state, batches[-1])
+        torch.cuda.synchronize()
+    by_kernel = smoke.read_profile(prof, ())[0]
+    return {"step_ms": float(np.median(times[1:])), "step_ms_each": times,
+            "device_ms": sum(by_kernel.values()) / 1e3,
+            "flash_forward_device_ms": smoke.kernel_time(by_kernel, smoke.FLASH_KERNELS) / 1e3}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", required=True)
@@ -115,26 +133,28 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_kernel_ab: no CUDA device")
-    sys.path.insert(0, os.path.abspath(args.src))
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-
+    smoke = load_smoke(args.src)
+    da, fa = smoke.da, smoke.fa
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     rand = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-    flush_buf = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
-    flush = flush_buf.zero_
+    flush = smoke.L2Flush(dev)
+    time_ms = lambda fn: smoke.time_ms(fn, flush, iters=args.iters)
+    host_us = lambda fn: smoke.host_us_per_call(fn, calls=200)
     out = {"label": args.label, "src": args.src, "gpu": torch.cuda.get_device_name(0)}
     for name, (b, sq, sk, nq, nkv, hd, causal) in FLASH.items():
         if hd not in fa.SUPPORTED_HEAD_DIMS:
             out[f"flash {name}"] = None          # a tree from before this head dim
             continue
         q, k, v = rand(b, sq, nq, hd), rand(b, sk, nkv, hd), rand(b, sk, nkv, hd)
-        out[f"flash {name}"] = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
-                                       flush, args.iters)
+        out[f"flash {name}"] = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
         if name == "qwen1.5-0.5b":
             out["flash host us per call"] = host_us(
                 lambda: fa.flash_attention(q, k, v, causal=causal))
+    for name, (b, sq, sk, nq, nkv, hd, causal) in FLASH_F32.items():
+        q, k, v = (torch.randn((b, s, n, hd), generator=gen, device=dev)
+                   for s, n in ((sq, nq), (sk, nkv), (sk, nkv)))
+        out[f"flash f32 {name}"] = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
     for name, (b, s, nq, nkv, hd, lengths) in DECODE.items():
         if hd not in da.SUPPORTED_HEAD_DIMS:
             out[f"decode {name}"] = None
@@ -142,14 +162,15 @@ def main() -> None:
         valid = (torch.arange(s, device=dev)[None, :]
                  < torch.tensor(lengths, device=dev)[:, None])
         q, k, v = rand(b, nq, hd), rand(b, s, nkv, hd), rand(b, s, nkv, hd)
-        out[f"decode {name}"] = time_ms(lambda: da.decode_attention(q, k, v, valid), flush,
-                                        args.iters)
+        out[f"decode {name}"] = time_ms(lambda: da.decode_attention(q, k, v, valid))
         if name == "qwen1.5-0.5b":
             out["decode host us per call"] = host_us(lambda: da.decode_attention(q, k, v, valid))
     out["rounding"] = rounding_margin(fa, dev)
     probe = own_ref()
     out["decode_rounding"] = {f"hd {hd}": probe.decode_rounding_sweep(da.decode_attention, hd, dev)
                               for hd in (64, 112, 256)}
+    torch.backends.cuda.matmul.allow_tf32 = False      # as chip_smoke.py trains
+    out["train_step"] = train_step(smoke, dev)
     print(json.dumps(out))
 
 

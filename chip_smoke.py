@@ -18,9 +18,13 @@ never prints its last line):
    ``HMMA`` (mma.sync), ``HGMMA`` (wgmma) and the TMA loads (``UTMALDG``);
    the bf16 flash kernel and the bf16 RWKV-6 prefill must have tensor-core
    instructions, the flash library wgmma and TMA loads, the flash kernel's
-   wgmma instantiations (``fa_wgmma_kernel``, hd <= 128) no spill, and
-   ptxas must neither ignore their ``setmaxnreg`` nor serialise their
-   wgmma; the decode library wgmma and TMA loads, its bf16 instantiations
+   wgmma instantiations (``fa_wgmma_kernel``, bf16 at hd <= 128, and
+   ``fa_tf32_kernel``, f32 at hd <= 128, whose wgmma take tf32 operands:
+   ``HGMMA`` with ``TF32`` in the SASS) no spill, and ptxas must neither
+   ignore their ``setmaxnreg`` nor serialise their wgmma; the f32 kernel's
+   one-tile probe must show the tensor cores reading an f32 operand as its
+   top 19 bits, from shared memory and from registers (the design takes
+   Q and K as they land for their tf32 parts); the decode library wgmma and TMA loads, its bf16 instantiations
    (``da_cluster_kernel``) no spill and no serialised wgmma, and the card
    must hold a cluster of each size the plan gives the served shapes
    (``cudaOccupancyMaxActiveClusters``, printed);
@@ -153,8 +157,9 @@ never prints its last line):
    parameter leaf gets a finite, non-zero gradient in the first step, the
    flash launches equal 24 layers x 2 (forward, remat recompute) a step;
    prints the median step of 5 after warm-up, tokens/s, peak memory, a
-   profiled step (device time, busy share, the flash forward's, the plain
-   backward's and the optimizer's device time) and the step's floor and
+   profiled step (device time, busy share, the flash forward's, every one
+   ``fa_tf32_kernel``, the plain backward's and the optimizer's device
+   time) and the step's floor and
    ``train_step_mfu``; 6c saves {params, opt_state} (5.6 GB) and restores it
    onto the card bit-equal, steps from both, and serves a prompt and 8
    decode steps from both (logits equal); 6b holds one step at B=1, S=128
@@ -162,8 +167,10 @@ never prints its last line):
    f32 for 3 steps of 4 x 128 (scan launches 24 x 2 a step), profiles one
    and holds a step at 4 layers, T=64 to the CPU; then both kernels are
    timed at the training shapes (forward, plain backward, SDPA forward +
-   backward) into the ``{"kernels": ...}`` rows, whose launches add the
-   training runs';
+   backward; flash's forward also beside SDPA's forward alone, held to the
+   bound of its three tf32 products with the SIMT one beside it, and at the main path's, phi3.5-moe's and kimi-k2's
+   prefill shapes in f32) into the ``{"kernels": ...}`` rows, whose
+   launches add the training runs';
 7. the single-card mesh/sharding/specs layer: ``launch/specs.py``'s
    ``build_step`` for qwen1.5-0.5b at full width and depth at a train
    (8 x 512), a prefill (1 x 512) and a decode (8 slots, cache 2048) shape
@@ -256,6 +263,9 @@ LOGIT_TOL = 1e-3
 # tensor cores (training runs f32 with TF32 off), HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+# the f32 flash kernel's rate of f32-accurate products: three tf32 products
+# each on the tensor cores' 495 TFLOP/s dense tf32
+PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 
 # b, sq, sk, nq, nkv, hd, causal, window  (tests/test_kernels.py FA_CASES)
@@ -386,10 +396,13 @@ class L2Flush:
         self.buf.zero_()
 
 
-# ~0.1 ms of device work queued after each flush, so that the host has
+# ~1 ms of device work queued after each flush, so that the host has
 # enqueued the start event, the call and the end event before the device
-# reaches them: the events then time the device, not the host's dispatch
-HOST_AHEAD_CYCLES = 200_000
+# reaches them: the events then time the device, not the host's dispatch.
+# A kernel's call needs ~0.1 ms of it; a plain version's dozen operators
+# (~0.2-0.4 ms of host dispatch at B=1, S=512) need more, or their times
+# swing with the host's load
+HOST_AHEAD_CYCLES = 2_000_000
 
 
 def time_ms(fn, flush, iters=20, warmup=3) -> float:
@@ -416,8 +429,10 @@ def bound(flops: float, nbytes: float, peak=PEAK_BF16_FLOPS):
 # ---------------------------------------------------------------------------
 # Phase 1: build.
 # ---------------------------------------------------------------------------
-# SASS opcodes counted in each library: mma.sync, wgmma and TMA tensor loads
-SASS_OPCODES = ("HMMA", "HGMMA", "UTMALDG")
+# SASS opcodes counted in each library: mma.sync, wgmma, wgmma with tf32
+# operands and TMA tensor loads
+SASS_OPCODES = {"HMMA": r"\bHMMA\b", "HGMMA": r"\bHGMMA\b",
+                "HGMMA.TF32": r"\bHGMMA\.\S*\.TF32\b", "UTMALDG": r"\bUTMALDG\b"}
 # what ptxas says when a kernel's design is not in effect: setmaxnreg
 # ignored (C7508), wgmma serialised (C7510)
 PTXAS_DESIGN_WARNINGS = ("C7508", "C7510")
@@ -429,7 +444,7 @@ def sass_counts(path) -> dict:
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
                           check=True, timeout=120).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPCODES}
+    return {op: len(re.findall(pattern, sass)) for op, pattern in SASS_OPCODES.items()}
 
 
 def ptxas_report(log: str):
@@ -466,24 +481,46 @@ def kernel_names(mangled):
 
 
 def check_flash_design(counts, log) -> None:
-    """The flash library's bf16 kernel is the Hopper design it claims: wgmma
-    and TMA loads in its SASS, each ``fa_wgmma_kernel`` instantiation (hd
-    16, 32, 64, 112, 128) compiled without spill, and no ptxas warning that
-    setmaxnreg was ignored or wgmma serialised.  Prints the instantiations'
-    registers (at launch; setmaxnreg moves them later) and spill bytes."""
-    if not (counts["HGMMA"] and counts["UTMALDG"]):
-        raise AssertionError(f"the flash_attention library lacks wgmma or TMA loads: {counts}")
+    """The flash library's kernels at hd <= 128 are the Hopper design they
+    claim: wgmma (with tf32 operands among them) and TMA loads in its SASS,
+    each ``fa_wgmma_kernel`` (bf16) and ``fa_tf32_kernel`` (f32)
+    instantiation (hd 16, 32, 64, 112, 128) compiled without spill, and no
+    ptxas warning that setmaxnreg was ignored or wgmma serialised.  Prints
+    the instantiations' registers (at launch; setmaxnreg moves them later)
+    and spill bytes."""
+    if not (counts["HGMMA"] and counts["HGMMA.TF32"] and counts["UTMALDG"]):
+        raise AssertionError(f"the flash_attention library lacks wgmma, tf32 wgmma or TMA "
+                             f"loads: {counts}")
     report = ptxas_report(log)
     readable = kernel_names(list(report))
-    wg = {readable[k]: v for k, v in report.items() if "fa_wgmma_kernel" in k}
-    print("[build] flash_attention fa_wgmma_kernel: " + json.dumps(
-        {k: {"registers": r, "spill_store_bytes": st, "spill_load_bytes": ld}
-         for k, (r, st, ld) in wg.items()}))
-    if len(wg) != 5 or any(st or ld for _, st, ld in wg.values()):
-        raise AssertionError(f"fa_wgmma_kernel instantiations missing or spilling: {wg}")
+    for kernel in ("fa_wgmma_kernel", "fa_tf32_kernel"):
+        wg = {readable[k]: v for k, v in report.items() if kernel in k}
+        print(f"[build] flash_attention {kernel}: " + json.dumps(
+            {k: {"registers": r, "spill_store_bytes": st, "spill_load_bytes": ld}
+             for k, (r, st, ld) in wg.items()}))
+        if len(wg) != 5 or any(st or ld for _, st, ld in wg.values()):
+            raise AssertionError(f"{kernel} instantiations missing or spilling: {wg}")
     warned = [line for line in log.splitlines() if any(w in line for w in PTXAS_DESIGN_WARNINGS)]
     if warned:
         raise AssertionError("ptxas: " + " | ".join(warned))
+
+
+def check_tf32_probe() -> None:
+    """The f32 kernel's one-tile probe (``flash_attention.tf32_probe``): a
+    64 x 8 f32 A, random from seed 0 so that its low 13 bits are set, times
+    the identity by wgmma .tf32, A from shared memory and from registers.
+    Both must read A truncated to its top 19 bits (``ref.tf32``), which the
+    kernel takes Q and K as they land for; the register read agreeing with
+    the shared-memory one also confirms the A fragment's layout."""
+    a = torch.from_numpy(np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32))
+    d_ss, d_rs = (x.cpu() for x in fa.tf32_probe(a.cuda()))
+    read = {name: "truncated" if torch.equal(d, ref.tf32(a))
+            else "as f32" if torch.equal(d, a) else "not truncated"
+            for name, d in (("shared_memory", d_ss), ("registers", d_rs))}
+    print("[build] flash_attention tf32 probe, how the tensor cores read an f32 operand: "
+          + json.dumps(read))
+    if set(read.values()) != {"truncated"}:
+        raise AssertionError(f"the tensor cores do not read f32 operands truncated: {read}")
 
 
 # the served decode shapes (B, S, nq, nkv, hd): qwen1.5-0.5b (the main
@@ -586,6 +623,7 @@ def phase_build() -> str:
         if name in ("flash_attention", "rwkv6_scan") and not (n["HMMA"] or n["HGMMA"]):
             raise AssertionError(f"the {name} library has no tensor-core instruction")
     check_flash_design(sass_counts(paths["flash_attention"]), _build.build_log("flash_attention"))
+    check_tf32_probe()
     check_decode_design(sass_counts(paths["decode_attention"]),
                         _build.build_log("decode_attention"))
     gpu = subprocess.run(
@@ -1431,15 +1469,15 @@ def whisper_generate(cfg, params, frames, prompt, steps, spent):
     return torch.stack(out, dim=1).cpu()
 
 
-# every kernel of the flash library, by name: bf16 at hd <= 128 and at hd
-# 256, f32 SIMT
-FLASH_KERNELS = ("fa_wgmma_kernel", "fa_mma_wide_kernel", "fa_kernel")
+# every kernel of the flash library, by name: bf16 and f32 at hd <= 128,
+# bf16 at hd 256, f32 SIMT at hd 256
+FLASH_KERNELS = ("fa_wgmma_kernel", "fa_tf32_kernel", "fa_mma_wide_kernel", "fa_kernel")
 
 
 def check_only_kernel(by_kernel, family, expected) -> None:
     """Every kernel of ``family`` (name patterns) in a profile is one of
     ``expected``: the bf16 flash launches of a served run at hd <= 128 are
-    all the wgmma kernel."""
+    all the wgmma kernel, the f32 ones of a training step the tf32 one."""
     other = [k for k in by_kernel if any(p in k for p in family)
              and not any(p in k for p in expected)]
     if other:
@@ -2228,6 +2266,8 @@ def profile_train_step(fn, kernel):
     by_kernel, ranges, _, count = read_profile(prof, (BACKWARD_RANGES[kernel], ADAMW_RANGE))
     busy = sum(by_kernel.values())
     fwd = kernel_time(by_kernel, TRAIN_KERNELS[kernel])
+    if kernel == "flash_attention":     # f32 at hd 64: every forward on the tensor cores
+        check_only_kernel(by_kernel, FLASH_KERNELS, ("fa_tf32_kernel",))
     bwd, opt = ranges[BACKWARD_RANGES[kernel]], ranges[ADAMW_RANGE]
     if not (0 < bwd < busy and 0 < opt < busy):
         raise AssertionError(f"profiler ranges: backward {bwd} us, adamw {opt} us, of {busy} us")
@@ -2483,12 +2523,44 @@ def phase_train_rwkv(seed, gpu):
     return result
 
 
+def f32_flash_timing(q, k, v, flush, causal=True) -> dict:
+    """The f32 flash kernel on (q, k, v) from position 0: its ms beside its
+    bound and the plain version's and SDPA's forward (TF32 off).  The bound
+    is the kernel's own ceiling: at hd <= 128 (``fa_tf32_kernel``) three
+    tf32 products on the tensor cores, 165 TFLOP/s of f32-accurate
+    products, with the 67 TFLOP/s f32 one of the SIMT units beside it as
+    ``simt_bound_ms``; at hd 256 (``fa_kernel<float, 256>``) the SIMT one.
+    Bytes at 3.35 TB/s."""
+    b, sq, nq, hd = q.shape
+    nkv = k.shape[2]
+    pairs = b * nq * (sq * (sq + 1) // 2 if causal else sq * k.shape[1])
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    simt = bound(4 * hd * pairs, nbytes, PEAK_F32_FLOPS)
+    own = bound(4 * hd * pairs, nbytes, PEAK_TF32X3_FLOPS) if hd <= 128 else simt
+    gqa = {"enable_gqa": True} if nq != nkv else {}
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return {
+        "ms": time_ms(lambda: fa.flash_attention(q, k, v, causal=causal), flush),
+        "bound_ms": own[0], "bound_by": own[1],
+        "simt_bound_ms": simt[0], "simt_bound_by": simt[1],
+        "plain_forward_ms": time_ms(lambda: ref.mha_reference(q, k, v, causal=causal), flush),
+        "library_forward_ms": time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, **gqa), flush),
+    }
+
+
 def time_training_kernels(seed):
     """The two kernels of the training path at its shapes, f32: flash
     attention at qwen1.5-0.5b's (B=8, S=512, 16 heads of 64, causal) and the
     scan at rwkv6-1.6b's (B=4, T=128, H=32, hd 64): the kernel forward, the
     plain backward the Function runs (its recompute included), SDPA forward
-    + backward as the yardstick, and their floors at 67 TFLOP/s f32."""
+    alone and forward + backward as the yardsticks, and their floors at 67
+    TFLOP/s f32 (flash's forward at three tf32 products on the tensor cores,
+    165 TFLOP/s of f32-accurate products, the 67 beside it).  Flash's f32
+    kernel also at the main path's, phi3.5-moe's and kimi-k2's prefill
+    shapes (B=1, S=512: 16:16 heads of 64, 32:8 of 128, 64:8 of 112), each
+    checked against the plain version and beside its bounds
+    (``f32_flash_timing``)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     flush = L2Flush(dev)
@@ -2502,22 +2574,27 @@ def time_training_kernels(seed):
     g_t = g.transpose(1, 2)
     pairs = b * h * s * (s + 1) // 2
     es = 4
-    fwd_floor = bound(4 * hd * pairs, 4 * q.numel() * es, PEAK_F32_FLOPS)
     # backward from q, k, v, dO: P recomputed, then dV, dP, dS, dQ, dK
     bwd_floor = bound(10 * hd * pairs, 7 * q.numel() * es, PEAK_F32_FLOPS)
     flash = {
         "shape": f"train B={b} S={s} nq={h} nkv={h} hd={hd} causal float32",
         "max_abs_err": err,
-        "ms": time_ms(lambda: fa.flash_attention(q, k, v), flush),
-        "bound_ms": fwd_floor[0], "bound_by": fwd_floor[1],
+        **f32_flash_timing(q, k, v, flush),
         "plain_backward_ms": time_ms(
             lambda: torch.autograd.grad(ref.mha_reference(*leaves), leaves, g), flush),
         "backward_bound_ms": bwd_floor[0], "backward_bound_by": bwd_floor[1],
-        "plain_forward_ms": time_ms(lambda: ref.mha_reference(q, k, v), flush),
         "library_forward_backward_ms": time_ms(
             lambda: torch.autograd.grad(F.scaled_dot_product_attention(*sdpa_in, is_causal=True),
                                         sdpa_in, g_t), flush),
     }
+    flash["f32_shapes"] = {}
+    for name, (nq, nkv, d) in (("main", (16, 16, 64)), (MOE_ARCH, (32, 8, 128)),
+                               ("kimi_k2", (64, 8, 112))):
+        err_f, qkv = check_flash(gen, 1, PROMPT_MAX, PROMPT_MAX, nq, nkv, d, True, 0, f32)
+        flash["f32_shapes"][name] = {
+            "shape": f"prefill B=1 S={PROMPT_MAX} nq={nq} nkv={nkv} hd={d} causal float32",
+            "max_abs_err": err_f, **f32_flash_timing(*qkv, flush)}
+        del qkv
     del q, k, v, g, leaves, sdpa_in, g_t
     args = rwkv_inputs(gen, RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ, 32, 64, False, f32)
     r = args[0]

@@ -1,5 +1,5 @@
-// FlashAttention prefill for Hopper (sm_90a): bf16 on the tensor cores, f32
-// on the SIMT units, f32 softmax statistics in both.
+// FlashAttention prefill for Hopper (sm_90a): bf16 and f32 on the tensor
+// cores (f32 as three tf32 products a product), f32 softmax statistics.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:flash_attention
 // (body _fa_kernel): softmax(q k^T * hd^-0.5 + mask) v for q (B,Sq,nq,hd) and
@@ -76,13 +76,66 @@
 // bytes of spill.  recurrentgemma-9b's prefills (16 heads x S/64 row
 // blocks, at most 128 CTAs at S = 512) fit in one wave of 132 SMs.
 //
-// f32 (fa_kernel<float>): the SIMT body of the first port, unchanged.  The
-// f32 tolerance (2e-5) rules out bf16 or TF32 products, so f32 stays on the
-// 67 TFLOP/s SIMT units; one CTA per (batch, q head, 64 rows), 4 threads a
-// row, f32 tiles in shared memory, probabilities exchanged by shuffles.  At
-// hd 256 its tiles take 4 x (64 x 257 + 64 x 257 + 64 x 256) = 197,120 bytes
-// of shared memory (opted in above 48 KB), one CTA per SM.  hd 112 divides
-// as it is: 28 four-float chunks a row, 28 output dims a thread.
+// f32 at hd <= 128 (tc::fa_tf32_kernel, the forward of every training
+// step): one tf32 product per f32 product misses the f32 tolerance (2e-5;
+// 1.3e-3 at the training shape in ref.flash_tf32_reference), three do not:
+// each f32 operand x is big = its top 19 bits (a tf32) plus small = x - big
+// (exact in f32), and each product is big.small + small.big + big.big into
+// the f32 accumulators (small.small is below 2^-22 of it; the small ones
+// first, because the tensor cores truncate each wgmma's sum).  At the training
+// shape (B=8, S=512, 16 x 64, causal) operations bound it: 4.3e9 of them,
+// three tf32 products each at 495 TFLOP/s, 0.026 ms, against 0.020 ms of
+// bytes and 0.064 ms for the SIMT units' 67 TFLOP/s.  The bf16 kernel's
+// design, carried over to f32:
+//  - the tensor cores read an f32 operand's top 19 bits, truncating (shown
+//    on an H100 by the one-tile probe fa_tf32_probe below, from shared
+//    memory and from registers; chip_smoke.py phase 1 requires it), so Q
+//    and K as TMA lands them are their own big parts;
+//  - layouts: a 32-bit type has no transpose flag, so both shared-memory
+//    operands of wgmma .tf32 are K-major.  Q and K land K-major over hd in
+//    32-float (128-byte) boxes under 128-byte swizzle, and an 8-element
+//    k-step is 32 bytes into the row, as a bf16 k-step is, so the bf16
+//    kernel's tensor maps (4-byte elements), boxes and descriptors carry
+//    over: hd 64 is two boxes, hd 112 four (the last one's second half
+//    zero-filled and never read: 14 k-steps), hd 16 one, half zero-filled.
+//    V lands MN-major for P V and no copy engine transposes it;
+//  - a converter: the producer warpgroup's 128 threads (one of which still
+//    issues every TMA load) write Q's small part once, each K tile's small
+//    part at the same swizzled offsets, and each V tile as V^T (a row of 32
+//    keys a dim), big and small parts, then fence the async proxy and
+//    arrive on a "ready" barrier, which the consumers wait on;
+//  - P needs no shuffle: a thread's S accumulators hold keys 2 tig and
+//    2 tig + 1 of each 8-key step, a tf32 A fragment wants columns tig and
+//    tig + 4, and a contraction over keys does not care about their order,
+//    so V^T keeps each 8-key group in the order 0, 2, 4, 6, 1, 3, 5, 7 and
+//    P enters P V from registers as it is, split by a mask and a subtract.
+//    P V is one wgmma of N = hd an 8-key step (no zero columns at hd 112);
+//  - tiles: at hd <= 64, BM 128 (two consumers) and BN 64: Q 32 KB + its
+//    small part 32 + 2 stages x (K 16 + small 16) + 2 x (V^T big 16 +
+//    small 16) + 2 x V as landed 16 = 224 KB of 227.  At hd 112 and 128
+//    each is twice that, so one consumer (BM 64) and BN 32 keep 224 KB
+//    (Q's small part in registers would take 64 more a consumer thread
+//    beside O's 64, S and P's two parts);
+//  - K and V^T are separate two-stage rings: a consumer releases K after
+//    its S and V^T after its P V, so the converter works a tile ahead;
+//    V lands into two stages of its own, which the converter releases;
+//  - registers: at hd <= 64 setmaxnreg moves the consumers to 232 and the
+//    producer to 40 (3 x 168 at launch = 2 x 232 + 40: the transpose keeps
+//    16 floats of V in flight), at hd 16 and 32 to 216 and 72; at hd 112
+//    and 128 the CTA is 256 threads with up to 255 registers each, and no
+//    setmaxnreg;
+//  - the rest is the bf16 kernel's: mask_tile, online_softmax and rescale,
+//    the tile walk [k_lo, k_hi), masks only where a tile needs them,
+//    q_offset, windows and GQA, a consumer with no row before Sq does not
+//    run, the longest causal rows first, 0 for a row that sees no key,
+//    O / l stored in f32 from the registers, no row at or past Sq written.
+//
+// f32 at hd 256 (fa_kernel<float>): the SIMT body of the first port, the
+// f32 counterpart of the bf16 split at hd 256 (O alone would be 128
+// registers a consumer thread); one CTA per (batch, q head, 64 rows), 4
+// threads a row, f32 tiles in shared memory, probabilities exchanged by
+// shuffles; its tiles take 4 x (64 x 257 + 64 x 257 + 64 x 256) = 197,120
+// bytes of shared memory (opted in above 48 KB), one CTA per SM.
 #include <type_traits>
 
 #include "common.cuh"
@@ -309,10 +362,18 @@ __device__ __forceinline__ void split_p(const float (&s)[NB][4], int kk, uint32_
   split_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
 }
 
-// The normalised output rows gid and gid + 8 of the warp's 16 as bf16;
-// rows at or past Sq are not written.
-template <int HD>
-__device__ __forceinline__ void store_rows(bf16* ob, const float (&acc)[HD / 8][4], float l0,
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// The normalised output rows gid and gid + 8 of the warp's 16 in the
+// output's type (bf16 rounded once); rows at or past Sq are not written.
+template <int HD, typename T>
+__device__ __forceinline__ void store_rows(T* ob, const float (&acc)[HD / 8][4], float l0,
                                            float l1, int row0, int Sq, long q_stride) {
   l0 = group_sum(l0, 4);
   l1 = group_sum(l1, 4);
@@ -320,12 +381,8 @@ __device__ __forceinline__ void store_rows(bf16* ob, const float (&acc)[HD / 8][
   const int row1 = row0 + 8;
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
-    if (row0 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * q_stride + j * 8) =
-          __floats2bfloat162_rn(acc[j][0] * inv0, acc[j][1] * inv0);
-    if (row1 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row1 * q_stride + j * 8) =
-          __floats2bfloat162_rn(acc[j][2] * inv1, acc[j][3] * inv1);
+    if (row0 < Sq) store_pair(ob + row0 * q_stride + j * 8, acc[j][0] * inv0, acc[j][1] * inv0);
+    if (row1 < Sq) store_pair(ob + row1 * q_stride + j * 8, acc[j][2] * inv1, acc[j][3] * inv1);
   }
 }
 
@@ -567,6 +624,456 @@ cudaError_t launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o, i
 }
 
 // ---------------------------------------------------------------------------
+// f32 at hd <= 128: three tf32 wgmma products a product, on TMA-fed tiles,
+// with a converter warpgroup (see the note at the top).
+// ---------------------------------------------------------------------------
+template <int HD>
+struct Tf {
+  static constexpr int NC = HD <= 64 ? 2 : 1;        // consumer warpgroups
+  static constexpr int THREADS = 128 * (NC + 1);     // and the producer's
+  static constexpr int BM = 64 * NC;                 // query rows a CTA
+  static constexpr int BN = HD <= 64 ? 64 : 32;      // keys a KV tile
+  static constexpr int NBOX = (HD + 31) / 32;        // 32-float (128-byte) boxes a row
+  static constexpr int BOX_Q = BM * 128;             // bytes of a Q box
+  static constexpr int BOX_K = BN * 128;             // bytes of a K or V box
+  static constexpr int Q_BYTES = NBOX * BOX_Q;
+  static constexpr int K_BYTES = NBOX * BOX_K;       // a K or V tile as it lands
+  static constexpr int VT_BOX = HD * 128;            // V^T: every dim's row of 32 keys
+  static constexpr int VT_BYTES = BN / 32 * VT_BOX;
+  // Q, Q's small part; 2 stages of (K, K's small part); 2 of (V^T's big
+  // part, its small part); 2 of V as it lands; the barriers
+  static constexpr int OFF_QS = Q_BYTES;
+  static constexpr int OFF_K = 2 * Q_BYTES;
+  static constexpr int OFF_VT = OFF_K + 4 * K_BYTES;
+  static constexpr int OFF_V = OFF_VT + 4 * VT_BYTES;
+  static constexpr int OFF_BAR = OFF_V + 2 * K_BYTES;
+  static constexpr int NBAR = 16;
+  static constexpr size_t SMEM = 1024 + OFF_BAR + 8 * NBAR;
+  // setmaxnreg at NC = 2: 3 x 168 registers a thread at launch = 2 x
+  // consumer + producer; below hd 64 a consumer's O and S need fewer
+  static constexpr int REGS_CONSUMER = HD <= 32 ? 216 : 232;
+  static constexpr int REGS_PRODUCER = 3 * 168 - 2 * REGS_CONSUMER;
+  static_assert(SMEM <= 232448, "a CTA's shared memory");
+};
+
+constexpr uint32_t TF32_MASK = 0xffffe000u;        // the 19 bits a tf32 keeps
+
+__device__ __forceinline__ float tf32_small(float x) {
+  return x - __uint_as_float(__float_as_uint(x) & TF32_MASK);
+}
+
+__device__ __forceinline__ float4 tf32_big4(float4 x) {
+  return make_float4(__uint_as_float(__float_as_uint(x.x) & TF32_MASK),
+                     __uint_as_float(__float_as_uint(x.y) & TF32_MASK),
+                     __uint_as_float(__float_as_uint(x.z) & TF32_MASK),
+                     __uint_as_float(__float_as_uint(x.w) & TF32_MASK));
+}
+
+// The small part of every f32 of a landed tile (Q or K), written at the same
+// swizzled offset of `dst`: 16 bytes a thread at a time, a warp over 512
+// consecutive bytes.
+template <int BYTES>
+__device__ __forceinline__ void split_tile(unsigned char* dst, const unsigned char* src, int t) {
+#pragma unroll 4
+  for (int off = t * 16; off < BYTES; off += 128 * 16) {
+    const float4 x = *reinterpret_cast<const float4*>(src + off);
+    *reinterpret_cast<float4*>(dst + off) =
+        make_float4(tf32_small(x.x), tf32_small(x.y), tf32_small(x.z), tf32_small(x.w));
+  }
+}
+
+// V^T's big and small parts from a landed V tile (keys x dims, 32-dim boxes
+// under 128-byte swizzle) into rows of 32 keys a dim, one 128-byte-swizzled
+// box per 32 keys.  Within each 8-key group the keys go in the order
+// 0, 2, 4, 6, 1, 3, 5, 7: the order in which a thread's S accumulators
+// (columns 2 tig, 2 tig + 1) sit in P's tf32 A fragment (columns tig,
+// tig + 4), so that P enters P V without a shuffle.  A job of 8 lanes moves
+// 4 keys x 4 dims of each lane (4 loads, 4 + 4 stores of 16 bytes); its
+// lanes take 8 consecutive dim quads l of one box, key half (l1 ^ h) and
+// group 2G + (l2 ^ q): the 8 lanes then hit 8 distinct 16-byte bank groups
+// on every load and every store.
+template <int HD>
+__device__ __forceinline__ void transpose_v(unsigned char* vt_big, unsigned char* vt_small,
+                                            const unsigned char* v, int t) {
+  using C = Tf<HD>;
+  constexpr int JOBS = C::NBOX * (C::BN / 16) * 4;
+  const int l = t & 7;
+#pragma unroll 1
+  for (int job = t >> 3; job < JOBS; job += 16) {
+    const int bx = job % C::NBOX, r = job / C::NBOX;
+    const int dq = 8 * bx + l;                       // this lane's 4 dims 4 dq..4 dq + 3
+    if (dq >= HD / 4) continue;                      // the zero-filled end of hd 16 or 112
+    const int half = ((l >> 1) & 1) ^ (r & 1);
+    const int g = 2 * (r >> 2) + (((l >> 2) & 1) ^ ((r >> 1) & 1));
+    float4 x[4];                                     // keys 8 g + 2 s + half
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int key = 8 * g + 2 * s + half;
+      x[s] = *reinterpret_cast<const float4*>(v + bx * C::BOX_K + key * 128 +
+                                              ((l ^ (key & 7)) << 4));
+    }
+    const int chunk = 2 * (g & 3) + half;            // slots 4 half .. 4 half + 3 of group g
+    unsigned char* big_box = vt_big + (g >> 2) * C::VT_BOX;
+    unsigned char* small_box = vt_small + (g >> 2) * C::VT_BOX;
+    const float4 y[4] = {make_float4(x[0].x, x[1].x, x[2].x, x[3].x),
+                         make_float4(x[0].y, x[1].y, x[2].y, x[3].y),
+                         make_float4(x[0].z, x[1].z, x[2].z, x[3].z),
+                         make_float4(x[0].w, x[1].w, x[2].w, x[3].w)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = 4 * dq + i;
+      const int off = d * 128 + ((chunk ^ (d & 7)) << 4);
+      const float4 big = tf32_big4(y[i]);
+      *reinterpret_cast<float4*>(big_box + off) = big;
+      *reinterpret_cast<float4*>(small_box + off) =
+          make_float4(y[i].x - big.x, y[i].y - big.y, y[i].z - big.z, y[i].w - big.w);
+    }
+  }
+}
+
+// S = Q K^T of one tile into s: Q_big K_small + Q_small K_big + Q_big K_big,
+// HD / 8 k-steps each; step kk reads 8 columns of 32-column box kk / 4, 32
+// bytes into the swizzled row.  The first step ignores s's old value.  The
+// tensor cores add each wgmma's products to the accumulators truncated (the
+// tests' model: ref.tf32_product), so the small products go first, while
+// the sum is small: added after the big one they cost two more truncations
+// at its size (in that order, S and P V put the outputs of
+// ref.large_output_inputs 1.7-2.1 times as far as the plain f32 version
+// from a float64 attention on an H100).
+template <int HD>
+__device__ __forceinline__ void issue_qk_tf32(float (&s)[Tf<HD>::BN / 8][4], uint32_t q,
+                                              uint32_t q_small, uint32_t k, uint32_t k_small) {
+  using C = Tf<HD>;
+  float(&d)[C::BN / 2] = *reinterpret_cast<float(*)[C::BN / 2]>(&s[0][0]);
+  const uint32_t as[3] = {q, q_small, q}, bs[3] = {k_small, k, k};
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss_tf32<C::BN>(d, desc_sw128(as[p] + (kk / 4) * C::BOX_Q + off, 16, 1024),
+                           desc_sw128(bs[p] + (kk / 4) * C::BOX_K + off, 16, 1024),
+                           p > 0 || kk > 0);
+    }
+  }
+}
+
+// P of each 8-key step as tf32 A fragments (a0..a3 = s[kk][0], s[kk][2],
+// s[kk][1], s[kk][3]: keys 2 tig and 2 tig + 1 at columns tig and tig + 4),
+// its big part (the top 19 bits) and its small part (the exact remainder).
+template <int NB>
+__device__ __forceinline__ void split_p_tf32(const float (&s)[NB][4], uint32_t (&pb)[NB][4],
+                                             uint32_t (&ps)[NB][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NB; ++kk) {
+    const float a[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      pb[kk][i] = __float_as_uint(a[i]) & TF32_MASK;
+      ps[kk][i] = __float_as_uint(a[i] - __uint_as_float(pb[kk][i]));
+    }
+  }
+}
+
+// O += P V over one tile: P_big V_small + P_small V_big + P_big V_big, in
+// that order as in S, one wgmma of N = HD a product and 8-key step (keys
+// contiguous in V^T's rows).
+template <int HD>
+__device__ __forceinline__ void issue_pv_tf32(float (&acc)[HD / 8][4],
+                                              const uint32_t (&pb)[Tf<HD>::BN / 8][4],
+                                              const uint32_t (&ps)[Tf<HD>::BN / 8][4],
+                                              uint32_t vt_big, uint32_t vt_small) {
+  using C = Tf<HD>;
+  float(&d)[HD / 2] = *reinterpret_cast<float(*)[HD / 2]>(&acc[0][0]);
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+#pragma unroll
+    for (int kk = 0; kk < C::BN / 8; ++kk) {
+      const uint32_t off = (kk / 4) * C::VT_BOX + (kk % 4) * 32;
+      wgmma_rs_tf32<HD>(d, p == 1 ? ps[kk] : pb[kk],
+                        desc_sw128((p == 0 ? vt_small : vt_big) + off, 16, 1024));
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(Tf<HD>::THREADS, 1) fa_tf32_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, float* __restrict__ o, int Sq, int Sk, int nq,
+    int nkv, int causal, int window, int q_offset, float scale_log2) {
+  using C = Tf<HD>;
+  constexpr int BN = C::BN, NB = BN / 8, NC = C::NC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + C::OFF_BAR);
+  uint64_t* q_full = bars;        // Q has landed
+  uint64_t* q_ready = bars + 1;   // Q's small part is written
+  uint64_t* k_full = bars + 2;    // per stage: K has landed
+  uint64_t* k_ready = bars + 4;   //   K's small part is written
+  uint64_t* k_empty = bars + 6;   //   every consumer's S of that tile is done
+  uint64_t* v_full = bars + 8;    //   V has landed
+  uint64_t* v_free = bars + 10;   //   every converter thread has read it
+  uint64_t* v_ready = bars + 12;  //   V^T's parts are written
+  uint64_t* v_empty = bars + 14;  //   every consumer's P V of that tile is done
+
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * C::BM;   // longest causal rows first
+  const int h = blockIdx.x, b = blockIdx.y, kvh = h / (nq / nkv);
+  const int wg = threadIdx.x / 128;
+  const int consumers = NC == 2 && q0 + 64 < Sq ? 2 : 1;
+
+  const int qpos_first = q_offset + q0;
+  const int qpos_last = q_offset + min(q0 + C::BM, Sq) - 1;
+  const int k_hi = causal ? min(Sk, qpos_last + 1) : Sk;
+  const int k_lo = window > 0 ? max(0, qpos_first - window + 1) / BN * BN : 0;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + BN - 1) / BN : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_ready, 128);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(k_ready + s, 128);
+      mbar_init(k_empty + s, consumers);
+      mbar_init(v_full + s, 1);
+      mbar_init(v_free + s, 128);
+      mbar_init(v_ready + s, 128);
+      mbar_init(v_empty + s, consumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  unsigned char* Qs = base;
+  auto k_stage = [&](int s) { return base + C::OFF_K + s * 2 * C::K_BYTES; };
+  auto vt_stage = [&](int s) { return base + C::OFF_VT + s * 2 * C::VT_BYTES; };
+  auto v_stage = [&](int s) { return base + C::OFF_V + s * C::K_BYTES; };
+
+  if (wg == NC) {
+    // producer: one thread issues every copy; all 128 convert what lands
+    if constexpr (NC == 2) regs_dec<C::REGS_PRODUCER>();
+    const int t = threadIdx.x - 128 * NC;
+    if (n_tiles == 0) return;
+    auto load_k = [&](int it) {
+      const int s = it & 1;
+      mbar_arrive_expect_tx(k_full + s, C::K_BYTES);
+      for (int bx = 0; bx < C::NBOX; ++bx)
+        tma_load_4d(k_stage(s) + bx * C::BOX_K, &tk, k_full + s, 32 * bx, kvh, k_lo + it * BN, b);
+    };
+    auto load_v = [&](int it) {
+      const int s = it & 1;
+      mbar_arrive_expect_tx(v_full + s, C::K_BYTES);
+      for (int bx = 0; bx < C::NBOX; ++bx)
+        tma_load_4d(v_stage(s) + bx * C::BOX_K, &tv, v_full + s, 32 * bx, kvh, k_lo + it * BN, b);
+    };
+    if (t == 0) {
+      tma_prefetch(&tq);
+      tma_prefetch(&tk);
+      tma_prefetch(&tv);
+      mbar_arrive_expect_tx(q_full, C::Q_BYTES);
+      for (int bx = 0; bx < C::NBOX; ++bx)
+        tma_load_4d(Qs + bx * C::BOX_Q, &tq, q_full, 32 * bx, h, q0, b);
+      for (int it = 0; it < min(2, n_tiles); ++it) {
+        load_k(it);
+        load_v(it);
+      }
+    }
+    mbar_wait(q_full, 0);
+    split_tile<C::Q_BYTES>(base + C::OFF_QS, Qs, t);
+    fence_proxy_async_smem();
+    mbar_arrive(q_ready);
+    // step j: K of tile j (its S is the consumers' next product), then V^T
+    // of tile j - 1 (its P V goes with that S); then the copies of tile j + 1
+    // into the stages tile j - 1 held
+#pragma unroll 1
+    for (int j = 0; j <= n_tiles; ++j) {
+      if (j < n_tiles) {
+        const int s = j & 1;
+        mbar_wait(k_full + s, (j >> 1) & 1);
+        split_tile<C::K_BYTES>(k_stage(s) + C::K_BYTES, k_stage(s), t);
+        fence_proxy_async_smem();
+        mbar_arrive(k_ready + s);
+      }
+      if (j > 0) {
+        const int i = j - 1, s = i & 1;
+        mbar_wait(v_full + s, (i >> 1) & 1);
+        if (i >= 2) mbar_wait(v_empty + s, ((i >> 1) & 1) ^ 1);   // P V of tile i - 2 is done
+        transpose_v<HD>(vt_stage(s), vt_stage(s) + C::VT_BYTES, v_stage(s), t);
+        fence_proxy_async_smem();
+        mbar_arrive(v_ready + s);
+        mbar_arrive(v_free + s);
+      }
+      if (t == 0 && j > 0 && j + 1 < n_tiles) {
+        const int s = (j + 1) & 1;
+        const uint32_t parity = ((j - 1) >> 1) & 1;
+        mbar_wait(k_empty + s, parity);             // S of tile j - 1 is done
+        load_k(j + 1);
+        mbar_wait(v_free + s, parity);              // V of tile j - 1 is converted
+        load_v(j + 1);
+      }
+    }
+  } else if (wg < consumers) {
+    // consumer: 64 rows, S and O in the wgmma accumulators
+    if constexpr (NC == 2) regs_inc<C::REGS_CONSUMER>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int gid = lane / 4, tig = lane % 4;
+    const int row0 = q0 + 64 * wg;
+    const int qw_first = q_offset + row0;
+    const int qw_last = q_offset + min(row0 + 64, Sq) - 1;
+    const int qpos0 = qw_first + warp * 16 + gid, qpos1 = qpos0 + 8;
+    const uint32_t q_addr = smem_addr(Qs) + wg * 64 * 128;
+    const uint32_t qs_addr = q_addr + C::OFF_QS;
+    const uint32_t k_addr = smem_addr(k_stage(0)), vt_addr = smem_addr(vt_stage(0));
+
+    float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f, alpha0, alpha1;
+    float acc[HD / 8][4];
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    uint32_t pb[NB][4], ps[NB][4];      // P of the tile before, its big and small parts
+
+    auto softmax_of = [&](float (&s)[NB][4], int it) {
+      const int n0 = k_lo + it * BN;
+      const bool masked = n0 + BN > Sk || (causal && n0 + BN - 1 > qw_first) ||
+                          (window > 0 && n0 <= qw_last - window);
+      if (masked) mask_tile<NB>(s, n0, Sk, causal, window, qpos0, qpos1, tig);
+      online_softmax<NB>(s, m0, m1, l0, l1, alpha0, alpha1, scale_log2);
+    };
+    auto issue_qk = [&](float (&s)[NB][4], int st) {
+      const uint32_t k = k_addr + st * 2 * C::K_BYTES;
+      issue_qk_tf32<HD>(s, q_addr, qs_addr, k, k + C::K_BYTES);
+    };
+    auto issue_pv = [&](int st) {
+      const uint32_t vt = vt_addr + st * 2 * C::VT_BYTES;
+      issue_pv_tf32<HD>(acc, pb, ps, vt, vt + C::VT_BYTES);
+    };
+
+    if (n_tiles > 0) {
+      float s[NB][4];
+      mbar_wait(q_ready, 0);
+      mbar_wait(k_ready, 0);
+      wgmma_fence();
+      issue_qk(s, 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(reinterpret_cast<float(&)[BN / 2]>(s));
+      if (t == 0) mbar_arrive(k_empty);
+      softmax_of(s, 0);
+      split_p_tf32<NB>(s, pb, ps);
+    }
+    for (int it = 1; it < n_tiles; ++it) {
+      const int st = it & 1, prev = st ^ 1;
+      float s[NB][4];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      mbar_wait(k_ready + st, (it >> 1) & 1);
+      // S of this tile, then O += P V of the tile before: S completes
+      // first, and its softmax runs while the tensor cores do P V
+      fence_regs(reinterpret_cast<float(&)[BN / 2]>(s));
+      fence_regs(reinterpret_cast<float(&)[HD / 2]>(acc));
+      fence_regs(reinterpret_cast<uint32_t(&)[BN / 2]>(pb));
+      fence_regs(reinterpret_cast<uint32_t(&)[BN / 2]>(ps));
+      wgmma_fence();
+      issue_qk(s, st);
+      wgmma_commit();
+      mbar_wait(v_ready + prev, ((it - 1) >> 1) & 1);
+      issue_pv(prev);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(reinterpret_cast<float(&)[BN / 2]>(s));
+      if (t == 0) mbar_arrive(k_empty + st);
+      softmax_of(s, it);
+      wgmma_wait<0>();
+      fence_regs(reinterpret_cast<float(&)[HD / 2]>(acc));
+      if (t == 0) mbar_arrive(v_empty + prev);
+      rescale<HD / 8>(acc, alpha0, alpha1);
+      split_p_tf32<NB>(s, pb, ps);
+    }
+    if (n_tiles > 0) {
+      const int last = (n_tiles - 1) & 1;
+      fence_regs(reinterpret_cast<float(&)[HD / 2]>(acc));
+      fence_regs(reinterpret_cast<uint32_t(&)[BN / 2]>(pb));
+      fence_regs(reinterpret_cast<uint32_t(&)[BN / 2]>(ps));
+      mbar_wait(v_ready + last, ((n_tiles - 1) >> 1) & 1);
+      wgmma_fence();
+      issue_pv(last);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(reinterpret_cast<float(&)[HD / 2]>(acc));
+      if (t == 0) mbar_arrive(v_empty + last);
+    }
+    const long q_stride = (long)nq * HD;
+    store_rows<HD>(o + (long)b * Sq * q_stride + (long)h * HD + 2 * tig, acc, l0, l1,
+                   row0 + warp * 16 + gid, Sq, q_stride);
+  }
+}
+
+template <int HD>
+cudaError_t launch_tf32(const float* q, const float* k, const float* v, float* o, int B, int Sq,
+                        int Sk, int nq, int nkv, int causal, int window, int q_offset,
+                        float scale, cudaStream_t stream) {
+  using C = Tf<HD>;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = tma_encode_bshd(&mq, q, sizeof(float), B, Sq, nq, HD, C::BM);
+  if (err == cudaSuccess) err = tma_encode_bshd(&mk, k, sizeof(float), B, Sk, nkv, HD, C::BN);
+  if (err == cudaSuccess) err = tma_encode_bshd(&mv, v, sizeof(float), B, Sk, nkv, HD, C::BN);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fa_tf32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)C::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid(nq, B, (Sq + C::BM - 1) / C::BM);
+  fa_tf32_kernel<HD><<<grid, C::THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, o, Sq, Sk, nq, nkv, causal, window, q_offset, scale * LOG2E);
+  return cudaGetLastError();
+}
+
+// One warpgroup, one tile: D = A I for a 64 x 8 f32 A and the 8 x 8 identity,
+// A once from shared memory (K-major, 128-byte swizzle) and once from
+// registers in the tf32 A fragment's layout.  D shows which of A's bits the
+// tensor cores read; the two D agree when the fragment layout is the one
+// the kernel assumes.
+__global__ void __launch_bounds__(128, 1) tf32_probe_kernel(const float* __restrict__ a,
+                                                           float* __restrict__ d_ss,
+                                                           float* __restrict__ d_rs) {
+  __shared__ __align__(16) unsigned char raw[1024 + 64 * 128 + 8 * 128];
+  unsigned char* sm = raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+  const int t = threadIdx.x;
+  for (int i = t; i < 64 * 8; i += 128) {
+    const int r = i / 8, c = i % 8;
+    *reinterpret_cast<float*>(sm + r * 128 + (((c / 4) ^ (r & 7)) << 4) + (c % 4) * 4) = a[i];
+  }
+  if (t < 64) {
+    const int n = t / 8, c = t % 8;
+    *reinterpret_cast<float*>(sm + 64 * 128 + n * 128 + (((c / 4) ^ (n & 7)) << 4) + (c % 4) * 4) =
+        n == c ? 1.f : 0.f;
+  }
+  fence_proxy_async_smem();
+  __syncthreads();
+  const uint64_t da = desc_sw128(smem_addr(sm), 16, 1024);
+  const uint64_t db = desc_sw128(smem_addr(sm + 64 * 128), 16, 1024);
+  const int warp = t / 32, gid = (t % 32) / 4, tig = t % 4;
+  const int r0 = 16 * warp + gid, r1 = r0 + 8;
+  const uint32_t af[4] = {__float_as_uint(a[r0 * 8 + tig]), __float_as_uint(a[r1 * 8 + tig]),
+                          __float_as_uint(a[r0 * 8 + tig + 4]),
+                          __float_as_uint(a[r1 * 8 + tig + 4])};
+  float d[4], e[4] = {0.f, 0.f, 0.f, 0.f};
+  wgmma_fence();
+  wgmma_ss_tf32<8>(d, da, db, 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(d);
+  fence_regs(e);
+  wgmma_fence();
+  wgmma_rs_tf32<8>(e, af, db);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(e);
+  const int c = 2 * tig;
+  d_ss[r0 * 8 + c] = d[0]; d_ss[r0 * 8 + c + 1] = d[1];
+  d_ss[r1 * 8 + c] = d[2]; d_ss[r1 * 8 + c + 1] = d[3];
+  d_rs[r0 * 8 + c] = e[0]; d_rs[r0 * 8 + c + 1] = e[1];
+  d_rs[r1 * 8 + c] = e[2]; d_rs[r1 * 8 + c + 1] = e[3];
+}
+
+// ---------------------------------------------------------------------------
 // bf16 at hd 256: mma.sync m16n8k16 fed by ldmatrix, Q in shared memory, one
 // S tile, a 2-stage cp.async K/V ring (see the note at the top).
 // ---------------------------------------------------------------------------
@@ -750,6 +1257,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
     return tc::launch<HD>(static_cast<const T*>(q), static_cast<const T*>(k),
                           static_cast<const T*>(v), static_cast<T*>(o), B, Sq, Sk, nq, nkv,
                           causal, window, q_offset, scale, stream);
+  else if constexpr (HD <= 128)
+    return tc::launch_tf32<HD>(static_cast<const float*>(q), static_cast<const float*>(k),
+                               static_cast<const float*>(v), static_cast<float*>(o), B, Sq, Sk,
+                               nq, nkv, causal, window, q_offset, scale, stream);
   else {
     constexpr size_t smem = smem_bytes<HD>();
     cudaError_t err = cudaFuncSetAttribute(
@@ -794,4 +1305,15 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, 
   if (dtype == DTYPE_BF16)
     return (int)dispatch<__nv_bfloat16>(hd, q, k, v, o, B, Sq, Sk, nq, nkv, causal, window, q_offset, scale, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The one-tile probe of how the tensor cores read f32 operands as tf32
+// (tc::tf32_probe_kernel): a is 64 x 8 f32, d_ss and d_rs 64 x 8 f32 on
+// the card.  Returns a cudaError_t.
+extern "C" int fa_tf32_probe(const void* a, void* d_ss, void* d_rs, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  tc::tf32_probe_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<float*>(d_ss), static_cast<float*>(d_rs));
+  return (int)cudaGetLastError();
 }

@@ -26,6 +26,8 @@ _ARGTYPES = (
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
+# (a, d_ss, d_rs) pointers, device, stream
+_PROBE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
 
 
 def flash_attention(
@@ -67,3 +69,20 @@ def flash_attention(
     _build.raise_on_error("flash_attention", err)
     launches += 1
     return out
+
+
+def tf32_probe(a: torch.Tensor):
+    """The f32 kernel's one-tile probe of the tensor cores: ``a`` A (64, 8)
+    f32 on the card times the 8 x 8 identity by wgmma .tf32, A once from
+    shared memory and once from registers in the A fragment's layout.
+    Returns (d_ss, d_rs), each (64, 8): the values the tensor cores read
+    from ``a``.  Not counted as a launch of the kernel."""
+    if a.device.type != "cuda" or a.dtype != torch.float32 or tuple(a.shape) != (64, 8):
+        raise ValueError(f"tf32_probe takes a (64, 8) f32 CUDA tensor, got {a.shape} {a.dtype}")
+    a = a.contiguous()
+    d_ss, d_rs = torch.empty_like(a), torch.empty_like(a)
+    err = _build.function("flash_attention", "fa_tf32_probe", _PROBE_ARGTYPES)(
+        a.data_ptr(), d_ss.data_ptr(), d_rs.data_ptr(), a.device.index,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _build.raise_on_error("flash_attention tf32 probe", err)
+    return d_ss, d_rs

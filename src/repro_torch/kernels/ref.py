@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the kernels (attention and the RWKV-6 scan),
 the RG-LRU's sequential oracle, the one-bf16-step bound (with its
-large-output inputs) that the bf16 flash kernel is held to, and plain
-models of the kernels' own schedules (the flash kernel's tile walk, the
-decode kernel's cluster of ranks, the chunked scan), which only the tests
-call.
+large-output inputs) that the bf16 flash kernel is held to, a float64
+attention that the f32 one is held to at those inputs, and plain
+models of the kernels' own schedules and arithmetic (the flash kernel's
+tile walk and its f32 kernel's three tf32 products, the decode kernel's
+cluster of ranks, the chunked scan), which only the tests call.
 
 These are (1) the path ``ops`` takes for tensors on the CPU, and (2) the
 oracles every CUDA kernel is held against on the card (``chip_smoke.py``).
@@ -15,7 +16,7 @@ f32 product of upcast operands is JAX's ``preferred_element_type=f32``.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,16 +106,19 @@ def flash_tiled_reference(
     q_offset: int = 0,
     bm: int = 128,
     bn: int = 64,
+    product: Optional[Callable[..., torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Attention by the schedule of ``csrc/flash_attention.cu``'s bf16
-    kernel, in plain PyTorch: row blocks of ``bm``, KV tiles of ``bn`` walked
-    as ``flash_tile_plan`` says (masks on the masked tiles only), the online
-    softmax in log2 units (running max m, alpha = 2^(m_old - m), the scale
-    folded into the exponent), P V from P's bf16 high part plus its bf16 low
-    part where v is bf16 (the f32 kernel multiplies the f32 P), and O / l,
-    0 where a row sees no key.  Nothing on the card's path calls it; the
-    tests hold it to the JAX kernel and oracle.  Returns (B, Sq, nq, hd) in
-    q's dtype."""
+    """Attention by the schedule of ``csrc/flash_attention.cu``'s
+    tensor-core kernels, in plain PyTorch: row blocks of ``bm``, KV tiles of
+    ``bn`` walked as ``flash_tile_plan`` says (masks on the masked tiles
+    only), the online softmax in log2 units (running max m, alpha =
+    2^(m_old - m), the scale folded into the exponent), P V from P's bf16
+    high part plus its bf16 low part where v is bf16, and O / l, 0 where a
+    row sees no key.  ``product(a, b, c=None)`` (c + a @ b) takes the place
+    of every f32 matrix product (Q K^T, and P V into the running O;
+    ``flash_tf32_reference`` passes the f32 kernel's three tf32 products).
+    Nothing on the card's path calls it; the tests hold it to the JAX
+    kernel and oracle.  Returns (B, Sq, nq, hd) in q's dtype."""
     b, sq, nq, hd = q.shape
     sk, nkv = k.shape[1], k.shape[2]
     if nq % nkv:
@@ -124,7 +128,8 @@ def flash_tiled_reference(
     kh = k.float().repeat_interleave(nq // nkv, dim=2).transpose(1, 2)   # (B, nq, Sk, hd)
     vh = v.float().repeat_interleave(nq // nkv, dim=2).transpose(1, 2)
     qh = q.float().transpose(1, 2)                                       # (B, nq, Sq, hd)
-    split = v.dtype == torch.bfloat16
+    split = v.dtype == torch.bfloat16 and product is None
+    mm = product or (lambda a, b, c=None: a @ b if c is None else c + a @ b)
     out = torch.zeros((b, nq, sq, hd), dtype=torch.float32, device=q.device)
     for r in range(plan.shape[0]):
         rows = slice(r * bm, min((r + 1) * bm, sq))
@@ -134,7 +139,7 @@ def flash_tiled_reference(
         acc = torch.zeros((b, nq, rows.stop - rows.start, hd), device=q.device)
         for t in np.flatnonzero(plan[r]):
             keys = slice(t * bn, min((t + 1) * bn, sk))
-            s = qh[:, :, rows] @ kh[:, :, keys].transpose(-1, -2)
+            s = mm(qh[:, :, rows], kh[:, :, keys].transpose(-1, -2))
             if plan[r, t] == TILE_MASKED:
                 kpos = torch.arange(t * bn, (t + 1) * bn, device=q.device)[None, : s.shape[-1]]
                 ok = kpos < sk
@@ -153,12 +158,80 @@ def flash_tiled_reference(
                 lo = (p - hi).to(torch.bfloat16).float()
                 acc = acc + hi @ vh[:, :, keys] + lo @ vh[:, :, keys]
             else:
-                acc = acc + p @ vh[:, :, keys]
+                acc = mm(p, vh[:, :, keys], acc)
             m = m_new
         safe = torch.where(l > 0, l, torch.ones_like(l))
         out[:, :, rows] = torch.where(l[..., None] > 0, acc / safe[..., None],
                                       torch.zeros_like(acc))
     return out.transpose(1, 2).to(q.dtype)
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` as a tf32 (sign, 8 exponent and 10 mantissa bits), its low
+    13 bits cleared: what the tensor cores read from an f32 operand, and
+    what ``csrc/flash_attention.cu``'s f32 kernel masks P and V^T to."""
+    return (x.float().contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _round_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 ``x`` as the f32 next to it on the side of 0."""
+    f = x.float()
+    over = f.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def tf32_product(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None, *,
+                 products: int = 3, accumulate: str = "truncate") -> torch.Tensor:
+    """c + a @ b (c = 0 when None) as the f32 flash kernel computes it on
+    the tensor cores: each operand x split into big = tf32(x) and small =
+    tf32(x - big) (x - big is exact in f32), and big.small + small.big +
+    big.big (``products=3``) or big.big alone (``products=1``, one tf32
+    product).  A product of two tf32 values is exact in f32.
+    ``accumulate="truncate"`` models the tensor cores: the kernel's wgmma
+    in its order (product by product, the small ones first, 8 of the
+    contraction a wgmma), each adding its exact sum to the accumulators
+    rounded toward zero; ``"exact"`` sums in f32, ~20 times faster here."""
+    a_big, b_big = tf32(a), tf32(b)
+    if products == 3:
+        terms = [(a_big, tf32(b - b_big)), (tf32(a - a_big), b_big), (a_big, b_big)]
+    elif products == 1:
+        terms = [(a_big, b_big)]
+    else:
+        raise ValueError(f"products must be 1 or 3, got {products}")
+    if accumulate == "exact":
+        out = sum(x @ y for x, y in terms)
+        return out if c is None else c + out
+    if accumulate != "truncate":
+        raise ValueError(f"accumulate {accumulate!r} is neither 'exact' nor 'truncate'")
+    d = c
+    for x, y in terms:
+        for k0 in range(0, a.shape[-1], 8):
+            step = x[..., k0:k0 + 8].double() @ y[..., k0:k0 + 8, :].double()
+            d = _round_toward_zero(step if d is None else d.double() + step)
+    return d
+
+
+def flash_tf32_tiles(hd: int) -> Tuple[int, int]:
+    """(BM, BN) of ``csrc/flash_attention.cu``'s f32 kernel at head dim hd:
+    two consumers of 64 rows and 64-key tiles up to hd 64; one consumer and
+    32-key tiles at hd 112 and 128, where shared memory holds no more."""
+    return (128, 64) if hd <= 64 else (64, 32)
+
+
+def flash_tf32_reference(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
+                         products: int = 3, accumulate: str = "truncate") -> torch.Tensor:
+    """The arithmetic of ``csrc/flash_attention.cu``'s f32 kernel at hd <=
+    128 on the CPU: ``flash_tiled_reference``'s tile walk at the kernel's
+    tiles (``flash_tf32_tiles``) with Q K^T and P V each as
+    ``tf32_product`` (by default the tensor cores' truncating sums; P V
+    into the running O).  Nothing on the card's path calls it; the tests
+    hold it to the JAX kernel and oracle, and hold one tf32 product to
+    miss."""
+    bm, bn = flash_tf32_tiles(q.shape[-1])
+    product = lambda a, b, c=None: tf32_product(a, b, c, products=products,
+                                                accumulate=accumulate)
+    return flash_tiled_reference(q.float(), k.float(), v.float(), causal=causal, window=window,
+                                 q_offset=q_offset, bm=bm, bn=bn, product=product)
 
 
 def bf16_step(o32: torch.Tensor, floor: float = 2e-2) -> torch.Tensor:
@@ -179,6 +252,19 @@ def bf16_steps_from_f32(o, q, k, v, *, causal: bool = False,
     else:
         o32 = mha_reference(q.float(), k.float(), v.float(), causal=causal)
     return (o.float() - o32).abs() / bf16_step(o32)
+
+
+def attention_f64(q, k, v, *, causal: bool) -> torch.Tensor:
+    """Attention of q, k, v (as ``mha_reference`` takes them, from position
+    0) in float64 throughout: the bar for an f32 kernel where outputs are
+    large enough that the plain f32 version is itself far from exact."""
+    q, k, v = q.double(), k.double(), v.double()
+    nq, nkv, hd = q.shape[2], k.shape[2], q.shape[3]
+    k, v = (x.repeat_interleave(nq // nkv, dim=2) for x in (k, v))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * hd ** -0.5
+    mask = attention_mask(q.shape[1], k.shape[1], causal=causal, device=q.device)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1), v)
 
 
 def large_output_inputs(hd: int, device, dtype=torch.bfloat16):

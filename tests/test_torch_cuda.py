@@ -173,31 +173,35 @@ FA_BF16_VARIANTS = {
 @pytest.mark.parametrize("variant", sorted(FA_BF16_VARIANTS))
 @pytest.mark.parametrize("s", [1, 63, 65, 1000])
 @pytest.mark.parametrize("hd", fa.SUPPORTED_HEAD_DIMS)
-def test_flash_bf16_tensor_core_path(cuda, hd, s, variant):
-    """The bf16 tensor-core kernels at ragged lengths around their row
-    blocks (64 rows a warpgroup or CTA) and 64-key tiles, for every head
-    dim; keys = queries + q_offset."""
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_bf16_tensor_core_path(cuda, dtype, hd, s, variant):
+    """The tensor-core kernels (bf16; f32 at hd <= 128 as three tf32
+    products) at ragged lengths around their row blocks (64 rows a
+    warpgroup or CTA) and key tiles (64; f32 at hd 112 and 128: 32), for
+    every head dim; keys = queries + q_offset."""
     nq, nkv, causal, window, q_offset = FA_BF16_VARIANTS[variant]
     q, k, v = _randn(hd + s, (1, s, nq, hd), (1, s + q_offset, nkv, hd),
-                     (1, s + q_offset, nkv, hd), dtype=torch.bfloat16, device=cuda)
+                     (1, s + q_offset, nkv, hd), dtype=DTYPES[dtype], device=cuda)
     out = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     exp = ref.mha_reference(q, k, v, causal=causal, window=window, q_offset=q_offset)
-    assert out.dtype == torch.bfloat16 and out.shape == q.shape
-    assert _err(out, exp) < TOL["bfloat16"]
+    assert out.dtype == DTYPES[dtype] and out.shape == q.shape
+    assert _err(out, exp) < TOL[dtype]
 
 
 @pytest.mark.parametrize("variant", sorted(FA_BF16_VARIANTS))
 @pytest.mark.parametrize("hd", fa.SUPPORTED_HEAD_DIMS)
-def test_flash_bf16_full_grid(cuda, hd, variant):
-    """A grid of 16 x 16 heads x 4 sequences = 1024 CTAs, several waves on
-    the card, with ragged tiles, GQA, a window and a q_offset."""
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_bf16_full_grid(cuda, dtype, hd, variant):
+    """A grid of 16 x 16 heads x 4 sequences = 1024 CTAs (f32 at hd 112
+    and 128: 2048), several waves on the card, with ragged tiles, GQA, a
+    window and a q_offset, in bf16 and f32."""
     _, _, causal, window, q_offset = FA_BF16_VARIANTS[variant]
     s, nq, nkv = 1000, 16, 4
     q, k, v = _randn(hd, (4, s, nq, hd), (4, s + q_offset, nkv, hd), (4, s + q_offset, nkv, hd),
-                     dtype=torch.bfloat16, device=cuda)
+                     dtype=DTYPES[dtype], device=cuda)
     out = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     exp = ref.mha_reference(q, k, v, causal=causal, window=window, q_offset=q_offset)
-    assert _err(out, exp) < TOL["bfloat16"]
+    assert _err(out, exp) < TOL[dtype]
 
 
 TILE_EDGES = (1, 127, 128, 129)
@@ -207,16 +211,18 @@ TILE_EDGES = (1, 127, 128, 129)
 @pytest.mark.parametrize("sk", TILE_EDGES)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("hd", [64, 128])
-def test_flash_bf16_tile_edges(cuda, sq, sk, causal, hd):
-    """The wgmma kernel's 128-row blocks (two consumers of 64 rows) and
-    64-key tiles: Sq and Sk on either side of each edge, 8 q heads over 2
-    kv heads, causal and not."""
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_bf16_tile_edges(cuda, dtype, sq, sk, causal, hd):
+    """The wgmma kernels' row blocks (bf16 and f32 at hd 64: 128 rows, two
+    consumers of 64; f32 at hd 128: 64 rows, one consumer) and key tiles
+    (64; f32 at hd 128: 32): Sq and Sk on either side of each edge, 8 q
+    heads over 2 kv heads, causal and not."""
     q, k, v = _randn(sq * 1000 + sk, (2, sq, 8, hd), (2, sk, 2, hd), (2, sk, 2, hd),
-                     dtype=torch.bfloat16, device=cuda)
+                     dtype=DTYPES[dtype], device=cuda)
     out = fa.flash_attention(q, k, v, causal=causal)
     exp = ref.mha_reference(q, k, v, causal=causal)
     assert out.shape == q.shape
-    assert _err(out, exp) < TOL["bfloat16"]
+    assert _err(out, exp) < TOL[dtype]
 
 
 FA_GQA_WINDOW_CASES = [
@@ -232,31 +238,57 @@ FA_GQA_WINDOW_CASES = [
 
 
 @pytest.mark.parametrize("case", FA_GQA_WINDOW_CASES)
-def test_flash_bf16_gqa_and_windows_across_tiles(cuda, case):
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_bf16_gqa_and_windows_across_tiles(cuda, dtype, case):
     b, sq, sk, nq, nkv, hd, causal, window, q_offset = case
     q, k, v = _randn(sum(case), (b, sq, nq, hd), (b, sk, nkv, hd), (b, sk, nkv, hd),
-                     dtype=torch.bfloat16, device=cuda)
+                     dtype=DTYPES[dtype], device=cuda)
     out = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     exp = ref.mha_reference(q, k, v, causal=causal, window=window, q_offset=q_offset)
-    assert _err(out, exp) < TOL["bfloat16"]
+    assert _err(out, exp) < TOL[dtype]
 
 
 @pytest.mark.parametrize("hd", [64, 112, 128])
-def test_flash_bf16_rows_without_visible_key_across_a_row_block(cuda, hd):
-    """Rows 79 and on see no key under a window past Sk, so the second row
-    block (rows 128-199) walks no KV tile at all: they give 0, and the rows
-    before them match the plain version; and a CTA whose second consumer
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_bf16_rows_without_visible_key_across_a_row_block(cuda, dtype, hd):
+    """Rows 79 and on see no key under a window past Sk, so every row block
+    from row 128 on (one of 128 rows; two of 64 in f32 at hd 112 and 128)
+    walks no KV tile at all: they give 0, and the rows before them match
+    the plain version; and a CTA whose second consumer, where it has two,
     has no row (Sq = 4)."""
     sq, sk, q_offset, window = 200, 100, 40, 20
     q, k, v = _randn(hd, (1, sq, 8, hd), (1, sk, 2, hd), (1, sk, 2, hd),
-                     dtype=torch.bfloat16, device=cuda)
+                     dtype=DTYPES[dtype], device=cuda)
     out = fa.flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset)
     exp = ref.mha_reference(q, k, v, causal=True, window=window, q_offset=q_offset)
     seen = sk + window - 1 - q_offset          # rows [0, seen) see a key
     assert not bool(out[:, seen:].any())
-    assert _err(out[:, :seen], exp[:, :seen]) < TOL["bfloat16"]
+    assert _err(out[:, :seen], exp[:, :seen]) < TOL[dtype]
     short = fa.flash_attention(q[:, :4].contiguous(), k, v, causal=False)
-    assert _err(short, ref.mha_reference(q[:, :4], k, v, causal=False)) < TOL["bfloat16"]
+    assert _err(short, ref.mha_reference(q[:, :4], k, v, causal=False)) < TOL[dtype]
+
+
+@pytest.mark.parametrize("hd", [64, 112, 128])
+def test_flash_f32_as_close_to_float64_as_plain_at_large_outputs(cuda, hd):
+    """Where outputs reach |o| ~ 27 (``ref.large_output_inputs``) no f32
+    kernel meets 2e-5 against the plain version, which is itself ~1e-4 from
+    a float64 attention: the f32 kernel's three tf32 products stay within
+    1.5 times the plain version's distance from float64."""
+    q, k, v = ref.large_output_inputs(hd, cuda, torch.float32)
+    o64 = ref.attention_f64(q, k, v, causal=True)
+    assert float(o64.abs().max()) >= 16.0
+    plain = _err(ref.mha_reference(q, k, v, causal=True).double(), o64)
+    assert _err(fa.flash_attention(q, k, v, causal=True).double(), o64) <= 1.5 * plain
+
+
+def test_tf32_probe_reads_f32_operands_truncated(cuda):
+    """The f32 kernel takes Q and K as they land for their tf32 parts: the
+    tensor cores must read an f32 operand as its top 19 bits, from shared
+    memory and, in the A fragment's layout, from registers."""
+    a = torch.from_numpy(np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32))
+    d_ss, d_rs = fa.tf32_probe(a.to(cuda))
+    assert torch.equal(d_ss.cpu(), ref.tf32(a))
+    assert torch.equal(d_rs.cpu(), ref.tf32(a))
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))

@@ -2,7 +2,8 @@
 
 ``ref.flash_tile_plan`` is the tile walk of ``csrc/flash_attention.cu``'s
 ``fa_wgmma_kernel`` (row blocks of 128 query rows, or a consumer's 64,
-KV tiles of 64 keys: which tiles a block skips, runs unmasked or masks),
+KV tiles of 64 keys: which tiles a block skips, runs unmasked or masks;
+``fa_tf32_kernel``'s 64 x 32 at hd 112 and 128 too),
 and ``ref.flash_tiled_reference`` its arithmetic in plain PyTorch (online
 softmax in log2 units, P V from P's bf16 high and low parts).  The plan is
 held to the dense mask of ``ref.mha_reference``; the function to the JAX
@@ -48,14 +49,15 @@ def _err(a, b) -> float:
 def test_tile_classes_match_the_dense_mask(sq, sk, mask):
     causal, window, q_offset = MASKS[mask]
     dense = ref.attention_mask(sq, sk, causal=causal, window=window, q_offset=q_offset).numpy()
-    for bm in (128, 64):
+    # the bf16 kernel's blocks and a consumer's, and the f32 kernel's at hd 112 and 128
+    for bm, bn in ((128, 64), (64, 64), ref.flash_tf32_tiles(128)):
         plan = ref.flash_tile_plan(sq, sk, causal=causal, window=window, q_offset=q_offset,
-                                   bm=bm, bn=64)
-        assert plan.shape == (-(-sq // bm), -(-sk // 64))
+                                   bm=bm, bn=bn)
+        assert plan.shape == (-(-sq // bm), -(-sk // bn))
         for r in range(plan.shape[0]):
             for t in range(plan.shape[1]):
-                block = dense[r * bm:(r + 1) * bm, t * 64:(t + 1) * 64]
-                whole = block.shape[1] == 64
+                block = dense[r * bm:(r + 1) * bm, t * bn:(t + 1) * bn]
+                whole = block.shape[1] == bn
                 if plan[r, t] == ref.TILE_SKIPPED:
                     assert not block.any(), (bm, r, t)
                 elif plan[r, t] == ref.TILE_INTERIOR:
