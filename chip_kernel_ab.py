@@ -13,8 +13,9 @@ device sleep queued before each), its wrappers' host time, and phase 6a's
 training configuration, timed steps and profile reader.  Run the trees in
 turns (A, B, B, A) in one command on one card, so that both see the same
 card and host.  Prints one JSON line: ms per kernel and shape (flash in
-bf16 at the served shapes and in f32 at the training shape and at the
-served prefill shapes of hd 64, 128 and 112), the flash
+bf16 at the served shapes and at recurrentgemma-9b's S = 2048, and in f32
+at the training shape and at the served prefill shapes of hd 64, 128, 112
+and 256), the flash
 and decode wrappers' host microseconds a call at the main path's shape,
 the bf16 flash kernel's rounding at large outputs (``rounding_margin``) and
 the bf16 decode kernel's over ``ref.DECODE_ROUNDING_SEEDS``
@@ -42,14 +43,16 @@ FLASH = {"qwen1.5-0.5b": (1, 512, 512, 16, 16, 64, True),
          "kimi-k2": (1, 512, 512, 64, 8, 112, True),
          "llama3-8b": (1, 2048, 2048, 32, 8, 128, True),
          "recurrentgemma-9b": (1, 512, 512, 16, 1, 256, True),
+         "recurrentgemma-9b S=2048": (1, 2048, 2048, 16, 1, 256, True),
          "whisper-small encoder": (8, 1500, 1500, 12, 12, 64, False),
          "whisper-small cross decode": (8, 1, 1500, 12, 12, 64, False)}
 # the f32 flash forward: every training step's (qwen1.5-0.5b, B=8, S=512)
-# and the served prefill shapes at hd 64, 128 and 112
+# and the served prefill shapes at hd 64, 128, 112 and 256
 FLASH_F32 = {"train qwen1.5-0.5b": (8, 512, 512, 16, 16, 64, True),
              "qwen1.5-0.5b": (1, 512, 512, 16, 16, 64, True),
              "phi3.5-moe": (1, 512, 512, 32, 8, 128, True),
-             "kimi-k2": (1, 512, 512, 64, 8, 112, True)}
+             "kimi-k2": (1, 512, 512, 64, 8, 112, True),
+             "recurrentgemma-9b": (1, 512, 512, 16, 1, 256, True)}
 SERVED = [96, 544, 300, 65, 64, 1, 2048, 411]
 DECODE = {"qwen1.5-0.5b": (8, 2048, 16, 16, 64, SERVED),
           "phi3.5-moe": (8, 2048, 32, 8, 128, SERVED),

@@ -18,8 +18,8 @@ never prints its last line):
    ``HMMA`` (mma.sync), ``HGMMA`` (wgmma) and the TMA loads (``UTMALDG``);
    the bf16 flash kernel and the bf16 RWKV-6 prefill must have tensor-core
    instructions, the flash library wgmma and TMA loads, the flash kernel's
-   wgmma instantiations (``fa_wgmma_kernel``, bf16 at hd <= 128, and
-   ``fa_tf32_kernel``, f32 at hd <= 128, whose wgmma take tf32 operands:
+   wgmma instantiations (``fa_wgmma_kernel``, bf16 at every hd, 256
+   included, and ``fa_tf32_kernel``, f32 at hd <= 128, whose wgmma take tf32 operands:
    ``HGMMA`` with ``TF32`` in the SASS) no spill, and ptxas must neither
    ignore their ``setmaxnreg`` nor serialise their wgmma; the f32 kernel's
    one-tile probe must show the tensor cores reading an f32 operand as its
@@ -32,8 +32,8 @@ never prints its last line):
    and bf16: the attention kernels at the shapes of ``tests/test_kernels.py``,
    at the main path's shapes, at phi3.5-moe's and llama3-8b's GQA shapes
    (32 q heads over 8 kv heads, hd 128), at recurrentgemma-9b's (16 q
-   heads over 1 kv head, hd 256: flash at S = 512 and at S = 2112 under its
-   2048-token window, decode over the 8-slot, 2048-slot ring with the main
+   heads over 1 kv head, hd 256: flash at S = 512, at S = 2048 (bf16, also
+   timed) and at S = 2112 under its 2048-token window, decode over the 8-slot, 2048-slot ring with the main
    path's prefix masks and with a wrapped ring whose window excludes the
    oldest slots) and at whisper-small's (12 heads of 64, non-causal flash
    at B = 8 over 1500 keys with Sq = 1500, 4 and 1, decode over a 448-slot
@@ -48,7 +48,8 @@ never prints its last line):
    cache;
    flash at the edges of its 128-row blocks and 64-key tiles, Sq and Sk
    in {1, 127, 128, 129} causal and not, windows with a q_offset across a
-   tile edge, GQA at 64:8 and 16:1),
+   tile edge, GQA at 64:8 and 16:1, and hd 256 at 16:1 across its 64-row
+   blocks and 64-key tiles, Sq and Sk in {127, 129} causal and not),
    and the bf16 flash kernel within one bf16 step of the f32 attention of
    its inputs, as the TPU kernel rounds, at outputs of |o| up to ~27 and at
    whisper-small's three flash shapes, and the bf16 decode kernel the same
@@ -168,8 +169,8 @@ never prints its last line):
    and holds a step at 4 layers, T=64 to the CPU; then both kernels are
    timed at the training shapes (forward, plain backward, SDPA forward +
    backward; flash's forward also beside SDPA's forward alone, held to the
-   bound of its three tf32 products with the SIMT one beside it, and at the main path's, phi3.5-moe's and kimi-k2's
-   prefill shapes in f32) into the ``{"kernels": ...}`` rows, whose
+   bound of its three tf32 products with the SIMT one beside it, and at the main path's, phi3.5-moe's, kimi-k2's
+   and recurrentgemma-9b's prefill shapes in f32) into the ``{"kernels": ...}`` rows, whose
    launches add the training runs';
 7. the single-card mesh/sharding/specs layer: ``launch/specs.py``'s
    ``build_step`` for qwen1.5-0.5b at full width and depth at a train
@@ -351,9 +352,9 @@ RWKV_LONG, RWKV_IN_PLACE = (1, 2048, 4, 64, True), ((2, 45, 4, 64, True), (8, 1,
 # the decode library's one kernel: a call launches it once, never another
 DECODE_KERNELS = ("da_cluster_kernel",)
 # each slice's own kernels in a profile, by name: flash attention's (the
-# bf16 kernel its head size runs: wgmma at hd <= 128, the mma.sync kernel at
-# hd 256) and decode attention's, and every kernel of the rwkv6_scan
-# library, all of which live in its namespace rwkv6
+# bf16 wgmma kernel, which every head size runs) and decode attention's,
+# and every kernel of the rwkv6_scan library, all of which live in its
+# namespace rwkv6
 PROFILED = {
     ARCH: {"prefill": ("flash_attention", ("fa_wgmma_kernel",)),
            "decode": ("decode_attention", DECODE_KERNELS)},
@@ -362,7 +363,7 @@ PROFILED = {
                "decode": ("decode_attention", DECODE_KERNELS)},
     KIMI_ARCH: {"prefill": ("flash_attention", ("fa_wgmma_kernel",)),
                 "decode": ("decode_attention", DECODE_KERNELS)},
-    RG_ARCH: {"prefill": ("flash_attention", ("fa_mma_wide_kernel",)),
+    RG_ARCH: {"prefill": ("flash_attention", ("fa_wgmma_kernel",)),
               "decode": ("decode_attention", DECODE_KERNELS)},
 }
 # the MoE layer's parts, each run inside a profiler range of this name:
@@ -481,24 +482,24 @@ def kernel_names(mangled):
 
 
 def check_flash_design(counts, log) -> None:
-    """The flash library's kernels at hd <= 128 are the Hopper design they
+    """The flash library's tensor-core kernels are the Hopper design they
     claim: wgmma (with tf32 operands among them) and TMA loads in its SASS,
-    each ``fa_wgmma_kernel`` (bf16) and ``fa_tf32_kernel`` (f32)
-    instantiation (hd 16, 32, 64, 112, 128) compiled without spill, and no
-    ptxas warning that setmaxnreg was ignored or wgmma serialised.  Prints
-    the instantiations' registers (at launch; setmaxnreg moves them later)
-    and spill bytes."""
+    each ``fa_wgmma_kernel`` (bf16: hd 16, 32, 64, 112, 128 and 256) and
+    ``fa_tf32_kernel`` (f32: hd 16 to 128) instantiation compiled without
+    spill, and no ptxas warning that setmaxnreg was ignored or wgmma
+    serialised.  Prints the instantiations' registers (at launch;
+    setmaxnreg moves them later) and spill bytes."""
     if not (counts["HGMMA"] and counts["HGMMA.TF32"] and counts["UTMALDG"]):
         raise AssertionError(f"the flash_attention library lacks wgmma, tf32 wgmma or TMA "
                              f"loads: {counts}")
     report = ptxas_report(log)
     readable = kernel_names(list(report))
-    for kernel in ("fa_wgmma_kernel", "fa_tf32_kernel"):
+    for kernel, instances in (("fa_wgmma_kernel", 6), ("fa_tf32_kernel", 5)):
         wg = {readable[k]: v for k, v in report.items() if kernel in k}
         print(f"[build] flash_attention {kernel}: " + json.dumps(
             {k: {"registers": r, "spill_store_bytes": st, "spill_load_bytes": ld}
              for k, (r, st, ld) in wg.items()}))
-        if len(wg) != 5 or any(st or ld for _, st, ld in wg.values()):
+        if len(wg) != instances or any(st or ld for _, st, ld in wg.values()):
             raise AssertionError(f"{kernel} instantiations missing or spilling: {wg}")
     warned = [line for line in log.splitlines() if any(w in line for w in PTXAS_DESIGN_WARNINGS)]
     if warned:
@@ -721,13 +722,16 @@ def check_attention_edges(gen, dtype) -> int:
     return 8 + n_edges + check_kimi_attention(gen, dtype)
 
 
-# the edges of the bf16 flash kernel's 128-row blocks and 64-key tiles
+# the edges of the bf16 flash kernel's 128-row blocks and 64-key tiles, and
+# at hd 256 of its 64-row blocks and 64-key tiles
 TILE_EDGES = (1, 127, 128, 129)
+TILE_EDGES_HD256 = (127, 129)
 
 
 def check_flash_tile_edges(gen, dtype) -> int:
     """Flash at the edges of its row blocks and KV tiles: Sq and Sk each in
-    TILE_EDGES, causal and not (8 q heads over 2 kv heads of 64); windows
+    TILE_EDGES, causal and not (8 q heads over 2 kv heads of 64), and each
+    in TILE_EDGES_HD256 at hd 256 (16 q heads over 1 kv head); windows
     whose edge and q_offset cross tile edges (hd 64 and 128); GQA at 64:8
     (hd 112 and 128) and 16:1 (hd 64) across a tile edge.  Returns the
     number of checks."""
@@ -736,6 +740,11 @@ def check_flash_tile_edges(gen, dtype) -> int:
         for sk in TILE_EDGES:
             for causal in (True, False):
                 check_flash(gen, 2, sq, sk, 8, 2, 64, causal, 0, dtype)
+                n += 1
+    for sq in TILE_EDGES_HD256:
+        for sk in TILE_EDGES_HD256:
+            for causal in (True, False):
+                check_flash(gen, 1, sq, sk, 16, 1, 256, causal, 0, dtype)
                 n += 1
     check_flash(gen, 1, 200, 300, 8, 2, 64, True, 100, dtype, q_offset=70)
     check_flash(gen, 1, 129, 300, 4, 4, 128, True, 64, dtype, q_offset=37)
@@ -1006,6 +1015,9 @@ def phase_kernels(seed, prompt_lengths):
     rows[0]["whisper_small"] = time_flash(*bf["encoder"], flush, causal=False)
     rows[0]["whisper_small"]["cross_decode"] = time_flash(*bf["cross_decode"], flush, causal=False)
     rows[1]["whisper_small"] = time_decode(*bf["decode"], flush)
+    # recurrentgemma-9b's flash also at a prompt of its window's length
+    rows[0]["recurrentgemma_9b"]["s2048"] = time_flash(
+        *check_flash(gen, 1, 2048, 2048, 16, 1, 256, True, 0, torch.bfloat16), flush)
     del main, whisper, bf, flush
     torch.cuda.empty_cache()
     return rows
@@ -1469,9 +1481,9 @@ def whisper_generate(cfg, params, frames, prompt, steps, spent):
     return torch.stack(out, dim=1).cpu()
 
 
-# every kernel of the flash library, by name: bf16 and f32 at hd <= 128,
-# bf16 at hd 256, f32 SIMT at hd 256
-FLASH_KERNELS = ("fa_wgmma_kernel", "fa_tf32_kernel", "fa_mma_wide_kernel", "fa_kernel")
+# every kernel of the flash library, by name: bf16 at every hd, f32 at hd
+# <= 128, f32 SIMT at hd 256
+FLASH_KERNELS = ("fa_wgmma_kernel", "fa_tf32_kernel", "fa_kernel")
 
 
 def check_only_kernel(by_kernel, family, expected) -> None:
@@ -2557,10 +2569,11 @@ def time_training_kernels(seed):
     alone and forward + backward as the yardsticks, and their floors at 67
     TFLOP/s f32 (flash's forward at three tf32 products on the tensor cores,
     165 TFLOP/s of f32-accurate products, the 67 beside it).  Flash's f32
-    kernel also at the main path's, phi3.5-moe's and kimi-k2's prefill
-    shapes (B=1, S=512: 16:16 heads of 64, 32:8 of 128, 64:8 of 112), each
-    checked against the plain version and beside its bounds
-    (``f32_flash_timing``)."""
+    kernel also at the main path's, phi3.5-moe's, kimi-k2's and
+    recurrentgemma-9b's prefill shapes (B=1, S=512: 16:16 heads of 64, 32:8
+    of 128, 64:8 of 112, 16:1 of 256, the last the SIMT
+    ``fa_kernel<float, 256>``), each checked against the plain version and
+    beside its bounds (``f32_flash_timing``)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     flush = L2Flush(dev)
@@ -2589,7 +2602,7 @@ def time_training_kernels(seed):
     }
     flash["f32_shapes"] = {}
     for name, (nq, nkv, d) in (("main", (16, 16, 64)), (MOE_ARCH, (32, 8, 128)),
-                               ("kimi_k2", (64, 8, 112))):
+                               ("kimi_k2", (64, 8, 112)), (RG_ARCH, (16, 1, 256))):
         err_f, qkv = check_flash(gen, 1, PROMPT_MAX, PROMPT_MAX, nq, nkv, d, True, 0, f32)
         flash["f32_shapes"][name] = {
             "shape": f"prefill B=1 S={PROMPT_MAX} nq={nq} nkv={nkv} hd={d} causal float32",
@@ -2984,7 +2997,11 @@ def kernel_time(by_kernel, patterns) -> float:
     raises if the profile has device time but none of those kernels."""
     own = sum(us for k, us in by_kernel.items() if any(p in k for p in patterns))
     if own == 0 and any(by_kernel.values()):
-        raise AssertionError(f"no kernel named like {patterns} in the profile")
+        held = sorted(by_kernel.items(), key=lambda kv: -kv[1])
+        raise AssertionError(
+            f"no kernel named like {patterns} in the profile; it held {len(held)} kernel "
+            f"names, {sum(by_kernel.values()):.1f} us, the largest: "
+            + json.dumps({k[:80]: us for k, us in held[:12]}))
     return own
 
 

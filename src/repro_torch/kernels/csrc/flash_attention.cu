@@ -15,7 +15,8 @@
 // prompts at batch 1 fill few CTAs (16 heads x S/128 at the main path), so
 // there the latency of one CTA's KV loop bounds it.
 //
-// bf16 at hd <= 128 (tc::fa_wgmma_kernel), built from what Hopper added:
+// bf16 (tc::fa_wgmma_kernel, every head dim), built from what Hopper added;
+// below hd 256:
 //  - one CTA of three warpgroups per (batch, q head, 128 query rows, the
 //    JAX kernel's block_q); warpgroup 2 is the producer, and one of its
 //    threads issues every copy; warpgroups 0 and 1 are consumers of 64 rows
@@ -28,11 +29,11 @@
 //    with a full and an empty mbarrier each; the tensor map's zero fill past
 //    Sq, Sk and hd takes the ragged edges, so no copy is guarded;
 //  - rows are 64-column boxes of 128 bytes under 128-byte swizzle: hd 64 is
-//    one box, hd 128 two; hd 112 (224-byte rows, which no swizzle span
-//    divides) takes two boxes, the last 16 columns zero-filled by the
-//    tensor map.  No product reads them: Q K^T runs 7 k-steps and P V's
-//    second product is n48, so hd 112 costs smem, not work.  hd 16 and 32
-//    use one box, zero-filled past hd;
+//    one box, hd 128 two, hd 256 four; hd 112 (224-byte rows, which no
+//    swizzle span divides) takes two boxes, the last 16 columns zero-filled
+//    by the tensor map.  No product reads them: Q K^T runs 7 k-steps and P
+//    V's second product is n48, so hd 112 costs smem, not work.  hd 16 and
+//    32 use one box, zero-filled past hd;
 //  - S = Q K^T is wgmma m64nBNk16 with both operands in shared memory
 //    (K-major descriptors, 32 bytes a k-step inside the swizzled row);
 //  - O += P V is wgmma with A from registers: P's bf16 high part, then its
@@ -63,18 +64,28 @@
 //    or past Sq is written.
 // One CTA fills an SM (384 threads at 168 registers at launch).
 //
-// bf16 at hd 256 (tc::fa_mma_wide_kernel, recurrentgemma-9b's 16 q heads
-// over 1 kv head): the wgmma kernel would hold O (128 f32) besides S and P
-// in each consumer thread, so hd 256 keeps the Ampere-style kernel of the
-// first redesign: one CTA of 4 warps x 16 rows, 64-key tiles, mma.sync
-// m16n8k16 fed by ldmatrix, Q in its own shared-memory tile for the whole
-// KV loop (each k-step reloads its fragment), one S tile at a time (128 +
-// 32 registers of accumulators), K and V through a 2-stage cp.async ring
-// (two barriers per tile), the same masks, online softmax and P split as
-// above.  Shared memory: Q 64 x 264 + 2 stages x (K + V) 64 x 264 bf16 =
-// 168,960 bytes, one CTA per SM; ptxas keeps it at 255 registers with 76
-// bytes of spill.  recurrentgemma-9b's prefills (16 heads x S/64 row
-// blocks, at most 128 CTAs at S = 512) fit in one wave of 132 SMs.
+// At hd 256 (recurrentgemma-9b's local attention, 16 q heads over 1 kv
+// head) the same kernel runs with one consumer warpgroup (Wg<256>):
+//  - shared memory: a stage of 64 keys is K and V in 4 boxes each, 64 KB; Q
+//    is 4 boxes of 64 rows, 32 KB, which leaves room for 3 stages (225 KB of
+//    the 227; two consumers' Q of 64 KB would leave room for 2);
+//  - rows a CTA: at the served prefill (B=1, S=512, 16 heads) BM 64 makes
+//    16 x 8 = 128 CTAs, where two consumers (BM 128) would make 64, half of
+//    the 132 SMs.  One consumer still overlaps each tile's softmax with the
+//    tile before's P V; on an H100 it was 0.65 of BM 128's time at S = 512
+//    and 0.98 at S = 2048 (PERF.md);
+//  - registers: a consumer thread holds O (hd / 2 = 128 f32), the next S
+//    (32) and both parts of the tile before's P (16 + 16), 192 before
+//    addresses and softmax state.  With one consumer the CTA is 256 threads
+//    that may each take 255 registers, so no setmaxnreg (ptxas: 241, no
+//    spill);
+//  - P V is one wgmma m64n256k16 a part and 16-key step, across the four V
+//    boxes: the MN-major descriptor's leading offset is the 8 KB between
+//    boxes, so P's fragment is read from registers once, not once a box;
+//  - what bounds it at the served prefill: 2.15e9 operations (0.00217 ms
+//    at 989 TFLOP/s) against 8.9 MB moved (0.00266 ms at 3.35 TB/s), bytes;
+//    the longest CTA (rows 448-511) walks 8 tiles of 6.3 MFLOP (Q K^T and
+//    P V's two parts), 0.84 us each at one SM's share of the peak.
 //
 // f32 at hd <= 128 (tc::fa_tf32_kernel, the forward of every training
 // step): one tf32 product per f32 product misses the f32 tolerance (2e-5;
@@ -130,12 +141,12 @@
 //    run, the longest causal rows first, 0 for a row that sees no key,
 //    O / l stored in f32 from the registers, no row at or past Sq written.
 //
-// f32 at hd 256 (fa_kernel<float>): the SIMT body of the first port, the
-// f32 counterpart of the bf16 split at hd 256 (O alone would be 128
-// registers a consumer thread); one CTA per (batch, q head, 64 rows), 4
-// threads a row, f32 tiles in shared memory, probabilities exchanged by
-// shuffles; its tiles take 4 x (64 x 257 + 64 x 257 + 64 x 256) = 197,120
-// bytes of shared memory (opted in above 48 KB), one CTA per SM.
+// f32 at hd 256 (fa_kernel<float>): the SIMT body of the first port (the
+// tf32 kernel's tiles, 224 KB at hd 128, would be twice that); one CTA per
+// (batch, q head, 64 rows), 4 threads a row, f32 tiles in shared memory,
+// probabilities exchanged by shuffles; its tiles take 4 x (64 x 257 + 64 x
+// 257 + 64 x 256) = 197,120 bytes of shared memory (opted in above 48 KB),
+// one CTA per SM.
 #include <type_traits>
 
 #include "common.cuh"
@@ -387,24 +398,26 @@ __device__ __forceinline__ void store_rows(T* ob, const float (&acc)[HD / 8][4],
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at hd <= 128: wgmma on TMA-fed tiles, warp-specialised (see the note
-// at the top).
+// bf16: wgmma on TMA-fed tiles, warp-specialised (see the note at the top).
 // ---------------------------------------------------------------------------
-constexpr int WG_THREADS = 384;   // consumer warpgroups 0 and 1, producer 2
-
 template <int HD>
 struct Wg {
-  static constexpr int BM = 128;                  // query rows a CTA, 64 a consumer
-  static constexpr int BN = 64;                   // keys a KV tile
-  static constexpr int NS = 4;                    // stages of the K/V ring
-  static constexpr int NBOX = (HD + 63) / 64;     // 64-column (128-byte) boxes a row
-  static constexpr int BOX_Q = BM * 128;          // bytes of a Q box
-  static constexpr int BOX_KV = BN * 128;         // bytes of a K or V box
+  static constexpr int NC = HD == 256 ? 1 : 2;       // consumer warpgroups
+  static constexpr int THREADS = 128 * (NC + 1);     // and the producer's
+  static constexpr int BM = 64 * NC;                 // query rows a CTA, 64 a consumer
+  static constexpr int BN = 64;                      // keys a KV tile
+  static constexpr int NBOX = (HD + 63) / 64;        // 64-column (128-byte) boxes a row
+  static constexpr int BOX_Q = BM * 128;             // bytes of a Q box
+  static constexpr int BOX_KV = BN * 128;            // bytes of a K or V box
   static constexpr int Q_BYTES = NBOX * BOX_Q;
   static constexpr int STAGE_BYTES = 2 * NBOX * BOX_KV;   // the K boxes, then the V boxes
+  // stages of the K/V ring: 4 up to hd 128; at hd 256 (64 KB a stage) as
+  // many as fit beside Q, the alignment and the barriers
+  static constexpr int NS = HD <= 128 ? 4 : (232448 - 1024 - 256 - Q_BYTES) / STAGE_BYTES;
   // 1024 bytes to align the tiles to the swizzle's atom, Q, the ring, and
   // the barriers (Q full, NS full, NS empty)
   static constexpr size_t SMEM = 1024 + Q_BYTES + NS * STAGE_BYTES + 8 * (1 + 2 * NS);
+  static_assert(SMEM <= 232448, "a CTA's shared memory");
 };
 
 // S = Q K^T of one tile into s: HD / 16 k-steps; step kk reads 16 columns
@@ -437,20 +450,32 @@ __device__ __forceinline__ void issue_pv_box(float (&acc)[HD / 8][4], const uint
   wgmma_rs<N>(d, pl, b);
 }
 
+// O += P V of one tile, k-step by k-step (16 keys), P's high part then its
+// low part: at hd 256 one wgmma of N = 256 across the four V boxes, the
+// descriptor's leading offset stepping from box to box; below, one wgmma a
+// box (at most two)
 template <int HD>
 __device__ __forceinline__ void issue_pv(float (&acc)[HD / 8][4],
                                          const uint32_t (&ph)[Wg<HD>::BN / 16][4],
                                          const uint32_t (&pl)[Wg<HD>::BN / 16][4],
                                          uint32_t v_addr) {
+  using C = Wg<HD>;
 #pragma unroll
-  for (int kk = 0; kk < Wg<HD>::BN / 16; ++kk) {
-    issue_pv_box<HD, 0>(acc, ph[kk], pl[kk], v_addr, kk);
-    if constexpr (Wg<HD>::NBOX > 1) issue_pv_box<HD, 1>(acc, ph[kk], pl[kk], v_addr, kk);
+  for (int kk = 0; kk < C::BN / 16; ++kk) {
+    if constexpr (HD == 256) {
+      float(&d)[HD / 2] = *reinterpret_cast<float(*)[HD / 2]>(&acc[0][0]);
+      const uint64_t b = desc_sw128(v_addr + kk * 16 * 128, C::BOX_KV, 1024);
+      wgmma_rs<HD>(d, ph[kk], b);
+      wgmma_rs<HD>(d, pl[kk], b);
+    } else {
+      issue_pv_box<HD, 0>(acc, ph[kk], pl[kk], v_addr, kk);
+      if constexpr (C::NBOX > 1) issue_pv_box<HD, 1>(acc, ph[kk], pl[kk], v_addr, kk);
+    }
   }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(WG_THREADS, 1) fa_wgmma_kernel(
+__global__ void __launch_bounds__(Wg<HD>::THREADS, 1) fa_wgmma_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int Sq, int Sk, int nq,
     int nkv, int causal, int window, int q_offset, float scale_log2) {
@@ -469,9 +494,9 @@ __global__ void __launch_bounds__(WG_THREADS, 1) fa_wgmma_kernel(
   const int q0 = (gridDim.z - 1 - blockIdx.z) * C::BM;
   const int h = blockIdx.x, b = blockIdx.y, kvh = h / (nq / nkv);
   const int wg = threadIdx.x / 128;
-  // consumer warpgroups with a row before Sq (the second has none where
+  // consumer warpgroups with a row before Sq (a second has none where
   // Sq - q0 <= 64: a decode step's or a ragged last block's rows)
-  const int consumers = q0 + 64 < Sq ? 2 : 1;
+  const int consumers = C::NC == 2 && q0 + 64 < Sq ? 2 : 1;
 
   // Keys that some row of this CTA can see, from a tile boundary: [k_lo, k_hi).
   const int qpos_first = q_offset + q0;
@@ -490,11 +515,11 @@ __global__ void __launch_bounds__(WG_THREADS, 1) fa_wgmma_kernel(
   }
   __syncthreads();
 
-  if (wg == 2) {
+  if (wg == C::NC) {
     // producer: one thread issues every copy; Q once, then each tile into
-    // the next stage once both consumers have released it
-    regs_dec<24>();
-    if (threadIdx.x == 256) {
+    // the next stage once every consumer has released it
+    if constexpr (C::NC == 2) regs_dec<24>();
+    if (threadIdx.x == 128 * C::NC) {
       tma_prefetch(&tq);
       tma_prefetch(&tk);
       tma_prefetch(&tv);
@@ -517,7 +542,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1) fa_wgmma_kernel(
     }
   } else if (wg < consumers) {
     // consumer: 64 rows, S and O in the wgmma accumulators
-    regs_inc<240>();
+    if constexpr (C::NC == 2) regs_inc<240>();
     const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
     const int gid = lane / 4, tig = lane % 4;
     const int row0 = q0 + 64 * wg;
@@ -618,7 +643,7 @@ cudaError_t launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o, i
                                (int)C::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid(nq, B, (Sq + C::BM - 1) / C::BM);
-  fa_wgmma_kernel<HD><<<grid, WG_THREADS, C::SMEM, stream>>>(
+  fa_wgmma_kernel<HD><<<grid, C::THREADS, C::SMEM, stream>>>(
       mq, mk, mv, o, Sq, Sk, nq, nkv, causal, window, q_offset, scale * LOG2E);
   return cudaGetLastError();
 }
@@ -1073,180 +1098,6 @@ __global__ void __launch_bounds__(128, 1) tf32_probe_kernel(const float* __restr
   d_rs[r1 * 8 + c] = e[2]; d_rs[r1 * 8 + c + 1] = e[3];
 }
 
-// ---------------------------------------------------------------------------
-// bf16 at hd 256: mma.sync m16n8k16 fed by ldmatrix, Q in shared memory, one
-// S tile, a 2-stage cp.async K/V ring (see the note at the top).
-// ---------------------------------------------------------------------------
-constexpr int NW = 4;             // warps per CTA, 16 query rows each
-constexpr int NT = 32 * NW;
-constexpr int NS_WIDE = 2;
-
-// Shared-memory row of a tile: hd bf16 and 16 bytes of padding.
-template <int HD>
-__host__ __device__ constexpr int ld() { return HD + 8; }
-
-// ROWS rows of hd bf16 from rows [row0, row0 + ROWS) of `src` (`stride`
-// elements apart) into `dst`; rows at or past `rows` are zero-filled and
-// not read.  Each thread copies the same 16-byte column of every RPP-th
-// row, so its addresses advance by constant steps.
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long stride, int row0,
-                                          int rows, int tid) {
-  constexpr int CPR = HD / 8;     // 16-byte chunks per row
-  static_assert(NT % CPR == 0, "a row's chunks divide a pass of the CTA");
-  constexpr int RPP = NT / CPR;   // rows per pass of the CTA
-  static_assert(ROWS % RPP == 0, "whole passes");
-  const int r = tid / CPR, col = (tid % CPR) * 8;
-  const bf16* g = src + (long)(row0 + r) * stride + col;
-  bf16* sm = dst + r * ld<HD>() + col;
-#pragma unroll
-  for (int i = 0; i < ROWS / RPP; ++i) {
-    const bool ok = row0 + r + i * RPP < rows;
-    cp_async16(sm + i * RPP * ld<HD>(), ok ? g + i * RPP * stride : src, ok);
-  }
-}
-
-// The online softmax of one S tile, then O += P V: P's high and low parts
-// each multiplied by V (ldmatrix.trans, x4 matrices (keys 0-7 | 8-15) x
-// (dims 0-7 | 8-15)) into the same f32 accumulators.
-template <int HD>
-__device__ __forceinline__ void softmax_pv(float (&s)[BN / 8][4], float (&acc)[HD / 8][4],
-                                           float& m0, float& m1, float& l0, float& l1,
-                                           const bf16* Vt, float scale_log2, int frag_row,
-                                           int frag_col) {
-  float alpha0, alpha1;
-  online_softmax<BN / 8>(s, m0, m1, l0, l1, alpha0, alpha1, scale_log2);
-  rescale<HD / 8>(acc, alpha0, alpha1);
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
-    uint32_t ph[4], pl[4];
-    split_p<BN / 8>(s, kk, ph, pl);
-#pragma unroll
-    for (int d2 = 0; d2 < HD / 16; ++d2) {
-      uint32_t vf[4];
-      ldmatrix_x4_trans(vf, Vt + (kk * 16 + frag_row) * ld<HD>() + d2 * 16 + frag_col);
-      mma_bf16_16816(acc[2 * d2], ph, vf[0], vf[1]);
-      mma_bf16_16816(acc[2 * d2 + 1], ph, vf[2], vf[3]);
-      mma_bf16_16816(acc[2 * d2], pl, vf[0], vf[1]);
-      mma_bf16_16816(acc[2 * d2 + 1], pl, vf[2], vf[3]);
-    }
-  }
-}
-
-template <int HD>
-constexpr size_t smem_bytes_wide() { return sizeof(bf16) * (BM + 2 * NS_WIDE * BN) * ld<HD>(); }
-
-template <int HD>
-__global__ void __launch_bounds__(NT, 1) fa_mma_wide_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, int Sq, int Sk, int nq, int nkv, int causal, int window,
-    int q_offset, float scale_log2) {
-  constexpr int LD = ld<HD>();
-  constexpr int KS = HD / 16;
-  constexpr int NB = BN / 8;
-  constexpr int DB = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);    // BM x LD, for the whole loop
-  bf16* Ks = Qs + BM * LD;                          // NS_WIDE x BN x LD
-  bf16* Vs = Ks + NS_WIDE * BN * LD;                // NS_WIDE x BN x LD
-
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * BM;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int kvh = h / (nq / nkv);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gid = lane / 4, tig = lane % 4;
-
-  const long q_stride = (long)nq * HD;
-  const long kv_stride = (long)nkv * HD;
-  const bf16* qb = q + (long)b * Sq * q_stride + (long)h * HD;
-  const bf16* kb = k + (long)b * Sk * kv_stride + (long)kvh * HD;
-  const bf16* vb = v + (long)b * Sk * kv_stride + (long)kvh * HD;
-
-  const int qpos_first = q_offset + q0;
-  const int qpos_last = q_offset + min(q0 + BM, Sq) - 1;
-  const int k_hi = causal ? min(Sk, qpos_last + 1) : Sk;
-  const int k_lo = window > 0 ? max(0, qpos_first - window + 1) / BN * BN : 0;
-  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + BN - 1) / BN : 0;
-
-  // Q with tile 0, then tile 1: one commit group each, empty or not, so
-  // that the wait counts stay fixed
-  load_tile<HD, BM>(Qs, qb, q_stride, q0, Sq, tid);
-#pragma unroll
-  for (int st = 0; st < NS_WIDE; ++st) {
-    if (st < n_tiles) {
-      load_tile<HD, BN>(Ks + st * BN * LD, kb, kv_stride, k_lo + st * BN, Sk, tid);
-      load_tile<HD, BN>(Vs + st * BN * LD, vb, kv_stride, k_lo + st * BN, Sk, tid);
-    }
-    cp_async_commit();
-  }
-
-  const int frag_row = (lane & 7) + ((lane >> 3) & 1) * 8, frag_col = (lane >> 4) * 8;
-  // this warp's 16 Q rows at its lane's ldmatrix address; a k-step adds 16
-  const bf16* qw = Qs + (warp * 16 + frag_row) * LD + frag_col;
-  const int qpos0 = qpos_first + warp * 16 + gid, qpos1 = qpos0 + 8;
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
-  float acc[DB][4];
-#pragma unroll
-  for (int j = 0; j < DB; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int n0 = k_lo + it * BN;
-    const int st = it % NS_WIDE;
-    cp_async_wait<NS_WIDE - 1>();  // Q and tile it have landed; tile it+1 may not have
-    __syncthreads();
-    const bf16* Kt = Ks + st * BN * LD;
-    float s[NB][4];
-#pragma unroll
-    for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t qf[4];
-      ldmatrix_x4(qf, qw + ks * 16);
-#pragma unroll
-      for (int j2 = 0; j2 < BN / 16; ++j2) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, Kt + (j2 * 16 + (lane & 7) + (lane >> 4) * 8) * LD + ks * 16 +
-                            ((lane >> 3) & 1) * 8);
-        mma_bf16_16816(s[2 * j2], qf, kf[0], kf[1]);
-        mma_bf16_16816(s[2 * j2 + 1], qf, kf[2], kf[3]);
-      }
-    }
-    const bool masked = n0 + BN > Sk || (causal && n0 + BN - 1 > qpos_first) ||
-                        (window > 0 && n0 <= qpos_last - window);
-    if (masked) mask_tile<NB>(s, n0, Sk, causal, window, qpos0, qpos1, tig);
-    softmax_pv<HD>(s, acc, m0, m1, l0, l1, Vs + st * BN * LD, scale_log2, frag_row, frag_col);
-    __syncthreads();              // every warp is done with stage st: refill it
-    if (it + NS_WIDE < n_tiles) {
-      load_tile<HD, BN>(Ks + st * BN * LD, kb, kv_stride, n0 + NS_WIDE * BN, Sk, tid);
-      load_tile<HD, BN>(Vs + st * BN * LD, vb, kv_stride, n0 + NS_WIDE * BN, Sk, tid);
-    }
-    cp_async_commit();
-  }
-  cp_async_wait<0>();             // no copy outlives the CTA, even an empty group
-  store_rows<HD>(o + (long)b * Sq * q_stride + (long)h * HD + 2 * tig, acc, l0, l1,
-                 q0 + warp * 16 + gid, Sq, q_stride);
-}
-
-template <int HD>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int Sq, int Sk,
-                   int nq, int nkv, int causal, int window, int q_offset, float scale,
-                   cudaStream_t stream) {
-  if constexpr (HD <= 128) {      // only the kernel each head size runs is compiled
-    return launch_wgmma<HD>(q, k, v, o, B, Sq, Sk, nq, nkv, causal, window, q_offset, scale,
-                            stream);
-  } else {
-    constexpr size_t smem = smem_bytes_wide<HD>();
-    cudaError_t err = cudaFuncSetAttribute(fa_mma_wide_kernel<HD>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid(nq, B, (Sq + BM - 1) / BM);
-    fa_mma_wide_kernel<HD><<<grid, NT, smem, stream>>>(q, k, v, o, Sq, Sk, nq, nkv, causal,
-                                                       window, q_offset, scale * LOG2E);
-    return cudaGetLastError();
-  }
-}
-
 }  // namespace tc
 
 template <typename T, int HD>
@@ -1254,9 +1105,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
                    int Sk, int nq, int nkv, int causal, int window, int q_offset,
                    float scale, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    return tc::launch<HD>(static_cast<const T*>(q), static_cast<const T*>(k),
-                          static_cast<const T*>(v), static_cast<T*>(o), B, Sq, Sk, nq, nkv,
-                          causal, window, q_offset, scale, stream);
+    return tc::launch_wgmma<HD>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                static_cast<const T*>(v), static_cast<T*>(o), B, Sq, Sk, nq,
+                                nkv, causal, window, q_offset, scale, stream);
   else if constexpr (HD <= 128)
     return tc::launch_tf32<HD>(static_cast<const float*>(q), static_cast<const float*>(k),
                                static_cast<const float*>(v), static_cast<float*>(o), B, Sq, Sk,

@@ -72,6 +72,14 @@ def mha_reference(
 TILE_SKIPPED, TILE_INTERIOR, TILE_MASKED = 0, 1, 2
 
 
+def flash_bf16_tiles(hd: int) -> Tuple[int, int]:
+    """(BM, BN) of ``csrc/flash_attention.cu``'s bf16 kernel at head dim hd:
+    two consumers of 64 rows and 64-key tiles below hd 256; one consumer
+    (BM 64) at hd 256, where 128-row blocks would fill only half the SMs at
+    recurrentgemma-9b's served prefill."""
+    return (64, 64) if hd == 256 else (128, 64)
+
+
 def flash_tile_plan(sq: int, sk: int, *, causal: bool, window: int = 0, q_offset: int = 0,
                     bm: int = 128, bn: int = 64) -> np.ndarray:
     """The tile walk of ``csrc/flash_attention.cu``'s bf16 kernel: for each
@@ -104,13 +112,14 @@ def flash_tiled_reference(
     causal: bool = True,
     window: int = 0,
     q_offset: int = 0,
-    bm: int = 128,
-    bn: int = 64,
+    bm: Optional[int] = None,
+    bn: Optional[int] = None,
     product: Optional[Callable[..., torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Attention by the schedule of ``csrc/flash_attention.cu``'s
     tensor-core kernels, in plain PyTorch: row blocks of ``bm``, KV tiles of
-    ``bn`` walked as ``flash_tile_plan`` says (masks on the masked tiles
+    ``bn`` (by default the bf16 kernel's, ``flash_bf16_tiles``), walked as
+    ``flash_tile_plan`` says (masks on the masked tiles
     only), the online softmax in log2 units (running max m, alpha =
     2^(m_old - m), the scale folded into the exponent), P V from P's bf16
     high part plus its bf16 low part where v is bf16, and O / l, 0 where a
@@ -124,6 +133,7 @@ def flash_tiled_reference(
     if nq % nkv:
         raise ValueError(f"num q heads {nq} is not a multiple of kv heads {nkv}")
     scale_log2 = hd ** -0.5 * 1.4426950408889634
+    bm, bn = bm or flash_bf16_tiles(hd)[0], bn or flash_bf16_tiles(hd)[1]
     plan = flash_tile_plan(sq, sk, causal=causal, window=window, q_offset=q_offset, bm=bm, bn=bn)
     kh = k.float().repeat_interleave(nq // nkv, dim=2).transpose(1, 2)   # (B, nq, Sk, hd)
     vh = v.float().repeat_interleave(nq // nkv, dim=2).transpose(1, 2)

@@ -55,6 +55,9 @@ FA_CASES = [
     (1, 200, 200, 16, 1, 256, True, 0, 0),     # recurrentgemma-9b: hd 256, MQA 16:1
     (1, 2112, 2112, 16, 1, 256, True, 2048, 0),   # its local window bites (S > W)
     (2, 100, 164, 16, 1, 256, True, 48, 64),   # hd 256, a window and a q_offset
+    # hd 256 at 16:1 across the kernel's 64-row blocks and 64-key tiles
+    *((1, sq, sk, 16, 1, 256, causal, 0, 0)
+      for sq in (127, 129) for sk in (127, 129) for causal in (True, False)),
     (8, 1500, 1500, 12, 12, 64, False, 0, 0),  # whisper-small: the encoder over 1500 frames
     (8, 4, 1500, 12, 12, 64, False, 0, 0),     # cross-attention of the 4-token prompt
     (8, 1, 1500, 12, 12, 64, False, 0, 0),     # cross-attention of one decode step

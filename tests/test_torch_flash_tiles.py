@@ -1,9 +1,10 @@
 """The schedule of the bf16 flash kernel, held on the CPU.
 
 ``ref.flash_tile_plan`` is the tile walk of ``csrc/flash_attention.cu``'s
-``fa_wgmma_kernel`` (row blocks of 128 query rows, or a consumer's 64,
-KV tiles of 64 keys: which tiles a block skips, runs unmasked or masks;
-``fa_tf32_kernel``'s 64 x 32 at hd 112 and 128 too),
+``fa_wgmma_kernel`` (row blocks of 128 query rows, or a consumer's 64, the
+whole block at hd 256 (``ref.flash_bf16_tiles``), KV tiles of 64 keys:
+which tiles a block skips, runs unmasked or masks; ``fa_tf32_kernel``'s
+64 x 32 at hd 112 and 128 too),
 and ``ref.flash_tiled_reference`` its arithmetic in plain PyTorch (online
 softmax in log2 units, P V from P's bf16 high and low parts).  The plan is
 held to the dense mask of ``ref.mha_reference``; the function to the JAX
@@ -49,8 +50,10 @@ def _err(a, b) -> float:
 def test_tile_classes_match_the_dense_mask(sq, sk, mask):
     causal, window, q_offset = MASKS[mask]
     dense = ref.attention_mask(sq, sk, causal=causal, window=window, q_offset=q_offset).numpy()
-    # the bf16 kernel's blocks and a consumer's, and the f32 kernel's at hd 112 and 128
-    for bm, bn in ((128, 64), (64, 64), ref.flash_tf32_tiles(128)):
+    # the bf16 kernel's blocks below hd 256 and at hd 256 (a consumer's
+    # rows), and the f32 kernel's at hd 112 and 128
+    for bm, bn in (ref.flash_bf16_tiles(128), ref.flash_bf16_tiles(256),
+                   ref.flash_tf32_tiles(128)):
         plan = ref.flash_tile_plan(sq, sk, causal=causal, window=window, q_offset=q_offset,
                                    bm=bm, bn=bn)
         assert plan.shape == (-(-sq // bm), -(-sk // bn))
@@ -73,7 +76,8 @@ def test_tile_classes_match_the_dense_mask(sq, sk, mask):
 
 # b, sq, sk, nq, nkv, hd, causal, window, q_offset: the tile edges in Sq
 # and Sk, GQA at 4:1 and 2:2, hd 16 to 128 (112 is kimi-k2's), windows
-# whose edges and offsets cross tile edges
+# whose edges and offsets cross tile edges; hd 256 at 16:1
+# (recurrentgemma-9b's) across its 64-row blocks and 64-key tiles
 CASES = [
     (1, 1, 1, 2, 2, 64, True, 0, 0),
     (1, 127, 127, 4, 1, 64, True, 0, 0),
@@ -85,6 +89,9 @@ CASES = [
     (1, 129, 300, 4, 4, 64, True, 48, 37),
     (1, 200, 300, 2, 1, 64, True, 100, 70),
     (1, 64, 200, 2, 2, 32, True, 8, 150),
+    (1, 129, 127, 16, 1, 256, True, 0, 0),
+    (1, 65, 200, 16, 1, 256, False, 0, 0),
+    (1, 100, 300, 16, 1, 256, True, 64, 150),
 ]
 
 
@@ -117,7 +124,7 @@ def test_tiled_reference_matches_mha_reference(case, dtype):
     assert not bool(out.float()[:, ~dense.any(dim=1)].any())
 
 
-@pytest.mark.parametrize("hd", [64, 112, 128])
+@pytest.mark.parametrize("hd", [64, 112, 128, 256])
 def test_bf16_within_half_a_step_of_f32_at_large_outputs(hd):
     q, k, v = ref.large_output_inputs(hd, "cpu")
     out = ref.flash_tiled_reference(q, k, v, causal=True)
