@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the two attention kernels of one source tree on one NVIDIA GPU, at
-the shapes ``chip_smoke.py`` times them, to compare two trees in one run.
+"""Time the kernels of one source tree on one NVIDIA GPU, at the shapes
+``chip_smoke.py`` times them, to compare two trees in one run.
 
   python3 chip_kernel_ab.py --src SRC_DIR [--label NAME] [--iters N]
 
@@ -14,18 +14,24 @@ training configuration, timed steps and profile reader.  Run the trees in
 turns (A, B, B, A) in one command on one card, so that both see the same
 card and host.  Prints one JSON line: ms per kernel and shape (flash in
 bf16 at the served shapes and at recurrentgemma-9b's S = 2048, and in f32
-at the training shape and at the served prefill shapes of hd 64, 128, 112
-and 256), the flash
+at the training shape, at the served prefill shapes of hd 64, 128, 112
+and 256 and at recurrentgemma-9b's S = 2112 under its 2048-token window
+and B = 8), the RWKV-6 scan in bf16 at rwkv6-1.6b's prefill and decode
+shapes (``chip_smoke.RWKV_PREFILL``, ``RWKV_DECODE``), the flash
 and decode wrappers' host microseconds a call at the main path's shape,
 the bf16 flash kernel's rounding at large outputs (``rounding_margin``) and
 the bf16 decode kernel's over ``ref.DECODE_ROUNDING_SEEDS``
 (``decode_rounding``, hd 64, 112 and 256), and qwen1.5-0.5b's f32
 training step through the tree's kernels as phase 6a measures it
-(``train_step``: the end-to-end number the f32 flash forward should move).
+(``train_step``: the end-to-end number the f32 flash forward should move),
+and under ``"digests"`` a hash of each timed call's output bytes, on inputs
+made from seed 0 in the same order for every tree: a kernel that two trees
+compute alike gives the same digest.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -46,13 +52,17 @@ FLASH = {"qwen1.5-0.5b": (1, 512, 512, 16, 16, 64, True),
          "recurrentgemma-9b S=2048": (1, 2048, 2048, 16, 1, 256, True),
          "whisper-small encoder": (8, 1500, 1500, 12, 12, 64, False),
          "whisper-small cross decode": (8, 1, 1500, 12, 12, 64, False)}
-# the f32 flash forward: every training step's (qwen1.5-0.5b, B=8, S=512)
-# and the served prefill shapes at hd 64, 128, 112 and 256
-FLASH_F32 = {"train qwen1.5-0.5b": (8, 512, 512, 16, 16, 64, True),
-             "qwen1.5-0.5b": (1, 512, 512, 16, 16, 64, True),
-             "phi3.5-moe": (1, 512, 512, 32, 8, 128, True),
-             "kimi-k2": (1, 512, 512, 64, 8, 112, True),
-             "recurrentgemma-9b": (1, 512, 512, 16, 1, 256, True)}
+# the f32 flash forward (B, Sq, Sk, nq, nkv, hd, causal, window): every
+# training step's (qwen1.5-0.5b, B=8, S=512), the served prefill shapes at
+# hd 64, 128, 112 and 256, and recurrentgemma-9b's at a prompt its
+# 2048-token window cuts (phase 3d's f32 check) and at batch 8
+FLASH_F32 = {"train qwen1.5-0.5b": (8, 512, 512, 16, 16, 64, True, 0),
+             "qwen1.5-0.5b": (1, 512, 512, 16, 16, 64, True, 0),
+             "phi3.5-moe": (1, 512, 512, 32, 8, 128, True, 0),
+             "kimi-k2": (1, 512, 512, 64, 8, 112, True, 0),
+             "recurrentgemma-9b": (1, 512, 512, 16, 1, 256, True, 0),
+             "recurrentgemma-9b S=2112 W=2048": (1, 2112, 2112, 16, 1, 256, True, 2048),
+             "recurrentgemma-9b B=8": (8, 512, 512, 16, 1, 256, True, 0)}
 SERVED = [96, 544, 300, 65, 64, 1, 2048, 411]
 DECODE = {"qwen1.5-0.5b": (8, 2048, 16, 16, 64, SERVED),
           "phi3.5-moe": (8, 2048, 32, 8, 128, SERVED),
@@ -144,20 +154,32 @@ def main() -> None:
     flush = smoke.L2Flush(dev)
     time_ms = lambda fn: smoke.time_ms(fn, flush, iters=args.iters)
     host_us = lambda fn: smoke.host_us_per_call(fn, calls=200)
-    out = {"label": args.label, "src": args.src, "gpu": torch.cuda.get_device_name(0)}
+    out = {"label": args.label, "src": args.src, "gpu": torch.cuda.get_device_name(0),
+           "digests": {}}
+
+    def timed(key, fn):
+        """fn's time under ``key``, and a digest of its output's bytes: two
+        trees whose kernels compute the same bits give the same digest."""
+        res = fn()
+        res = res if isinstance(res, tuple) else (res,)
+        out["digests"][key] = hashlib.sha256(
+            b"".join(r.contiguous().view(torch.uint8).cpu().numpy().tobytes() for r in res)
+        ).hexdigest()[:16]
+        out[key] = time_ms(fn)
     for name, (b, sq, sk, nq, nkv, hd, causal) in FLASH.items():
         if hd not in fa.SUPPORTED_HEAD_DIMS:
             out[f"flash {name}"] = None          # a tree from before this head dim
             continue
         q, k, v = rand(b, sq, nq, hd), rand(b, sk, nkv, hd), rand(b, sk, nkv, hd)
-        out[f"flash {name}"] = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
+        timed(f"flash {name}", lambda: fa.flash_attention(q, k, v, causal=causal))
         if name == "qwen1.5-0.5b":
             out["flash host us per call"] = host_us(
                 lambda: fa.flash_attention(q, k, v, causal=causal))
-    for name, (b, sq, sk, nq, nkv, hd, causal) in FLASH_F32.items():
+    for name, (b, sq, sk, nq, nkv, hd, causal, window) in FLASH_F32.items():
         q, k, v = (torch.randn((b, s, n, hd), generator=gen, device=dev)
                    for s, n in ((sq, nq), (sk, nkv), (sk, nkv)))
-        out[f"flash f32 {name}"] = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
+        timed(f"flash f32 {name}",
+              lambda: fa.flash_attention(q, k, v, causal=causal, window=window))
     for name, (b, s, nq, nkv, hd, lengths) in DECODE.items():
         if hd not in da.SUPPORTED_HEAD_DIMS:
             out[f"decode {name}"] = None
@@ -165,9 +187,12 @@ def main() -> None:
         valid = (torch.arange(s, device=dev)[None, :]
                  < torch.tensor(lengths, device=dev)[:, None])
         q, k, v = rand(b, nq, hd), rand(b, s, nkv, hd), rand(b, s, nkv, hd)
-        out[f"decode {name}"] = time_ms(lambda: da.decode_attention(q, k, v, valid))
+        timed(f"decode {name}", lambda: da.decode_attention(q, k, v, valid))
         if name == "qwen1.5-0.5b":
             out["decode host us per call"] = host_us(lambda: da.decode_attention(q, k, v, valid))
+    for name, case in (("prefill", smoke.RWKV_PREFILL), ("decode", smoke.RWKV_DECODE)):
+        scan_args = smoke.rwkv_inputs(gen, *case, torch.bfloat16, scale=0.5)
+        timed(f"scan {name}", lambda: smoke.rk.rwkv6_scan(*scan_args))
     out["rounding"] = rounding_margin(fa, dev)
     probe = own_ref()
     out["decode_rounding"] = {f"hd {hd}": probe.decode_rounding_sweep(da.decode_attention, hd, dev)

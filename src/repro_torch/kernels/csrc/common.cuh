@@ -248,6 +248,18 @@ __device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
                : "memory");
 }
 
+// 16 bytes stored into another CTA's shared memory at `addr` (a cluster_map
+// address) that, when they land, complete 16 bytes of the transaction count
+// of that CTA's mbarrier at `bar` (a cluster_map address): its waiters then
+// see them, as they see a TMA load's, with no arrival of the sender's.
+__device__ __forceinline__ void st_async(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch(const void* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }

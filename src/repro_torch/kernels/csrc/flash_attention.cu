@@ -141,151 +141,47 @@
 //    run, the longest causal rows first, 0 for a row that sees no key,
 //    O / l stored in f32 from the registers, no row at or past Sq written.
 //
-// f32 at hd 256 (fa_kernel<float>): the SIMT body of the first port (the
-// tf32 kernel's tiles, 224 KB at hd 128, would be twice that); one CTA per
-// (batch, q head, 64 rows), 4 threads a row, f32 tiles in shared memory,
-// probabilities exchanged by shuffles; its tiles take 4 x (64 x 257 + 64 x
-// 257 + 64 x 256) = 197,120 bytes of shared memory (opted in above 48 KB),
-// one CTA per SM.
+// f32 at hd 256 (recurrentgemma-9b's local attention in f32, its training
+// forward among them): the same tf32 kernel over a cluster of two CTAs that
+// split the head dims.  One CTA would need twice hd 128's 224 KB (Q and its
+// small part 64 KB each, K and V^T rings twice as wide), so:
+//  - one cluster of two CTAs per (batch, q head, 64 query rows); rank r
+//    owns dims [128 r, 128 r + 128) of Q, K, V and O: its tensor maps'
+//    hd coordinate starts at 128 r and each CTA is hd 128's kernel (BM 64,
+//    BN 32, the converter warpgroup, its K and V^T rings), with Q's small
+//    part in the consumer's registers (64 a thread, loaded once from Q as
+//    it landed; Q_small K_big takes A from registers) so that its 32 KB
+//    hold two 8 KB slots of partial S instead (209 KB in all);
+//  - S: each CTA's consumer computes its partial Q_r K_r^T over its 128
+//    dims (three tf32 products, the small ones first), waits for it and
+//    sends it into the peer's slot with 16-byte st.async stores, whose
+//    bytes complete the transaction count of the peer's x_full mbarrier as
+//    a TMA load's do (one local arrive.expect_tx a tile arms it; no remote
+//    arrival); then it issues P V of the tile before, waits on its own
+//    x_full and adds the peer's partial to its own in f32: a + b = b + a,
+//    so both CTAs hold the same S, m, l and P, and each does P V over its
+//    own 128 dims of V^T into its half of O and stores those 128 columns;
+//  - the send goes between the two products because remote stores that
+//    land while the peer's tensor cores read its shared memory wait behind
+//    them: on an H100 at the served prefill below, sending after P V's
+//    issue, or by st.shared::cluster stores with remote release arrivals,
+//    was slower than this placement at every shape timed;
+//  - the two slots alternate by tile: a slot is written again only after
+//    the peer has the partial of the tile between, which this CTA sends
+//    after reading it, so no barrier frees a slot; a cluster barrier after
+//    the barriers' initialisation and another before exit keep every
+//    remote store inside both CTAs' lifetimes;
+//  - launched by cudaLaunchKernelEx with a cluster of (2, 1, 1) over a grid
+//    of 2 nq along x, the longest causal rows first as below;
+//  - what bounds it at recurrentgemma-9b's prefill (B=1, S=512, 16:1, causal):
+//    2.15e9 operations, three tf32 products each at 495 TFLOP/s, 0.0130 ms,
+//    against 17.8 MB moved, 0.0053 ms: operations.  The longest cluster
+//    walks 16 tiles of 32 keys, each CTA 3.1 MFLOP of tf32 products a tile.
 #include <type_traits>
 
 #include "common.cuh"
 
 namespace {
-
-constexpr int BM = 64;            // query rows per CTA
-constexpr int BN = 64;            // keys per KV tile
-constexpr int TPR = 4;            // threads per query row
-constexpr int NT = BM * TPR;      // threads per CTA
-
-template <int HD>
-constexpr size_t smem_bytes() {
-  // Q and K rows padded by one float so that the 8 rows (Q) or 4 keys (K)
-  // a warp reads at one step fall in different banks.
-  return sizeof(float) * (BM * (HD + 1) + BN * (HD + 1) + BN * HD);
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT) fa_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int Sq, int Sk, int nq, int nkv, int causal, int window,
-    int q_offset, float scale_log2) {
-  constexpr int HDP = HD + 1;
-  constexpr int V4 = HD / 4;      // 4-element chunks per row
-  constexpr int KPT = BN / TPR;   // keys of a tile per thread
-  constexpr int DPT = HD / TPR;   // output dims per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;               // BM x HDP
-  float* Ks = Qs + BM * HDP;      // BN x HDP
-  float* Vs = Ks + BN * HDP;      // BN x HD
-
-  const int q0 = blockIdx.x * BM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (nq / nkv);
-  const int tid = threadIdx.x;
-  const int r = tid / TPR;        // this thread's query row in the tile
-  const int c = tid % TPR;        // its quarter of the keys and head dims
-  const int lane = tid % 32;
-
-  const long q_stride = (long)nq * HD;   // elements between positions
-  const long kv_stride = (long)nkv * HD;
-  const T* qb = q + (long)b * Sq * q_stride + (long)h * HD;
-  const T* kb = k + (long)b * Sk * kv_stride + (long)kvh * HD;
-  const T* vb = v + (long)b * Sk * kv_stride + (long)kvh * HD;
-
-  for (int idx = tid; idx < BM * V4; idx += NT) {
-    const int row = idx / V4, d = (idx % V4) * 4;
-    float f[4] = {0.f, 0.f, 0.f, 0.f};
-    if (q0 + row < Sq) load4(qb + (long)(q0 + row) * q_stride + d, f);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) Qs[row * HDP + d + i] = f[i];
-  }
-
-  const int row_q = q0 + r;
-  const bool row_ok = row_q < Sq;
-  const int qpos = q_offset + row_q;
-  // Keys that some row of this tile can see: [k_lo, k_hi).
-  const int last_qpos = q_offset + min(q0 + BM, Sq) - 1;
-  const int k_hi = causal ? min(Sk, last_qpos + 1) : Sk;
-  const int k_lo = window > 0 ? max(0, q_offset + q0 - window + 1) : 0;
-
-  float m = NEG_INF, l = 0.f;     // running max (log2 units) and sum
-  float acc[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
-
-  for (int n0 = k_lo; n0 < k_hi; n0 += BN) {
-    __syncthreads();  // Q is stored, and every thread is done with the last tile
-    for (int idx = tid; idx < BN * V4; idx += NT) {
-      const int row = idx / V4, d = (idx % V4) * 4;
-      const int key = n0 + row;
-      float fk[4] = {0.f, 0.f, 0.f, 0.f}, fv[4] = {0.f, 0.f, 0.f, 0.f};
-      if (key < Sk) {
-        load4(kb + (long)key * kv_stride + d, fk);
-        load4(vb + (long)key * kv_stride + d, fv);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        Ks[row * HDP + d + i] = fk[i];
-        Vs[row * HD + d + i] = fv[i];
-      }
-    }
-    __syncthreads();
-
-    // logits of row r against keys c, c+4, c+8, ... of the tile
-    float s[KPT];
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) s[j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      const float qd = Qs[r * HDP + d];
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) s[j] = fmaf(qd, Ks[(c + TPR * j) * HDP + d], s[j]);
-    }
-    float tmax = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      const int kpos = n0 + c + TPR * j;
-      const bool ok = row_ok && kpos < Sk && (!causal || kpos <= qpos) &&
-                      (window <= 0 || kpos > qpos - window);
-      s[j] = ok ? s[j] * scale_log2 : NEG_INF;
-      tmax = fmaxf(tmax, s[j]);
-    }
-    tmax = group_max(tmax, TPR);
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = exp2f(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      s[j] = is_live(s[j]) ? exp2f(s[j] - m_new) : 0.f;
-      psum += s[j];
-    }
-    l = l * alpha + group_sum(psum, TPR);
-    m = m_new;
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
-
-    // acc[i] (dim c + 4i) += sum over keys of p * v; the probability of key
-    // cc + 4j sits in register s[j] of the row's lane cc.
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-#pragma unroll
-      for (int cc = 0; cc < TPR; ++cc) {
-        const float p = __shfl_sync(0xffffffffu, s[j], (lane & ~(TPR - 1)) | cc);
-        const float* vrow = Vs + (cc + TPR * j) * HD + c;
-#pragma unroll
-        for (int i = 0; i < DPT; ++i) acc[i] = fmaf(p, vrow[TPR * i], acc[i]);
-      }
-    }
-  }
-
-  if (row_ok) {
-    T* ob = o + ((long)b * Sq + row_q) * q_stride + (long)h * HD;
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) store(ob + c + TPR * i, l > 0.f ? acc[i] / l : 0.f);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: the tensor cores.
@@ -654,25 +550,34 @@ cudaError_t launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o, i
 // ---------------------------------------------------------------------------
 template <int HD>
 struct Tf {
-  static constexpr int NC = HD <= 64 ? 2 : 1;        // consumer warpgroups
+  // CTAs of a cluster that split the head dims: two of 128 at hd 256
+  static constexpr int CLUSTER = HD == 256 ? 2 : 1;
+  static constexpr int HDC = HD / CLUSTER;           // head dims a CTA
+  static constexpr int NC = HDC <= 64 ? 2 : 1;       // consumer warpgroups
   static constexpr int THREADS = 128 * (NC + 1);     // and the producer's
   static constexpr int BM = 64 * NC;                 // query rows a CTA
-  static constexpr int BN = HD <= 64 ? 64 : 32;      // keys a KV tile
-  static constexpr int NBOX = (HD + 31) / 32;        // 32-float (128-byte) boxes a row
+  static constexpr int BN = HDC <= 64 ? 64 : 32;     // keys a KV tile
+  static constexpr int NBOX = (HDC + 31) / 32;       // 32-float (128-byte) boxes a row
   static constexpr int BOX_Q = BM * 128;             // bytes of a Q box
   static constexpr int BOX_K = BN * 128;             // bytes of a K or V box
   static constexpr int Q_BYTES = NBOX * BOX_Q;
   static constexpr int K_BYTES = NBOX * BOX_K;       // a K or V tile as it lands
-  static constexpr int VT_BOX = HD * 128;            // V^T: every dim's row of 32 keys
+  static constexpr int VT_BOX = HDC * 128;           // V^T: every dim's row of 32 keys
   static constexpr int VT_BYTES = BN / 32 * VT_BOX;
+  // Q's small part: in shared memory, or in a cluster in the consumers'
+  // registers; in a cluster, two slots of a tile's partial S (64 x BN f32)
+  // that the peer CTA writes
+  static constexpr int QS_BYTES = CLUSTER == 1 ? Q_BYTES : 0;
+  static constexpr int X_BYTES = CLUSTER == 1 ? 0 : 64 * BN * 4;
   // Q, Q's small part; 2 stages of (K, K's small part); 2 of (V^T's big
-  // part, its small part); 2 of V as it lands; the barriers
+  // part, its small part); 2 of V as it lands; the S slots; the barriers
   static constexpr int OFF_QS = Q_BYTES;
-  static constexpr int OFF_K = 2 * Q_BYTES;
+  static constexpr int OFF_K = Q_BYTES + QS_BYTES;
   static constexpr int OFF_VT = OFF_K + 4 * K_BYTES;
   static constexpr int OFF_V = OFF_VT + 4 * VT_BYTES;
-  static constexpr int OFF_BAR = OFF_V + 2 * K_BYTES;
-  static constexpr int NBAR = 16;
+  static constexpr int OFF_X = OFF_V + 2 * K_BYTES;
+  static constexpr int OFF_BAR = OFF_X + 2 * X_BYTES;
+  static constexpr int NBAR = CLUSTER == 1 ? 16 : 18;
   static constexpr size_t SMEM = 1024 + OFF_BAR + 8 * NBAR;
   // setmaxnreg at NC = 2: 3 x 168 registers a thread at launch = 2 x
   // consumer + producer; below hd 64 a consumer's O and S need fewer
@@ -727,7 +632,7 @@ __device__ __forceinline__ void transpose_v(unsigned char* vt_big, unsigned char
   for (int job = t >> 3; job < JOBS; job += 16) {
     const int bx = job % C::NBOX, r = job / C::NBOX;
     const int dq = 8 * bx + l;                       // this lane's 4 dims 4 dq..4 dq + 3
-    if (dq >= HD / 4) continue;                      // the zero-filled end of hd 16 or 112
+    if (dq >= C::HDC / 4) continue;                  // the zero-filled end of hd 16 or 112
     const int half = ((l >> 1) & 1) ^ (r & 1);
     const int g = 2 * (r >> 2) + (((l >> 2) & 1) ^ ((r >> 1) & 1));
     float4 x[4];                                     // keys 8 g + 2 s + half
@@ -757,14 +662,14 @@ __device__ __forceinline__ void transpose_v(unsigned char* vt_big, unsigned char
 }
 
 // S = Q K^T of one tile into s: Q_big K_small + Q_small K_big + Q_big K_big,
-// HD / 8 k-steps each; step kk reads 8 columns of 32-column box kk / 4, 32
-// bytes into the swizzled row.  The first step ignores s's old value.  The
-// tensor cores add each wgmma's products to the accumulators truncated (the
-// tests' model: ref.tf32_product), so the small products go first, while
-// the sum is small: added after the big one they cost two more truncations
-// at its size (in that order, S and P V put the outputs of
-// ref.large_output_inputs 1.7-2.1 times as far as the plain f32 version
-// from a float64 attention on an H100).
+// HDC / 8 k-steps each (the CTA's head dims); step kk reads 8 columns of
+// 32-column box kk / 4, 32 bytes into the swizzled row.  The first step
+// ignores s's old value.  The tensor cores add each wgmma's products to the
+// accumulators truncated (the tests' model: ref.tf32_product), so the small
+// products go first, while the sum is small: added after the big one they
+// cost two more truncations at its size (in that order, S and P V put the
+// outputs of ref.large_output_inputs 1.7-2.1 times as far as the plain f32
+// version from a float64 attention on an H100).
 template <int HD>
 __device__ __forceinline__ void issue_qk_tf32(float (&s)[Tf<HD>::BN / 8][4], uint32_t q,
                                               uint32_t q_small, uint32_t k, uint32_t k_small) {
@@ -774,11 +679,57 @@ __device__ __forceinline__ void issue_qk_tf32(float (&s)[Tf<HD>::BN / 8][4], uin
 #pragma unroll
   for (int p = 0; p < 3; ++p) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 8; ++kk) {
+    for (int kk = 0; kk < C::HDC / 8; ++kk) {
       const uint32_t off = (kk % 4) * 32;
       wgmma_ss_tf32<C::BN>(d, desc_sw128(as[p] + (kk / 4) * C::BOX_Q + off, 16, 1024),
                            desc_sw128(bs[p] + (kk / 4) * C::BOX_K + off, 16, 1024),
                            p > 0 || kk > 0);
+    }
+  }
+}
+
+// The same in a cluster, where Q's small part is in registers: qs holds it
+// as tf32 A fragments, one an 8-column k-step, and Q_small K_big takes A
+// from them.
+template <int HD>
+__device__ __forceinline__ void issue_qk_tf32(float (&s)[Tf<HD>::BN / 8][4], uint32_t q,
+                                              const uint32_t (&qs)[Tf<HD>::HDC / 8][4],
+                                              uint32_t k, uint32_t k_small) {
+  using C = Tf<HD>;
+  float(&d)[C::BN / 2] = *reinterpret_cast<float(*)[C::BN / 2]>(&s[0][0]);
+#pragma unroll
+  for (int kk = 0; kk < C::HDC / 8; ++kk) {
+    const uint32_t off = (kk / 4) * C::BOX_Q + (kk % 4) * 32;
+    wgmma_ss_tf32<C::BN>(d, desc_sw128(q + off, 16, 1024),
+                         desc_sw128(k_small + (kk / 4) * C::BOX_K + (kk % 4) * 32, 16, 1024),
+                         kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < C::HDC / 8; ++kk)
+    wgmma_rs_tf32<C::BN>(d, qs[kk], desc_sw128(k + (kk / 4) * C::BOX_K + (kk % 4) * 32, 16, 1024));
+#pragma unroll
+  for (int kk = 0; kk < C::HDC / 8; ++kk)
+    wgmma_ss_tf32<C::BN>(d, desc_sw128(q + (kk / 4) * C::BOX_Q + (kk % 4) * 32, 16, 1024),
+                         desc_sw128(k + (kk / 4) * C::BOX_K + (kk % 4) * 32, 16, 1024), 1);
+}
+
+// Q's small part as tf32 A fragments (a0..a3: rows gid, gid + 8 at columns
+// tig, tig + 4 of each 8-column k-step), read from Q as it landed (32-float
+// boxes of 64 rows under 128-byte swizzle) by a consumer thread of warp
+// `warp`.
+template <int HD>
+__device__ __forceinline__ void load_q_small(uint32_t (&qs)[Tf<HD>::HDC / 8][4],
+                                             const unsigned char* q, int warp, int gid, int tig) {
+  using C = Tf<HD>;
+#pragma unroll
+  for (int kk = 0; kk < C::HDC / 8; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = 16 * warp + gid + 8 * (i & 1), col = 8 * kk + tig + 4 * (i >> 1);
+      const int c = col % 32;
+      const float x = *reinterpret_cast<const float*>(
+          q + (col / 32) * C::BOX_Q + row * 128 + (((c / 4) ^ (row & 7)) << 4) + (c % 4) * 4);
+      qs[kk][i] = __float_as_uint(tf32_small(x));
     }
   }
 }
@@ -801,22 +752,22 @@ __device__ __forceinline__ void split_p_tf32(const float (&s)[NB][4], uint32_t (
 }
 
 // O += P V over one tile: P_big V_small + P_small V_big + P_big V_big, in
-// that order as in S, one wgmma of N = HD a product and 8-key step (keys
-// contiguous in V^T's rows).
+// that order as in S, one wgmma of N = the CTA's head dims a product and
+// 8-key step (keys contiguous in V^T's rows).
 template <int HD>
-__device__ __forceinline__ void issue_pv_tf32(float (&acc)[HD / 8][4],
+__device__ __forceinline__ void issue_pv_tf32(float (&acc)[Tf<HD>::HDC / 8][4],
                                               const uint32_t (&pb)[Tf<HD>::BN / 8][4],
                                               const uint32_t (&ps)[Tf<HD>::BN / 8][4],
                                               uint32_t vt_big, uint32_t vt_small) {
   using C = Tf<HD>;
-  float(&d)[HD / 2] = *reinterpret_cast<float(*)[HD / 2]>(&acc[0][0]);
+  float(&d)[C::HDC / 2] = *reinterpret_cast<float(*)[C::HDC / 2]>(&acc[0][0]);
 #pragma unroll
   for (int p = 0; p < 3; ++p) {
 #pragma unroll
     for (int kk = 0; kk < C::BN / 8; ++kk) {
       const uint32_t off = (kk / 4) * C::VT_BOX + (kk % 4) * 32;
-      wgmma_rs_tf32<HD>(d, p == 1 ? ps[kk] : pb[kk],
-                        desc_sw128((p == 0 ? vt_small : vt_big) + off, 16, 1024));
+      wgmma_rs_tf32<C::HDC>(d, p == 1 ? ps[kk] : pb[kk],
+                            desc_sw128((p == 0 ? vt_small : vt_big) + off, 16, 1024));
     }
   }
 }
@@ -840,9 +791,13 @@ __global__ void __launch_bounds__(Tf<HD>::THREADS, 1) fa_tf32_kernel(
   uint64_t* v_free = bars + 10;   //   every converter thread has read it
   uint64_t* v_ready = bars + 12;  //   V^T's parts are written
   uint64_t* v_empty = bars + 14;  //   every consumer's P V of that tile is done
+  uint64_t* x_full = bars + 16;   // in a cluster, per slot: the peer's partial S is in it
 
   const int q0 = (gridDim.z - 1 - blockIdx.z) * C::BM;   // longest causal rows first
-  const int h = blockIdx.x, b = blockIdx.y, kvh = h / (nq / nkv);
+  // in a cluster (C::CLUSTER consecutive CTAs along x) rank r takes the
+  // head dims [r HDC, (r + 1) HDC)
+  const int rank = blockIdx.x % C::CLUSTER, d0 = rank * C::HDC;
+  const int h = blockIdx.x / C::CLUSTER, b = blockIdx.y, kvh = h / (nq / nkv);
   const int wg = threadIdx.x / 128;
   const int consumers = NC == 2 && q0 + 64 < Sq ? 2 : 1;
 
@@ -863,10 +818,14 @@ __global__ void __launch_bounds__(Tf<HD>::THREADS, 1) fa_tf32_kernel(
       mbar_init(v_free + s, 128);
       mbar_init(v_ready + s, 128);
       mbar_init(v_empty + s, consumers);
+      if constexpr (C::CLUSTER == 2) mbar_init(x_full + s, 1);
     }
     mbar_fence_init();
   }
-  __syncthreads();
+  // in a cluster the peer's stores complete x_full: its barriers must
+  // exist first
+  if constexpr (C::CLUSTER == 2) cluster_sync();
+  else __syncthreads();
 
   unsigned char* Qs = base;
   auto k_stage = [&](int s) { return base + C::OFF_K + s * 2 * C::K_BYTES; };
@@ -877,18 +836,23 @@ __global__ void __launch_bounds__(Tf<HD>::THREADS, 1) fa_tf32_kernel(
     // producer: one thread issues every copy; all 128 convert what lands
     if constexpr (NC == 2) regs_dec<C::REGS_PRODUCER>();
     const int t = threadIdx.x - 128 * NC;
-    if (n_tiles == 0) return;
+    if (n_tiles == 0) {
+      if constexpr (C::CLUSTER == 2) cluster_sync();   // the barrier at the end, below
+      return;
+    }
     auto load_k = [&](int it) {
       const int s = it & 1;
       mbar_arrive_expect_tx(k_full + s, C::K_BYTES);
       for (int bx = 0; bx < C::NBOX; ++bx)
-        tma_load_4d(k_stage(s) + bx * C::BOX_K, &tk, k_full + s, 32 * bx, kvh, k_lo + it * BN, b);
+        tma_load_4d(k_stage(s) + bx * C::BOX_K, &tk, k_full + s, d0 + 32 * bx, kvh,
+                    k_lo + it * BN, b);
     };
     auto load_v = [&](int it) {
       const int s = it & 1;
       mbar_arrive_expect_tx(v_full + s, C::K_BYTES);
       for (int bx = 0; bx < C::NBOX; ++bx)
-        tma_load_4d(v_stage(s) + bx * C::BOX_K, &tv, v_full + s, 32 * bx, kvh, k_lo + it * BN, b);
+        tma_load_4d(v_stage(s) + bx * C::BOX_K, &tv, v_full + s, d0 + 32 * bx, kvh,
+                    k_lo + it * BN, b);
     };
     if (t == 0) {
       tma_prefetch(&tq);
@@ -896,16 +860,18 @@ __global__ void __launch_bounds__(Tf<HD>::THREADS, 1) fa_tf32_kernel(
       tma_prefetch(&tv);
       mbar_arrive_expect_tx(q_full, C::Q_BYTES);
       for (int bx = 0; bx < C::NBOX; ++bx)
-        tma_load_4d(Qs + bx * C::BOX_Q, &tq, q_full, 32 * bx, h, q0, b);
+        tma_load_4d(Qs + bx * C::BOX_Q, &tq, q_full, d0 + 32 * bx, h, q0, b);
       for (int it = 0; it < min(2, n_tiles); ++it) {
         load_k(it);
         load_v(it);
       }
     }
-    mbar_wait(q_full, 0);
-    split_tile<C::Q_BYTES>(base + C::OFF_QS, Qs, t);
-    fence_proxy_async_smem();
-    mbar_arrive(q_ready);
+    if constexpr (C::CLUSTER == 1) {   // in a cluster the consumers split Q
+      mbar_wait(q_full, 0);
+      split_tile<C::Q_BYTES>(base + C::OFF_QS, Qs, t);
+      fence_proxy_async_smem();
+      mbar_arrive(q_ready);
+    }
     // step j: K of tile j (its S is the consumers' next product), then V^T
     // of tile j - 1 (its P V goes with that S); then the copies of tile j + 1
     // into the stages tile j - 1 held
@@ -950,10 +916,11 @@ __global__ void __launch_bounds__(Tf<HD>::THREADS, 1) fa_tf32_kernel(
     const uint32_t k_addr = smem_addr(k_stage(0)), vt_addr = smem_addr(vt_stage(0));
 
     float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f, alpha0, alpha1;
-    float acc[HD / 8][4];
+    float acc[C::HDC / 8][4];
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int j = 0; j < C::HDC / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
     uint32_t pb[NB][4], ps[NB][4];      // P of the tile before, its big and small parts
+    uint32_t qs[C::CLUSTER == 2 ? C::HDC / 8 : 1][4];   // in a cluster: Q's small part
 
     auto softmax_of = [&](float (&s)[NB][4], int it) {
       const int n0 = k_lo + it * BN;
@@ -964,7 +931,38 @@ __global__ void __launch_bounds__(Tf<HD>::THREADS, 1) fa_tf32_kernel(
     };
     auto issue_qk = [&](float (&s)[NB][4], int st) {
       const uint32_t k = k_addr + st * 2 * C::K_BYTES;
-      issue_qk_tf32<HD>(s, q_addr, qs_addr, k, k + C::K_BYTES);
+      if constexpr (C::CLUSTER == 2) issue_qk_tf32<HD>(s, q_addr, qs, k, k + C::K_BYTES);
+      else issue_qk_tf32<HD>(s, q_addr, qs_addr, k, k + C::K_BYTES);
+    };
+    // in a cluster, S of tile `it` is this CTA's partial, over its head
+    // dims, plus the peer's: each sends its partial into the other's slot
+    // it % 2 by st.async (16 bytes a thread and 8-column block, consecutive
+    // threads on consecutive 16 bytes), whose bytes complete the other's
+    // x_full as a TMA load's do, then adds the peer's partial to its own in
+    // f32 (a + b = b + a: both CTAs hold the same S, so the same m, l and
+    // P).  A slot is written again two tiles later, only after the peer has
+    // the partial of the tile between, which this CTA sends after reading
+    // the slot: no barrier frees a slot.
+    auto send = [&](const float (&s)[NB][4], int it) {
+      const uint32_t slot = smem_addr(base + C::OFF_X + (it & 1) * C::X_BYTES + t * 16);
+      const uint32_t peer = cluster_map(slot, rank ^ 1);
+      const uint32_t bar = cluster_map(smem_addr(x_full + (it & 1)), rank ^ 1);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        st_async(peer + j * 128 * 16, make_float4(s[j][0], s[j][1], s[j][2], s[j][3]), bar);
+    };
+    auto receive = [&](float (&s)[NB][4], int it) {
+      if (t == 0) mbar_arrive_expect_tx(x_full + (it & 1), C::X_BYTES);
+      mbar_wait(x_full + (it & 1), (it >> 1) & 1);
+      const unsigned char* slot = base + C::OFF_X + (it & 1) * C::X_BYTES + t * 16;
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const float4 x = *reinterpret_cast<const float4*>(slot + j * 128 * 16);
+        s[j][0] += x.x;
+        s[j][1] += x.y;
+        s[j][2] += x.z;
+        s[j][3] += x.w;
+      }
     };
     auto issue_pv = [&](int st) {
       const uint32_t vt = vt_addr + st * 2 * C::VT_BYTES;
@@ -973,7 +971,12 @@ __global__ void __launch_bounds__(Tf<HD>::THREADS, 1) fa_tf32_kernel(
 
     if (n_tiles > 0) {
       float s[NB][4];
-      mbar_wait(q_ready, 0);
+      if constexpr (C::CLUSTER == 2) {
+        mbar_wait(q_full, 0);
+        load_q_small<HD>(qs, Qs, warp, gid, tig);
+      } else {
+        mbar_wait(q_ready, 0);
+      }
       mbar_wait(k_ready, 0);
       wgmma_fence();
       issue_qk(s, 0);
@@ -981,6 +984,10 @@ __global__ void __launch_bounds__(Tf<HD>::THREADS, 1) fa_tf32_kernel(
       wgmma_wait<0>();
       fence_regs(reinterpret_cast<float(&)[BN / 2]>(s));
       if (t == 0) mbar_arrive(k_empty);
+      if constexpr (C::CLUSTER == 2) {
+        send(s, 0);
+        receive(s, 0);
+      }
       softmax_of(s, 0);
       split_p_tf32<NB>(s, pb, ps);
     }
@@ -993,28 +1000,42 @@ __global__ void __launch_bounds__(Tf<HD>::THREADS, 1) fa_tf32_kernel(
       // S of this tile, then O += P V of the tile before: S completes
       // first, and its softmax runs while the tensor cores do P V
       fence_regs(reinterpret_cast<float(&)[BN / 2]>(s));
-      fence_regs(reinterpret_cast<float(&)[HD / 2]>(acc));
+      fence_regs(reinterpret_cast<float(&)[C::HDC / 2]>(acc));
       fence_regs(reinterpret_cast<uint32_t(&)[BN / 2]>(pb));
       fence_regs(reinterpret_cast<uint32_t(&)[BN / 2]>(ps));
       wgmma_fence();
       issue_qk(s, st);
       wgmma_commit();
-      mbar_wait(v_ready + prev, ((it - 1) >> 1) & 1);
-      issue_pv(prev);
-      wgmma_commit();
-      wgmma_wait<1>();
-      fence_regs(reinterpret_cast<float(&)[BN / 2]>(s));
-      if (t == 0) mbar_arrive(k_empty + st);
+      if constexpr (C::CLUSTER == 2) {
+        // the partial goes to the peer between the two products (see the
+        // note at the top)
+        wgmma_wait<0>();
+        fence_regs(reinterpret_cast<float(&)[BN / 2]>(s));
+        if (t == 0) mbar_arrive(k_empty + st);
+        send(s, it);
+        mbar_wait(v_ready + prev, ((it - 1) >> 1) & 1);
+        wgmma_fence();
+        issue_pv(prev);
+        wgmma_commit();
+        receive(s, it);
+      } else {
+        mbar_wait(v_ready + prev, ((it - 1) >> 1) & 1);
+        issue_pv(prev);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(reinterpret_cast<float(&)[BN / 2]>(s));
+        if (t == 0) mbar_arrive(k_empty + st);
+      }
       softmax_of(s, it);
       wgmma_wait<0>();
-      fence_regs(reinterpret_cast<float(&)[HD / 2]>(acc));
+      fence_regs(reinterpret_cast<float(&)[C::HDC / 2]>(acc));
       if (t == 0) mbar_arrive(v_empty + prev);
-      rescale<HD / 8>(acc, alpha0, alpha1);
+      rescale<C::HDC / 8>(acc, alpha0, alpha1);
       split_p_tf32<NB>(s, pb, ps);
     }
     if (n_tiles > 0) {
       const int last = (n_tiles - 1) & 1;
-      fence_regs(reinterpret_cast<float(&)[HD / 2]>(acc));
+      fence_regs(reinterpret_cast<float(&)[C::HDC / 2]>(acc));
       fence_regs(reinterpret_cast<uint32_t(&)[BN / 2]>(pb));
       fence_regs(reinterpret_cast<uint32_t(&)[BN / 2]>(ps));
       mbar_wait(v_ready + last, ((n_tiles - 1) >> 1) & 1);
@@ -1022,13 +1043,16 @@ __global__ void __launch_bounds__(Tf<HD>::THREADS, 1) fa_tf32_kernel(
       issue_pv(last);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs(reinterpret_cast<float(&)[HD / 2]>(acc));
+      fence_regs(reinterpret_cast<float(&)[C::HDC / 2]>(acc));
       if (t == 0) mbar_arrive(v_empty + last);
     }
     const long q_stride = (long)nq * HD;
-    store_rows<HD>(o + (long)b * Sq * q_stride + (long)h * HD + 2 * tig, acc, l0, l1,
-                   row0 + warp * 16 + gid, Sq, q_stride);
+    store_rows<C::HDC>(o + (long)b * Sq * q_stride + (long)h * HD + d0 + 2 * tig, acc, l0, l1,
+                       row0 + warp * 16 + gid, Sq, q_stride);
   }
+  // neither CTA of a cluster leaves while the other's stores into its
+  // shared memory may be in flight
+  if constexpr (C::CLUSTER == 2) cluster_sync();
 }
 
 template <int HD>
@@ -1044,10 +1068,22 @@ cudaError_t launch_tf32(const float* q, const float* k, const float* v, float* o
     err = cudaFuncSetAttribute(fa_tf32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)C::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid(nq, B, (Sq + C::BM - 1) / C::BM);
-  fa_tf32_kernel<HD><<<grid, C::THREADS, C::SMEM, stream>>>(
-      mq, mk, mv, o, Sq, Sk, nq, nkv, causal, window, q_offset, scale * LOG2E);
-  return cudaGetLastError();
+  // at hd 256 clusters of two CTAs along x, one a (q head, batch, row block)
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C::CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(nq * C::CLUSTER, B, (Sq + C::BM - 1) / C::BM);
+  cfg.blockDim = dim3(C::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = C::CLUSTER > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, fa_tf32_kernel<HD>, mq, mk, mv, o, Sq, Sk, nq, nkv, causal,
+                           window, q_offset, scale * LOG2E);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // One warpgroup, one tile: D = A I for a 64 x 8 f32 A and the 8 x 8 identity,
@@ -1108,21 +1144,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
     return tc::launch_wgmma<HD>(static_cast<const T*>(q), static_cast<const T*>(k),
                                 static_cast<const T*>(v), static_cast<T*>(o), B, Sq, Sk, nq,
                                 nkv, causal, window, q_offset, scale, stream);
-  else if constexpr (HD <= 128)
+  else
     return tc::launch_tf32<HD>(static_cast<const float*>(q), static_cast<const float*>(k),
                                static_cast<const float*>(v), static_cast<float*>(o), B, Sq, Sk,
                                nq, nkv, causal, window, q_offset, scale, stream);
-  else {
-    constexpr size_t smem = smem_bytes<HD>();
-    cudaError_t err = cudaFuncSetAttribute(
-        fa_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((Sq + BM - 1) / BM, nq, B);
-    fa_kernel<T, HD><<<grid, NT, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), Sq, Sk, nq, nkv, causal, window, q_offset, scale * LOG2E);
-    return cudaGetLastError();
-  }
 }
 
 template <typename T>

@@ -224,22 +224,42 @@ def tf32_product(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = N
 def flash_tf32_tiles(hd: int) -> Tuple[int, int]:
     """(BM, BN) of ``csrc/flash_attention.cu``'s f32 kernel at head dim hd:
     two consumers of 64 rows and 64-key tiles up to hd 64; one consumer and
-    32-key tiles at hd 112 and 128, where shared memory holds no more."""
+    32-key tiles at hd 112 and 128, where shared memory holds no more, and
+    at hd 256, whose two CTAs of a cluster each take 128 of the dims
+    (``flash_tf32_cluster``)."""
     return (128, 64) if hd <= 64 else (64, 32)
+
+
+def flash_tf32_cluster(hd: int) -> int:
+    """CTAs of a cluster that split the head dims in ``csrc/flash_attention.cu``'s
+    f32 kernel: two of 128 each at hd 256, one below."""
+    return 2 if hd == 256 else 1
 
 
 def flash_tf32_reference(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
                          products: int = 3, accumulate: str = "truncate") -> torch.Tensor:
-    """The arithmetic of ``csrc/flash_attention.cu``'s f32 kernel at hd <=
-    128 on the CPU: ``flash_tiled_reference``'s tile walk at the kernel's
-    tiles (``flash_tf32_tiles``) with Q K^T and P V each as
-    ``tf32_product`` (by default the tensor cores' truncating sums; P V
-    into the running O).  Nothing on the card's path calls it; the tests
-    hold it to the JAX kernel and oracle, and hold one tf32 product to
-    miss."""
-    bm, bn = flash_tf32_tiles(q.shape[-1])
-    product = lambda a, b, c=None: tf32_product(a, b, c, products=products,
-                                                accumulate=accumulate)
+    """The arithmetic of ``csrc/flash_attention.cu``'s f32 kernel on the
+    CPU: ``flash_tiled_reference``'s tile walk at the kernel's tiles
+    (``flash_tf32_tiles``) with Q K^T and P V each as ``tf32_product`` (by
+    default the tensor cores' truncating sums; P V into the running O).  At
+    hd 256 (``flash_tf32_cluster``) each CTA of a cluster computes the
+    partial S over its 128 dims, and S is the two partials added in f32;
+    each does P V over its own dims, which is P V over all of them column by
+    column.  Nothing on the card's path calls it; the tests hold it to the
+    JAX kernel and oracle, and hold one tf32 product to miss."""
+    hd = q.shape[-1]
+    bm, bn = flash_tf32_tiles(hd)
+    parts = flash_tf32_cluster(hd)
+
+    def product(a, b, c=None):
+        if c is not None:      # P V: each output column alike, however the dims are split
+            return tf32_product(a, b, c, products=products, accumulate=accumulate)
+        w = hd // parts        # S: each CTA's partial over its dims, summed in f32
+        partials = [tf32_product(a[..., r * w:(r + 1) * w], b[..., r * w:(r + 1) * w, :],
+                                 products=products, accumulate=accumulate)
+                    for r in range(parts)]
+        return sum(partials[1:], partials[0])
+
     return flash_tiled_reference(q.float(), k.float(), v.float(), causal=causal, window=window,
                                  q_offset=q_offset, bm=bm, bn=bn, product=product)
 

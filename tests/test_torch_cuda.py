@@ -58,6 +58,10 @@ FA_CASES = [
     # hd 256 at 16:1 across the kernel's 64-row blocks and 64-key tiles
     *((1, sq, sk, 16, 1, 256, causal, 0, 0)
       for sq in (127, 129) for sk in (127, 129) for causal in (True, False)),
+    # and across the f32 kernel's: 64-row blocks and 32-key tiles on each
+    # CTA of a cluster of two
+    *((1, sq, sk, 16, 1, 256, causal, 0, 0)
+      for sq in (63, 65) for sk in (31, 33, 63, 65) for causal in (True, False)),
     (8, 1500, 1500, 12, 12, 64, False, 0, 0),  # whisper-small: the encoder over 1500 frames
     (8, 4, 1500, 12, 12, 64, False, 0, 0),     # cross-attention of the 4-token prompt
     (8, 1, 1500, 12, 12, 64, False, 0, 0),     # cross-attention of one decode step
@@ -251,11 +255,12 @@ def test_flash_bf16_gqa_and_windows_across_tiles(cuda, dtype, case):
     assert _err(out, exp) < TOL[dtype]
 
 
-@pytest.mark.parametrize("hd", [64, 112, 128])
+@pytest.mark.parametrize("hd", [64, 112, 128, 256])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_flash_bf16_rows_without_visible_key_across_a_row_block(cuda, dtype, hd):
     """Rows 79 and on see no key under a window past Sk, so every row block
-    from row 128 on (one of 128 rows; two of 64 in f32 at hd 112 and 128)
+    from row 128 on (one of 128 rows; two of 64 in f32 at hd 112 and 128,
+    and at hd 256, whose f32 clusters of two CTAs then exchange nothing)
     walks no KV tile at all: they give 0, and the rows before them match
     the plain version; and a CTA whose second consumer, where it has two,
     has no row (Sq = 4)."""
@@ -271,7 +276,7 @@ def test_flash_bf16_rows_without_visible_key_across_a_row_block(cuda, dtype, hd)
     assert _err(short, ref.mha_reference(q[:, :4], k, v, causal=False)) < TOL[dtype]
 
 
-@pytest.mark.parametrize("hd", [64, 112, 128])
+@pytest.mark.parametrize("hd", [64, 112, 128, 256])
 def test_flash_f32_as_close_to_float64_as_plain_at_large_outputs(cuda, hd):
     """Where outputs reach |o| ~ 27 (``ref.large_output_inputs``) no f32
     kernel meets 2e-5 against the plain version, which is itself ~1e-4 from

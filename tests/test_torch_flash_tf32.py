@@ -4,8 +4,10 @@
 product on the tensor cores as three tf32 products (big.big + big.small +
 small.big, big = the top 19 bits of the f32, small = the remainder, both
 read truncated), each wgmma's sum added to the accumulators rounded toward
-zero. ``ref.flash_tf32_reference`` is that arithmetic on the kernel's tile
-walk and tiles (``ref.flash_tf32_tiles``). It is held to the
+zero. At hd 256 two CTAs of a cluster split the head dims, each computing
+the partial S over its 128 of them, and S is the two partials added in f32.
+``ref.flash_tf32_reference`` is that arithmetic on the kernel's tile
+walk and tiles (``ref.flash_tf32_tiles``, ``ref.flash_tf32_cluster``). It is held to the
 JAX package's Pallas kernel in interpret mode and to ``ref.mha_reference``
 at the f32 tolerance of ``tests/test_kernels.py`` (2e-5); one tf32 product
 must miss that tolerance (the test has teeth); and where outputs reach
@@ -92,9 +94,49 @@ def test_attention_f64_is_the_plain_attention():
 
 # every pair of edges at hd 64 (128 x 64 tiles: 4 q heads over 2 kv heads)
 # and at hd 112 and 128 (64 x 32 tiles, four times the tile steps to
-# emulate: 2 q heads over 1 kv head)
-SWEEP = [(hd, sq, sk) for hd in (64, 112, 128) for sq in EDGES for sk in EDGES]
-HEADS = {64: (4, 2), 112: (2, 1), 128: (2, 1)}
+# emulate: 2 q heads over 1 kv head); at hd 256 (64 x 32 tiles a CTA of a
+# cluster of two) the edges of those tiles, 63/65 rows and 31/33 keys
+EDGES_HD256 = ((63, 31), (63, 33), (65, 31), (65, 33), (63, 63), (65, 65), (33, 65), (31, 63))
+SWEEP = ([(hd, sq, sk) for hd in (64, 112, 128) for sq in EDGES for sk in EDGES]
+         + [(256, sq, sk) for sq, sk in EDGES_HD256])
+HEADS = {64: (4, 2), 112: (2, 1), 128: (2, 1), 256: (2, 1)}
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128, 256])
+def test_tf32_plan(hd):
+    """Tiles and cluster of the f32 kernel: 128 x 64 up to hd 64, 64 x 32
+    above; at hd 256 two CTAs of 128 dims each, one CTA below."""
+    assert ref.flash_tf32_tiles(hd) == ((128, 64) if hd <= 64 else (64, 32))
+    assert ref.flash_tf32_cluster(hd) == (2 if hd == 256 else 1)
+
+
+def test_hd256_s_is_the_sum_of_two_partials():
+    """At hd 256 the model's S is tf32_product over dims [0, 128) plus
+    tf32_product over [128, 256), added in f32; it is not the product over
+    all 256 dims in one sum (which truncates differently), so the split is
+    what the model computes."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(((1, 64, 1, 256), (1, 32, 1, 256),
+                                                    (1, 32, 1, 256)), seed=11))
+    qh, kh = q[0, :, 0], k[0, :, 0]
+    split = (ref.tf32_product(qh[:, :128], kh[:, :128].T)
+             + ref.tf32_product(qh[:, 128:], kh[:, 128:].T))
+    whole = ref.tf32_product(qh, kh.T)
+    assert not torch.equal(split, whole)
+    seen = []
+    product = ref.tf32_product
+
+    def spy(a, b, c=None, **kw):
+        out = product(a, b, c, **kw)
+        if c is None and a.shape[-1] == 128:
+            seen.append(out)
+        return out
+
+    ref.tf32_product = spy
+    try:
+        ref.flash_tf32_reference(q, k, v, causal=False)
+    finally:
+        ref.tf32_product = product
+    assert len(seen) == 2 and torch.equal((seen[0] + seen[1])[0, 0], split)
 
 
 def _pallas_case(hd, sq, sk, mask):
@@ -120,7 +162,7 @@ def test_tf32_emulation_matches_pallas_interpret(hd, sq, sk, mask):
     assert _err(exp, out) < TOL
 
 
-@pytest.mark.parametrize("hd,sq,sk", [(64, 129, 127), (128, 127, 129)])
+@pytest.mark.parametrize("hd,sq,sk", [(64, 129, 127), (128, 127, 129), (256, 65, 33)])
 @pytest.mark.parametrize("mask", list(MASKS))
 def test_truncating_tf32_emulation_matches_pallas_interpret(hd, sq, sk, mask):
     """The kernel's own arithmetic (the tensor cores' truncating sums, small
@@ -149,7 +191,7 @@ def test_one_tf32_product_misses_the_f32_tolerance():
     assert _err(out, ref.mha_reference(q, k, v, causal=True)) > 20 * TOL
 
 
-@pytest.mark.parametrize("hd", [64, 112, 128])
+@pytest.mark.parametrize("hd", [64, 112, 128, 256])
 def test_tf32_as_close_to_float64_as_plain_f32_at_large_outputs(hd):
     q, k, v = ref.large_output_inputs(hd, "cpu", torch.float32)
     o64 = ref.attention_f64(q, k, v, causal=True)
