@@ -16,8 +16,8 @@ card and host.  Prints one JSON line: ms per kernel and shape (flash in
 bf16 at the served shapes and at recurrentgemma-9b's S = 2048, and in f32
 at the training shape, at the served prefill shapes of hd 64, 128, 112
 and 256 and at recurrentgemma-9b's S = 2112 under its 2048-token window
-and B = 8), the RWKV-6 scan in bf16 at rwkv6-1.6b's prefill and decode
-shapes (``chip_smoke.RWKV_PREFILL``, ``RWKV_DECODE``), the flash
+and B = 8), the RWKV-6 scan at rwkv6-1.6b's prefill and decode shapes in
+bf16, its training forward and prefill in f32 and at T = 2048 (``SCAN``), the flash
 and decode wrappers' host microseconds a call at the main path's shape,
 the bf16 flash kernel's rounding at large outputs (``rounding_margin``) and
 the bf16 decode kernel's over ``ref.DECODE_ROUNDING_SEEDS``
@@ -70,6 +70,17 @@ DECODE = {"qwen1.5-0.5b": (8, 2048, 16, 16, 64, SERVED),
           "recurrentgemma-9b": (8, 2048, 16, 1, 256, SERVED),
           "whisper-small": (8, 448, 12, 12, 64, [36] * 8),
           "llama3-8b full cache": (8, 2048, 32, 8, 128, [2048] * 8)}
+# the RWKV-6 scan (name, (B, T, H, hd, with_state), dtype): rwkv6-1.6b's
+# served prefill and decode step in bf16, then (after them, so that the
+# inputs of every row before stay those of older runs) its training forward
+# and served prefill in f32, and T = 2048 in bf16
+SCAN = [("prefill", (1, 500, 32, 64, True), torch.bfloat16),
+        ("decode", (8, 1, 32, 64, True), torch.bfloat16),
+        ("f32 train", (4, 128, 32, 64, False), torch.float32),
+        ("f32 prefill", (1, 500, 32, 64, True), torch.float32),
+        ("T=2048", (1, 2048, 4, 64, True), torch.bfloat16)]
+
+
 def own_ref():
     """This checkout's ``kernels/ref.py`` (torch and numpy only), loaded by
     path: the probe's inputs and bound come from here, so that a tree from
@@ -190,8 +201,8 @@ def main() -> None:
         timed(f"decode {name}", lambda: da.decode_attention(q, k, v, valid))
         if name == "qwen1.5-0.5b":
             out["decode host us per call"] = host_us(lambda: da.decode_attention(q, k, v, valid))
-    for name, case in (("prefill", smoke.RWKV_PREFILL), ("decode", smoke.RWKV_DECODE)):
-        scan_args = smoke.rwkv_inputs(gen, *case, torch.bfloat16, scale=0.5)
+    for name, case, dtype in SCAN:
+        scan_args = smoke.rwkv_inputs(gen, *case, dtype, scale=0.5)
         timed(f"scan {name}", lambda: smoke.rk.rwkv6_scan(*scan_args))
     out["rounding"] = rounding_margin(fa, dev)
     probe = own_ref()

@@ -15,9 +15,9 @@ never prints its last line):
    each kernel instantiation's registers and spill bytes (``ptxas -v``),
    the attention libraries' hd-256 ones among them, and count the
    tensor-core instructions in each library's SASS (``cuobjdump -sass``):
-   ``HMMA`` (mma.sync), ``HGMMA`` (wgmma) and the TMA loads (``UTMALDG``);
-   the bf16 flash kernel and the bf16 RWKV-6 prefill must have tensor-core
-   instructions, the flash library wgmma and TMA loads, the flash kernel's
+   ``HMMA`` (mma.sync), ``HGMMA`` (wgmma), ``LDSM`` (ldmatrix) and the
+   TMA loads (``UTMALDG``); the bf16 flash kernel and the RWKV-6 scan must
+   have tensor-core instructions, the flash library wgmma and TMA loads, the flash kernel's
    wgmma instantiations (``fa_wgmma_kernel``, bf16 at every hd, 256
    included, and ``fa_tf32_kernel``, f32 at every hd, 256 over a cluster of
    two CTAs, whose wgmma take tf32 operands: ``HGMMA`` with ``TF32`` in the
@@ -28,7 +28,12 @@ never prints its last line):
    Q and K as they land for their tf32 parts); the decode library wgmma and TMA loads, its bf16 instantiations
    (``da_cluster_kernel``) no spill and no serialised wgmma, and the card
    must hold a cluster of each size the plan gives the served shapes
-   (``cudaOccupancyMaxActiveClusters``, printed);
+   (``cudaOccupancyMaxActiveClusters``, printed); the scan's T > 1 kernel
+   (``scan_kernel``, over a cluster per sequence) wgmma, tf32 wgmma in
+   its f32 instantiations, and TMA loads in its SASS, no ``HMMA`` or
+   ``LDSM``, its 16 instantiations no spill and no serialised wgmma, and
+   the card must hold a cluster of each plan of the served and training
+   shapes (printed with the ranks chosen for each dtype and hd);
 2. hold each kernel against its plain PyTorch version on the card, in f32
    and bf16: the attention kernels at the shapes of ``tests/test_kernels.py``,
    at the main path's shapes, at phi3.5-moe's and llama3-8b's GQA shapes
@@ -41,7 +46,8 @@ never prints its last line):
    cache); the RWKV-6 scan at ``RWKV_CASES``
    (with and without a state, ragged T), under strong
    decay (also in bf16 at T = 100 and in f32 at rwkv6-1.6b's T = 500, H = 32,
-   the f32 prefill training runs), at T = 1 with a state, at T = 2048, with
+   16 ranks of the kernel training runs, timed there), at T = 1 with a
+   state, at T = 2048, with
    the state updated in place at T = 45 and T = 1, and at rwkv6-1.6b's
    prefill and decode shapes; the attention kernels' edge cases (rows that
    see no key, S = 1000 in bf16, a window with a q_offset, decode masks that
@@ -357,8 +363,8 @@ F32_DECODE_STEPS = 8
 RWKV_F32_LAYERS, RWKV_F32_PROMPT = 4, 77
 # rwkv6-1.6b's main-path scan shapes: prefill (B=1, a ragged T) and decode (8 slots)
 RWKV_PREFILL, RWKV_DECODE = (1, 500, 32, 64, True), (SLOTS, 1, 32, 64, True)
-# 64 chunks carried through the prefill's scratch; the state updated in place
-# over two chunks and a ragged tail, and in one decode step
+# 64 chunks over 16 ranks of 4; the state updated in place over two chunks
+# and a ragged tail, and in one decode step
 RWKV_LONG, RWKV_IN_PLACE = (1, 2048, 4, 64, True), ((2, 45, 4, 64, True), (8, 1, 4, 64, True))
 # the decode library's one kernel: a call launches it once, never another
 DECODE_KERNELS = ("da_cluster_kernel",)
@@ -441,9 +447,9 @@ def bound(flops: float, nbytes: float, peak=PEAK_BF16_FLOPS):
 # ---------------------------------------------------------------------------
 # Phase 1: build.
 # ---------------------------------------------------------------------------
-# SASS opcodes counted in each library: mma.sync, wgmma, wgmma with tf32
-# operands and TMA tensor loads
-SASS_OPCODES = {"HMMA": r"\bHMMA\b", "HGMMA": r"\bHGMMA\b",
+# SASS opcodes counted in each library: mma.sync, wgmma, ldmatrix, wgmma
+# with tf32 operands and TMA tensor loads
+SASS_OPCODES = {"HMMA": r"\bHMMA\b", "HGMMA": r"\bHGMMA\b", "LDSM": r"\bLDSM\b",
                 "HGMMA.TF32": r"\bHGMMA\.\S*\.TF32\b", "UTMALDG": r"\bUTMALDG\b"}
 # what ptxas says when a kernel's design is not in effect: setmaxnreg
 # ignored (C7508), wgmma serialised (C7510)
@@ -600,6 +606,64 @@ def check_decode_design(counts, log) -> None:
     print("[build] decode_attention cluster sizes: " + json.dumps(fits))
 
 
+# the scan's T > 1 kernel, by its mangled name: every instantiation, its f32
+# ones, and the plans of the served and training shapes (b, t, h, hd, dtype)
+SCAN_KERNEL, SCAN_KERNEL_F32 = "scan_kernelI", "scan_kernelIf"
+SCAN_PLANS = {"served prefill bf16": (1, 500, 32, 64, torch.bfloat16),
+              "served prefill f32": (1, 500, 32, 64, torch.float32),
+              "training forward f32": (4, 128, 32, 64, torch.float32)}
+
+
+def check_scan_design(path, log) -> None:
+    """The scan library's T > 1 kernel is the Hopper design it claims:
+    wgmma, with tf32 operands (f32 and bf16 alike take three tf32 products),
+    tf32 wgmma in the f32 instantiations' own SASS, TMA loads, and neither
+    mma.sync (``HMMA``) nor ldmatrix (``LDSM``); its 16 instantiations (f32
+    and bf16, hd 16 to 128, one chunk a rank or several) compiled without
+    spill, and no ptxas warning that wgmma was serialised.  Prints the ranks
+    chosen for each (dtype, hd) (16, a non-portable cluster, where the card
+    holds one) and, for each plan of the served and training shapes, the
+    clusters the card holds at once (``cudaOccupancyMaxActiveClusters``)
+    and the waves its grid takes."""
+    counts, f32 = sass_counts(path, SCAN_KERNEL), sass_counts(path, SCAN_KERNEL_F32)
+    print("[build] rwkv6_scan scan_kernel: " + ", ".join(f"{c} {op}" for op, c in counts.items())
+          + " instructions in its SASS (f32 instantiations: "
+          + ", ".join(f"{c} {op}" for op, c in f32.items()) + ")")
+    if not (counts["HGMMA"] and counts["HGMMA.TF32"] and f32["HGMMA.TF32"]
+            and counts["UTMALDG"]):
+        raise AssertionError(f"the scan kernel lacks wgmma, tf32 wgmma or TMA loads: {counts}")
+    if counts["HMMA"] or counts["LDSM"]:
+        raise AssertionError(f"the scan kernel still has mma.sync or ldmatrix: {counts}")
+    report = ptxas_report(log)
+    readable = kernel_names(list(report))
+    inst = {readable[k]: v for k, v in report.items() if SCAN_KERNEL in k}
+    print("[build] rwkv6_scan scan_kernel: " + json.dumps(
+        {k: {"registers": r, "spill_store_bytes": st, "spill_load_bytes": ld}
+         for k, (r, st, ld) in inst.items()}))
+    if len(inst) != 4 * len(rk.SUPPORTED_HEAD_DIMS) or any(st or ld for _, st, ld in inst.values()):
+        raise AssertionError(f"scan_kernel instantiations missing or spilling: {inst}")
+    warned = [line for line in log.splitlines() if any(w in line for w in PTXAS_DESIGN_WARNINGS)]
+    if warned:
+        raise AssertionError("ptxas: " + " | ".join(warned))
+    dev = torch.device("cuda")
+    r_max = {f"{str(dt)[6:]} hd {hd}": rk.max_ranks(dt, hd, dev)
+             for dt in (torch.float32, torch.bfloat16) for hd in rk.SUPPORTED_HEAD_DIMS}
+    print("[build] rwkv6_scan ranks at most: " + json.dumps(r_max))
+    plans = {}
+    for name, (b, t, h, hd, dtype) in SCAN_PLANS.items():
+        plan = rk.cluster_plan(b, t, h, hd, dtype, rk.max_ranks(dtype, hd, dev))
+        one = plan.ranks == plan.chunks
+        at_once = rk.max_active_clusters(dtype, hd, plan.ranks, dev, one)
+        if at_once < 1:
+            raise AssertionError(f"rwkv6_scan {name}: the card holds no cluster of {plan.ranks}")
+        clusters = b * h
+        plans[name] = {"ranks": plan.ranks, "chunks_a_rank": plan.runs[0][1],
+                       "one_chunk_a_rank": one, "clusters": clusters,
+                       "ctas": clusters * plan.ranks, "max_active_clusters": at_once,
+                       "waves": -(-clusters // at_once)}
+    print("[build] rwkv6_scan cluster plans: " + json.dumps(plans))
+
+
 # ---------------------------------------------------------------------------
 # Phase 0: the port's static analysis.
 # ---------------------------------------------------------------------------
@@ -654,6 +718,7 @@ def phase_build() -> str:
     check_tf32_probe()
     check_decode_design(sass_counts(paths["decode_attention"]),
                         _build.build_log("decode_attention"))
+    check_scan_design(paths["rwkv6_scan"], _build.build_log("rwkv6_scan"))
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -1196,7 +1261,7 @@ def phase_rwkv_kernel(seed):
             {name: {"max_abs_err": e, "max_abs_out": m} for name, (e, _, m) in main[dtype].items()}))
     edges["strong decay T=100 bf16"] = check_rwkv(
         gen, (1, 100, 4, 64, True), torch.bfloat16, strong=True)[0]
-    # the f32 prefill (rwkv6::simt, which training runs) at the served shape
+    # the f32 cluster kernel (which training runs) at the served shape, 16 ranks
     edges["strong decay T=500 H=32 f32"] = check_rwkv(
         gen, RWKV_PREFILL, torch.float32, strong=True)[0]
     n += 2
@@ -1211,6 +1276,8 @@ def phase_rwkv_kernel(seed):
            **time_rwkv(*bf["prefill"][:2], flush),
            "library_why": "no single PyTorch call computes the WKV recurrence"}
     row["decode"] = time_rwkv(*bf["decode"][:2], flush)
+    # the f32 kernel (which training runs) at the served prefill's shape
+    row["f32_prefill"] = time_rwkv(*main[torch.float32]["prefill"][:2], flush)
     # the floor of a decode step under this timing: a copy of its state (the
     # flush leaves the L2 dirty, so every line brought in is also written back)
     s0 = bf["decode"][1][5]

@@ -1,10 +1,9 @@
 // Helpers shared by the kernels: element types, 4-wide loads
 // into f32 registers, stores back to the element type, warp reductions,
-// and the Ampere/Hopper instructions written as inline PTX (cp.async,
-// ldmatrix, mma.sync, griddepcontrol; mbarriers, TMA tensor loads, wgmma,
-// setmaxnreg, cluster barriers and distributed shared memory) so that no
-// header beyond the toolkit's is needed; on the host, the TMA tensor-map
-// encoder both attention kernels use.
+// and Hopper's instructions written as inline PTX (mbarriers, TMA tensor
+// loads, wgmma, setmaxnreg, cluster barriers and distributed shared
+// memory) so that no header beyond the toolkit's is needed; on the host,
+// the TMA tensor-map encoder the attention kernels and the scan use.
 #pragma once
 
 #include <cuda.h>                 // CUtensorMap and its enums (types only)
@@ -53,77 +52,15 @@ __device__ __forceinline__ float group_sum(float x, int width) {
   return x;
 }
 
-// ---------------------------------------------------------------------------
-// Asynchronous copies (cp.async, sm_80+): 16 bytes from device memory to
-// shared memory.  With `pred` false nothing is read and the 16 bytes are
-// filled with zeros (src-size 0), so a masked row is never fetched and
-// never holds stale bits.
-// ---------------------------------------------------------------------------
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
-               "l"(gmem), "r"(pred ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// ---------------------------------------------------------------------------
-// Tensor cores through mma.sync (m16n8k16, bf16 in, f32 accumulate) fed by
-// ldmatrix.  Fragment layouts (lane = 4 * gid + tig):
+// Fragment layouts of the tensor cores' 16-bit operands, per warp (lane =
+// 4 * gid + tig), as wgmma takes an A operand from registers:
 //   A 16x16 row-major: a0 (gid, 2tig..+1), a1 (gid+8, 2tig..), a2 (gid,
 //     2tig+8..), a3 (gid+8, 2tig+8..);
-//   B 16x8 "col": b0 (k 2tig..+1, n gid), b1 (k 2tig+8..+9, n gid);
 //   C 16x8 f32: c0, c1 (gid, 2tig..+1), c2, c3 (gid+8, 2tig..+1).
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// c += a * b (registers only: not volatile, so the compiler may schedule it)
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Programmatic dependent launch (sm_90): a kernel launched with the
-// programmatic-serialization attribute may start while the kernel before it
-// on the stream runs, once every CTA of that kernel has called
-// allow_next_grid() (or exited); it must call wait_for_previous_grid()
-// before it reads what that kernel writes.  Without the attribute both are
-// no-ops.
-__device__ __forceinline__ void allow_next_grid() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wait_for_previous_grid() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
 
 // 2^x by the MUFU instruction alone, subnormal results flushed to 0 (a
 // softmax's arguments are <= 0, so only weights below 2^-126 flush)
@@ -133,15 +70,8 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// Two floats rounded to bf16 and packed, the first in the low half: the
-// order of a fragment's element pair.
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
 // Two floats split into a bf16 high part (rounded) and a bf16 low part (the
-// rounded remainder), each pair packed as pack_bf16x2 packs it: hi + lo
+// rounded remainder), each pair packed the first in the low half: hi + lo
 // carries about 16 significant bits where hi alone carries 8, so two
 // products (hi, then lo, against the same bf16 operand) summed in f32 give
 // the product of the f32 value to about 2^-17 of it.
@@ -231,6 +161,42 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// The two halves of cluster_sync, for work between a CTA's arrival and its
+// wait (a CTA whose peers still read its shared memory arrives, works on,
+// and waits before it exits).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Loads from another CTA's shared memory at a cluster_map address: one
+// float; four floats at a 16-byte aligned one
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// two floats at an 8-byte aligned cluster_map address
+__device__ __forceinline__ float2 ld_cluster2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr)
+               : "memory");
+  return v;
+}
+
 __device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
   uint32_t out;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
@@ -260,6 +226,12 @@ __device__ __forceinline__ void st_async(uint32_t addr, float4 v, uint32_t bar) 
       : "memory");
 }
 
+// Asks for `bytes` (a multiple of 16) of device memory at a 16-byte aligned
+// `p` to be brought into L2, without waiting for them.
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch(const void* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
@@ -281,8 +253,8 @@ __device__ __forceinline__ void regs_inc() {
 // accumulators in registers.  Accumulator element i of a thread (lane =
 // 4 * gid + tig of warp w of the warpgroup) sits at row 16 w + gid + 8 *
 // ((i / 2) % 2), column 8 (i / 4) + 2 tig + i % 2: per warp the layout of
-// mma.sync's C fragments, one 8-column block after another.  An A operand
-// taken from registers has mma.sync's A fragment layout (a0..a3 above).
+// the C fragments above, one 8-column block after another.  An A operand
+// taken from registers has the A fragment layout (a0..a3 above).
 //
 // fence before the first wgmma that reads registers written by other
 // instructions; commit closes a group; wait<N> leaves at most N groups in

@@ -10,58 +10,110 @@
 //   o_t = (r_t 2^P[t]) S_{c-1} + sum_{s<t} A[t,s] v_s + ((r_t u) . k_t) v_t,
 //   A[t,s] = sum_i r_ti k_si 2^(P[t,i] - P[s+1,i]),
 //   S_c = diag(2^P[L]) S_{c-1} + sum_{s<L} (k_s 2^(P[L] - P[s+1])) v_s^T.
-// Every exponent formed is a sum of log-decays, so <= 0: each factor is at
-// most 1 and strong decay underflows to 0 instead of overflowing.  Pairs
-// s >= t are never formed.  Rows past T load r = k = v = 0 and log w = 0
-// and are not stored (the Pallas wrapper pads T on the host instead).
+// Every factor 2^(P[b] - P[a]) is formed as the running product of the
+// decays w_a .. w_{b-1} (clamped at W_MIN), each <= 1: strong decay
+// underflows to 0 instead of overflowing, and no factor is the ratio (the
+// difference of two log prefixes) of two large numbers that would cancel.
+// Pairs s >= t are never formed.  Rows past T load r = k = v = 0 and w = 1
+// (by index: TMA fills them with w = 0, the strongest decay) and are not
+// stored (the Pallas wrapper pads T on the host instead).
 //
 // What bounds it on this card: bytes.  A token costs 4 hd^2 operations per
 // head against 5 hd elements moved (r, k, v, w in, o out) plus the state
 // read once and written once per call: ~16 operations per byte in bf16 at
 // hd 64, far below the H100's ~295.  rwkv6-1.6b's prefill (B=1, T=500,
-// H=32, hd 64, bf16) moves 11.3 MB: 3.37 us at 3.35 TB/s; its decode step
-// (8 slots, T=1) moves 8.55 MB, nearly all of it state: 2.55 us.  What holds
-// a call back instead is latency: few CTAs at batch 1, serial chunks, and
-// launches.  rwkv6_forward picks one of three designs by T and the dtype.
+// H=32, hd 64, bf16) moves 11.3 MB: 3.37 us at 3.35 TB/s; its training
+// forward (B=4, T=128, f32) 23.1 MB: 6.89 us; its decode step (8 slots,
+// T=1) 8.55 MB, nearly all of it state: 2.55 us.  What holds a call back
+// is latency: few sequences at batch 1, the serial carry between chunks,
+// and launches.
 //
-// bf16, T > C (prefill): chunk-parallel, the carry the only serial step.
-//  1. tc::chunk_state_kernel, one CTA per (b, h, chunk): the chunk's state
-//     increment dS_c = (k 2^(P[L]-P[s+1]))^T v on the tensor cores and its
-//     decay 2^P[L], into scratch the wrapper allocates;
-//  2. tc::carry_kernel, one thread per 4 state elements: S_c = 2^P[L] S_{c-1}
-//     + dS_c over the chunks in order, each dS_c slot overwritten with the
-//     carry-in S_{c-1} (chunk 0's with s0) before sT is written.  Its loads
-//     do not depend on the carry, so 16 chunks' are in flight at once; each
-//     element is read and written by one thread, so s0 may alias sT;
-//  3. tc::chunk_out_kernel, one CTA per (b, h, chunk): the chunk's outputs.
-//     The chunk splits at e = 16 into two sub-chunks.  Pairs within a
-//     sub-chunk (240 of the 496) stay pairwise with the ratio inside the hd
-//     reduction; the off-diagonal block factors at the edge,
-//     A = (r_t 2^(P[t]-P[e])) . (k_s 2^(P[e]-P[s+1])), both exponents <= 0,
-//     and is a tensor-core product over hd, as are A v and dS.  The
-//     carry-in term (r 2^P) S_{c-1} is an f32 SIMT product in the mma
-//     accumulator layout, each element of S_{c-1} read once per CTA.
-//  Kernels 2 and 3 are launched with programmatic dependent launch: kernel
-//  3 loads r, k, v, w and computes A, its parts and the edge factors while
-//  kernels 1 and 2 still run, and waits only before it reads its carry-in
-//  slot (never s0, which may hold sT by then).  Regions of shared memory
-//  that no phase uses at once share space, so that at hd 64 four CTAs of
-//  kernel 3 fit an SM and the main path's 512 run in one wave.  A T <= C
-//  launch is one chunk: chunk_out_kernel alone, also writing the state from
-//  s0 (read into shared memory before any of it is written).
-//  Exponents: every one is the sum of the log-decays between its two ends,
-//  summed directly by a thread that walks the tokens (one thread per
-//  (sub-chunk, column); the in-sub-chunk pairs by one warp per (sub-chunk,
-//  s) walking t upwards, lanes over columns, its 15 scores summed over the
-//  lanes by one reduce-scatter).  None is a difference of two prefixes,
-//  which under strong decay are large and would cancel.
-//  Precision: the tensor cores take each f32 operand (A, the two edge
-//  factors, the decayed k) as three bf16 parts, hi + mid + lo, that hold its
-//  24 bits (store_split; v, r and k themselves are bf16 already), so every
-//  product keeps f32's precision and the bf16 output is rounded once, from
-//  an f32-accurate value, as the plain version rounds it.  One rounding of A
-//  to bf16 would put errors of ~1e-2 under outputs of |o| >= 8, where one
-//  bf16 step (0.0625) already exceeds the 5e-2 tolerance.
+// T > 1, f32 and bf16: cl::scan_kernel, one launch, one thread-block
+// cluster per (b, h) sequence (grid (R, H, B), cluster (R, 1, 1)).
+//  - ranks: R = min(ceil(T / C), R_MAX) CTAs, rank q owning a contiguous
+//    run of chunks (the first NC % R ranks one more; rwkv6_scan.cluster_plan
+//    and ref.rwkv6_rank_runs).  R_MAX is 16 (a non-portable cluster) where
+//    the card holds such a cluster, else 8.  The kernel is instantiated
+//    twice: for one chunk a rank (the served prefill, 16 ranks; the
+//    training forward, 4), whose pass 1 keeps the chunk's tiles for pass 2
+//    and whose bf16 CTAs up to hd 64 fit three to an SM (168 registers),
+//    and for several.
+//  - loads: each chunk's r, k, v and w (C tokens x hd) land by TMA (tensor
+//    maps over the (B, T, H, hd) tensors, 128-byte boxes under 128-byte
+//    swizzle; hd 16 in one box, its end zero-filled) on one mbarrier.
+//  - the chunk's terms on the SIMT units, one thread per (16-token
+//    sub-chunk, state row i) holding its sub-chunk's r, k, w in registers
+//    (chunk_terms): r 2^P[t], k 2^(P[L]-P[s+1]) and 2^P[L]; and A, factored
+//    on five levels: a pair s < t lies in one block of 2h tokens (h = 16,
+//    8, 4, 2, 1) with s below its middle e and t at or above it, and
+//    A[t,s] = (r_t 2^(P[t]-P[e])) . (k_s 2^(P[e]-P[s+1])), both factors
+//    <= 1.  Levels 16 to 2 write those rows (XOR-swizzled f32) and their
+//    480 pairs are dot products over i, 2 x 2 pairs a thread (chunk_scores);
+//    level 1's 16 pairs (factor 1) and the bonus (r_t u) . k_t, put on A's
+//    diagonal, are summed over i by warp shuffles.
+//  - products on the tensor cores, wgmma with tf32 operands and the
+//    operands swapped so that M = hd value columns j (a chunk has 32
+//    tokens, wgmma 64 rows; hd 16 and 32 pad to 64 rows of zeros): with
+//    V^T (j x s) and the state S^T (j x i) as A operands in registers and
+//    B operands written K-major into swizzled shared tiles,
+//      (1) V^T A^T (the bonus term on A's diagonal) (N = 32 tokens, K = 32)
+//      (2) S_{c-1}^T (r 2^P)^T                        (N = 32 tokens, K = hd)
+//      (3) S_c^T = S_{c-1}^T diag(2^P[L]) + V^T (k 2^(P[L]-P[s+1]))
+//                                                     (N = hd, K = 32 tokens),
+//    o^T = (1) + (2), each from zero in accumulators of its own and added
+//    in f32: the tensor cores truncate each wgmma's sum at the size of the
+//    accumulator, and (2)'s 24 small-part steps added on top of (1) put
+//    1e-4 on outputs of hd 128 (ref.rwkv6_cluster_reference's model).
+//    The state lives in (3)'s accumulators, which (2) reads back as its A
+//    fragments: a thread's accumulators hold columns 2 tig and 2 tig + 1
+//    of each 8-column step and an A fragment columns tig and tig + 4, so
+//    (r 2^P)^T keeps each 8 state rows in the order 0, 2, 4, 6, 1, 3, 5, 7
+//    (rt_off), and no shuffle moves the state.
+//  - precision: every f32 operand x enters as big = x rounded to the
+//    nearest tf32 (its low 13 bits zero, so the tensor cores read it whole)
+//    and small = x - big (exact, half a tf32 step of either sign), and each
+//    product is big.small + small.big + big.big, the small ones first
+//    because the tensor cores add each wgmma's sum truncated
+//    (ref.tf32_product, big="round").  A truncated big part leaves
+//    small.small with the sign of the product, a bias of ~2^-21 of the sum
+//    of |products| (1.1e-5 on the tests' outputs); a rounded one does not.
+//    bf16 r, k and v are their own tf32, so V^T's small part is 0 and its
+//    product is skipped; A, the decayed k, r 2^P and the state are split in
+//    both types, so a bf16 output is rounded once, from an f32-accurate
+//    value.
+//  - the carry, in two passes.  Pass 1: rank q folds its run into the
+//    composite (D, dS) = (prod 2^P[L], the run's state increment) by (3),
+//    rank 0 starting from s0 (read into its accumulators) and D = 0.  The
+//    composites combine as (D2, S2) o (D1, S1) = (D1 D2, diag(D2) S1 + S2),
+//    products of factors <= 1: an inclusive scan in rounds at distances
+//    d = 1, 2, 4, ... over exchange buffers of (D, S^T) in the ranks' shared
+//    memory (two, alternating; S^T in the threads' own order, 16 bytes a
+//    load), one cluster barrier a round.  Round 1: each rank publishes its
+//    own and rank q >= d pulls rank q - d's (mapa, ld.shared::cluster) after
+//    the barrier (a push could land in a peer still in pass 1, whose tiles
+//    the buffers overlay); later rounds: rank q pushes its own into rank q +
+//    d's buffer (st.shared::cluster) before the barrier and reads it there
+//    after, one-way traffic.  In the last round (2 d >= R) each rank
+//    publishes; rank q's carry-in is rank q - 1's composite combined with
+//    rank q - 1 - d's (the two cover every rank before q), pulled after the
+//    barrier, and the last rank's own composite combined with rank q - d's
+//    is sT.  Pass 2: each rank walks its run from its carry-in, (1) and (2)
+//    per chunk, (3) between chunks.  No state touches device memory but s0
+//    in and sT out.  With one chunk a rank, pass 1 also computes the
+//    chunk's A and (1), and rank 0 its (2) from s0, so pass 2 is (2) alone
+//    (rank 0: nothing but the store).
+//  - s0 may alias sT (the served path updates the state in place): with one
+//    chunk a rank, rank 0 reads s0 only in pass 1, before every cluster
+//    barrier; with several, again just before the last round's barrier.
+//    The last rank writes sT only after that barrier.
+//  - shared memory: the chunk's working set and the two exchange buffers
+//    share one region (no phase uses both): bf16 at hd 64 is 72.7 KB a CTA
+//    (three an SM), f32 85 KB; at hd 128 two warpgroups, one per 64 value
+//    columns.
+//  - where the time goes (chip_scan_phases.py prints each phase): at the
+//    served prefill the 16-rank clusters run in two waves of CTAs, and a
+//    CTA spends about half its time in the scan's rounds, each a cluster
+//    barrier and 16 KB of state a CTA through distributed shared memory.
 //
 // T = 1 (every decode step), f32 and bf16: decode::decode_kernel, no chunk
 //  machinery.  Per (b, h): o_j = sum_i r_i (S_ij + u_i k_i v_j) and
@@ -69,862 +121,818 @@
 //  few state rows and issues every load before it computes (16-64 bytes of
 //  state in flight per thread, grid (H, B)), writes S' over them in place,
 //  and o is reduced over rows by shuffles and a 1-4 KB shared-memory pass.
-//
-// f32, T > 1: simt::rwkv6_kernel, the SIMT kernel of the first port: the
-//  f32 tolerance (1e-4) rules out bf16 or TF32 operands.  Grid (hd/16, H,
-//  B): each CTA owns 16 value columns of the state and walks every chunk in
-//  shared memory, the (C, C) scores reduced pairwise in f32.  Its
-//  exponents are differences of the chunk's prefixes P, so P is summed and
-//  kept in double: under strong decay (log2 w down to -80 a token) an f32
-//  P reaches ~2,500 within a chunk, where one f32 ulp is ~1e-4 of an
-//  exponent, and a pair with little decay between its ends but much
-//  before them missed the plain version by 1.7e-4 at T = 500, H = 32
-//  (tests/test_torch_cuda.py::test_rwkv6_kernel_f32_strong_decay_at_the_served_shape).
-//  Each difference is taken in double and rounded to f32 before exp2f.
+#include <mutex>
 #include <type_traits>
+#include <unordered_map>
 
 #include "common.cuh"
+
+// Phase stamps of the T > 1 kernel for a timing probe (chip_scan_phases.py
+// defines it to record clock64 at each phase's end); empty in the library.
+#ifndef RWKV6_STAMP
+#define RWKV6_STAMP(k)
+#endif
 
 // Every kernel of this library is in namespace rwkv6, so that a profile
 // finds them all by that prefix of their names.
 namespace rwkv6 {
 
-constexpr int C = 32;             // tokens per chunk: one per lane in the prefix scans
-// log of the smallest decay, as the TPU kernel clamps it: keeps log2 finite at w = 0
+constexpr int C = 32;             // tokens per chunk
+// the smallest decay, as the TPU kernel clamps it (log2 w finite at w = 0)
 constexpr float W_MIN = 1e-38f;
 constexpr unsigned FULL = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
-// f32, T > 1: the SIMT kernel of the first port, unchanged.
+// T > 1: one launch over a cluster per sequence.
 // ---------------------------------------------------------------------------
-namespace simt {
-
-constexpr int NT = 256;           // threads per CTA
-constexpr int NW = NT / 32;       // warps per CTA
-constexpr int VS = 16;            // value columns (of S and o) per CTA
-constexpr int VEC = 4;            // elements per 16-byte load
-static_assert(NT == C * (VS / 2), "step 5 gives each thread one token and two columns");
-
-template <int HD>
-struct Smem {
-  static constexpr int LD = HD + 4;                 // row stride of the (C, HD) tiles
-  static constexpr int R = 0;                       // r, then r 2^P[t]          (C x LD)
-  static constexpr int K = R + C * LD;              // k, then k 2^(P[L]-P[s+1])  (C x LD)
-  static constexpr int P = K + C * LD;              // log2 w, then P, double    ((C+1) x LD)
-  static constexpr int V = P + 2 * (C + 1) * LD;    // this CTA's v columns      (C x VS)
-  static constexpr int S = V + C * VS;              // this CTA's state columns  (HD x VS)
-  static constexpr int A = S + HD * VS;             // pair scores               (C x (C+1))
-  static constexpr int U = A + C * (C + 1);         // bonus u                   (HD)
-  static constexpr int BONUS = U + HD;              // (r_t u) . k_t             (C)
-  static constexpr int FLOATS = BONUS + C;
-  static_assert(LD % VEC == 0 && K % VEC == 0 && P % VEC == 0 && V % VEC == 0 &&
-                    S % VEC == 0, "16-byte aligned tiles");
-};
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT) rwkv6_kernel(
-    const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ w, const float* __restrict__ u,
-    const float* s0,              // may alias sT: each CTA reads its slice before writing it
-    float* sT, T* __restrict__ o, int Tn, int H) {
-  using L_ = Smem<HD>;
-  constexpr int LD = L_::LD;
-  extern __shared__ __align__(16) float sm[];
-  float* rs = sm + L_::R;
-  float* ks = sm + L_::K;
-  double* ps = reinterpret_cast<double*>(sm + L_::P);
-  float* vs = sm + L_::V;
-  float* ss = sm + L_::S;
-  float* as = sm + L_::A;
-  float* us = sm + L_::U;
-  float* bonus = sm + L_::BONUS;
-
-  const int j0 = blockIdx.x * VS;   // this CTA's first value column
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  // state slice: thread owns rows i = item / 4, columns 4 * (item % 4) .. +3
-  const long s_base = ((long)b * H + h) * HD * HD + j0;
-  for (int item = tid; item < HD * (VS / VEC); item += NT) {
-    const int i = item / (VS / VEC), jq = (item % (VS / VEC)) * VEC;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (s0 != nullptr) x = *reinterpret_cast<const float4*>(s0 + s_base + (long)i * HD + jq);
-    *reinterpret_cast<float4*>(ss + i * VS + jq) = x;
-  }
-  for (int i = tid; i < HD; i += NT) us[i] = u[h * HD + i];
-  for (int i = tid; i < HD; i += NT) ps[i] = 0.0;   // P[0] = 0
-
-  const long row_stride = (long)H * HD;             // between tokens
-  const long seq_base = (long)b * Tn * row_stride + (long)h * HD;
-
-  for (int c0 = 0; c0 < Tn; c0 += C) {
-    const int L = min(C, Tn - c0);                  // tokens in this chunk
-    const long chunk_base = seq_base + (long)c0 * row_stride;
-
-    // 1. stage r, k, log2 w (rows >= L: r = k = 0, log w = 0) and v's columns
-    for (int e = tid; e < C * (HD / VEC); e += NT) {
-      const int t = e / (HD / VEC), i = (e % (HD / VEC)) * VEC;
-      float rf[4] = {0.f, 0.f, 0.f, 0.f}, kf[4] = {0.f, 0.f, 0.f, 0.f};
-      float lw[4] = {0.f, 0.f, 0.f, 0.f};
-      if (t < L) {
-        const long off = chunk_base + (long)t * row_stride + i;
-        float wf[4];
-        load4(r + off, rf);
-        load4(k + off, kf);
-        load4(w + off, wf);
-#pragma unroll
-        for (int q = 0; q < VEC; ++q) lw[q] = log2f(fmaxf(wf[q], W_MIN));
-      }
-      *reinterpret_cast<float4*>(rs + t * LD + i) = make_float4(rf[0], rf[1], rf[2], rf[3]);
-      *reinterpret_cast<float4*>(ks + t * LD + i) = make_float4(kf[0], kf[1], kf[2], kf[3]);
-      *reinterpret_cast<double2*>(ps + (t + 1) * LD + i) = make_double2(lw[0], lw[1]);
-      *reinterpret_cast<double2*>(ps + (t + 1) * LD + i + 2) = make_double2(lw[2], lw[3]);
-    }
-    for (int e = tid; e < C * (VS / VEC); e += NT) {
-      const int t = e / (VS / VEC), jq = (e % (VS / VEC)) * VEC;
-      float vf[4] = {0.f, 0.f, 0.f, 0.f};
-      if (t < L) load4(v + chunk_base + (long)t * row_stride + j0 + jq, vf);
-      *reinterpret_cast<float4*>(vs + t * VS + jq) = make_float4(vf[0], vf[1], vf[2], vf[3]);
-    }
-    __syncthreads();
-
-    // 2. P[t+1] = inclusive prefix of log2 w over the chunk: one warp per
-    //    state row i, one lane per token
-    for (int i = warp; i < HD; i += NW) {
-      double x = ps[(lane + 1) * LD + i];
-#pragma unroll
-      for (int off = 1; off < 32; off *= 2) {
-        const double y = __shfl_up_sync(0xffffffffu, x, off);
-        if (lane >= off) x += y;
-      }
-      ps[(lane + 1) * LD + i] = x;
-    }
-    __syncthreads();
-
-    // 3a. A[t,s] for s < t < L.  Rows t and 31 - t together hold 31 pairs,
-    //     so virtual row vr in 0..15 gives lane e the pair
-    //     (vr, e) if e < vr, else (31 - vr, e - vr); lane 31 idles.
-    if (L > 1) {
-      for (int vr = warp; vr < C / 2; vr += NW) {
-        const int t = lane < vr ? vr : C - 1 - vr;
-        const int s = lane < vr ? lane : lane - vr;
-        if (lane < C - 1 && t < L) {
-          const float* rt = rs + t * LD;
-          const double* pt = ps + t * LD;
-          const float* kq = ks + s * LD;
-          const double* pq = ps + (s + 1) * LD;
-          float acc = 0.f;
-#pragma unroll 4
-          for (int i = 0; i < HD; i += VEC) {
-            const float4 a = *reinterpret_cast<const float4*>(rt + i);
-            const float4 kk = *reinterpret_cast<const float4*>(kq + i);
-            const double2 la0 = *reinterpret_cast<const double2*>(pt + i);
-            const double2 la1 = *reinterpret_cast<const double2*>(pt + i + 2);
-            const double2 lb0 = *reinterpret_cast<const double2*>(pq + i);
-            const double2 lb1 = *reinterpret_cast<const double2*>(pq + i + 2);
-            acc = fmaf(a.x * kk.x, exp2f(static_cast<float>(la0.x - lb0.x)), acc);
-            acc = fmaf(a.y * kk.y, exp2f(static_cast<float>(la0.y - lb0.y)), acc);
-            acc = fmaf(a.z * kk.z, exp2f(static_cast<float>(la1.x - lb1.x)), acc);
-            acc = fmaf(a.w * kk.w, exp2f(static_cast<float>(la1.y - lb1.y)), acc);
-          }
-          as[t * (C + 1) + s] = acc;
-        }
-      }
-    }
-    // 3b. bonus[t] = (r_t u) . k_t, one warp per token
-    for (int t = warp; t < L; t += NW) {
-      float part = 0.f;
-      for (int i = lane; i < HD; i += 32) part += rs[t * LD + i] * us[i] * ks[t * LD + i];
-      part = group_sum(part, 32);
-      if (lane == 0) bonus[t] = part;
-    }
-    __syncthreads();
-
-    // 4. r <- r 2^P[t] (carry-in weights), k <- k 2^(P[L] - P[s+1]) (carry-out)
-    const double* pL = ps + L * LD;
-    for (int e = tid; e < L * HD; e += NT) {
-      const int t = e / HD, i = e % HD;
-      rs[t * LD + i] *= exp2f(static_cast<float>(ps[t * LD + i]));
-      ks[t * LD + i] *= exp2f(static_cast<float>(pL[i] - ps[(t + 1) * LD + i]));
-    }
-    __syncthreads();
-
-    // 5. o_t[j] = (r_t 2^P[t]) . S0[:, j] + sum_{s<t} A[t,s] v_s[j] + bonus_t v_t[j]
-    //    thread: token t = tid / 8, columns 2 * (tid % 8) and +1
-    {
-      const int t = tid / (VS / 2), j = (tid % (VS / 2)) * 2;
-      if (t < L) {
-        float o0 = 0.f, o1 = 0.f;
-        const float* rt = rs + t * LD;
-#pragma unroll 8
-        for (int i = 0; i < HD; ++i) {
-          const float2 sv = *reinterpret_cast<const float2*>(ss + i * VS + j);
-          o0 = fmaf(rt[i], sv.x, o0);
-          o1 = fmaf(rt[i], sv.y, o1);
-        }
-        const float* at = as + t * (C + 1);
-        for (int s = 0; s < t; ++s) {
-          const float2 vv = *reinterpret_cast<const float2*>(vs + s * VS + j);
-          o0 = fmaf(at[s], vv.x, o0);
-          o1 = fmaf(at[s], vv.y, o1);
-        }
-        const float2 vt = *reinterpret_cast<const float2*>(vs + t * VS + j);
-        o0 = fmaf(bonus[t], vt.x, o0);
-        o1 = fmaf(bonus[t], vt.y, o1);
-        T* ot = o + chunk_base + (long)t * row_stride + j0 + j;
-        store(ot, o0);
-        store(ot + 1, o1);
-      }
-    }
-    __syncthreads();   // step 6 overwrites the state step 5 read
-
-    // 6. S[i, j] <- 2^P[L,i] S[i, j] + sum_{s<L} k~_si v_s[j], on the owned slice
-    for (int item = tid; item < HD * (VS / VEC); item += NT) {
-      const int i = item / (VS / VEC), jq = (item % (VS / VEC)) * VEC;
-      const float decay = exp2f(static_cast<float>(pL[i]));
-      float4 acc = *reinterpret_cast<const float4*>(ss + i * VS + jq);
-      acc.x *= decay; acc.y *= decay; acc.z *= decay; acc.w *= decay;
-      for (int s = 0; s < L; ++s) {
-        const float kv = ks[s * LD + i];
-        const float4 vv = *reinterpret_cast<const float4*>(vs + s * VS + jq);
-        acc.x = fmaf(kv, vv.x, acc.x);
-        acc.y = fmaf(kv, vv.y, acc.y);
-        acc.z = fmaf(kv, vv.z, acc.z);
-        acc.w = fmaf(kv, vv.w, acc.w);
-      }
-      *reinterpret_cast<float4*>(ss + i * VS + jq) = acc;
-    }
-    __syncthreads();   // the next chunk restages r, k, P, v
-  }
-
-  // each thread writes the state items it updated
-  for (int item = tid; item < HD * (VS / VEC); item += NT) {
-    const int i = item / (VS / VEC), jq = (item % (VS / VEC)) * VEC;
-    *reinterpret_cast<float4*>(sT + s_base + (long)i * HD + jq) =
-        *reinterpret_cast<const float4*>(ss + i * VS + jq);
-  }
-}
-
-template <typename T, int HD>
-cudaError_t launch(const void* r, const void* k, const void* v, const void* w, const void* u,
-                   const void* s0, void* sT, void* o, int B, int Tn, int H,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * Smem<HD>::FLOATS;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        rwkv6_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  dim3 grid(HD / VS, H, B);
-  rwkv6_kernel<T, HD><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(w), static_cast<const float*>(u), static_cast<const float*>(s0),
-      static_cast<float*>(sT), static_cast<T*>(o), Tn, H);
-  return cudaGetLastError();
-}
-
-}  // namespace simt
-
-// ---------------------------------------------------------------------------
-// bf16, T > 1: chunk-parallel on the tensor cores.
-// ---------------------------------------------------------------------------
-namespace tc {
+namespace cl {
 
 using bf16 = __nv_bfloat16;
-constexpr int NW = 4;             // warps per CTA
-constexpr int NT = 32 * NW;
-constexpr int E = C / 2;          // the sub-chunk edge
-constexpr int PARTS = 3;          // bf16 parts of an f32 tensor-core operand
-constexpr int CARRY_NT = 256;     // threads per CTA of the carry
-constexpr int CARRY_U = 16;       // chunks whose loads the carry keeps in flight
-constexpr int LDA = C + 8;        // row of an A part: C bf16 and 16 bytes of padding
-static_assert(NT == 4 * C, "the bonus takes 4 threads a token");
-static_assert(E == 16, "a walk's 15 scores fit the 16 slots of reduce_scatter16");
+constexpr int E = C / 2;                  // the sub-chunk edge
+constexpr int R_MAX = 16;                 // ranks of a cluster at most (above 8: non-portable)
+constexpr uint32_t TF32_MASK = 0xffffe000u;   // the 19 bits a tf32 keeps
+constexpr int BOX = C * 128;              // bytes of a 128-byte-wide box of C rows
 
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+// Levels of A's factoring: a pair s < t lies in exactly one block of 2h
+// tokens (h = 16, 8, 4, 2, 1) with s below the block's middle e and t at or
+// above it, and A[t,s] = (r_t 2^(P[t]-P[e])) . (k_s 2^(P[e]-P[s+1])): row t
+// of level h holds the first factor where t is in an upper half and row s
+// the second where s is in a lower half; 16 h pairs a level, 496 in all.
+// Levels 16 to 2 keep rows (LEVELS); level 1's 16 pairs (t = 2 m + 1,
+// s = 2 m, factor 1) are summed over the columns by shuffles.
+constexpr int LEVELS = 4;
+constexpr int PAIRS = 16 * (E + E / 2 + E / 4 + E / 8);   // 480 from rows
+constexpr int PAIRS1 = E;                                  // 16 of level 1
+
+// Shared-memory layout, byte offsets from a 1024-byte aligned base (the
+// swizzle's atom).  Live through the scan: r 2^P in f32 (its big part
+// after the scan), u, the decays, partial sums of the bonus and of level 1.
+// Then one region:
+//   v; r, k and w as they land | the decayed k^T's parts | A's parts and A
+//   in f32; A's level rows; r 2^P's small part
+// or, during the scan, its two exchange buffers (below r 2^P's small part).
+template <typename T, int HD>
+struct Cfg {
+  static constexpr int ES = (int)sizeof(T);
+  static constexpr int BOXC = 128 / ES;                 // columns of a box
+  static constexpr int NBOX = (HD * ES + 127) / 128;    // boxes a row
+  static constexpr int TILE = NBOX * BOX;               // a (C, HD) tile as TMA lands it
+  static constexpr int NWG = HD > 64 ? 2 : 1;           // warpgroups: 64 value columns each
+  static constexpr int NT = 128 * NWG;
+  static constexpr int RT_PART = (HD + 31) / 32 * BOX;  // r 2^P: C rows, K-major over hd
+  static constexpr int KT_PART = HD * 128;              // decayed k^T: hd rows, K-major over C
+  static constexpr int AT_PART = BOX;                   // A: C rows, K-major over C
+  static constexpr int AF_BYTES = (4 * C * (C + 1) + 1023) / 1024 * 1024;
+  static constexpr int cmax(int a, int b) { return a > b ? a : b; }
+  static constexpr int RT = 0;                          // r 2^P f32, then its big part
+  static constexpr int U = RT + RT_PART;                // f32 [HD]
+  static constexpr int DC = U + 4 * HD;                 // this chunk's 2^P[L] [HD]
+  static constexpr int DR = DC + 4 * HD;                // the run's decay so far [HD]
+  static constexpr int TOTP = DR + 4 * HD;              // sub-chunk products of w [2][HD]
+  static constexpr int NWA = (2 * HD + 31) / 32;        // warps of the column threads
+  static constexpr int BONP = TOTP + 8 * HD;            // the bonus a warp [NWA][C]
+  static constexpr int L1P = BONP + 4 * C * NWA;        // level 1's pairs a warp [NWA][C]
+  static constexpr int BAR = L1P + 4 * C * NWA;         // the copies' mbarrier
+  static constexpr int REGION = (BAR + 8 + 1023) / 1024 * 1024;
+  static constexpr int V = REGION;
+  static constexpr int R = V + TILE, K = R + TILE, W = K + TILE, KT = R;
+  static constexpr int AT = R, AF = R + 2 * AT_PART;
+  static constexpr int X = R + cmax(cmax(3 * TILE, 2 * KT_PART), 2 * AT_PART + AF_BYTES);
+  // D [HD], then S^T as the threads hold it: float4 k of thread x at [k][x]
+  static constexpr int XBUF = 4 * (HD + NT * HD / 2);
+  static constexpr int XB = REGION;
+  // level rows f32 [LEVELS][C][HD]; then r 2^P's small part, which the
+  // chunk's terms use first for k times the decays after it in its
+  // sub-chunk (KL, f32 [C][HD]), clear of the exchange buffers
+  static constexpr int RTS = (cmax(X + 4 * LEVELS * C * HD, XB + 2 * XBUF) + 1023) / 1024 * 1024;
+  static constexpr int KL = RTS;
+  static constexpr int END = RTS + RT_PART;
+  static constexpr size_t SMEM = 1024 + END;
+  static_assert(SMEM <= 232448, "shared memory of one CTA");
+  static_assert(RT % 1024 == 0 && V % 1024 == 0 && R % 1024 == 0 && AT % 1024 == 0 &&
+                    RTS % 1024 == 0, "wgmma operands and TMA boxes on the swizzle's atom");
+  static_assert(X % 16 == 0 && XBUF % 16 == 0, "16-byte aligned f32 tiles");
+};
+
+// Byte offset of f32 element (row, col < 32) of a K-major wgmma operand:
+// rows of 128 bytes under 128-byte swizzle, as desc_sw128 reads them.
+__device__ __forceinline__ int sw(int row, int col) {
+  return row * 128 + (((col >> 2) ^ (row & 7)) << 4) + (col & 3) * 4;
+}
+
+// Column i of row t of a level row tile (rows of HD f32, no padding): 16-byte
+// quads XOR-swizzled by the row, so that the float4 reads of a warp over 8
+// rows at one column fall in distinct banks.
 template <int HD>
-__host__ __device__ constexpr int ldb() { return HD + 8; }   // bf16 row: 16 bytes of padding
-template <int HD>
-__host__ __device__ constexpr int ldf() { return HD + 4; }   // f32 row: 16 bytes of padding
+__device__ __forceinline__ int xpos(int t, int i) {
+  return t * HD + (i ^ (((t & 7) << 2) & (HD - 1)));
+}
 
-// Fragment addresses of ldmatrix x4 (lane = 8 * matrix + row): a row-major
-// A tile or a B tile stored (k, n) through .trans (flash's Q and V); a B
-// tile stored (n, k) or an A tile stored (k, m) through .trans (flash's K).
-__device__ __forceinline__ int a_row(int lane) { return (lane & 7) + ((lane >> 3) & 1) * 8; }
-__device__ __forceinline__ int a_col(int lane) { return (lane >> 4) * 8; }
-__device__ __forceinline__ int bn_row(int lane) { return (lane & 7) + (lane >> 4) * 8; }
-__device__ __forceinline__ int bn_col(int lane) { return ((lane >> 3) & 1) * 8; }
+// Element (t, i) of a (C, HD) input tile as TMA landed it, as f32.
+template <typename T, int HD>
+__device__ __forceinline__ float at(const unsigned char* tile, int t, int i) {
+  using G = Cfg<T, HD>;
+  const int cb = (i % G::BOXC) * G::ES;
+  return to_f(*reinterpret_cast<const T*>(tile + (i / G::BOXC) * BOX + t * 128 +
+                                          (((cb >> 4) ^ (t & 7)) << 4) + (cb & 15)));
+}
 
-// x = hi + mid + lo into PARTS bf16 tiles `tile` elements apart: each part
-// is x less the parts before it, rounded to bf16 (those differences are
-// exact), so the three hold x to ~2^-27
-__device__ __forceinline__ void store_split(bf16* dst, int tile, float x) {
+// Column i of r 2^P in its tile: 32-column boxes, and inside each 8-column
+// k-step the order 0, 2, 4, 6, 1, 3, 5, 7, in which the state's
+// accumulators (columns 2 tig, 2 tig + 1) sit in a tf32 A fragment
+// (columns tig, tig + 4).
+__device__ __forceinline__ int rt_off(int t, int i) {
+  const int c = i % 32, m = c % 8;
+  return (i / 32) * BOX + sw(t, (c & ~7) + (m & 1) * 4 + (m >> 1));
+}
+
+// x's tf32 big part rounded to nearest (ties away from zero: its low 13
+// bits then zero, so the tensor cores read it whole) and the remainder,
+// exact in f32 and at most half a tf32 step of either sign
+__device__ __forceinline__ uint32_t tf32_big(float x) {
+  return (__float_as_uint(x) + 0x1000u) & TF32_MASK;
+}
+__device__ __forceinline__ uint32_t tf32_small(float x) {
+  return __float_as_uint(x - __uint_as_float(tf32_big(x)));
+}
+
+// x as its tf32 big part and the exact remainder, into two tiles `part`
+// bytes apart
+__device__ __forceinline__ void put_split(unsigned char* big, int part, int off, float x) {
+  const float b = __uint_as_float(tf32_big(x));
+  *reinterpret_cast<float*>(big + off) = b;
+  *reinterpret_cast<float*>(big + part + off) = x - b;
+}
+
+// quad p of A's pairs from rows: its level and its first t and s (level
+// h's 4 h quads of 2 x 2 pairs, block by block, each block's rows in pairs)
+__device__ __forceinline__ void quad_of(int p, int& lvl, int& t, int& s) {
+  lvl = 0;
+  int h = E;
+  while (p >= 4 * h) {
+    p -= 4 * h;
+    h /= 2;
+    ++lvl;
+  }
+  const int hq = h / 2, b = p / (hq * hq), r = p % (hq * hq);
+  t = 2 * h * b + h + 2 * (r / hq);
+  s = 2 * h * b + 2 * (r % hq);
+}
+
+// Rows of level H for one sub-chunk's column i (H <= 8: its blocks of 2H
+// tokens lie inside the sub-chunk): upper halves r scaled from the block's
+// middle, lower halves k scaled to it.
+template <int H, int HD>
+__device__ __forceinline__ void level_rows(float* xl, const float (&r)[E], const float (&k)[E],
+                                           const float (&w)[E], int t0, int i) {
 #pragma unroll
-  for (int q = 0; q < PARTS; ++q) {
-    const bf16 p = __float2bfloat16(x);
-    dst[q * tile] = p;
-    x -= __bfloat162float(p);
+  for (int b0 = 0; b0 < E; b0 += 2 * H) {
+    float f = 1.f;
+#pragma unroll
+    for (int m = 0; m < H; ++m) {
+      const int q = b0 + H + m;
+      xl[xpos<HD>(t0 + q, i)] = r[q] * f;
+      f *= w[q];
+    }
+    f = 1.f;
+#pragma unroll
+    for (int m = 0; m < H; ++m) {
+      const int q = b0 + H - 1 - m;
+      xl[xpos<HD>(t0 + q, i)] = k[q] * f;
+      f *= w[q];
+    }
   }
 }
 
-// c += a * b over the PARTS parts of a (b exact in bf16), smallest part first
-__device__ __forceinline__ void mma_parts(float (&c)[4], const uint32_t (&a)[PARTS][4],
-                                          uint32_t b0, uint32_t b1) {
-#pragma unroll
-  for (int q = PARTS - 1; q >= 0; --q) mma_bf16_16816(c, a[q], b0, b1);
-}
-
-// One step of reduce_scatter16: a lane keeps N of its 2N slots (the upper
-// ones where its lane bit 2N is set) and adds its partner's copy of them
-template <int N>
+// Sums over the columns of a 16-slot vector, for a warp whose column
+// threads are W = min(32, HD) lanes of one sub-chunk (HD 16: lanes 0-15 and
+// 16-31 are the two sub-chunks): four halvings, in each a lane keeps the
+// half of its slots that its lane bit names and adds its partner's copy of
+// them; then, for W = 32, the pair of lanes that share a slot add.  Returns
+// slot slot16(lane)'s sum over the group's lanes.
+template <int N, int BIT>
 __device__ __forceinline__ void halve(float (&v)[16], int lane) {
-  const bool upper = lane & (2 * N);
+  const bool upper = lane & BIT;
 #pragma unroll
   for (int q = 0; q < N; ++q) {
     const float give = upper ? v[q] : v[q + N];
     const float keep = upper ? v[q + N] : v[q];
-    v[q] = keep + __shfl_xor_sync(FULL, give, 2 * N);
+    v[q] = keep + __shfl_xor_sync(FULL, give, BIT);
   }
 }
 
-// v[q] summed over the warp's lanes; lanes 2j and 2j + 1 return the sum of
-// slot j (16 shuffles for 16 sums)
-__device__ __forceinline__ float reduce_scatter16(float (&v)[16], int lane) {
-  halve<8>(v, lane);
-  halve<4>(v, lane);
-  halve<2>(v, lane);
-  halve<1>(v, lane);
-  return v[0] + __shfl_xor_sync(FULL, v[0], 1);
+template <int W>
+__device__ __forceinline__ float fold16(float (&v)[16], int lane) {
+  halve<8, W / 2>(v, lane);
+  halve<4, W / 4>(v, lane);
+  halve<2, W / 8>(v, lane);
+  halve<1, W / 16>(v, lane);
+  return W == 32 ? v[0] + __shfl_xor_sync(FULL, v[0], 1) : v[0];
 }
 
-// Rows [0, C) of one head's (C, HD) tile of tokens from `src` (`stride`
-// elements apart) into `dst`; rows >= L are zero-filled and not read.
-template <int HD>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long stride, int L, int tid) {
-  constexpr int CPR = HD / 8;     // 16-byte chunks per row
-  for (int e = tid; e < C * CPR; e += NT) {
-    const int t = e / CPR, col = (e % CPR) * 8;
-    const bool ok = t < L;
-    cp_async16(dst + t * ldb<HD>() + col, ok ? src + t * stride + col : src, ok);
-  }
+template <int W>
+__device__ __forceinline__ int slot16(int lane) {
+  return W == 32 ? (lane >> 1) & 15 : lane & 15;
 }
 
-// LW[t][i] = log2 w (0 for rows >= L) and TOT[seg][i] its sum over the rows
-// of sub-chunk seg; thread = (sub-chunk, column)
-template <int HD>
-__device__ __forceinline__ void log_decays(const bf16* Ws, float* LW, float* TOT, int L, int tid) {
-  for (int col = tid; col < 2 * HD; col += NT) {
-    const int seg = col / HD, i = col % HD;
-    float tot = 0.f;
-#pragma unroll 4
+// The chunk's terms from its tiles as they landed, by one thread per
+// (sub-chunk, column i) that holds the sub-chunk's r, k and w (clamped at
+// W_MIN; 1 for rows >= L, which TMA filled with w = 0, the strongest decay)
+// in registers.  Every factor is a running product of the decays between
+// its two ends, each <= 1, never a ratio of two prefixes.
+//  1. the product of the sub-chunk's w into TOTP; k_s times the decays
+//     after s inside its sub-chunk into KL (f32); with_r, r_t times the
+//     decays before t inside its sub-chunk into RT (f32), the rows of
+//     levels 16 to 2 into X, and the bonus (r_t u) . k_t and level 1's
+//     pairs summed over a warp's columns into BONP and L1P;
+//  2. after a barrier, by the same threads from shared memory: sub-chunk
+//     0's k times sub-chunk 1's product, every k_s 2^(P[L]-P[s+1]) split
+//     into the decayed-k^T tile's parts (row i, column s), 2^P[L] into DC;
+//     with_r, sub-chunk 1's r 2^P times sub-chunk 0's product, in place.
+template <typename T, int HD>
+__device__ __forceinline__ void chunk_terms(const unsigned char* Rs, const unsigned char* Ks,
+                                            const unsigned char* Ws, const float* US, float* X,
+                                            float* BONP, float* L1P, float* TOTP, float* RT,
+                                            float* KL, unsigned char* KT, float* DC, int L,
+                                            bool with_r, int tid) {
+  using G = Cfg<T, HD>;
+  constexpr int W = HD < 32 ? HD : 32;
+  const bool active = tid < 2 * HD;     // whole warps: 2 HD is a multiple of 32
+  const int seg = tid / HD, i = tid % HD, t0 = seg * E, lane = tid % 32;
+  auto rt_at = [&](int t) -> float& {
+    return *reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(RT) + rt_off(t, i));
+  };
+  if (active) {
+    float r[E], k[E], w[E];
+#pragma unroll
     for (int q = 0; q < E; ++q) {
-      const int t = seg * E + q;
-      const float lw =
-          t < L ? log2f(fmaxf(__bfloat162float(Ws[t * ldb<HD>() + i]), W_MIN)) : 0.f;
-      LW[t * ldf<HD>() + i] = lw;
-      tot += lw;
+      const int t = t0 + q;
+      w[q] = t < L ? fmaxf(at<T, HD>(Ws, t, i), W_MIN) : 1.f;
+      k[q] = at<T, HD>(Ks, t, i);
+      r[q] = with_r ? at<T, HD>(Rs, t, i) : 0.f;
     }
-    TOT[seg * HD + i] = tot;
-  }
-}
-
-// k_s 2^(P[L] - P[s+1]) into PARTS tiles and, by sub-chunk 0's threads,
-// 2^P[L] into dec[i]: each sub-chunk walked backwards from its end, the
-// exponent a direct sum of the log-decays after s (sub-chunk 0's starts
-// from sub-chunk 1's total)
-template <int HD>
-__device__ __forceinline__ void carry_out_keys(const bf16* Ks, const float* LW, const float* TOT,
-                                               bf16* Kt, float* dec, int tid) {
-  for (int col = tid; col < 2 * HD; col += NT) {
-    const int seg = col / HD, i = col % HD;
-    float x = seg == 0 ? TOT[HD + i] : 0.f;
-#pragma unroll 4
+    float f = 1.f;
+#pragma unroll
     for (int q = E - 1; q >= 0; --q) {
-      const int s = seg * E + q;
-      store_split(Kt + s * ldb<HD>() + i, C * ldb<HD>(),
-                  __bfloat162float(Ks[s * ldb<HD>() + i]) * exp2f(x));
-      x += LW[s * ldf<HD>() + i];
+      KL[(t0 + q) * HD + i] = k[q] * f;
+      f *= w[q];
     }
-    if (seg == 0) dec[i] = exp2f(x);
-  }
-}
-
-// acc(i, j) = sum_s kt[s][i] v[s][j] for the 16 rows i of m-tile mt and all
-// HD columns j: A = kt^T from its PARTS tiles, B = v, both by ldmatrix.trans.
-// Accumulator n holds (i = 16 mt + gid, j = 8 n + 2 tig ..+1) and row i + 8.
-template <int HD>
-__device__ __forceinline__ void state_tile(float (&acc)[HD / 8][4], const bf16* Kt,
-                                           const bf16* Vs, int mt, int lane) {
-  constexpr int LDB = ldb<HD>(), TILE = C * LDB;
+    TOTP[seg * HD + i] = f;
+    if (with_r) {
+      f = 1.f;
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < C / 16; ++ks) {
-    uint32_t af[PARTS][4];
-#pragma unroll
-    for (int q = 0; q < PARTS; ++q)
-      ldmatrix_x4_trans(af[q], Kt + q * TILE + (ks * 16 + bn_row(lane)) * LDB + mt * 16 +
-                                   bn_col(lane));
-#pragma unroll
-    for (int n2 = 0; n2 < HD / 16; ++n2) {
-      uint32_t vf[4];
-      ldmatrix_x4_trans(vf, Vs + (ks * 16 + a_row(lane)) * LDB + n2 * 16 + a_col(lane));
-      mma_parts(acc[2 * n2], af, vf[0], vf[1]);
-      mma_parts(acc[2 * n2 + 1], af, vf[2], vf[3]);
-    }
-  }
-}
-
-// ---- 1. per-chunk state increments ---------------------------------------
-template <int HD>
-struct StateSmem {
-  static constexpr int TILE = C * ldb<HD>();      // one (C, HD) bf16 tile
-  // bf16 tiles, in elements: k, v, w, then k 2^(P[L]-P[s+1]) in PARTS tiles
-  static constexpr int K = 0, V = TILE, W = 2 * TILE, KT = 3 * TILE;
-  static constexpr size_t F32_OFFSET = sizeof(bf16) * (KT + PARTS * TILE);
-  // f32, in floats: log2 w (C x LDF), the sub-chunk totals (2 x HD)
-  static constexpr int LW = 0, TOT = C * ldf<HD>();
-  static constexpr size_t BYTES = F32_OFFSET + sizeof(float) * (TOT + 2 * HD);
-};
-
-template <int HD>
-__global__ void __launch_bounds__(NT) chunk_state_kernel(
-    const bf16* __restrict__ k, const bf16* __restrict__ v, const bf16* __restrict__ w,
-    float* __restrict__ dstate, float* __restrict__ decay, int Tn, int H) {
-  using L_ = StateSmem<HD>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sb = reinterpret_cast<bf16*>(smem_raw);
-  float* sf = reinterpret_cast<float*>(smem_raw + L_::F32_OFFSET);
-  bf16* Ks = sb + L_::K;
-  bf16* Vs = sb + L_::V;
-  bf16* Ws = sb + L_::W;
-  bf16* Kt = sb + L_::KT;
-  float* LW = sf + L_::LW;
-  float* TOT = sf + L_::TOT;
-  allow_next_grid();              // the carry may be scheduled; it waits for this grid
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int L = min(C, Tn - c * C);
-  const long stride = (long)H * HD;
-  const long base = ((long)b * Tn + (long)c * C) * stride + (long)h * HD;
-  load_rows<HD>(Ks, k + base, stride, L, tid);
-  load_rows<HD>(Vs, v + base, stride, L, tid);
-  load_rows<HD>(Ws, w + base, stride, L, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const long slot = ((long)b * H + h) * gridDim.x + c;
-  log_decays<HD>(Ws, LW, TOT, L, tid);
-  __syncthreads();
-  carry_out_keys<HD>(Ks, LW, TOT, Kt, decay + slot * HD, tid);
-  __syncthreads();
-
-  const int gid = lane / 4, tig = lane % 4;
-  float* ds = dstate + slot * HD * HD;
-  for (int mt = warp; mt < HD / 16; mt += NW) {
-    float acc[HD / 8][4];
-    state_tile<HD>(acc, Kt, Vs, mt, lane);
-    const int i0 = mt * 16 + gid;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      const int j = n * 8 + 2 * tig;
-      *reinterpret_cast<float2*>(ds + i0 * HD + j) = make_float2(acc[n][0], acc[n][1]);
-      *reinterpret_cast<float2*>(ds + (i0 + 8) * HD + j) = make_float2(acc[n][2], acc[n][3]);
-    }
-  }
-}
-
-// ---- 2. the carry ------------------------------------------------------------
-// dstate (B*H, NC, HD, HD) and decay (B*H, NC, HD); slot c of dstate leaves
-// holding S_{c-1}.  One thread per 4 consecutive state elements.
-template <int HD>
-__global__ void __launch_bounds__(CARRY_NT) carry_kernel(
-    float* __restrict__ dstate, const float* __restrict__ decay,
-    const float* s0,              // may alias sT: each thread reads its elements first
-    float* sT, int NC, int BH) {
-  constexpr int Q = HD * HD / 4;  // float4s per state
-  allow_next_grid();              // the output kernel may start its own work
-  wait_for_previous_grid();       // every chunk's increment is written
-  const long idx = (long)blockIdx.x * CARRY_NT + threadIdx.x;
-  if (idx >= (long)BH * Q) return;
-  const long bh = idx / Q;
-  const int e = (int)(idx % Q), i = e / (HD / 4);
-  float4 s = s0 != nullptr ? reinterpret_cast<const float4*>(s0)[idx]
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-  float4* ds = reinterpret_cast<float4*>(dstate) + bh * NC * Q + e;
-  const float* dc = decay + bh * NC * HD + i;
-  for (int c0 = 0; c0 < NC; c0 += CARRY_U) {
-    float4 x[CARRY_U];
-    float d[CARRY_U];
-#pragma unroll
-    for (int q = 0; q < CARRY_U; ++q) {
-      if (c0 + q < NC) {
-        x[q] = ds[(long)(c0 + q) * Q];
-        d[q] = dc[(long)(c0 + q) * HD];
+      for (int q = 0; q < E; ++q) {
+        rt_at(t0 + q) = r[q] * f;
+        f *= w[q];
       }
-    }
+      // level 16: the chunk's halves are the sub-chunks
+      f = 1.f;
+      if (seg == 1) {
 #pragma unroll
-    for (int q = 0; q < CARRY_U; ++q) {
-      if (c0 + q < NC) {
-        ds[(long)(c0 + q) * Q] = s;
-        s = make_float4(fmaf(d[q], s.x, x[q].x), fmaf(d[q], s.y, x[q].y),
-                        fmaf(d[q], s.z, x[q].z), fmaf(d[q], s.w, x[q].w));
-      }
-    }
-  }
-  reinterpret_cast<float4*>(sT)[idx] = s;
-}
-
-// ---- 3. per-chunk outputs ------------------------------------------------------
-// Shared memory, byte offsets: each region starts where the one before
-// ends, and "x | y" regions hold x in the early phases and y in the late
-// ones (no phase uses both).
-template <int HD, bool WITH_STATE>
-struct OutSmem {
-  static constexpr int LDB = ldb<HD>(), LDF = ldf<HD>();
-  static constexpr int TILE = C * LDB, ETILE = E * LDB, ATILE = C * LDA;   // in bf16
-  static constexpr size_t TILE_B = 2 * TILE;
-  static constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
-  // r, k, v: bf16 (C x LDB)
-  static constexpr size_t R = 0, K = TILE_B, V = 2 * TILE_B;
-  // w bf16 (C x LDB) | A f32 (C x (C+1))
-  static constexpr size_t U1 = 3 * TILE_B;
-  // log2 w f32 (C x LDF) | A in PARTS bf16 parts (C x LDA each)
-  static constexpr size_t U2 = U1 + cmax(TILE_B, 4 * C * (C + 1));
-  // r_t 2^(P[t]-P[e]) (t >= e), then k_s 2^(P[e]-P[s+1]) (s < e), PARTS
-  // bf16 parts of E x LDB each | S_{c-1} f32 (HD x HD)
-  static constexpr size_t U3 = U2 + cmax(4 * C * LDF, 2 * PARTS * ATILE);
-  // r 2^P[t] f32 (C x LDF)
-  static constexpr size_t RT = U3 + cmax(2 * 2 * PARTS * ETILE, 4 * HD * HD);
-  static constexpr size_t BON = RT + 4 * C * LDF;  // (r_t u) . k_t (C)
-  static constexpr size_t U = BON + 4 * C;         // u (HD)
-  static constexpr size_t TOT = U + 4 * HD;        // sub-chunk sums of log2 w (2 x HD)
-  static constexpr size_t DEC = TOT + 8 * HD;      // 2^P[L] (HD)
-  static constexpr size_t KT = DEC + 4 * HD;       // k 2^(P[L]-P[s+1]), PARTS bf16 tiles
-  static constexpr size_t BYTES = KT + (WITH_STATE ? PARTS * TILE_B : 0);
-  static_assert(BYTES <= 232448, "shared memory of one CTA");
-  static_assert(U2 % 16 == 0 && U3 % 16 == 0 && RT % 16 == 0 && BON % 16 == 0 &&
-                    TOT % 16 == 0 && KT % 16 == 0, "16-byte aligned regions");
-};
-
-template <int HD, bool WITH_STATE>
-__global__ void __launch_bounds__(NT) chunk_out_kernel(
-    const bf16* __restrict__ r, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ w, const float* __restrict__ u,
-    const float* carry,           // S_{c-1} of slot (b, h, c); with WITH_STATE s0 (may be null)
-    float* sT,                    // WITH_STATE only; may alias carry
-    bf16* __restrict__ o, int Tn, int H) {
-  using L_ = OutSmem<HD, WITH_STATE>;
-  constexpr int LDB = L_::LDB, LDF = L_::LDF;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Rs = reinterpret_cast<bf16*>(smem_raw + L_::R);
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw + L_::K);
-  bf16* Vs = reinterpret_cast<bf16*>(smem_raw + L_::V);
-  bf16* Ws = reinterpret_cast<bf16*>(smem_raw + L_::U1);
-  float* AF = reinterpret_cast<float*>(smem_raw + L_::U1);
-  float* LW = reinterpret_cast<float*>(smem_raw + L_::U2);
-  bf16* AP = reinterpret_cast<bf16*>(smem_raw + L_::U2);
-  bf16* RH = reinterpret_cast<bf16*>(smem_raw + L_::U3);
-  bf16* KH = RH + PARTS * L_::ETILE;
-  float* Ss = reinterpret_cast<float*>(smem_raw + L_::U3);
-  float* RT = reinterpret_cast<float*>(smem_raw + L_::RT);
-  float* BON = reinterpret_cast<float*>(smem_raw + L_::BON);
-  float* US = reinterpret_cast<float*>(smem_raw + L_::U);
-  float* TOT = reinterpret_cast<float*>(smem_raw + L_::TOT);
-  float* DEC = reinterpret_cast<float*>(smem_raw + L_::DEC);
-  bf16* KT = reinterpret_cast<bf16*>(smem_raw + L_::KT);
-
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gid = lane / 4, tig = lane % 4;
-  const int L = min(C, Tn - c * C);
-  const long stride = (long)H * HD;
-  const long base = ((long)b * Tn + (long)c * C) * stride + (long)h * HD;
-  load_rows<HD>(Rs, r + base, stride, L, tid);
-  load_rows<HD>(Ks, k + base, stride, L, tid);
-  load_rows<HD>(Vs, v + base, stride, L, tid);
-  load_rows<HD>(Ws, w + base, stride, L, tid);
-  cp_async_commit();
-  for (int i = tid; i < HD; i += NT) US[i] = u[h * HD + i];
-  cp_async_wait<0>();
-  __syncthreads();
-
-  log_decays<HD>(Ws, LW, TOT, L, tid);
-  __syncthreads();
-
-  // Thread = (sub-chunk, column) walks its sub-chunk: r 2^P[t] (sub-chunk
-  // 1's from sub-chunk 0's total), r 2^(P[t]-P[e]) for t >= e and, walking
-  // back, k 2^(P[e]-P[s+1]) for s < e; every exponent a direct sum
-  for (int col = tid; col < 2 * HD; col += NT) {
-    const int seg = col / HD, i = col % HD;
-    float x = seg == 0 ? 0.f : TOT[i], xe = 0.f;
-#pragma unroll 4
-    for (int q = 0; q < E; ++q) {
-      const int t = seg * E + q;
-      const float rv = __bfloat162float(Rs[t * LDB + i]);
-      RT[t * LDF + i] = rv * exp2f(x);
-      if (seg == 1) store_split(RH + q * LDB + i, L_::ETILE, rv * exp2f(xe));
-      x += LW[t * LDF + i];
-      xe += LW[t * LDF + i];
-    }
-    if (seg == 0) {
-      float y = 0.f;
-#pragma unroll 4
-      for (int q = E - 1; q >= 0; --q) {
-        store_split(KH + q * LDB + i, L_::ETILE, __bfloat162float(Ks[q * LDB + i]) * exp2f(y));
-        y += LW[q * LDF + i];
-      }
-    }
-  }
-  if constexpr (WITH_STATE) carry_out_keys<HD>(Ks, LW, TOT, KT, DEC, tid);
-  {
-    // the bonus (r_t u) . k_t: 4 threads a token
-    const int t = tid / 4;
-    float part = 0.f;
-    for (int i = tid % 4; i < HD; i += 4)
-      part += __bfloat162float(Rs[t * LDB + i]) * US[i] * __bfloat162float(Ks[t * LDB + i]);
-    part += __shfl_xor_sync(FULL, part, 1);
-    part += __shfl_xor_sync(FULL, part, 2);
-    if (tid % 4 == 0) BON[t] = part;
-  }
-  __syncthreads();
-
-  // A within each sub-chunk: warp job (sub-chunk, s) walks t = s+1 .. e-1
-  // with lanes over columns, the exponent P[t] - P[s+1] a running direct sum
-  // of the log-decays between; each lane keeps its part of the 15 scores,
-  // and one reduce-scatter sums them over the columns.  Jobs alternate s
-  // so that the walks of the four warps are of nearly equal length.
-  constexpr int CPL = (HD + 31) / 32;             // columns per lane
-  for (int job = warp; job < 2 * (E - 1); job += NW) {
-    const int seg = job & 1, s = seg * E + (job >> 1), n = E - 1 - (job >> 1);
-    float kc[CPL], x[CPL];
+        for (int q = 0; q < E; ++q) {
+          X[xpos<HD>(E + q, i)] = r[q] * f;
+          f *= w[q];
+        }
+      } else {
 #pragma unroll
-    for (int m = 0; m < CPL; ++m) {
-      const int i = lane + 32 * m;
-      kc[m] = i < HD ? __bfloat162float(Ks[s * LDB + i]) : 0.f;
-      x[m] = 0.f;
-    }
-    float part[16];
-#pragma unroll
-    for (int q = 0; q < 16; ++q) {
-      part[q] = 0.f;
-      if (q < n) {
-        const int t = s + 1 + q;
-#pragma unroll
-        for (int m = 0; m < CPL; ++m) {
-          const int i = lane + 32 * m;
-          if (i < HD) {
-            if (q > 0) x[m] += LW[(t - 1) * LDF + i];
-            part[q] = fmaf(__bfloat162float(Rs[t * LDB + i]) * kc[m], fast_exp2(x[m]), part[q]);
-          }
+        for (int q = E - 1; q >= 0; --q) {
+          X[xpos<HD>(q, i)] = k[q] * f;
+          f *= w[q];
         }
       }
-    }
-    const float a = reduce_scatter16(part, lane);
-    const int q = (lane >> 1) & 15;
-    if ((lane & 1) == 0 && q < n) AF[(s + 1 + q) * (C + 1) + s] = a;
-  }
-  // the off-diagonal block t >= e > s on the tensor cores, by the last warp
-  // (its walks are the shortest): (hi + mid + lo)(hi + mid + lo), the six
-  // products of order 2^-16 and up
-  if (warp == NW - 1) {
-    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      level_rows<8, HD>(X + 1 * C * HD, r, k, w, t0, i);
+      level_rows<4, HD>(X + 2 * C * HD, r, k, w, t0, i);
+      level_rows<2, HD>(X + 3 * C * HD, r, k, w, t0, i);
+      // the bonus (token t0 + q in slot q) and level 1's pairs (t = t0 + 2 m
+      // + 1 in slot m), each summed over the group's columns
+      const float ui = US[i];
+      float v[16];
 #pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-      uint32_t ra[PARTS][4], kb[PARTS][4];
+      for (int q = 0; q < E; ++q) v[q] = r[q] * ui * k[q];
+      float sum = fold16<W>(v, lane);
+      const int slot = slot16<W>(lane), row = (tid / 32) * C + t0;
+      if (W == 16 || (lane & 1) == 0) BONP[row + slot] = sum;
 #pragma unroll
-      for (int q = 0; q < PARTS; ++q) {
-        ldmatrix_x4(ra[q], RH + q * L_::ETILE + a_row(lane) * LDB + ks * 16 + a_col(lane));
-        ldmatrix_x4(kb[q], KH + q * L_::ETILE + bn_row(lane) * LDB + ks * 16 + bn_col(lane));
-      }
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        mma_bf16_16816(acc[n], ra[1], kb[1][2 * n], kb[1][2 * n + 1]);
-        mma_bf16_16816(acc[n], ra[0], kb[2][2 * n], kb[2][2 * n + 1]);
-        mma_bf16_16816(acc[n], ra[2], kb[0][2 * n], kb[0][2 * n + 1]);
-        mma_bf16_16816(acc[n], ra[0], kb[1][2 * n], kb[1][2 * n + 1]);
-        mma_bf16_16816(acc[n], ra[1], kb[0][2 * n], kb[0][2 * n + 1]);
-        mma_bf16_16816(acc[n], ra[0], kb[0][2 * n], kb[0][2 * n + 1]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      const int t = E + gid, s = n * 8 + 2 * tig;
-      AF[t * (C + 1) + s] = acc[n][0];
-      AF[t * (C + 1) + s + 1] = acc[n][1];
-      AF[(t + 8) * (C + 1) + s] = acc[n][2];
-      AF[(t + 8) * (C + 1) + s + 1] = acc[n][3];
+      for (int m = 0; m < E; ++m) v[m] = m < E / 2 ? r[2 * m + 1] * k[2 * m] : 0.f;
+      sum = fold16<W>(v, lane);
+      if ((W == 16 || (lane & 1) == 0) && slot < E / 2) L1P[row + slot] = sum;
     }
   }
   __syncthreads();
-
-  // S_{c-1} over the edge factors, once the carry has written it (the one
-  // read that depends on the kernels before), while A (zero on and above
-  // the diagonal) is split into PARTS bf16 parts over log2 w
-  wait_for_previous_grid();
-  const float* s_in = carry + (((long)b * H + h) * gridDim.x + c) * HD * HD;
-  for (int e = tid; e < HD * HD / 4; e += NT)
-    cp_async16(Ss + 4 * e, carry != nullptr ? s_in + 4 * e : u, carry != nullptr);
-  cp_async_commit();
-  for (int e = tid; e < C * C; e += NT) {
-    const int t = e / C, s = e % C;
-    store_split(AP + t * LDA + s, L_::ATILE, s < t ? AF[t * (C + 1) + s] : 0.f);
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // o = A v (tensor cores) + (r 2^P) S_{c-1} (f32 SIMT) + bonus v: warp =
-  // a group of columns over all C rows, so that each element of S_{c-1} is
-  // read once per CTA; m-tile 0's rows see only sub-chunk 0's keys.
-  // Accumulator [mt][n] holds rows 16 mt + gid (+ 8) and columns
-  // j0 + 8 n + 2 tig (+ 1).
-  constexpr int NQ = HD / 16 < NW ? HD / 16 : NW;   // column groups of >= 16
-  constexpr int NB = HD / 8 / NQ;                   // 8-column n-tiles per warp
-  if (warp < NQ) {
-    const int j0 = warp * (HD / NQ);
-    float acc[2][NB][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int n = 0; n < NB; ++n)
-        acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int ks = 0; ks <= mt; ++ks) {
-        uint32_t af[PARTS][4];
-#pragma unroll
-        for (int q = 0; q < PARTS; ++q)
-          ldmatrix_x4(af[q], AP + q * L_::ATILE + (mt * 16 + a_row(lane)) * LDA + ks * 16 +
-                                 a_col(lane));
-#pragma unroll
-        for (int n2 = 0; n2 < NB / 2; ++n2) {
-          uint32_t vf[4];
-          ldmatrix_x4_trans(vf, Vs + (ks * 16 + a_row(lane)) * LDB + j0 + n2 * 16 + a_col(lane));
-          mma_parts(acc[mt][2 * n2], af, vf[0], vf[1]);
-          mma_parts(acc[mt][2 * n2 + 1], af, vf[2], vf[3]);
-        }
-      }
+  if (active) {
+    const float other = TOTP[(1 - seg) * HD + i];
+    float f = seg == 0 ? other : 1.f;
+#pragma unroll 4
+    for (int q = 0; q < E; ++q) put_split(KT, G::KT_PART, sw(i, t0 + q), KL[(t0 + q) * HD + i] * f);
+    if (seg == 0) DC[i] = TOTP[i] * other;
+    if (with_r && seg == 1) {
+#pragma unroll 4
+      for (int q = 0; q < E; ++q) rt_at(t0 + q) *= other;
     }
-    // rows gid + 8 rr, rr = 0..3: accumulator [rr / 2][n][2 (rr % 2) ..]
+  }
+}
+
+// A from the level rows: each of their 480 pairs a dot product over the
+// columns in f32, level 1's 16 pairs and the bonus (on the diagonal)
+// summed over the warps of their sub-chunk, so that (1) adds the bonus term
+// (r_t u . k_t) v_t; then A's tile parts (zero above the diagonal).
+template <typename T, int HD>
+__device__ __forceinline__ void chunk_scores(const float* X, const float* BONP, const float* L1P,
+                                             float* AF, unsigned char* AT, int tid) {
+  using G = Cfg<T, HD>;
+  constexpr int WPS = HD < 32 ? 1 : HD / 32;     // warps of a sub-chunk's columns
+  // partial sums of token (or pair) row x of sub-chunk seg, over its warps
+  auto warp_sum = [&](const float* P, int seg, int x) {
+    float acc = 0.f;
+#pragma unroll
+    for (int m = 0; m < WPS; ++m) acc += P[(HD < 32 ? 0 : seg * WPS + m) * C + x];
+    return acc;
+  };
+  // a task: 2 x 2 pairs (rows t, t + 1 against s, s + 1) of one level's
+  // block, so that each row read serves two pairs
+  for (int p = tid; p < PAIRS / 4 + PAIRS1 + C; p += G::NT) {
+    if (p < PAIRS / 4) {
+      int lvl, t, s;
+      quad_of(p, lvl, t, s);
+      const float* xl = X + lvl * C * HD;
+      float acc[2][2][2] = {};
 #pragma unroll 2
-    for (int i = 0; i < HD; i += 4) {
-      float4 a[4];
+      for (int c = 0; c < HD; c += 4) {
+        float4 a[2], b[2];
 #pragma unroll
-      for (int rr = 0; rr < 4; ++rr)
-        a[rr] = *reinterpret_cast<const float4*>(RT + (gid + 8 * rr) * LDF + i);
+        for (int m = 0; m < 2; ++m) {
+          a[m] = *reinterpret_cast<const float4*>(xl + xpos<HD>(t + m, c));
+          b[m] = *reinterpret_cast<const float4*>(xl + xpos<HD>(s + m, c));
+        }
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const float* srow = Ss + (i + ii) * HD + j0 + 2 * tig;
+        for (int m = 0; m < 2; ++m)
 #pragma unroll
-        for (int n = 0; n < NB; ++n) {
-          const float2 sv = *reinterpret_cast<const float2*>(srow + n * 8);
+          for (int n = 0; n < 2; ++n) {
+            acc[m][n][0] = fmaf(a[m].x, b[n].x, fmaf(a[m].y, b[n].y, acc[m][n][0]));
+            acc[m][n][1] = fmaf(a[m].z, b[n].z, fmaf(a[m].w, b[n].w, acc[m][n][1]));
+          }
+      }
 #pragma unroll
-          for (int rr = 0; rr < 4; ++rr) {
-            const float ar = ii == 0 ? a[rr].x : ii == 1 ? a[rr].y : ii == 2 ? a[rr].z : a[rr].w;
-            float* c2 = acc[rr / 2][n] + 2 * (rr % 2);
-            c2[0] = fmaf(ar, sv.x, c2[0]);
-            c2[1] = fmaf(ar, sv.y, c2[1]);
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < 2; ++n) AF[(t + m) * (C + 1) + s + n] = acc[m][n][0] + acc[m][n][1];
+    } else if (p < PAIRS / 4 + PAIRS1) {
+      const int m = p - PAIRS / 4, seg = m / (E / 2);     // pair (2 m + 1, 2 m)
+      AF[(2 * m + 1) * (C + 1) + 2 * m] = warp_sum(L1P, seg, seg * E + m % (E / 2));
+    } else {
+      const int t = p - PAIRS / 4 - PAIRS1;
+      AF[t * (C + 1) + t] = warp_sum(BONP, t / E, t);
+    }
+  }
+  __syncthreads();
+  RWKV6_STAMP(15);
+  for (int e = tid; e < C * C; e += G::NT) {
+    const int t = e / C, s = e % C;
+    put_split(AT, G::AT_PART, sw(t, s), s <= t ? AF[t * (C + 1) + s] : 0.f);
+  }
+}
+
+// d += V^T B over the C tokens: V_big B_small + V_small B_big + V_big B_big
+// (the small products first; V_small B_big skipped where V is exact in
+// tf32, bf16), B K-major over the tokens with its parts `part` bytes apart.
+// V^T's tf32 A fragments are formed from V's tile a part at a time (16
+// registers): a0..a3 of k-step kk = rows j, j + 8 at columns (tokens)
+// 8 kk + tig, + 4; rows past HD are zero (hd 16 and 32 pad the 64 rows of
+// a wgmma).  Each part's products are waited for before the next part's
+// fragments overwrite them.
+template <typename T, int HD, int N>
+__device__ __forceinline__ void issue_v(float (&d)[N / 2], const unsigned char* Vs, int j, int tig,
+                                        uint32_t b_big, int part) {
+  constexpr bool EXACT_V = std::is_same<T, bf16>::value;
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    if (EXACT_V && p == 1) continue;
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = j + 8 * (e & 1), s = 8 * kk + tig + 4 * (e >> 1);
+        const float x = row < HD ? at<T, HD>(Vs, s, row) : 0.f;
+        a[kk][e] = p == 1 ? tf32_small(x) : tf32_big(x);
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_tf32<N>(d, a[kk], desc_sw128(b_big + (p == 0 ? part : 0) + kk * 32, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(d);
+  }
+}
+
+// o += S^T (r 2^P)^T over the HD state rows, the three products in
+// order, each from the part of the state it needs: a0..a3 of k-step kk are
+// the accumulators 4 kk, 4 kk + 2, 4 kk + 1, 4 kk + 3 (rt_off's order);
+// r 2^P's small part is `part` bytes after its big part.
+// Waits for the products.  At most 4 k-steps' fragments (16 registers) are
+// held at once.
+template <int HD>
+__device__ __forceinline__ void issue_state(float (&o)[16], const float (&S)[HD / 2],
+                                            uint32_t rt_big, int part) {
+  constexpr int KG = HD / 8 < 4 ? HD / 8 : 4;     // k-steps a group
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+#pragma unroll
+    for (int g = 0; g < HD / 8; g += KG) {
+      uint32_t a[KG][4];
+#pragma unroll
+      for (int m = 0; m < KG; ++m) {
+        const int kk = g + m;
+        const float x[4] = {S[4 * kk], S[4 * kk + 2], S[4 * kk + 1], S[4 * kk + 3]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[m][e] = p == 1 ? tf32_small(x[e]) : tf32_big(x[e]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int m = 0; m < KG; ++m) {
+        const int kk = g + m;
+        wgmma_rs_tf32<32>(o, a[m], desc_sw128(rt_big + (p == 0 ? part : 0) + (kk / 4) * BOX +
+                                                  (kk % 4) * 32, 16, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+  }
+}
+
+// The state S^T in (3)'s accumulators of a thread: element e at row j0 + 8
+// ((e / 2) % 2) (a value column j) and column 8 (e / 4) + 2 tig + e % 2 (a
+// state row i).
+__device__ __forceinline__ int row_of(int j0, int e) { return j0 + 8 * ((e / 2) % 2); }
+__device__ __forceinline__ int col_of(int tig, int e) { return 8 * (e / 4) + 2 * tig + e % 2; }
+
+// Offset of this thread's element e of S^T in the (i, j) state from the
+// thread's base s_base + 2 tig HD + j0: a compile-time constant
+template <int HD>
+__device__ __forceinline__ int state_off(int e) {
+  return (8 * (e / 4) + e % 2) * HD + 8 * ((e / 2) % 2);
+}
+
+// S^T = s0^T (zeros where s0 is null), this thread's elements
+template <int HD>
+__device__ __forceinline__ void load_state(float (&S)[HD / 2], const float* s0, long s_base,
+                                          int j0, int tig) {
+  const float* p = s0 + s_base + 2 * tig * HD + j0;
+#pragma unroll
+  for (int e = 0; e < HD / 2; ++e)
+    S[e] = s0 != nullptr && row_of(j0, e) < HD ? p[state_off<HD>(e)] : 0.f;
+}
+
+// sT = S^T's transpose, this thread's elements
+template <int HD>
+__device__ __forceinline__ void store_state(float* sT, long s_base, const float (&S)[HD / 2],
+                                           int j0, int tig) {
+  float* p = sT + s_base + 2 * tig * HD + j0;
+#pragma unroll
+  for (int e = 0; e < HD / 2; ++e)
+    if (row_of(j0, e) < HD) p[state_off<HD>(e)] = S[e];
+}
+
+// S^T's columns i times D[i] (DC, this chunk's 2^P[L])
+template <int HD>
+__device__ __forceinline__ void decay_state(float (&S)[HD / 2], const float* DC, int tig) {
+#pragma unroll
+  for (int e = 0; e < HD / 2; ++e) S[e] *= DC[col_of(tig, e)];
+}
+
+// (D, S^T) into exchange buffer x: D; S^T as the threads hold it, float4 k
+// of thread `tid` at [k][tid], so that a peer's thread reads its own
+// elements in 16-byte loads, a warp's over 512 consecutive bytes
+template <int HD, int NT>
+__device__ __forceinline__ void publish(float* x, const float (&S)[HD / 2], const float* DR,
+                                        int tid) {
+  for (int i = tid; i < HD; i += NT) x[i] = DR[i];
+#pragma unroll
+  for (int k4 = 0; k4 < HD / 8; ++k4)
+    *reinterpret_cast<float4*>(x + HD + 4 * (k4 * NT + tid)) =
+        make_float4(S[4 * k4], S[4 * k4 + 1], S[4 * k4 + 2], S[4 * k4 + 3]);
+}
+
+// x + diag(D) y over S^T's columns, on a thread's float4 (columns i, i + 1)
+__device__ __forceinline__ float4 fold_in(float4 x, float4 y, float d0, float d1) {
+  return make_float4(fmaf(d0, y.x, x.x), fmaf(d1, y.y, x.y), fmaf(d0, y.z, x.z),
+                     fmaf(d1, y.w, x.w));
+}
+
+__device__ __forceinline__ void zero16(float (&x)[16]) {
+#pragma unroll
+  for (int e = 0; e < 16; ++e) x[e] = 0.f;
+}
+
+// CTAs an SM holds of the kernel where every rank has one chunk (the served
+// prefill and the training forward), in bf16 up to hd 64: three, their
+// registers capped at 168 to match (the kernel for several chunks a rank
+// holds its state across each chunk's terms and would spill there)
+template <typename T, int HD, bool ONE>
+__host__ __device__ constexpr int min_ctas() {
+  return ONE && std::is_same<T, __nv_bfloat16>::value && HD <= 64 ? 3 : 1;
+}
+
+// One CTA of a cluster of R = gridDim.x ranks over sequence (b = blockIdx.z,
+// h = blockIdx.y); rank q = blockIdx.x.  ONE: every rank has one chunk
+// (ceil(T / C) == R), and pass 1's tiles serve pass 2.
+template <typename T, int HD, bool ONE>
+__global__ void __launch_bounds__(Cfg<T, HD>::NT, (min_ctas<T, HD, ONE>())) scan_kernel(
+    const __grid_constant__ CUtensorMap tr, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tw,
+    const float* __restrict__ u,
+    const float* s0,              // may alias sT: rank 0 reads it before the last round's barrier
+    float* sT, T* __restrict__ o, int Tn, int H) {
+  using G = Cfg<T, HD>;
+  constexpr int NT = G::NT, NS = HD / 2;
+  // 16-byte pulls in flight at once
+  constexpr int PG = NS / 4 < 4 ? NS / 4 : HD > 64 ? 2 : 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  float* RT = reinterpret_cast<float*>(base + G::RT);
+  float* US = reinterpret_cast<float*>(base + G::U);
+  float* DC = reinterpret_cast<float*>(base + G::DC);
+  float* DR = reinterpret_cast<float*>(base + G::DR);   // rank 0 folds s0 in: D = 0
+  float* TOTP = reinterpret_cast<float*>(base + G::TOTP);
+  float* BONP = reinterpret_cast<float*>(base + G::BONP);
+  float* L1P = reinterpret_cast<float*>(base + G::L1P);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + G::BAR);
+  unsigned char* Vs = base + G::V;
+  unsigned char* Rs = base + G::R;
+  unsigned char* Ks = base + G::K;
+  unsigned char* Ws = base + G::W;
+  unsigned char* KT = base + G::KT;
+  unsigned char* AT = base + G::AT;
+  float* AF = reinterpret_cast<float*>(base + G::AF);
+  float* X = reinterpret_cast<float*>(base + G::X);
+  float* KL = reinterpret_cast<float*>(base + G::KL);
+  float* XB = reinterpret_cast<float*>(base + G::XB);
+
+  const int R = gridDim.x, q = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, gid = lane / 4, tig = lane % 4;
+  const int j0 = 16 * (tid / 32) + gid;   // this thread's value rows j0, j0 + 8
+  const int NC = (Tn + C - 1) / C;
+  const int per = NC / R, extra = NC % R;
+  const int c_lo = q * per + min(q, extra), n_run = per + (q < extra ? 1 : 0);
+  constexpr bool reuse = ONE;
+  static_assert(min_ctas<T, HD, ONE>() * (G::SMEM + 1024) <= 233472, "shared memory of an SM");
+  const long stride = (long)H * HD;
+  const long s_base = ((long)b * H + h) * HD * HD;
+  const uint32_t rt_addr = smem_addr(RT), kt_addr = smem_addr(KT), at_addr = smem_addr(AT);
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_fence_init();
+    tma_prefetch(&tr);
+    tma_prefetch(&tk);
+    tma_prefetch(&tv);
+    tma_prefetch(&tw);
+    // rank 0 reads s0 again in the last round, just before a barrier
+    if (q == 0 && s0 != nullptr) prefetch_l2(s0 + s_base, 4 * HD * HD);
+  }
+  for (int i = tid; i < HD; i += NT) US[i] = u[h * HD + i];
+
+  float S[NS];                  // the state S^T (row_of, col_of)
+  // (1) V^T A^T and (2) S^T (r 2^P)^T in accumulators of their own, added
+  // in f32 at the end: each sum is truncated at its own size
+  float O1[16], O2[16];
+  __syncthreads();
+  RWKV6_STAMP(0);
+
+  uint32_t phase = 0;
+  // the chunk's r (with_r), k, v and w by TMA; every thread waits for them
+  auto load = [&](int c, bool with_r) {
+    fence_proxy_async_smem();   // generic writes to this space before the copies' writes
+    __syncthreads();
+    if (tid == 0) {
+      mbar_arrive_expect_tx(bar, (with_r ? 4 : 3) * G::TILE);
+      for (int bx = 0; bx < G::NBOX; ++bx) {
+        const int i0 = bx * G::BOXC, off = bx * BOX;
+        if (with_r) tma_load_4d(Rs + off, &tr, bar, i0, h, c * C, b);
+        tma_load_4d(Ks + off, &tk, bar, i0, h, c * C, b);
+        tma_load_4d(Vs + off, &tv, bar, i0, h, c * C, b);
+        tma_load_4d(Ws + off, &tw, bar, i0, h, c * C, b);
+      }
+    }
+    mbar_wait(bar, phase & 1);
+    ++phase;
+  };
+  // r 2^P's parts: its big part over the f32 in place, its small part at RTS
+  auto split_rt = [&]() {
+    __syncthreads();              // every row of r 2^P written, KL (the same space) read
+    for (int e = tid; e < G::RT_PART / 4; e += NT) {
+      const float x = RT[e];
+      const float big = __uint_as_float(tf32_big(x));
+      RT[e] = big;
+      reinterpret_cast<float*>(base + G::RTS)[e] = x - big;
+    }
+    fence_proxy_async_smem();
+    __syncthreads();
+  };
+
+  // ---- pass 1: the composite of this rank's run ----------------------------
+  for (int ci = 0; ci < n_run; ++ci) {
+    const int c = c_lo + ci, L = min(C, Tn - c * C);
+    load(c, reuse);
+    RWKV6_STAMP(1);
+    chunk_terms<T, HD>(Rs, Ks, Ws, US, X, BONP, L1P, TOTP, RT, KL, KT, DC, L, reuse, tid);
+    RWKV6_STAMP(13);
+    fence_proxy_async_smem();     // the decayed k's parts, before the tensor cores read them
+    __syncthreads();
+    RWKV6_STAMP(2);
+    if (ci == 0) {
+      if (q == 0) {
+        load_state<HD>(S, s0, s_base, j0, tig);
+        // one chunk a rank: rank 0's carry-in is s0, so (2) now, and s0 is
+        // never read again (the last rank may write sT after any barrier)
+        if (reuse) {
+          split_rt();
+          zero16(O2);
+          issue_state<HD>(O2, S, rt_addr, G::RTS - G::RT);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < NS; ++e) S[e] = 0.f;
+      }
+      for (int i = tid; i < HD; i += NT) DR[i] = q == 0 ? 0.f : 1.f;
+    }
+    decay_state<HD>(S, DC, tig);
+    issue_v<T, HD, HD>(S, Vs, j0, tig, kt_addr, G::KT_PART);   // (3)
+    for (int i = tid; i < HD; i += NT) DR[i] *= DC[i];
+    if (reuse) {                  // A over the decayed k's space, then (1)
+      __syncthreads();
+      chunk_scores<T, HD>(X, BONP, L1P, AF, AT, tid);
+      fence_proxy_async_smem();   // A's parts, before the tensor cores read them
+      __syncthreads();
+      zero16(O1);
+      issue_v<T, HD, 32>(O1, Vs, j0, tig, at_addr, G::AT_PART);   // (1)
+    }
+    RWKV6_STAMP(3);
+  }
+
+  // ---- the scan over the ranks, through distributed shared memory ----------
+  auto pull_s = [&](uint32_t peer, int k4) {
+    return ld_cluster4(peer + 4 * (HD + 4 * (k4 * NT + tid)));
+  };
+  // D of this thread's float4 k4 of S^T (columns 8 k4 + 2 tig, + 1)
+  auto pull_d = [&](uint32_t peer, int k4) { return ld_cluster2(peer + 4 * (8 * k4 + 2 * tig)); };
+  // one rank (one chunk): sT is its composite; (2) came from s0 in pass 1
+  if (R == 1) store_state<HD>(sT, s_base, S, j0, tig);
+  int rd = 0;
+  for (int d = 1; d < R; d *= 2, ++rd) {
+    const bool last = 2 * d >= R;
+    float* x = XB + (rd & 1) * (G::XBUF / 4);
+    if (!last) {
+      // rank q's (D, S^T) into rank q + d's buffer (16-byte remote stores,
+      // which the barrier's release makes visible), read there after the
+      // barrier; in round 1, which may find a peer still in pass 1 (the
+      // buffers overlay its tiles), each rank publishes into its own buffer
+      // and its reader pulls after the barrier.  A buffer is written again
+      // two barriers later, after its reader has used it.
+      if (rd == 0) {
+        publish<HD, NT>(x, S, DR, tid);
+      } else if (q + d < R) {
+        const uint32_t dst = cluster_map(smem_addr(x), q + d);
+        for (int i = tid; i < HD; i += NT) st_cluster(dst + 4 * i, DR[i]);
+#pragma unroll
+        for (int k4 = 0; k4 < NS / 4; ++k4)
+          st_cluster(dst + 4 * (HD + 4 * (k4 * NT + tid)),
+                     make_float4(S[4 * k4], S[4 * k4 + 1], S[4 * k4 + 2], S[4 * k4 + 3]));
+      }
+      cluster_sync();
+      RWKV6_STAMP(16 + rd);
+      // (D_q, S_q) o (D', S') = (D' D_q, diag(D_q) S' + S_q): columns i of S^T
+      if (q >= d) {
+        const uint32_t src = rd == 0 ? cluster_map(smem_addr(x), q - d) : smem_addr(x);
+        float4 p[PG];
+#pragma unroll
+        for (int g = 0; g < NS / 4; g += PG) {
+#pragma unroll
+          for (int m = 0; m < PG; ++m) p[m] = pull_s(src, g + m);
+#pragma unroll
+          for (int m = 0; m < PG; ++m) {
+            const int k4 = g + m;
+            const float2 dk = *reinterpret_cast<const float2*>(DR + 8 * k4 + 2 * tig);
+            const float4 y = fold_in(make_float4(S[4 * k4], S[4 * k4 + 1], S[4 * k4 + 2],
+                                                 S[4 * k4 + 3]),
+                                     p[m], dk.x, dk.y);
+            S[4 * k4] = y.x;
+            S[4 * k4 + 1] = y.y;
+            S[4 * k4 + 2] = y.z;
+            S[4 * k4 + 3] = y.w;
+          }
+        }
+        __syncthreads();          // every thread has read D for its columns
+        for (int i = tid; i < HD; i += NT) DR[i] *= ld_cluster(src + 4 * i);
+      }
+    } else {
+      publish<HD, NT>(x, S, DR, tid);
+      // rank 0's carry-in over several chunks, read before the last barrier
+      if (q == 0 && !reuse) load_state<HD>(S, s0, s_base, j0, tig);
+      cluster_sync();
+      RWKV6_STAMP(16 + rd);
+      // the last round: the last rank's composite o rank q - d's is sT; rank
+      // q's carry-in is rank q - 1's composite o rank q - 1 - d's (each
+      // covers d ranks, 2 d >= R), rank 0's s0
+      if (q == R - 1 && q >= d) {
+        const uint32_t peer = cluster_map(smem_addr(x), q - d);
+#pragma unroll
+        for (int k4 = 0; k4 < NS / 4; ++k4) {
+          const float2 dk = *reinterpret_cast<const float2*>(DR + 8 * k4 + 2 * tig);
+          const float4 y = fold_in(make_float4(S[4 * k4], S[4 * k4 + 1], S[4 * k4 + 2],
+                                               S[4 * k4 + 3]),
+                                   pull_s(peer, k4), dk.x, dk.y);
+          S[4 * k4] = y.x;
+          S[4 * k4 + 1] = y.y;
+          S[4 * k4 + 2] = y.z;
+          S[4 * k4 + 3] = y.w;
+        }
+        store_state<HD>(sT, s_base, S, j0, tig);
+      }
+      if (q >= 1) {
+        const uint32_t pa = cluster_map(smem_addr(x), q - 1);
+        const uint32_t pb = cluster_map(smem_addr(x), q - 1 >= d ? q - 1 - d : q - 1);
+        float4 p[PG], pp[PG];
+#pragma unroll
+        for (int g = 0; g < NS / 4; g += PG) {
+#pragma unroll
+          for (int m = 0; m < PG; ++m) {
+            p[m] = pull_s(pa, g + m);
+            if (q - 1 >= d) pp[m] = pull_s(pb, g + m);
+          }
+#pragma unroll
+          for (int m = 0; m < PG; ++m) {
+            const int k4 = g + m;
+            float4 y = p[m];
+            if (q - 1 >= d) {         // with rank q - 1's D
+              const float2 dk = pull_d(pa, k4);
+              y = fold_in(p[m], pp[m], dk.x, dk.y);
+            }
+            S[4 * k4] = y.x;
+            S[4 * k4 + 1] = y.y;
+            S[4 * k4 + 2] = y.z;
+            S[4 * k4 + 3] = y.w;
           }
         }
       }
+      // peers read this CTA's buffer until they arrive; pass 2 writes the
+      // region again only where it loads new tiles
+      if (reuse) cluster_arrive();
+      else cluster_sync();
     }
-    bf16* ob = o + base;
-#pragma unroll
-    for (int rr = 0; rr < 4; ++rr) {
-      const int t = gid + 8 * rr;
-      const float bt = BON[t];
-#pragma unroll
-      for (int n = 0; n < NB; ++n) {
-        const int j = j0 + n * 8 + 2 * tig;
-        const float2 vt =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Vs + t * LDB + j));
-        const float* c2 = acc[rr / 2][n] + 2 * (rr % 2);
-        if (t < L)
-          *reinterpret_cast<__nv_bfloat162*>(ob + t * stride + j) =
-              __floats2bfloat162_rn(fmaf(bt, vt.x, c2[0]), fmaf(bt, vt.y, c2[1]));
+    RWKV6_STAMP(4 + rd);
+  }
+  RWKV6_STAMP(9);
+
+  // ---- pass 2: this rank's outputs, from its carry-in ----------------------
+  // One chunk a rank: (2), A and (1) came with pass 1.  Several: the
+  // chunk's terms, (2) from the state and (3) while the decayed k's parts
+  // hold, then A over them and (1).
+  for (int ci = 0; ci < n_run; ++ci) {
+    const int c = c_lo + ci, L = min(C, Tn - c * C);
+    if (!reuse) {
+      load(c, true);
+      chunk_terms<T, HD>(Rs, Ks, Ws, US, X, BONP, L1P, TOTP, RT, KL, KT, DC, L, true, tid);
+    }
+    RWKV6_STAMP(10);
+    if (!(reuse && q == 0)) {
+      split_rt();
+      zero16(O2);
+      issue_state<HD>(O2, S, rt_addr, G::RTS - G::RT);
+    }
+    if (!reuse) {
+      if (ci < n_run - 1) {
+        decay_state<HD>(S, DC, tig);
+        issue_v<T, HD, HD>(S, Vs, j0, tig, kt_addr, G::KT_PART);   // (3)
       }
+      __syncthreads();            // the decayed k's parts read: A goes over them
+      chunk_scores<T, HD>(X, BONP, L1P, AF, AT, tid);
+      fence_proxy_async_smem();   // A's parts, before the tensor cores read them
+      __syncthreads();
+      zero16(O1);
+      issue_v<T, HD, 32>(O1, Vs, j0, tig, at_addr, G::AT_PART);   // (1)
     }
-  }
-
-  // one chunk in all: S_T = 2^P[L] s0 + (k 2^(P[L]-P[s+1]))^T v; every read
-  // of s0 went to shared memory before the barrier above
-  if constexpr (WITH_STATE) {
-    float* st = sT + ((long)b * H + h) * HD * HD;
-    for (int m = warp; m < HD / 16; m += NW) {
-      float acc[HD / 8][4];
-      state_tile<HD>(acc, KT, Vs, m, lane);
-      const int i0 = m * 16 + gid, i1 = i0 + 8;
-      const float d0 = DEC[i0], d1 = DEC[i1];
+    fence_regs(O1);
+    fence_regs(O2);
+    T* ob = o + ((long)b * Tn + (long)c * C) * stride + (long)h * HD;
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        const int j = n * 8 + 2 * tig;
-        const float2 s0v = *reinterpret_cast<const float2*>(Ss + i0 * HD + j);
-        const float2 s1v = *reinterpret_cast<const float2*>(Ss + i1 * HD + j);
-        *reinterpret_cast<float2*>(st + i0 * HD + j) =
-            make_float2(fmaf(d0, s0v.x, acc[n][0]), fmaf(d0, s0v.y, acc[n][1]));
-        *reinterpret_cast<float2*>(st + i1 * HD + j) =
-            make_float2(fmaf(d1, s1v.x, acc[n][2]), fmaf(d1, s1v.y, acc[n][3]));
-      }
+    for (int e = 0; e < 16; ++e) {
+      const int j = row_of(j0, e), t = 8 * (e / 4) + 2 * tig + e % 2;
+      if (j < HD && t < L) store(ob + t * stride + j, O1[e] + O2[e]);
     }
   }
+  RWKV6_STAMP(11);
+  if (R > 1 && reuse) cluster_wait();
+  RWKV6_STAMP(12);
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return bytes > 48 * 1024 ? cudaFuncSetAttribute(
-                                 kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes)
-                           : cudaSuccess;
-}
-
-// Launches `kernel` with programmatic dependent launch: it may be scheduled
-// while the kernel before it on the stream still runs (see allow_next_grid)
-template <typename... P, typename... A>
-cudaError_t launch_after(void (*kernel)(P...), dim3 grid, int threads, size_t smem,
-                         cudaStream_t stream, A... args) {
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
-}
-
-template <int HD>
-cudaError_t launch(const bf16* r, const bf16* k, const bf16* v, const bf16* w, const float* u,
-                   const float* s0, float* sT, bf16* o, float* dstate, float* decay, int B,
-                   int Tn, int H, cudaStream_t stream) {
-  const int NC = (Tn + C - 1) / C;
-  cudaError_t err;
-  if (NC == 1) {
-    constexpr size_t smem = OutSmem<HD, true>::BYTES;
-    if ((err = allow_smem(chunk_out_kernel<HD, true>, smem)) != cudaSuccess) return err;
-    chunk_out_kernel<HD, true><<<dim3(1, H, B), NT, smem, stream>>>(r, k, v, w, u, s0, sT, o,
-                                                                    Tn, H);
-    return cudaGetLastError();
-  }
-  if (dstate == nullptr || decay == nullptr) return cudaErrorInvalidValue;
-  constexpr size_t smem1 = StateSmem<HD>::BYTES, smem3 = OutSmem<HD, false>::BYTES;
-  if ((err = allow_smem(chunk_state_kernel<HD>, smem1)) != cudaSuccess) return err;
-  if ((err = allow_smem(chunk_out_kernel<HD, false>, smem3)) != cudaSuccess) return err;
-  const dim3 grid(NC, H, B);
-  chunk_state_kernel<HD><<<grid, NT, smem1, stream>>>(k, v, w, dstate, decay, Tn, H);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const long items = (long)B * H * HD * HD / 4;
-  err = launch_after(carry_kernel<HD>, dim3((unsigned)((items + CARRY_NT - 1) / CARRY_NT)),
-                     CARRY_NT, 0, stream, dstate, (const float*)decay, s0, sT, NC, B * H);
-  if (err != cudaSuccess) return err;
-  return launch_after(chunk_out_kernel<HD, false>, grid, NT, smem3, stream, r, k, v, w, u,
-                      (const float*)dstate, (float*)nullptr, o, Tn, H);
-}
-
-}  // namespace tc
+}  // namespace cl
 
 // ---------------------------------------------------------------------------
 // T = 1, f32 and bf16: one streaming pass over the state.
@@ -1015,58 +1023,205 @@ cudaError_t launch(const T* r, const T* k, const T* v, const T* w, const float* 
 
 }  // namespace decode
 
-template <typename T, int HD>
-cudaError_t launch(const void* r, const void* k, const void* v, const void* w, const void* u,
-                   const void* s0, void* sT, void* o, void* dstate, void* decay, int B, int Tn,
-                   int H, cudaStream_t stream) {
-  const float* uf = static_cast<const float*>(u);
-  const float* s0f = static_cast<const float*>(s0);
-  float* sTf = static_cast<float*>(sT);
-  if (Tn == 1)
-    return decode::launch<T, HD>(static_cast<const T*>(r), static_cast<const T*>(k),
-                                 static_cast<const T*>(v), static_cast<const T*>(w), uf, s0f,
-                                 sTf, static_cast<T*>(o), B, H, stream);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    return tc::launch<HD>(static_cast<const T*>(r), static_cast<const T*>(k),
-                          static_cast<const T*>(v), static_cast<const T*>(w), uf, s0f, sTf,
-                          static_cast<T*>(o), static_cast<float*>(dstate),
-                          static_cast<float*>(decay), B, Tn, H, stream);
-  else
-    return simt::launch<T, HD>(r, k, v, w, u, s0, sT, o, B, Tn, H, stream);
+// ---------------------------------------------------------------------------
+// Host side of the T > 1 kernel.
+// ---------------------------------------------------------------------------
+namespace cl {
+
+// Tensor maps of r, k, v and w, encoded once per (pointer, shape, dtype): a
+// map is a function of these alone (the wrapper checks contiguity).
+struct MapKey {
+  const void* ptr;
+  int B, T, H, hd, es;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && B == o.B && T == o.T && H == o.H && hd == o.hd && es == o.es;
+  }
+};
+
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    size_t h = std::hash<const void*>()(k.ptr);
+    for (int v : {k.B, k.T, k.H, k.hd, k.es}) h = h * 1000003u ^ (size_t)v;
+    return h;
+  }
+};
+
+std::mutex host_cache_mutex;   // the tensor maps' and the occupancy caches'
+
+cudaError_t cached_map(CUtensorMap* out, const void* ptr, int es, int B, int T, int H, int hd) {
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> maps;
+  const MapKey key{ptr, B, T, H, hd, es};
+  std::lock_guard<std::mutex> lock(host_cache_mutex);
+  auto found = maps.find(key);
+  if (found != maps.end()) {
+    *out = found->second;
+    return cudaSuccess;
+  }
+  const cudaError_t err = tma_encode_bshd(out, ptr, es, B, T, H, hd, C);
+  if (err != cudaSuccess) return err;
+  if (maps.size() >= 4096) maps.clear();
+  maps.emplace(key, *out);
+  return cudaSuccess;
 }
 
-template <typename T>
-cudaError_t dispatch(int hd, const void* r, const void* k, const void* v, const void* w,
-                     const void* u, const void* s0, void* sT, void* o, void* dstate, void* decay,
-                     int B, int Tn, int H, cudaStream_t stream) {
+constexpr int MAX_DEVICES = 64;
+
+// The kernel's shared-memory limit and non-portable cluster sizes (above
+// 8), set once per device; then the number of clusters of `ranks` CTAs the
+// card can hold at once (cudaOccupancyMaxActiveClusters), once per device
+// and size.
+template <typename T, int HD, bool ONE>
+cudaError_t active_clusters(int ranks, int device, int* out) {
+  using G = Cfg<T, HD>;
+  static bool ready[MAX_DEVICES] = {};
+  static int known[MAX_DEVICES][R_MAX + 1] = {};
+  if (device < 0 || device >= MAX_DEVICES || ranks < 1 || ranks > R_MAX)
+    return cudaErrorInvalidValue;
+  std::lock_guard<std::mutex> lock(host_cache_mutex);
+  if (!ready[device]) {
+    cudaError_t err = cudaFuncSetAttribute(scan_kernel<T, HD, ONE>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)G::SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(scan_kernel<T, HD, ONE>,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    ready[device] = true;
+  }
+  if (known[device][ranks] == 0) {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = ranks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(ranks, 1, 1);
+    cfg.blockDim = dim3(G::NT, 1, 1);
+    cfg.dynamicSmemBytes = G::SMEM;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int n = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, scan_kernel<T, HD, ONE>, &cfg);
+    if (err != cudaSuccess) return err;
+    known[device][ranks] = n + 1;               // 0: not asked yet
+  }
+  *out = known[device][ranks] - 1;
+  return cudaSuccess;
+}
+
+template <typename T, int HD, bool ONE>
+cudaError_t launch(const void* r, const void* k, const void* v, const void* w, const void* u,
+                   const void* s0, void* sT, void* o, int B, int Tn, int H, int ranks,
+                   int device, cudaStream_t stream) {
+  using G = Cfg<T, HD>;
+  int fits = 0;
+  cudaError_t err = active_clusters<T, HD, ONE>(ranks, device, &fits);
+  if (err != cudaSuccess) return err;
+  if (fits == 0) return cudaErrorInvalidConfiguration;   // the card cannot hold one cluster
+  CUtensorMap mr, mk, mv, mw;
+  const int es = (int)sizeof(T);
+  err = cached_map(&mr, r, es, B, Tn, H, HD);
+  if (err == cudaSuccess) err = cached_map(&mk, k, es, B, Tn, H, HD);
+  if (err == cudaSuccess) err = cached_map(&mv, v, es, B, Tn, H, HD);
+  if (err == cudaSuccess) err = cached_map(&mw, w, es, B, Tn, H, HD);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(ranks, H, B);
+  cfg.blockDim = dim3(G::NT, 1, 1);
+  cfg.dynamicSmemBytes = G::SMEM;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = ranks > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, scan_kernel<T, HD, ONE>, mr, mk, mv, mw,
+                           static_cast<const float*>(u), static_cast<const float*>(s0),
+                           static_cast<float*>(sT), static_cast<T*>(o), Tn, H);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+}  // namespace cl
+
+template <typename T, int HD>
+cudaError_t launch(const void* r, const void* k, const void* v, const void* w, const void* u,
+                   const void* s0, void* sT, void* o, int B, int Tn, int H, int ranks,
+                   int device, cudaStream_t stream) {
+  if (Tn == 1)
+    return decode::launch<T, HD>(static_cast<const T*>(r), static_cast<const T*>(k),
+                                 static_cast<const T*>(v), static_cast<const T*>(w),
+                                 static_cast<const float*>(u), static_cast<const float*>(s0),
+                                 static_cast<float*>(sT), static_cast<T*>(o), B, H, stream);
+  const int chunks = (Tn + C - 1) / C;
+  if (ranks < 1 || ranks > chunks) return cudaErrorInvalidValue;
+  return ranks == chunks
+             ? cl::launch<T, HD, true>(r, k, v, w, u, s0, sT, o, B, Tn, H, ranks, device, stream)
+             : cl::launch<T, HD, false>(r, k, v, w, u, s0, sT, o, B, Tn, H, ranks, device, stream);
+}
+
+// fn.template run<T, HD>() of the instantiation a call of (dtype, hd) runs
+template <typename F>
+cudaError_t with_instance(int dtype, int hd, const F& fn) {
+  if (dtype != DTYPE_F32 && dtype != DTYPE_BF16) return cudaErrorInvalidValue;
+  const bool f32 = dtype == DTYPE_F32;
   switch (hd) {
-    case 16: return launch<T, 16>(r, k, v, w, u, s0, sT, o, dstate, decay, B, Tn, H, stream);
-    case 32: return launch<T, 32>(r, k, v, w, u, s0, sT, o, dstate, decay, B, Tn, H, stream);
-    case 64: return launch<T, 64>(r, k, v, w, u, s0, sT, o, dstate, decay, B, Tn, H, stream);
-    case 128: return launch<T, 128>(r, k, v, w, u, s0, sT, o, dstate, decay, B, Tn, H, stream);
+    case 16: return f32 ? fn.template run<float, 16>() : fn.template run<__nv_bfloat16, 16>();
+    case 32: return f32 ? fn.template run<float, 32>() : fn.template run<__nv_bfloat16, 32>();
+    case 64: return f32 ? fn.template run<float, 64>() : fn.template run<__nv_bfloat16, 64>();
+    case 128: return f32 ? fn.template run<float, 128>() : fn.template run<__nv_bfloat16, 128>();
     default: return cudaErrorInvalidValue;
   }
 }
 
+struct Forward {
+  const void *r, *k, *v, *w, *u, *s0;
+  void *sT, *o;
+  int B, Tn, H, ranks, device;
+  cudaStream_t stream;
+  template <typename T, int HD>
+  cudaError_t run() const {
+    return launch<T, HD>(r, k, v, w, u, s0, sT, o, B, Tn, H, ranks, device, stream);
+  }
+};
+
+struct ActiveClusters {
+  int ranks, one_chunk, device;
+  int* out;
+  template <typename T, int HD>
+  cudaError_t run() const {
+    return one_chunk ? cl::active_clusters<T, HD, true>(ranks, device, out)
+                     : cl::active_clusters<T, HD, false>(ranks, device, out);
+  }
+};
+
 }  // namespace rwkv6
 
-// Returns a cudaError_t: the first launch's that failed, or the error of
-// setting the device or a shared-memory limit.  s0 may be null (a zero
-// state) and may equal sT (the state updated in place).  dstate (B*H*NC*hd*hd
-// f32) and decay (B*H*NC*hd f32), NC = ceil(T / 32), are scratch for a bf16
-// launch of T > 32 tokens and may be null otherwise.  Shapes, dtypes,
+// Returns a cudaError_t: the launch's own, or the error of setting the
+// device, the kernel's attributes or a tensor map;
+// cudaErrorInvalidConfiguration where the card cannot hold one cluster of
+// `ranks` CTAs.  s0 may be null (a zero state) and may equal sT (the state
+// updated in place).  `ranks` (1..16, at most ceil(T / 32); from
+// rwkv6_scan.cluster_plan) is read for T > 1 only.  Shapes, dtypes,
 // contiguity and alignment are checked by the Python wrapper.
 extern "C" int rwkv6_forward(const void* r, const void* k, const void* v, const void* w,
-                             const void* u, const void* s0, void* sT, void* o, void* dstate,
-                             void* decay, int dtype, int B, int Tn, int H, int hd, int device,
-                             void* stream) {
+                             const void* u, const void* s0, void* sT, void* o, int dtype, int B,
+                             int Tn, int H, int hd, int ranks, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32)
-    return (int)rwkv6::dispatch<float>(hd, r, k, v, w, u, s0, sT, o, dstate, decay, B, Tn, H, st);
-  if (dtype == DTYPE_BF16)
-    return (int)rwkv6::dispatch<__nv_bfloat16>(hd, r, k, v, w, u, s0, sT, o, dstate, decay, B,
-                                               Tn, H, st);
-  return (int)cudaErrorInvalidValue;
+  const rwkv6::Forward fwd{r, k, v, w, u, s0, sT, o, B, Tn, H, ranks, device,
+                           static_cast<cudaStream_t>(stream)};
+  return (int)rwkv6::with_instance(dtype, hd, fwd);
+}
+
+// How many clusters of `ranks` CTAs the card holds at once for the T > 1
+// kernel of (dtype, hd), the one for one chunk a rank where one_chunk is
+// not 0 and the one for several otherwise, into *out.
+extern "C" int rwkv6_max_active_clusters(int dtype, int hd, int ranks, int one_chunk, int device,
+                                         int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)rwkv6::with_instance(dtype, hd,
+                                   rwkv6::ActiveClusters{ranks, one_chunk, device, out});
 }

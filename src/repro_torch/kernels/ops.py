@@ -7,8 +7,9 @@
     step's operations on them, ``launch/dryrun.py``) goes to the plain
     version too, which hides no kernel, since nothing is computed; the WKV
     recurrence takes its chunk-parallel plain form
-    (``ref.rwkv6_chunk_parallel_reference``), the arithmetic of the scan's
-    bf16 prefill, whose Python loop runs over 32-token chunks, not tokens;
+    (``ref.rwkv6_chunk_parallel_reference``, the scan kernel's chunking
+    with f32 products), whose Python loop runs over 32-token chunks, not
+    tokens;
   * any other device raises.
 
 Gradients.  On the card, ``flash_attention`` and ``rwkv6`` (without a

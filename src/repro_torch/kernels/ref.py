@@ -4,7 +4,8 @@ large-output inputs) that the bf16 flash kernel is held to, a float64
 attention that the f32 one is held to at those inputs, and plain
 models of the kernels' own schedules and arithmetic (the flash kernel's
 tile walk and its f32 kernel's three tf32 products, the decode kernel's
-cluster of ranks, the chunked scan), which only the tests call.
+cluster of ranks, the chunked scan and its cluster kernel's schedule and
+tf32 products), which only the tests call.
 
 These are (1) the path ``ops`` takes for tensors on the CPU, and (2) the
 oracles every CUDA kernel is held against on the card (``chip_smoke.py``).
@@ -183,6 +184,14 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
     return (x.float().contiguous().view(torch.int32) & -0x2000).view(torch.float32)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to the nearest tf32 (ties away from zero; low 13
+    bits cleared), as ``csrc/rwkv6_scan.cu`` forms an operand's big part:
+    the tensor cores then read it whole, and x - big is at most half a tf32
+    step with either sign."""
+    return ((x.float().contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
 def _round_toward_zero(x: torch.Tensor) -> torch.Tensor:
     """float64 ``x`` as the f32 next to it on the side of 0."""
     f = x.float()
@@ -191,17 +200,22 @@ def _round_toward_zero(x: torch.Tensor) -> torch.Tensor:
 
 
 def tf32_product(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None, *,
-                 products: int = 3, accumulate: str = "truncate") -> torch.Tensor:
+                 products: int = 3, accumulate: str = "truncate",
+                 big: str = "truncate") -> torch.Tensor:
     """c + a @ b (c = 0 when None) as the f32 flash kernel computes it on
     the tensor cores: each operand x split into big = tf32(x) and small =
     tf32(x - big) (x - big is exact in f32), and big.small + small.big +
     big.big (``products=3``) or big.big alone (``products=1``, one tf32
-    product).  A product of two tf32 values is exact in f32.
+    product).  ``big="round"`` takes big = tf32_round(x) instead, as the
+    scan kernel does.  A product of two tf32 values is exact in f32.
     ``accumulate="truncate"`` models the tensor cores: the kernel's wgmma
     in its order (product by product, the small ones first, 8 of the
     contraction a wgmma), each adding its exact sum to the accumulators
     rounded toward zero; ``"exact"`` sums in f32, ~20 times faster here."""
-    a_big, b_big = tf32(a), tf32(b)
+    if big not in ("truncate", "round"):
+        raise ValueError(f"big {big!r} is neither 'truncate' nor 'round'")
+    split = tf32 if big == "truncate" else tf32_round
+    a_big, b_big = split(a), split(b)
     if products == 3:
         terms = [(a_big, tf32(b - b_big)), (tf32(a - a_big), b_big), (a_big, b_big)]
     elif products == 1:
@@ -546,12 +560,14 @@ def rglru_reference(
     return torch.stack(outs, dim=1).to(x.dtype), h
 
 
-# The chunk-parallel form of ``csrc/rwkv6_scan.cu``'s bf16 prefill: chunks of
+# The chunk-parallel form of ``csrc/rwkv6_scan.cu``'s T > 1 kernel: chunks of
 # RWKV_CHUNK tokens, each split at its middle into two sub-chunks.
 RWKV_CHUNK = 32
 RWKV_SUB = RWKV_CHUNK // 2
 # the smallest decay, as the TPU kernel clamps it: keeps log2 finite at w = 0
 RWKV_W_MIN = 1e-38
+# ranks of the kernel's cluster at most (the largest cluster Hopper launches)
+RWKV_R_MAX = 16
 
 
 def _chunked(x: torch.Tensor, nc: int) -> torch.Tensor:
@@ -606,7 +622,8 @@ def rwkv6_chunk_parallel_reference(
     u: torch.Tensor,                 # (H, hd)
     state: Optional[torch.Tensor] = None,   # (B, H, hd, hd) f32; None = zeros
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The chunk-parallel arithmetic of ``csrc/rwkv6_scan.cu``'s bf16 prefill.
+    """The chunk-parallel arithmetic of the scan, in f32 products: what the
+    dry-run counts (``launch/dryrun.py``) and ``ops`` runs on meta tensors.
 
     Per chunk of C = 32 tokens, in the exponents of ``rwkv6_chunk_exponents``:
       A[t,s]  = sum_i r_ti k_si 2^(P[t,i] - P[s+1,i]), s < t:
@@ -614,11 +631,10 @@ def rwkv6_chunk_parallel_reference(
                 product (r_t 2^(P[t]-P[e])) . (k_s 2^(P[e]-P[s+1]));
       o_t     = sum_s A[t,s] v_s + ((r_t u) . k_t) v_t + (r_t 2^P[t]) S_{c-1};
       dS_c    = sum_s (k_s 2^(P[L]-P[s+1])) v_s^T,   S_c = 2^P[L] S_{c-1} + dS_c,
-    the carry S_c the only serial step.  Everything is f32: the kernel gives
-    the tensor cores each f32 operand as three bf16 parts (24 significant
-    bits in all), so its products keep f32's precision.  Nothing on the main
-    path calls it: the tests hold it to the JAX oracle.  Returns (out
-    (B, T, H, hd) in r's dtype, final state (B, H, hd, hd) f32)."""
+    the carry S_c the only serial step.  Everything is f32
+    (``rwkv6_cluster_reference`` takes the products as the kernel does).
+    The tests hold it to the JAX oracle.  Returns (out (B, T, H, hd) in r's
+    dtype, final state (B, H, hd, hd) f32)."""
     b, t, h, d = r.shape
     nc = -(-t // RWKV_CHUNK)
     e = RWKV_SUB
@@ -647,3 +663,115 @@ def rwkv6_chunk_parallel_reference(
     o_inter = (rc * torch.exp2(ex["carry_in"])) @ torch.stack(carries, dim=2)
     out = (o_intra + o_inter).permute(0, 2, 3, 1, 4).reshape(b, nc * RWKV_CHUNK, h, d)
     return out[:, :t].to(r.dtype), s
+
+
+def rwkv6_rank_runs(nc: int, ranks: int) -> List[Tuple[int, int]]:
+    """(first chunk, chunks) of each rank of the scan kernel's cluster: nc
+    chunks in contiguous runs, the first ``nc % ranks`` ranks one longer."""
+    if not 1 <= ranks <= nc:
+        raise ValueError(f"ranks must be in [1, {nc}], got {ranks}")
+    per, extra = divmod(nc, ranks)
+    return [(q * per + min(q, extra), per + (q < extra)) for q in range(ranks)]
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded once to f32, as fmaf."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def rwkv6_cluster_reference(
+    r: torch.Tensor,                 # (B, T, H, hd)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,                 # decay in (0, 1)
+    u: torch.Tensor,                 # (H, hd)
+    state: Optional[torch.Tensor] = None,   # (B, H, hd, hd) f32; None = zeros
+    *,
+    ranks: Optional[int] = None,
+    products: int = 3,
+    accumulate: str = "truncate",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The schedule and arithmetic of ``csrc/rwkv6_scan.cu``'s T > 1 kernel
+    on the CPU, f32 and bf16 alike.
+
+    Per chunk, the terms of ``rwkv6_chunk_parallel_reference`` (its
+    exponents, and A's pairs in f32: the kernel forms each factor as a
+    product of decays and A's pairs on five levels of blocks, the same
+    values to f32's precision) with the bonus (r_t u) . k_t on A's
+    diagonal; the kernel's three products with its operands swapped, each a
+    ``tf32_product`` with big parts rounded to nearest (by default the
+    tensor cores' truncating sums, three tf32 products; bf16 r, k, v are
+    exact in tf32):
+      (1) V^T A^T and (2) S^T (r 2^P)^T, each from zero and added in f32:
+      o^T = (1) + (2);
+      (3) S_c^T = V^T (k 2^(P[L]-P[s+1])) added to S_{c-1}^T diag(2^P[L]).
+    The carry as the cluster takes it: ``ranks`` (default
+    min(chunks, RWKV_R_MAX)) runs of chunks (``rwkv6_rank_runs``); pass 1
+    folds each run into its composite by (3), rank 0 from the state with
+    decay 0; an inclusive scan over the ranks in rounds at distances 1, 2,
+    4, ..., rank q >= d taking S_q + D_q S_{q-d} (one f32 rounding, fmaf)
+    and D_q D_{q-d}; rank q's carry-in rank q - 1's result (rank 0's the
+    state; the kernel forms it in the last round from the two composites
+    that cover the ranks before q, the same fmaf); pass 2 walks each run
+    from its carry-in, (1) and (2) per chunk, (3) between its chunks.  The
+    final state is the last rank's result.  The output is rounded once to
+    r's dtype.  Nothing on the card's path calls it; the tests hold it to
+    the JAX oracle and the Pallas kernel.  Returns (out (B, T, H, hd) in
+    r's dtype, final state (B, H, hd, hd) f32)."""
+    b, t, h, d = r.shape
+    nc = -(-t // RWKV_CHUNK)
+    ranks = min(nc, RWKV_R_MAX) if ranks is None else ranks
+    runs = rwkv6_rank_runs(nc, ranks)
+    e = RWKV_SUB
+    rc, kc, vc = (_chunked(x.float(), nc) for x in (r, k, v))   # (B, H, nc, C, hd)
+    ex = rwkv6_chunk_exponents(w)
+    a = torch.zeros((b, h, nc, RWKV_CHUNK, RWKV_CHUNK), dtype=torch.float32, device=r.device)
+    ti, si = torch.tril_indices(e, e, -1, device=r.device)
+    for n, o in enumerate((0, e)):
+        a[:, :, :, o + ti, o + si] = (rc[:, :, :, o + ti] * kc[:, :, :, o + si]
+                                      * torch.exp2(ex["diag"][:, :, :, n])).sum(-1)
+    r_hat = rc[:, :, :, e:] * torch.exp2(ex["r_edge"])
+    k_hat = kc[:, :, :, :e] * torch.exp2(ex["k_edge"])
+    a[:, :, :, e:, :e] = r_hat @ k_hat.transpose(-1, -2)
+    diag = torch.arange(RWKV_CHUNK, device=r.device)
+    a[:, :, :, diag, diag] = (rc * u.float()[None, :, None, None, :] * kc).sum(-1)   # the bonus
+    rt_t = (rc * torch.exp2(ex["carry_in"])).transpose(-1, -2)    # (r 2^P)^T: (hd, C)
+    kt = kc * torch.exp2(ex["carry_out"])                         # (C, hd)
+    dec = torch.exp2(ex["chunk_decay"])                           # (B, H, nc, hd)
+    v_t, a_t = vc.transpose(-1, -2), a.transpose(-1, -2)
+
+    def prod(x, y, c=None):
+        return tf32_product(x, y, c, products=products, accumulate=accumulate, big="round")
+
+    def step(s_t, c):                  # (3): S^T's columns are the state rows i
+        return prod(v_t[:, :, c], kt[:, :, c], s_t * dec[:, :, c, None, :])
+
+    zeros = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+    s0_t = zeros if state is None else state.float().transpose(-1, -2)
+    comp, dr = [], []
+    for q, (c0, n) in enumerate(runs):                            # pass 1
+        s_t = s0_t if q == 0 else zeros
+        dq = torch.zeros_like(dec[:, :, 0]) if q == 0 else torch.ones_like(dec[:, :, 0])
+        for c in range(c0, c0 + n):
+            s_t = step(s_t, c)
+            dq = dq * dec[:, :, c]
+        comp.append(s_t)
+        dr.append(dq)
+    dist = 1
+    while dist < ranks:                                           # the scan
+        comp, dr = ([comp[q] if q < dist else _fma(dr[q][..., None, :], comp[q - dist], comp[q])
+                     for q in range(ranks)],
+                    [dr[q] if q < dist else dr[q] * dr[q - dist] for q in range(ranks)])
+        dist *= 2
+    carries = [s0_t] + comp[:-1]
+    out = torch.zeros_like(vc)
+    for q, (c0, n) in enumerate(runs):                            # pass 2
+        s_t = carries[q]
+        for c in range(c0, c0 + n):
+            o_t = (prod(v_t[:, :, c], a_t[:, :, c]).double()
+                   + prod(s_t, rt_t[:, :, c]).double()).float()
+            out[:, :, c] = o_t.transpose(-1, -2)
+            if c < c0 + n - 1:
+                s_t = step(s_t, c)
+    out = out.permute(0, 2, 3, 1, 4).reshape(b, nc * RWKV_CHUNK, h, d)
+    return out[:, :t].to(r.dtype), comp[-1].transpose(-1, -2).contiguous()

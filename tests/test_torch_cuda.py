@@ -97,9 +97,10 @@ RWKV_CASES = [
     (2, 70, 2, 128, True),
 ]
 RWKV_EDGE_CASES = [
-    # b, t, h, hd, with_state: the bf16 prefill's sub-chunk and chunk edges
-    # (one launch up to 32 tokens, three above), 64 chunks carried, every
-    # head size over several chunks, and rwkv6-1.6b's decode step
+    # b, t, h, hd, with_state: the prefill's sub-chunk and chunk edges (one
+    # rank up to 32 tokens, a cluster of ranks above), 64 chunks over 16
+    # ranks of 4, every head size over several chunks, and rwkv6-1.6b's
+    # decode step
     (1, 16, 2, 64, True),
     (1, 17, 2, 64, False),
     (1, 32, 2, 64, True),
@@ -620,7 +621,7 @@ def test_rwkv6_kernel_chunk_edges_and_long_t(cuda, case, dtype):
 
 
 def test_rwkv6_kernel_strong_decay_bf16(cuda):
-    """Strong decay through the bf16 prefill's three kernels."""
+    """Strong decay through the bf16 cluster kernel (four ranks)."""
     r, k, v, w, u, s0 = _rwkv_inputs((1, 100, 4, 64, True), torch.bfloat16, cuda, strong=True)
     out, s_t = rk.rwkv6_scan(r, k, v, w, u, s0)
     exp_o, exp_s = ref.rwkv6_reference(r, k, v, w, u, s0)
@@ -631,7 +632,7 @@ def test_rwkv6_kernel_strong_decay_bf16(cuda):
 @pytest.mark.parametrize("t", [45, 1])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_rwkv6_kernel_in_place_in_both_regimes(cuda, t, dtype):
-    """``final_state=state`` through the prefill's kernels (T = 45) and the
+    """``final_state=state`` through the cluster kernel (T = 45) and the
     one-token kernel (T = 1): the result of a separate final state, within
     tolerance of the plain version."""
     r, k, v, w, u, s0 = _rwkv_inputs((2, t, 4, 64, True), DTYPES[dtype], cuda)
@@ -1029,14 +1030,73 @@ def test_kernels_without_a_function_refuse_a_gradient(cuda):
 
 
 def test_rwkv6_kernel_f32_strong_decay_at_the_served_shape(cuda):
-    """The f32 prefill (``rwkv6::simt``, which training runs) under strong
-    decay, exp(-exp(U(-2, 4))) down to 1e-24, at rwkv6-1.6b's served prefill
-    (T = 500, H = 32, hd 64), within 1e-4 of the plain version."""
+    """The f32 cluster kernel (which training runs) under strong decay,
+    exp(-exp(U(-2, 4))) down to 1e-24, at rwkv6-1.6b's served prefill
+    (T = 500, H = 32, hd 64: 16 ranks of one chunk), within 1e-4 of the plain
+    version."""
     r, k, v, w, u, s0 = _rwkv_inputs((1, 500, 32, 64, True), torch.float32, cuda, strong=True)
     out, s_t = rk.rwkv6_scan(r, k, v, w, u, s0)
     exp_o, exp_s = ref.rwkv6_reference(r, k, v, w, u, s0)
     assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(s_t).all())
     assert _err(out, exp_o) < 1e-4 and _err(s_t, exp_s) < 1e-4
+
+
+# the cluster kernel's plans (b, t, h, hd): a cluster of 16 ranks of one
+# chunk at the served prefill, 16 ranks of several chunks (T = 2048 and a
+# ragged 19 chunks: the first three ranks two), the training forward's 4
+# ranks, and every head dim over a cluster
+RWKV_CLUSTER_CASES = [(1, 500, 32, 64), (1, 2048, 4, 64), (2, 600, 3, 64), (4, 128, 32, 64),
+                      (2, 200, 3, 16), (2, 200, 3, 32), (2, 200, 3, 128), (1, 600, 2, 128)]
+
+
+@pytest.mark.parametrize("case", RWKV_CLUSTER_CASES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rwkv6_cluster_kernel_plans(cuda, case, dtype):
+    """The cluster kernel at each plan against the plain version (r, k, v
+    halved as the edge cases are, |o| below bf16's step of 8), one launch a
+    call, and the plan the wrapper takes within the card's clusters."""
+    b, t, h, hd = case
+    plan = rk.cluster_plan(b, t, h, hd, DTYPES[dtype], rk.max_ranks(DTYPES[dtype], hd, cuda))
+    assert plan.ranks == min(-(-t // 32), 16)
+    r, k, v, w, u, s0 = _rwkv_inputs((*case, True), DTYPES[dtype], cuda, scale=0.5)
+    launches = rk.launches
+    out, s_t = rk.rwkv6_scan(r, k, v, w, u, s0)
+    exp_o, exp_s = ref.rwkv6_reference(r, k, v, w, u, s0)
+    assert rk.launches == launches + 1
+    assert _err(out, exp_o) < RWKV_TOL[dtype] and _err(s_t, exp_s) < RWKV_TOL[dtype]
+
+
+@pytest.mark.parametrize("t", [500, 600])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rwkv6_cluster_kernel_updates_the_state_in_place(cuda, t, dtype):
+    """``final_state=state`` at T > 32 through 16 ranks of one chunk (T =
+    500, where rank 0 reads s0 only in pass 1) and of several (T = 600, where
+    it reads s0 again before the last round's barrier): the result of a
+    separate final state, bit for bit, within tolerance of the plain
+    version."""
+    r, k, v, w, u, s0 = _rwkv_inputs((2, t, 4, 64, True), DTYPES[dtype], cuda, scale=0.5)
+    out_sep, s_sep = rk.rwkv6_scan(r, k, v, w, u, s0)
+    state = s0.clone()
+    out_in, s_in = rk.rwkv6_scan(r, k, v, w, u, state, final_state=state)
+    assert s_in is state
+    assert torch.equal(out_in, out_sep) and torch.equal(state, s_sep)
+    exp_o, exp_s = ref.rwkv6_reference(r, k, v, w, u, s0)
+    assert _err(out_in, exp_o) < RWKV_TOL[dtype] and _err(state, exp_s) < RWKV_TOL[dtype]
+
+
+@pytest.mark.parametrize("t", [517, 45])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rwkv6_cluster_kernel_ragged_last_chunk_strong_decay(cuda, t, dtype):
+    """A last chunk of 5 and of 13 tokens under strong decay: TMA fills its
+    rows past T with w = 0, which the kernel must read as w = 1 (else the
+    final state decays to 0)."""
+    r, k, v, w, u, s0 = _rwkv_inputs((1, t, 4, 64, True), DTYPES[dtype], cuda, strong=True,
+                                     scale=0.5)
+    out, s_t = rk.rwkv6_scan(r, k, v, w, u, s0)
+    exp_o, exp_s = ref.rwkv6_reference(r, k, v, w, u, s0)
+    assert bool(torch.isfinite(out.float()).all()) and bool(torch.isfinite(s_t).all())
+    assert _err(out, exp_o) < RWKV_TOL[dtype] and _err(s_t, exp_s) < RWKV_TOL[dtype]
+    assert float(s_t.abs().max()) > 1e-3
 
 
 def _grads_and_step(cfg, params, batch, device):

@@ -20,7 +20,8 @@ REPO = Path(__file__).resolve().parents[1]
 # the chip scripts and the card's tests run where JAX is not installed
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "chip_kernel_ab.py", REPO / "chip_decode_sweep.py",
-    REPO / "chip_profile_repeat.py", REPO / "tests" / "test_torch_cuda.py"]
+    REPO / "chip_profile_repeat.py", REPO / "chip_scan_phases.py",
+    REPO / "tests" / "test_torch_cuda.py"]
 BANNED_ROOTS = ("jax", "jaxlib", "repro", "ml_dtypes")
 BANNED_CALLS = {"torch.manual_seed", "torch.cuda.manual_seed", "torch.cuda.manual_seed_all",
                 "torch.seed", "torch.random.manual_seed"}

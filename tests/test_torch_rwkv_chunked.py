@@ -1,11 +1,13 @@
 """The chunk-parallel RWKV-6 scan on the CPU: its plain version against the
-JAX oracle, and the shapes of the scratch the kernel wrapper allocates.
+JAX oracle, and the kernel wrapper's cluster plan.
 
-``ref.rwkv6_chunk_parallel_reference`` computes the arithmetic of the bf16
-prefill of ``csrc/rwkv6_scan.cu``: 32-token chunks split into two 16-token
-sub-chunks, pairwise scores inside a sub-chunk, the off-diagonal block
-factored at the sub-chunk edge, per-chunk state increments, the serial
-carry and the carry-in term.  It is held to the sequential JAX oracle
+``ref.rwkv6_chunk_parallel_reference`` computes the chunk-parallel form of
+``csrc/rwkv6_scan.cu`` in f32 products (what the dry-run counts): 32-token
+chunks split into two 16-token sub-chunks, pairwise scores inside a
+sub-chunk, the off-diagonal block factored at the sub-chunk edge,
+per-chunk state increments, the serial carry and the carry-in term
+(``tests/test_torch_rwkv_cluster.py`` holds the kernel's own schedule and
+tf32 products).  It is held to the sequential JAX oracle
 ``repro.kernels.ref.rwkv6_reference`` on the same numpy inputs from a seed.
 Tolerance 1e-5 in f32: the same f32 products summed in another order, and
 the decays multiplied as 2^(a sum of log2 w) where the oracle multiplies them
@@ -110,11 +112,35 @@ def test_every_exponent_is_at_most_zero(strong):
         assert bool(torch.isfinite(torch.exp2(x)).all()), name
 
 
-def test_scratch_only_for_a_bf16_prefill_of_several_chunks():
-    """The wrapper allocates the carry's scratch only where the bf16 prefill
-    runs its three kernels: more than one 32-token chunk."""
-    bf16, f32 = torch.bfloat16, torch.float32
-    assert rk.scratch_shapes(bf16, 1, 500, 32, 64) == ((1, 32, 16, 64, 64), (1, 32, 16, 64))
-    assert rk.scratch_shapes(bf16, 2, 33, 4, 16) == ((2, 4, 2, 16, 16), (2, 4, 2, 16))
-    for dtype, t in ((bf16, 1), (bf16, 32), (f32, 1), (f32, 500)):
-        assert rk.scratch_shapes(dtype, 1, t, 32, 64) is None
+# (b, t, h) -> (ranks, chunks a rank): the served prefill, the training
+# forward, T = 2048, two chunks, one chunk
+PLANS = {(1, 500, 32): (16, 1), (4, 128, 32): (4, 1), (1, 2048, 4): (16, 4), (2, 33, 4): (2, 1),
+         (1, 32, 8): (1, 1), (3, 17, 2): (1, 1)}
+
+
+@pytest.mark.parametrize("shape", sorted(PLANS))
+def test_cluster_plan_of_the_main_shapes(shape):
+    """The kernel's grid: one cluster of min(ceil(T / 32), 16) ranks per (b,
+    h), every rank a run of chunks; shapes only, the same in f32 and bf16."""
+    b, t, h = shape
+    ranks, per = PLANS[shape]
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = rk.cluster_plan(b, t, h, 64, dtype)
+        assert (plan.ranks, plan.chunks, plan.grid) == (ranks, -(-t // 32), (ranks, h, b))
+        assert {n for _, n in plan.runs} == {per}
+
+
+def test_cluster_plan_never_exceeds_r_max():
+    """Ranks at most r_max (16, or the portable 8) and at most the chunks;
+    refused head dims, dtypes and r_max raise."""
+    for t in (1, 31, 33, 100, 257, 500, 1000, 4096):
+        for r_max in (8, 16):
+            plan = rk.cluster_plan(1, t, 4, 32, torch.float32, r_max)
+            assert plan.ranks == min(-(-t // 32), r_max)
+            assert plan.runs == tuple(ref.rwkv6_rank_runs(plan.chunks, plan.ranks))
+    with pytest.raises(ValueError):
+        rk.cluster_plan(1, 64, 4, 48, torch.float32)
+    with pytest.raises(TypeError):
+        rk.cluster_plan(1, 64, 4, 64, torch.float16)
+    with pytest.raises(ValueError):
+        rk.cluster_plan(1, 64, 4, 64, torch.float32, r_max=32)
