@@ -199,7 +199,12 @@ never prints its last line):
    allocator's growth beside them); then the dry-run's FLOP and byte table
    for all ten archs x four input shapes (meta tensors, on the host,
    ``launch/dryrun.py``), printed on a ``[dryrun]`` line and timed in the
-   phase's seconds (``{"specs": ...}``);
+   phase's seconds; then the dry-run's partition (``dryrun.run_one``) of
+   qwen1.5-0.5b ``train_4k``, kimi-k2 ``decode_32k`` and whisper-small
+   ``prefill_32k`` over the (16, 16) mesh of a fake process group of 256
+   ranks, meta DTensors on the host: each one's collectives (the
+   reference's keys and ring factors) and per-device bytes, their totals
+   on a ``[dryrun-partition]`` line (``{"specs": ...}``);
 8. the multi-device paths at one rank: an NCCL process group of one rank
    (a ``FileStore`` in a temporary directory) and ``make_test_mesh((1,
    1))``, a ``DeviceMesh`` on the card, under rules mapping ``experts`` to
@@ -211,7 +216,19 @@ never prints its last line):
    on a 512-token prompt, with the launch counters from 0 (flash attention
    once a layer), the forward's and the MoE layers' device time (the
    all-to-alls in a profiler range of their own) beside the sort path's and
-   the largest logit difference; the group is destroyed, and
+   the largest logit difference; 8b, under the same group, the
+   partitioned step on ``make_test_mesh((1, 1))`` with ``make_rules``'
+   rules: qwen1.5-0.5b at full width and depth in bf16 through
+   ``build_step``'s prefill (1 x 512) and decode (8 slots, cache 2048) on
+   DTensor arguments placed by its specs, every flash and decode call
+   through ``local_map`` (counted) with the launch counters from 0 equal
+   to the expected ones, the logits held to the same steps on plain
+   tensors; an f32 check at full width and 2 layers (prefill and decode
+   logits, ``loss_fn``'s loss and every gradient leaf, one
+   ``make_train_step`` step's loss) within 1e-5 relative, errors and
+   bit-equality printed; the decode step's host ms and ``torch.profiler``
+   device ms on DTensors and on plain tensors, on a ``[sharded-step]``
+   line with the card's name and power limit; the group is destroyed, and
    ``torch_engine.run_grid`` without one runs the grid as one dispatch
    (``sharded=None`` equal to ``False``) and refuses ``sharded=True``
    (``{"multi_device": ...}``);
@@ -238,6 +255,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
@@ -251,12 +269,12 @@ from repro_torch.core.schedulers import VECTOR_SCHEDULERS  # noqa: E402
 from repro_torch.core.sim import torch_engine  # noqa: E402
 from repro_torch.core.workloads import SCENARIO_ZOO  # noqa: E402
 from repro_torch.configs.registry import ATTN, LOCAL_ATTN, RWKV  # noqa: E402
-from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rk  # noqa: E402
 from repro_torch.launch import dryrun, specs  # noqa: E402
-from repro_torch.distributed import AxisRules, axis_rules, device_mesh  # noqa: E402
+from repro_torch.distributed import AxisRules, axis_rules, device_mesh, partitioned  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh, make_test_mesh  # noqa: E402
 from repro_torch.models import frontends  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
@@ -267,7 +285,7 @@ from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpo
 from repro_torch.training import OptimizerConfig, ScheduleConfig, adamw_init  # noqa: E402
 from repro_torch.training import train_loop  # noqa: E402
 from repro_torch.training.data import SyntheticLM  # noqa: E402
-from repro_torch.training.optimizer import tree_leaves  # noqa: E402
+from repro_torch.training.optimizer import tree_leaves, tree_unflatten  # noqa: E402
 
 # tolerances of tests/test_kernels.py
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -2905,8 +2923,40 @@ def phase_specs(seed, gpu):
                                        **{f"{k}_bytes": v for k, v in rec["bytes"].items()}}
     print("[dryrun] product FLOPs (FlopCounterMode on meta tensors, equal to the analytic "
           "count), the ideal count and bytes, every arch x input shape: " + json.dumps(table))
-    return {"steps": steps, "dry_run_s": time.perf_counter() - t0, "gpu": gpu,
+    dry_run_s = time.perf_counter() - t0
+    partition = partition_runs()
+    return {"steps": steps, "dry_run_s": dry_run_s, "partition": partition, "gpu": gpu,
             "phase_s": time.perf_counter() - t_phase}
+
+
+# the dry-run's partition (launch/dryrun.py:run_one) over the
+# single-pod (16, 16) mesh of 256 fake ranks, on meta DTensors on the host
+PARTITION_RUNS = (("qwen1.5-0.5b", "train_4k"), (KIMI_ARCH, "decode_32k"),
+                  ("whisper-small", "prefill_32k"))
+
+
+def partition_runs() -> list:
+    """``dryrun.run_one`` of each of PARTITION_RUNS at pod1: its collectives
+    (the reference's keys, ring-factor bytes) and per-device bytes, each
+    printed on a ``[dryrun-partition]`` line; a failed run fails the phase.
+    The fake group is gone afterwards (phase 8 starts an NCCL one)."""
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, shape_name in PARTITION_RUNS:
+            rec = dryrun.run_one(arch, shape_name, out_dir=tmp)
+            if not rec["ok"]:
+                raise AssertionError(f"dry-run partition of {arch} {shape_name}: {rec['error']}")
+            row = {"arch": arch, "shape": shape_name, "mesh": rec["partition_mesh"],
+                   "collectives": rec["collectives"], "collective_ops": rec["collective_ops"],
+                   "per_device": rec["per_device"], "seconds": rec["partition_seconds"]}
+            print(f"[dryrun-partition] {arch} {shape_name} pod1: collectives.total "
+                  f"{rec['collectives']['total']} B in {rec['collectives']['count']}, "
+                  f"per_device.total {rec['per_device']['total']} B, "
+                  f"{rec['partition_seconds']:.1f} s: " + json.dumps(row))
+            out.append(row)
+    if dist.is_initialized():
+        raise AssertionError("the dry-run left its fake process group up")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3040,6 +3090,207 @@ def ep_bf16_run(seed, rules, tokens):
                                              - prof["local"]["moe_layer_ms"])}
 
 
+# phase 8b: qwen1.5-0.5b's build_step steps partitioned on the one-rank
+# (1, 1) mesh (DTensor arguments placed by make_rules' specs), bf16 at full
+# width and depth at phase 7's prefill and decode shapes; the f32 check at
+# full width and SHARDED_F32_LAYERS layers, its train step on a
+# SHARDED_TRAIN batch; each decode step timed SHARDED_TIMED times
+SHARDED_F32_LAYERS, SHARDED_TRAIN, SHARDED_TIMED = 2, (2, 128), 10
+# bf16 logits, DTensor steps vs plain ones at one rank: the same kernels and
+# products on the same local tensors; one bf16 step of the logits' scale
+# (tests/test_torch_moe.py's bf16 tolerance)
+SHARDED_BF16_TOL = 2e-2
+
+
+def _placed_step(cfg, shape, mesh, params, dev, gen):
+    """``build_step``'s step at ``shape`` and its real arguments on ``mesh``,
+    placed by its specs (``specs.place``), beside the same arguments as
+    plain tensors: (step, rules, sharded args, plain args)."""
+    step, _, arg_specs, rules, _ = specs.build_step(cfg, shape, mesh,
+                                                    param_dtype=tree_leaves(params)[0].dtype)
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+        labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)], dim=1)
+        opt = adamw_init(params, OptimizerConfig())
+        plain = (params, opt, {"inputs": tokens, "labels": labels})
+    else:
+        tokens = torch.randint(0, cfg.vocab_size, (b, s) if shape.kind == "prefill" else (b,),
+                               generator=gen, device=dev)
+        plain = (params, tokens, model_lib.init_cache(cfg, b, s, dtype=params["embed"].dtype,
+                                                      device=dev))
+    sharded = tuple(specs.place(a, sp, mesh) for a, sp in zip(plain, arg_specs))
+    if shape.kind != "train":          # each run writes its own cache
+        plain = (plain[0], plain[1], model_lib.init_cache(cfg, b, s, dtype=params["embed"].dtype,
+                                                          device=dev))
+    return step, rules, sharded, plain
+
+
+def _local_calls():
+    """A wrapper of ``ops.local_call`` that counts the kernels' calls
+    through ``local_map``."""
+    seen = {"n": 0}
+
+    def wrapper(real):
+        def run(*args, **kwargs):
+            seen["n"] += 1
+            return real(*args, **kwargs)
+        return run
+    return seen, wrapper
+
+
+def _whole(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def sharded_bf16(seed, mesh):
+    """qwen1.5-0.5b at full width and depth in bf16: ``build_step``'s
+    prefill (1 x 512) and decode (8 slots, cache 2048) on DTensor arguments
+    with the launch counters from 0: every flash and decode call through
+    ``local_map`` (``ops.local_call`` counted), the launches expected, the
+    logits against the same steps on plain tensors; then the host and
+    device ms of the decode step, sharded and plain."""
+    cfg, dev = get_config(ARCH), torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = model_lib.init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+    out, launches = {}, {name: 0 for name in KERNELS}
+    calls, counting = _local_calls()
+    for shape in SPEC_SHAPES[1:]:
+        step, rules, sharded, plain = _placed_step(cfg, shape, mesh, params, dev, gen)
+        with torch.no_grad():
+            want = _whole(step(*plain)[0])
+            for mod in KERNELS.values():
+                mod.launches = 0
+            calls["n"] = 0
+            with axis_rules(rules), wrapped(ops, "local_call", counting):
+                got = step(*sharded)[0]
+            torch.cuda.synchronize()
+        ran = launch_counts()
+        expected = expected_launches(cfg, 1 if shape.kind == "prefill" else 0,
+                                     1 if shape.kind == "decode" else 0)
+        if ran != expected or calls["n"] != sum(expected.values()):
+            raise AssertionError(f"sharded {shape.name}: launches {ran} (expected {expected}), "
+                                 f"{calls['n']} calls through local_map")
+        got = _whole(got)
+        err = rel_err(got, want)
+        if got.shape != want.shape or not bool(torch.isfinite(got.float()).all()) or \
+                not err <= SHARDED_BF16_TOL:
+            raise AssertionError(f"sharded {shape.name}: logits {tuple(got.shape)}, rel err {err}")
+        launches = {k: launches[k] + ran[k] for k in launches}
+        out[shape.name] = {"launches": ran, "local_map_calls": calls["n"], "logits_rel_err": err,
+                           "bit_equal": bool(torch.equal(got, want))}
+        if shape.kind == "decode":
+            out["decode_timing"] = decode_step_cost(step, rules, sharded, plain)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"model": cfg.name, "layers": cfg.num_layers, "dtype": "bfloat16", "steps": out,
+            "launches": launches}
+
+
+def decode_step_cost(step, rules, sharded, plain):
+    """Host ms of one decode step (the card synchronised after each, median
+    of SHARDED_TIMED) and its device ms from ``torch.profiler`` (the sum of
+    its kernels' device time), on DTensors and on plain tensors."""
+    res = {}
+    for name, args, ctx in (("sharded", sharded, lambda: axis_rules(rules)),
+                            ("plain", plain, contextlib.nullcontext)):
+        with torch.no_grad(), ctx():
+            step(*args)
+            torch.cuda.synchronize()
+            host = []
+            for _ in range(SHARDED_TIMED):
+                t0 = time.perf_counter()
+                step(*args)
+                torch.cuda.synchronize()
+                host.append(1e3 * (time.perf_counter() - t0))
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                step(*args)
+                torch.cuda.synchronize()
+        res[name] = {"host_ms": float(np.median(host)),
+                     "device_ms": sum(device_times(prof).values()) / 1e3}
+    if not (res["sharded"]["device_ms"] > 0 and res["plain"]["device_ms"] > 0):
+        raise AssertionError(f"a decode step's profile holds no device time: {res}")
+    res["host_ms_ratio"] = res["sharded"]["host_ms"] / res["plain"]["host_ms"]
+    res["device_ms_ratio"] = res["sharded"]["device_ms"] / res["plain"]["device_ms"]
+    return res
+
+
+def sharded_f32(seed, mesh):
+    """qwen1.5-0.5b at full width and SHARDED_F32_LAYERS layers in f32, on
+    DTensors against plain tensors: the prefill's and the decode step's
+    logits, then ``loss_fn``'s loss and every gradient leaf (the backward
+    under ``partitioned``) and one ``make_train_step`` step's loss, each
+    within EP_TOL of the leaf's largest magnitude; whether each is
+    bit-equal is printed, not required."""
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=SHARDED_F32_LAYERS)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    params = model_lib.init_params(cfg, gen, dtype=torch.float32, device=dev)
+    errs, equal = {}, {}
+    for shape in SPEC_SHAPES[1:]:
+        step, rules, sharded, plain = _placed_step(cfg, shape, mesh, params, dev, gen)
+        with torch.no_grad():
+            want = step(*plain)[0]
+            with axis_rules(rules):
+                got = _whole(step(*sharded)[0])
+        errs[f"{shape.kind}_logits"] = rel_err(got, want)
+        equal[f"{shape.kind}_logits"] = bool(torch.equal(got, want))
+    b, s = SHARDED_TRAIN
+    shape = InputShape(f"train_{b}x{s}", s, b, "train")
+    step, rules, sharded, plain = _placed_step(cfg, shape, mesh, params, dev, gen)
+    grads = {}
+    for name, (p, _, batch) in (("sharded", sharded), ("plain", plain)):
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(p)]
+        with axis_rules(rules), partitioned(rules):
+            loss, _ = model_lib.loss_fn(cfg, tree_unflatten(p, leaves), batch,
+                                        remat=True)
+            grads[name] = (_whole(loss).detach(),
+                           [_whole(g) for g in torch.autograd.grad(loss, leaves)])
+    errs["loss"] = rel_err(grads["sharded"][0], grads["plain"][0])
+    equal["loss"] = bool(torch.equal(grads["sharded"][0], grads["plain"][0]))
+    grad_errs = [rel_err(a, b) for a, b in zip(grads["sharded"][1], grads["plain"][1])]
+    errs["grads_max"] = max(grad_errs)
+    equal["grads"] = all(torch.equal(a, b) for a, b in zip(grads["sharded"][1],
+                                                           grads["plain"][1]))
+    with axis_rules(rules):
+        got = _whole(step(*sharded)[2]["loss"])
+    want = step(*plain)[2]["loss"]
+    errs["train_step_loss"] = rel_err(got, want)
+    equal["train_step_loss"] = bool(torch.equal(got, want))
+    names = leaf_names(params)
+    bad = {k: v for k, v in errs.items() if not v <= EP_TOL}
+    bad.update({names[i]: e for i, e in enumerate(grad_errs) if not e <= EP_TOL})
+    if bad:
+        raise AssertionError(f"the partitioned step departs from the plain one by more than "
+                             f"{EP_TOL} relative: {bad}")
+    check_grads(params, grads["sharded"][1])
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"model": cfg.name, "layers": SHARDED_F32_LAYERS, "tolerance": EP_TOL,
+            "rel_err": errs, "bit_equal": equal, "grad_leaves": len(grad_errs)}
+
+
+def phase_sharded_step(seed, gpu, mesh):
+    """Phase 8b, under phase 8's NCCL group of one rank: the partitioned
+    steps (``sharded_bf16``, ``sharded_f32``) on ``make_test_mesh((1, 1))``
+    with make_rules' rules."""
+    t0 = time.perf_counter()
+    res = {"mesh": {"names": list(mesh.mesh_dim_names), "shape": list(mesh.shape)},
+           "bf16": sharded_bf16(seed, mesh), "f32_check": sharded_f32(seed, mesh), "gpu": gpu}
+    res["launches"] = res["bf16"]["launches"]
+    res["phase_s"] = time.perf_counter() - t0
+    t = res["bf16"]["steps"]["decode_timing"]
+    print(f"[sharded-step] qwen1.5-0.5b on DTensors at one NCCL rank: launches "
+          f"{json.dumps(res['launches'])}; f32 rel err {json.dumps(res['f32_check']['rel_err'])}, "
+          f"bit-equal {json.dumps(res['f32_check']['bit_equal'])}; decode step host ms "
+          f"{t['sharded']['host_ms']:.3f} sharded vs {t['plain']['host_ms']:.3f} plain, device ms "
+          f"{t['sharded']['device_ms']:.4f} vs {t['plain']['device_ms']:.4f} ({gpu})")
+    return res
+
+
 def grid_without_a_group(seed):
     """``run_grid`` on the card with no process group: ``sharded=None`` is
     the one-dispatch run, bit for bit, and ``sharded=True`` raises, as the
@@ -3090,10 +3341,12 @@ def phase_multi_device(seed, gpu, prompt):
                       "rules": EP_RULES}
             result["f32_check"] = ep_f32_check(seed, rules, tokens)
             result["bf16"] = ep_bf16_run(seed, rules, tokens)
+            result["sharded_step"] = phase_sharded_step(seed, gpu, mesh)
         finally:
             dist.destroy_process_group()
     result["grid"] = grid_without_a_group(seed)
-    result["launches"] = result["bf16"]["launches"]
+    result["launches"] = {k: result["bf16"]["launches"][k]
+                          + result["sharded_step"]["launches"][k] for k in KERNELS}
     result["gpu"] = gpu
     result["phase_s"] = time.perf_counter() - t_phase
     print(f"[multi-device] EP at one NCCL rank: f32 rel err {json.dumps(result['f32_check']['rel_err'])}; "

@@ -7,6 +7,8 @@ from repro_torch.distributed.sharding import (  # noqa: F401
     device_mesh,
     logical_to_spec,
     mesh_shape,
+    partitioned,
+    placements_of,
     shard,
     spec_for_axes,
 )

@@ -1,15 +1,26 @@
-"""Dry-run on one card: the FLOPs and bytes of every (architecture x input
-shape) step, from meta tensors.
+"""Dry-run: the FLOPs and bytes of every (architecture x input shape) step,
+from meta tensors, and the collectives and per-device bytes of its
+partition over the production mesh.
 
 The JAX package's dry-run (``repro/launch/dryrun.py``) lowers each step
-with production shardings for a 512-device TPU mesh, compiles it and
-records XLA's memory and cost analyses and every collective's bytes from
-the optimized HLO.  One card has no mesh to lower for and no HLO, so this
-twin records no collectives and no HLO.  It builds the same step
+with production shardings for the TPU mesh, compiles it and records XLA's
+memory and cost analyses and every collective's bytes from the optimized
+HLO.  This twin has no HLO.  It builds the same step
 (``launch/specs.py:build_step``: train, prefill or decode, the port's own
-``make_train_step``, ``prefill`` and ``decode_step``) on meta tensors, runs
-it there (no storage, no values: kimi-k2's 1 T parameters cost nothing) and
-records:
+``make_train_step``, ``prefill`` and ``decode_step``) twice on meta tensors
+(no storage, no values: kimi-k2's 1 T parameters cost nothing) and runs
+it:
+
+  * on the record of the single-pod mesh, plain meta tensors, counting
+    ``flops`` and the whole bytes (``record``);
+  * on the production ``DeviceMesh`` over a fake process group of 256
+    ranks (512 with ``--multi-pod``; ``torch.testing``'s ``FakeStore``,
+    backend ``"fake"``: collectives return at once and move nothing),
+    arguments as meta DTensors placed by the specs, the step partitioned as
+    on real ranks (``distributed/sharding.py``), counting what rank 0's
+    part moves and holds (``partition_record``).
+
+It records:
 
   * ``flops``: the step's product FLOPs, counted by
     ``torch.utils.flop_counter.FlopCounterMode`` (matrix products,
@@ -26,7 +37,22 @@ records:
     capacity slack;
   * the bytes of the parameters, the optimizer state (train), the cache
     (prefill, decode) and the batch, ``params_total`` and ``params_active``,
-    and the logical-axis rules under the JAX package's single-pod mesh.
+    and the logical-axis rules under the JAX package's single-pod mesh;
+  * ``collectives``: the reference's keys (``all-gather``, ``all-reduce``,
+    ``reduce-scatter``, ``all-to-all``, ``collective-permute``, ``count``,
+    ``total``): each collective the partitioned step issues, seen by a
+    ``TorchDispatchMode`` (``CollectiveCounter``: the ``_c10d_functional``
+    ops DTensor's redistributions issue, the ``c10d`` ops of the paths that
+    partition by hand), its result's bytes times the reference's ring
+    factor for its group size (``ring_factor``); ``collective_ops`` counts
+    them by op;
+  * ``per_device``: the bytes of rank 0's local shards of the parameters,
+    the optimizer state, the cache and the batch, and their ``total``: the
+    arguments' part of the reference's ``memory_analysis``.
+
+The collectives are not held to XLA's: GSPMD picks its own.  XLA-only
+parts get no twin: ``_compile_metrics``, ``_probe_cfg`` and
+``_extrapolate`` exist because XLA counts a scan body once.
 
 What the meta step multiplies.  ``kernels/ops.py`` sends meta tensors to
 the plain versions.  Attention multiplies every (query, key) pair of its
@@ -44,25 +70,30 @@ each forward one.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch kimi-k2-1t-a32b --shape decode_32k --multi-pod
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import time
 import traceback
 from typing import Dict
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import INPUT_SHAPES, get_config, list_architectures
 from repro_torch.configs.registry import ATTN, LOCAL_ATTN, RGLRU, RWKV, InputShape, ModelConfig
 from repro_torch.distributed.sharding import axis_rules
 from repro_torch.kernels.ref import RWKV_CHUNK, RWKV_SUB
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import make_production_mesh, production_shape
 from repro_torch.launch.specs import build_step, decode_window
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.griffin import NUM_BLOCKS
@@ -193,7 +224,7 @@ def record(cfg: ModelConfig, shape: InputShape) -> dict:
     """Build ``cfg``'s step at ``shape`` on meta tensors, count it and
     return the record; raises where the step fails or its count leaves the
     analytic one."""
-    mesh = make_production_mesh()
+    mesh = production_shape()
     t0 = time.perf_counter()
     step, args, _, rules, _ = build_step(cfg, shape, mesh)
     counter = FlopCounterMode(display=False)
@@ -232,23 +263,192 @@ def record(cfg: ModelConfig, shape: InputShape) -> dict:
     return rec
 
 
-def run_one(arch: str, shape_name: str, *, out_dir: str = ARTIFACT_DIR) -> dict:
-    """``record`` of ``arch`` at ``shape_name``, written to
-    ``<out_dir>/<arch>__<shape>.json``; ``ok`` False with the error where
-    the step fails."""
+# ---------------------------------------------------------------------------
+# The partition: collectives and per-device bytes over a fake process group.
+# ---------------------------------------------------------------------------
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
+#: the ops a step's collectives reach the dispatcher as, by the reference's
+#: HLO names: the functional ones of DTensor's redistributions and the
+#: in-place ``c10d`` ones of ``torch.distributed``'s calls (moe_ep_a2a)
+_KIND = {
+    "_c10d_functional.all_gather_into_tensor": "all-gather",
+    "_c10d_functional.all_gather_into_tensor_coalesced": "all-gather",
+    "_c10d_functional.all_reduce": "all-reduce",
+    "_c10d_functional.all_reduce_coalesced": "all-reduce",
+    "_c10d_functional.reduce_scatter_tensor": "reduce-scatter",
+    "_c10d_functional.reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "_c10d_functional.all_to_all_single": "all-to-all",
+    "c10d.allgather_": "all-gather",
+    "c10d._allgather_base_": "all-gather",
+    "c10d.allreduce_": "all-reduce",
+    "c10d.reduce_scatter_": "reduce-scatter",
+    "c10d._reduce_scatter_base_": "reduce-scatter",
+    "c10d.alltoall_base_": "all-to-all",
+    "c10d.alltoall_": "all-to-all",
+    "c10d.send": "collective-permute",
+    "c10d.recv_": "collective-permute",
+}
+#: the in-place c10d ops' output argument (their result)
+_C10D_OUT = {"c10d.alltoall_base_": 0, "c10d.alltoall_": 0, "c10d.allgather_": 0,
+             "c10d._allgather_base_": 0, "c10d.reduce_scatter_": 0,
+             "c10d._reduce_scatter_base_": 0, "c10d.allreduce_": 0, "c10d.send": 0,
+             "c10d.recv_": 0}
+
+
+def ring_factor(kind: str, group: int) -> float:
+    """Bytes moved a byte of a collective's result under the reference's
+    ring factors (``repro/launch/dryrun.py:collective_bytes``): all-gather
+    and all-to-all (S-1)/S, all-reduce 2 (S-1)/S, reduce-scatter S-1,
+    collective-permute 1; 0 for a group of one."""
+    if group <= 1:
+        return 0.0
+    if kind == "all-reduce":
+        return 2.0 * (group - 1) / group
+    if kind == "reduce-scatter":
+        return float(group - 1)
+    if kind == "collective-permute":
+        return 1.0
+    return (group - 1) / group
+
+
+def _tensor_bytes(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (list, tuple)):
+        return sum(_tensor_bytes(t) for t in x)
+    return 0
+
+
+def _group_size(args) -> int:
+    """The group size of a collective op's arguments: a process group
+    (``c10d``), a group name, or the functional ops' ``group_size``."""
+    for a in args:
+        if isinstance(a, torch.ScriptObject):
+            try:
+                return dist.ProcessGroup.unbox(a).size()
+            except RuntimeError:          # another script object (a reduce op)
+                continue
+    names = [a for a in args if isinstance(a, str)]      # the group name comes last
+    if names:
+        return dist.distributed_c10d._resolve_process_group(names[-1]).size()
+    raise ValueError("no process group among a collective's arguments")
+
+
+class CollectiveCounter(TorchDispatchMode):
+    """Every collective op dispatched under it: ``collectives()`` sums each
+    kind's result bytes times ``ring_factor`` (the reference's
+    ``collective_bytes``), ``ops`` counts them by op."""
+
+    def __init__(self):
+        super().__init__()
+        self.moved = {c: 0 for c in COLLECTIVES}
+        self.count = 0
+        self.ops: Dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            # let DTensor dispatch with this mode still on the stack, so that
+            # the collectives of the redistributions it decides inside its
+            # dispatch come through here too (as CommDebugMode does)
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        name = f"{func.namespace}.{func._opname}"
+        kind = _KIND.get(name)
+        if kind is not None:
+            result = args[_C10D_OUT[name]] if name in _C10D_OUT else out
+            self.record(kind, _tensor_bytes(result), _group_size(args))
+            self.ops[name] = self.ops.get(name, 0) + 1
+        return out
+
+    def record(self, kind: str, nbytes: int, group: int) -> None:
+        self.moved[kind] += int(nbytes * ring_factor(kind, group))
+        self.count += 1
+
+    def collectives(self) -> Dict[str, int]:
+        out = dict(self.moved, count=self.count)
+        out["total"] = sum(self.moved.values())
+        return out
+
+
+def _local_bytes(tree) -> int:
+    return sum(t.to_local().numel() * t.element_size() if isinstance(t, DTensor)
+               else t.numel() * t.element_size() for t in tree_leaves(tree) if t is not None)
+
+
+def fake_group(world: int):
+    """Bring up a fake process group of ``world`` ranks (this process is
+    rank 0) unless one of that size is up; returns whether it did (then the
+    caller destroys it)."""
+    if dist.is_initialized():
+        if dist.get_world_size() != world:
+            raise RuntimeError(f"a process group of {dist.get_world_size()} ranks is up, "
+                               f"the mesh needs {world}")
+        return False
+    from torch.testing._internal.distributed.fake_pg import FakeStore  # registers "fake"
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    return True
+
+
+def partition_record(cfg: ModelConfig, shape: InputShape, *, multi_pod: bool = False) -> dict:
+    """Build ``cfg``'s step at ``shape`` on the production ``DeviceMesh``
+    over a fake process group (brought up here and destroyed before
+    returning, unless one of the mesh's size is already up), run it on meta
+    DTensors and return ``collectives``, ``collective_ops`` and
+    ``per_device``."""
+    world = math.prod(production_shape(multi_pod=multi_pod).sizes)
+    own = fake_group(world)
+    try:
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        step, args, _, rules, _ = build_step(cfg, shape, mesh)
+        # the arguments as placed, before the step (prefill adds to its cache)
+        per_device = {"params": _local_bytes(args[0])}
+        if shape.kind == "train":
+            per_device["opt_state"] = _local_bytes(args[1])
+            per_device["batch"] = _local_bytes(args[2])
+        else:
+            per_device["cache"] = _local_bytes(args[2])
+            per_device["batch"] = _local_bytes([args[1], *args[3:]])
+        per_device["total"] = sum(per_device.values())
+        counter = CollectiveCounter()
+        with axis_rules(rules), counter:
+            step(*args)
+        return {"collectives": counter.collectives(), "collective_ops": counter.ops,
+                "per_device": per_device,
+                "partition_mesh": {"names": list(mesh.mesh_dim_names),
+                                   "sizes": list(mesh.mesh.shape)}}
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
+def run_one(arch: str, shape_name: str, *, out_dir: str = ARTIFACT_DIR,
+            multi_pod: bool = False) -> dict:
+    """``record`` of ``arch`` at ``shape_name`` and its ``partition_record``
+    on the single-pod (``multi_pod``: two-pod) mesh, written to
+    ``<out_dir>/<arch>__<shape>.json`` (``__pod2`` added for the two-pod
+    mesh); ``ok`` False with the error where a step fails."""
     t0 = time.perf_counter()
     try:
-        rec = {**record(get_config(arch), INPUT_SHAPES[shape_name]), "ok": True}
+        cfg, shape = get_config(arch), INPUT_SHAPES[shape_name]
+        rec = record(cfg, shape)
+        t1 = time.perf_counter()
+        rec.update(partition_record(cfg, shape, multi_pod=multi_pod))
+        rec["partition_seconds"] = time.perf_counter() - t1
+        rec["ok"] = True
         print(f"[dryrun] OK   {arch} {shape_name}: flops {rec['flops']:.4e} (ideal "
               f"{rec['flops_ideal']:.4e}), params {rec['bytes']['params'] / 1e9:.2f} GB, "
-              f"{rec['seconds']:.1f} s", flush=True)
+              f"collectives {rec['collectives']['total'] / 1e9:.4f} GB in "
+              f"{rec['collectives']['count']}, per device {rec['per_device']['total'] / 1e9:.4f} "
+              f"GB, {time.perf_counter() - t0:.1f} s", flush=True)
     except Exception as e:  # noqa: BLE001 — record the failure, don't stop --all
         rec = {"arch": arch, "shape": shape_name, "ok": False,
                "error": f"{type(e).__name__}: {e}", "traceback": traceback.format_exc()[-2000:],
                "seconds": time.perf_counter() - t0}
         print(f"[dryrun] FAIL {arch} {shape_name}: {rec['error'][:200]}", flush=True)
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"{arch}__{shape_name}.json"), "w") as f:
+    pod = "__pod2" if multi_pod else ""
+    with open(os.path.join(out_dir, f"{arch}__{shape_name}{pod}.json"), "w") as f:
         json.dump(rec, f, indent=1)
     return rec
 
@@ -258,17 +458,20 @@ def main() -> None:
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None, choices=list(INPUT_SHAPES))
     ap.add_argument("--all", action="store_true", help="every (arch x input shape)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="partition over the two-pod (2, 16, 16) mesh, 512 fake ranks")
     ap.add_argument("--out", default=os.path.abspath(ARTIFACT_DIR))
     args = ap.parse_args()
+    kw = dict(out_dir=args.out, multi_pod=args.multi_pod)
     if args.all:
-        recs = [run_one(a, s, out_dir=args.out) for a in list_architectures() for s in INPUT_SHAPES]
+        recs = [run_one(a, s, **kw) for a in list_architectures() for s in INPUT_SHAPES]
         raise SystemExit(0 if all(r["ok"] for r in recs) else 1)
     if not (args.arch and args.shape):
         ap.error("--arch and --shape (or --all) required")
-    rec = run_one(args.arch, args.shape, out_dir=args.out)
+    rec = run_one(args.arch, args.shape, **kw)
     if rec["ok"]:
-        print(json.dumps({k: rec[k] for k in ("flops", "flops_analytic", "flops_ideal", "bytes")},
-                         indent=1))
+        keys = ("flops", "flops_analytic", "flops_ideal", "bytes", "collectives", "per_device")
+        print(json.dumps({k: rec[k] for k in keys if k in rec}, indent=1))
     raise SystemExit(0 if rec["ok"] else 1)
 
 

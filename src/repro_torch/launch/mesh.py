@@ -12,6 +12,7 @@ gives the same rules for it as for the record of its shape.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple, Union
 
 import torch.distributed as dist
@@ -22,10 +23,22 @@ from repro_torch.distributed.sharding import (AxisRules, MeshShape, group_backen
                                               mesh_shape)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return MeshShape(axes, shape)
+def production_shape(*, multi_pod: bool = False) -> MeshShape:
+    """The record of the single-pod (16, 16) or two-pod (2, 16, 16) mesh."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Union[MeshShape, DeviceMesh]:
+    """The production mesh: a ``DeviceMesh`` over the default process group
+    where it has the mesh's 256 or 512 ranks, else the record of the
+    shape (``production_shape``)."""
+    rec = production_shape(multi_pod=multi_pod)
+    if (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() == math.prod(rec.sizes)):
+        return init_device_mesh(group_backend_device(), rec.sizes, mesh_dim_names=rec.names)
+    return rec
 
 
 def make_test_mesh(shape: Tuple[int, ...] = (1, 1),

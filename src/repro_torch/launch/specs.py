@@ -4,11 +4,15 @@
 Everything here is built on the ``meta`` device: shapes and dtypes, no
 storage, so the 72 B and 1 T parameter sets are never allocated.  The JAX
 package's twin (``repro/launch/specs.py``) returns ``ShapeDtypeStruct``s and
-``NamedSharding``s for ``jax.jit``; on one card there is nothing to compile
-or to place, so the step builders return the port's own step function, its
-arguments as meta tensors and their partition specs as plain tuples
-(``distributed.logical_to_spec``), which ``launch/dryrun.py`` counts and
-``chip_smoke.py`` materialises on the card.
+``NamedSharding``s for ``jax.jit``.  The step builders here return the
+port's own step function, its arguments and their partition specs as plain
+tuples (``distributed.logical_to_spec``).  On a mesh record the arguments
+are meta tensors, which ``launch/dryrun.py`` counts and ``chip_smoke.py``
+materialises on the card.  On a ``DeviceMesh`` they are meta DTensors
+placed by those specs (``place``, the counterpart of the reference's
+``in_shardings``): each rank holds its local shard's shape, and the step
+run on them partitions (``distributed/sharding.py``).  ``place`` puts a
+tree of real tensors on the mesh the same way.
 """
 from __future__ import annotations
 
@@ -17,7 +21,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.registry import InputShape, ModelConfig
-from repro_torch.distributed.sharding import AxisRules, logical_to_spec
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from repro_torch.distributed.sharding import AxisRules, logical_to_spec, placements_of
 from repro_torch.launch.mesh import make_rules
 from repro_torch.models import model as model_lib
 from repro_torch.training.optimizer import OptimizerConfig, adamw_init
@@ -117,6 +124,33 @@ def shardings_of(axes_tree, rules: AxisRules):
     raise TypeError(f"not a logical-axes tree leaf: {axes_tree!r}")
 
 
+def place(tree, spec_tree, mesh: DeviceMesh):
+    """A tree of tensors as DTensors on ``mesh``, each leaf placed by its
+    partition spec in ``spec_tree`` (``placements_of``).  A meta leaf
+    becomes a meta DTensor whose local tensor has the shard's shape; a leaf
+    on a device is split from rank 0's copy (every rank holds the same
+    tensor, made from the same seed); a DTensor leaf is redistributed (a
+    prefilled cache placed for decode)."""
+    if isinstance(tree, dict):
+        return {k: place(v, spec_tree[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place(v, s, mesh) for v, s in zip(tree, spec_tree))
+    if tree is None:
+        return tree
+    placements = placements_of(spec_tree, mesh)
+    if isinstance(tree, DTensor):
+        return tree if tree.placements == placements else tree.redistribute(mesh, placements)
+    return distribute_tensor(tree, mesh, placements)
+
+
+def _placed(args, specs, mesh):
+    """``args`` placed by ``specs`` on a ``DeviceMesh``; as they are on a
+    record."""
+    if not isinstance(mesh, DeviceMesh):
+        return args
+    return tuple(place(a, s, mesh) for a, s in zip(args, specs))
+
+
 # ---------------------------------------------------------------------------
 # Step builders for the dry-run (and the launchers).
 # ---------------------------------------------------------------------------
@@ -141,7 +175,8 @@ def build_train(cfg: ModelConfig, shape: InputShape, rules: AxisRules,
     p_shard = shardings_of(model_lib.param_axes(cfg, param_dtype), rules)
     opt_shard = {"step": (), "m": p_shard, "v": p_shard}
     b_shard = shardings_of(batch_axes(cfg, batch), rules)
-    return step, (params, opt, batch), (p_shard, opt_shard, b_shard)
+    specs = (p_shard, opt_shard, b_shard)
+    return step, _placed((params, opt, batch), specs, rules.mesh), specs
 
 
 def build_prefill(cfg: ModelConfig, shape: InputShape, rules: AxisRules,
@@ -166,7 +201,7 @@ def build_prefill(cfg: ModelConfig, shape: InputShape, rules: AxisRules,
     if cfg.is_encoder_decoder:
         args.append(batch["enc_inputs"])
         specs.append(logical_to_spec(b_ax["enc_inputs"], rules))
-    return step, tuple(args), tuple(specs)
+    return step, _placed(tuple(args), tuple(specs), rules.mesh), tuple(specs)
 
 
 def build_decode(cfg: ModelConfig, shape: InputShape, rules: AxisRules,
@@ -183,14 +218,15 @@ def build_decode(cfg: ModelConfig, shape: InputShape, rules: AxisRules,
     tokens = meta((shape.global_batch,), torch.int32)
     specs = (shardings_of(model_lib.param_axes(cfg, param_dtype), rules),
              logical_to_spec(("batch",), rules), shardings_of(cache_axes(cache), rules))
-    return step, (params, tokens, cache), specs
+    return step, _placed((params, tokens, cache), specs, rules.mesh), specs
 
 
 def build_step(cfg: ModelConfig, shape: InputShape, mesh, *,
                moe_path: Optional[str] = None, param_dtype=torch.bfloat16,
                window_override: Optional[int] = None, remat=True):
     """Dispatch on the shape kind.  Returns (step, args, partition specs,
-    rules, donate): ``donate`` is the JAX package's donate_argnums (the
+    rules, donate); on a ``DeviceMesh`` the arguments are meta DTensors
+    placed by the specs (``place``). ``donate`` is the JAX package's donate_argnums (the
     state-carrying arguments: the cache for serving, params and optimizer
     state for training); the port's prefill and decode steps write the
     cache in place, and its train step returns new params and state."""

@@ -13,15 +13,19 @@ ragged batches in lockstep.
 Unlike the JAX package, whose arrays are immutable, the port writes the
 cache in place (``copy_``/``index_put_``): a layer's cache entries are views
 of the model's layer-stacked cache tensors, so no per-step copy of the
-cache is made.
+cache is made.  A DTensor cache (a partitioned step) is written the same
+way on each rank's local shard (``write_slots``, ``_write_prefill_cache``).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
 from repro_torch.configs.registry import ModelConfig
+from repro_torch.distributed.sharding import flatten, local_call, shard, unflatten_last
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.params import boxed_normal, boxed_zeros
@@ -51,7 +55,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, *, dtype=torch.float3
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, S, d) x (d, n, h) -> contiguous (B, S, n, h)."""
     d, n, h = w.shape
-    return (x @ w.reshape(d, n * h)).reshape(*x.shape[:-1], n, h)
+    return unflatten_last(x @ flatten(w, 1), n, h)
 
 
 def _project_qkv(cfg: ModelConfig, p: dict, x_q, x_kv):
@@ -67,8 +71,7 @@ def _project_qkv(cfg: ModelConfig, p: dict, x_q, x_kv):
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """(..., nq, hd) x (nq, hd, d) -> (..., d)."""
-    nq, hd, d = wo.shape
-    return out.reshape(*out.shape[:-2], nq * hd) @ wo.reshape(nq * hd, d)
+    return flatten(out, -2) @ flatten(wo, 0)
 
 
 def init_layer_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, device) -> dict:
@@ -92,9 +95,13 @@ def attention_full(
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Full-sequence attention (training / prefill)."""
     q, k, v = _project_qkv(cfg, p, x, x)
+    q = shard(q, "batch", "seq_act", "heads", None)
+    k = shard(k, "batch", "seq_act", "kv_heads", None)
+    v = shard(v, "batch", "seq_act", "kv_heads", None)
     q = apply_rope(q, positions[None, :], cfg.rope_theta)
     k = apply_rope(k, positions[None, :], cfg.rope_theta)
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    out = shard(out, "batch", "seq_act", "heads", None)
     y = _out_proj(out, p["wo"])
     if cache is not None:
         cache = _write_prefill_cache(cache, k, v, positions, window)
@@ -102,7 +109,27 @@ def attention_full(
 
 
 def _write_prefill_cache(cache, k, v, positions, window):
-    """Write a prefilled sequence into the (possibly ring) cache, in place."""
+    """Write a prefilled sequence into the (possibly ring) cache, in place.
+
+    A DTensor cache (a partitioned prefill) is written by ``local_map`` on
+    its own placements, each rank its batch and KV heads: DTensor has no
+    sharding rule for the in-place ``index_put_`` of the slots on some
+    torch releases (2.11).  Its sequence must not be split (the prefill
+    rules leave ``kv_seq`` whole); K and V are redistributed to the cache's
+    placements, the positions replicated (no collective where K and V are
+    split as the cache is)."""
+    if isinstance(cache["k"], DTensor):
+        mesh, c_pl = cache["k"].device_mesh, tuple(cache["k"].placements)
+        if any(isinstance(p, Shard) and p.dim == 1 for p in c_pl):
+            raise ValueError(f"a prefill cache split along its sequence: {c_pl}")
+        sp_pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in c_pl)
+
+        def local(ck, cv, csp, k_, v_, pos):
+            _write_prefill_cache({"k": ck, "v": cv, "slot_pos": csp}, k_, v_, pos, window)
+
+        local_call(local, mesh, (c_pl, c_pl, sp_pl, c_pl, c_pl, (Replicate(),) * mesh.ndim),
+                   None, cache["k"], cache["v"], cache["slot_pos"], k, v, positions)
+        return cache
     cache_len = cache["k"].shape[1]
     b, s = k.shape[0], k.shape[1]
     if window and cache_len < s:
@@ -139,10 +166,11 @@ def attention_decode(
 
     cache_len = cache["k"].shape[1]
     slot = (t % cache_len).long()                     # (B,)
-    bidx = torch.arange(b, device=x.device)
-    cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
-    cache["slot_pos"][bidx, slot] = t
+    write_slots(cache["k"], slot, k[:, 0].to(cache["k"].dtype))
+    write_slots(cache["v"], slot, v[:, 0].to(cache["v"].dtype))
+    write_slots(cache["slot_pos"], slot, t)
+    cache["k"] = shard(cache["k"], "batch", "kv_seq", "kv_heads", None)
+    cache["v"] = shard(cache["v"], "batch", "kv_seq", "kv_heads", None)
     sp = cache["slot_pos"]
 
     valid = (sp >= 0) & (sp <= t[:, None])            # (B, S_cache)
@@ -151,6 +179,39 @@ def attention_decode(
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], valid)  # (B,nq,hd)
     y = _out_proj(out, p["wo"])[:, None, :]
     return y, cache
+
+
+def write_slots(cache: torch.Tensor, slot: torch.Tensor, value: torch.Tensor) -> None:
+    """``cache[b, slot[b]] = value[b]`` for every sequence b, in place.
+
+    On a DTensor cache (a partitioned decode step) DTensor has no rule for
+    an in-place ``index_put_`` on a cache sharded along the written dims
+    (batch, ``kv_seq``, ``kv_heads``), so the write goes through
+    ``local_map`` on the cache's own placements: ``slot`` and ``value``
+    are redistributed to match it (``slot`` replicated or split with the
+    batch, ``value`` split as the cache's batch and trailing dims), and
+    each rank writes the slots that fall in its part of the sequence and
+    drops the rest (read, select, write: no host sync, no collective)."""
+    if not isinstance(cache, DTensor):
+        cache[torch.arange(cache.shape[0], device=cache.device), slot] = value
+        return
+    mesh, c_pl = cache.device_mesh, tuple(cache.placements)
+    slot_pl = tuple(Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                    for p in c_pl)
+    v_pl = tuple(Shard(p.dim - 1 if p.dim > 1 else 0)
+                 if isinstance(p, Shard) and p.dim != 1 else Replicate() for p in c_pl)
+    _, offset = compute_local_shape_and_global_offset(cache.shape, mesh, c_pl)
+    first = offset[1]
+
+    def local(c, sl, val):
+        loc = sl.long() - first
+        keep = (loc >= 0) & (loc < c.shape[1])
+        b = torch.arange(c.shape[0], device=c.device)
+        loc = loc.clamp(0, c.shape[1] - 1)
+        keep = keep.view(-1, *([1] * (val.dim() - 1)))
+        c[b, loc] = torch.where(keep, val.to(c.dtype), c[b, loc])
+
+    local_call(local, mesh, (c_pl, slot_pl, v_pl), None, cache, slot, value)
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.registry import ModelConfig
+from repro_torch.distributed.sharding import unflatten_last
 from repro_torch.kernels import ops
 from repro_torch.models.params import boxed_normal, boxed_value, boxed_zeros
 
@@ -77,7 +78,7 @@ def _block_diag(x: torch.Tensor, wblk: torch.Tensor) -> torch.Tensor:
     """(B,T,w) x (NB, bs, bs) -> (B,T,w) block-diagonal matmul."""
     b, t, w = x.shape
     nb, bs, _ = wblk.shape
-    yb = torch.einsum("btns,nsc->btnc", x.reshape(b, t, nb, bs), wblk)
+    yb = torch.einsum("btns,nsc->btnc", unflatten_last(x, nb, bs), wblk)
     return yb.reshape(b, t, w)
 
 

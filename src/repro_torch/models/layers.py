@@ -5,9 +5,13 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
 from repro_torch.configs.registry import ModelConfig
+from repro_torch.distributed.sharding import local_call, shard
 from repro_torch.models.params import boxed_normal, boxed_ones, boxed_zeros
 
 
@@ -58,6 +62,8 @@ def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
         h = F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
     else:
         h = F.gelu(x @ p["wi"], approximate="tanh")   # jax.nn.gelu's default
+    if h.dim() == 3:
+        h = shard(h, "batch", None, "ff")
     return h @ p["wo"]
 
 
@@ -69,7 +75,63 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig, dtype, device):
 
 
 def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``embed`` at ``tokens``; a DTensor table takes
+    ``_vocab_parallel_lookup``."""
+    if isinstance(embed, DTensor):
+        return _vocab_parallel_lookup(embed, tokens)
     return embed[tokens]
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """The sum of every rank's part over ``groups``; its backward hands each
+    rank the whole (replicated) gradient, the derivative of a sum."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        x = x.clone()
+        for group in groups:
+            dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _vocab_parallel_lookup(embed: DTensor, tokens: torch.Tensor) -> DTensor:
+    """The lookup on a DTensor table, by hand: DTensor's own (``embedding``
+    on a table split by vocabulary gives a masked partial sum) does not
+    carry its gradient back on every torch release this runs on (2.11
+    cannot redistribute the gradient's plain partial sum to the masked
+    one), so each rank looks up the tokens in its rows, zeros the rest and
+    the parts are summed over the vocabulary's mesh dims (an all-reduce of
+    the embeddings, the vocab-parallel embedding).  The table's other
+    splits (FSDP's ``embed`` over ``data`` in training) are gathered first;
+    its gradient is split by vocabulary, and a partial sum over the mesh
+    dims that split the tokens' batch."""
+    mesh = embed.device_mesh
+    rep = Replicate()
+    tokens = tokens if isinstance(tokens, DTensor) else DTensor.from_local(
+        tokens, mesh, [rep] * mesh.ndim)
+    tok_pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else rep for p in tokens.placements)
+    vocab_dims = [m for m, p in enumerate(embed.placements)
+                  if isinstance(p, Shard) and p.dim == 0 and tok_pl[m] == rep]
+    table_pl = tuple(Shard(0) if m in vocab_dims else rep for m in range(mesh.ndim))
+    grad_pl = tuple(Shard(0) if m in vocab_dims else Partial() if tok_pl[m] != rep else rep
+                    for m in range(mesh.ndim))
+    out_pl = tuple(Shard(0) if p != rep else rep for p in tok_pl)
+    _, offset = compute_local_shape_and_global_offset(embed.shape, mesh, table_pl)
+    groups = [mesh.get_group(m) for m in vocab_dims]
+
+    def local(tok, table):
+        idx = tok.long() - offset[0]
+        mine = (idx >= 0) & (idx < table.shape[0])
+        rows = table[idx.clamp(0, table.shape[0] - 1)]
+        rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+        return _SumOverRanks.apply(rows, groups) if groups else rows
+
+    return local_call(local, mesh, (tok_pl, table_pl), out_pl, tokens, embed,
+                      in_grad_placements=(tok_pl, grad_pl))
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,7 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.registry import ATTN, LOCAL_ATTN, RGLRU, RWKV, ModelConfig
-from repro_torch.distributed.sharding import axis_rules, current_rules
+from repro_torch.distributed.sharding import axis_rules, current_rules, partitioned, shard
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import griffin, layers
 from repro_torch.models import moe as moe_lib
@@ -294,8 +294,9 @@ def _maybe_checkpoint(fn, remat):
     """remat: False | True/'full' (recompute everything in the backward) |
     'dots' (save the matmul outputs, recompute the rest).  Only memory and
     recompute differ, never values: the backward's recompute runs under the
-    axis rules of the forward (which pick the MoE path's partition), wherever
-    the backward is called."""
+    axis rules of the forward (which pick the MoE path's partition and, on a
+    ``DeviceMesh``, the placements ``shard`` gives), wherever the backward
+    is called."""
     if not remat:
         return fn
     kw = {}
@@ -305,7 +306,7 @@ def _maybe_checkpoint(fn, remat):
     rules = current_rules()
 
     def under_rules(*args):
-        with axis_rules(rules):
+        with axis_rules(rules), partitioned(rules):
             return fn(*args)
 
     return functools.partial(torch_checkpoint.checkpoint, under_rules, use_reentrant=False, **kw)
@@ -314,9 +315,9 @@ def _maybe_checkpoint(fn, remat):
 def _block_full(cfg, kind, p, x, positions, cache, window, enc_out, moe_path):
     """One layer over a full sequence -> (x, its aux loss)."""
     if kind == RWKV:
-        return _rwkv_block(cfg, p, x, cache), 0.0
+        return shard(_rwkv_block(cfg, p, x, cache), "batch", "seq_act", None), 0.0
     if kind == RGLRU:
-        return _rglru_block(cfg, p, x, cache), 0.0
+        return shard(_rglru_block(cfg, p, x, cache), "batch", "seq_act", None), 0.0
     h = layers.apply_norm(cfg, p["norm1"], x)
     y, _ = attn_lib.attention_full(
         cfg, p["attn"], h, positions, window=_window(cfg, kind, window),
@@ -327,7 +328,7 @@ def _block_full(cfg, kind, p, x, positions, cache, window, enc_out, moe_path):
         x = x + _cross_block(cfg, p, x, enc_out, cache)
     h2 = layers.apply_norm(cfg, p["norm2"], x)
     y2, a = _ffn(cfg, p, h2, moe_path)
-    return x + y2, a
+    return shard(x + y2, "batch", "seq_act", None), a
 
 
 def _run_blocks_full(cfg, params, x, positions, caches, *, window, enc_out=None,
@@ -355,6 +356,7 @@ def _encoder_output(cfg: ModelConfig, params, enc_inputs: Optional[torch.Tensor]
     return _encode(cfg, params, enc_inputs, remat)
 
 
+@partitioned()
 def forward(cfg: ModelConfig, params, inputs: torch.Tensor, *,
             enc_inputs: Optional[torch.Tensor] = None, window: int = 0,
             moe_path: str = "local", remat=False):
@@ -364,7 +366,7 @@ def forward(cfg: ModelConfig, params, inputs: torch.Tensor, *,
     path (``moe.moe_apply``) and ``remat`` checkpoints each layer
     (``_maybe_checkpoint``)."""
     positions = torch.arange(inputs.shape[1], device=inputs.device)
-    x = _embed_in(cfg, params, inputs, positions)
+    x = shard(_embed_in(cfg, params, inputs, positions), "batch", "seq_act", None)
     x, aux = _run_blocks_full(cfg, params, x, positions, None, window=window,
                               enc_out=_encoder_output(cfg, params, enc_inputs, remat),
                               moe_path=moe_path, remat=remat)
@@ -372,6 +374,7 @@ def forward(cfg: ModelConfig, params, inputs: torch.Tensor, *,
     return _unembed(cfg, params, x), aux
 
 
+@partitioned()
 def loss_fn(cfg: ModelConfig, params, batch: dict, *, window: int = 0,
             moe_path: str = "local", remat=True, aux_weight: float = 0.01):
     """Next-token cross-entropy over f32 logits, averaged over the labels
@@ -454,6 +457,7 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, window: int = 0,
     }
 
 
+@partitioned()
 def prefill(cfg: ModelConfig, params, inputs: torch.Tensor, cache, *,
             enc_inputs: Optional[torch.Tensor] = None, window: int = 0,
             moe_path: str = "local"):
@@ -465,7 +469,7 @@ def prefill(cfg: ModelConfig, params, inputs: torch.Tensor, cache, *,
     Returns (last-token logits (B, vocab), the cache)."""
     s = inputs.shape[1]
     positions = torch.arange(s, device=inputs.device)
-    x = _embed_in(cfg, params, inputs, positions)
+    x = shard(_embed_in(cfg, params, inputs, positions), "batch", "seq_act", None)
     enc_out = _encoder_output(cfg, params, enc_inputs)
     if enc_out is not None:
         cache["cross"] = _all_cross_kv(cfg, params, enc_out)
@@ -476,10 +480,11 @@ def prefill(cfg: ModelConfig, params, inputs: torch.Tensor, cache, *,
     return _unembed(cfg, params, x)[:, 0], cache
 
 
+@partitioned()
 def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *, window: int = 0):
     """One decode step for every sequence. Returns (logits (B, vocab), the cache)."""
     t = cache["t"]
-    x = _embed_in(cfg, params, tokens[:, None], t[:, None])
+    x = shard(_embed_in(cfg, params, tokens[:, None], t[:, None]), "batch", "seq_act", None)
     for kind, p, c in zip(_layer_kinds(cfg), params["layers"], _layer_caches(cfg, cache)):
         if kind == RWKV:
             x = _rwkv_block(cfg, p, x, c)

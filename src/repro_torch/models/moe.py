@@ -17,6 +17,14 @@ E · Σ_e f_e·p_e.  Three execution paths compute the same semantics:
    ``all_to_all_single`` calls, and every rank returns the global ``y``.
    Without such a mesh it is ``moe_sort_local``.
 
+On DTensors (a partitioned step, ``distributed/sharding.py``): the sort
+path's routing, dispatch and combine run on every rank's whole copy of
+their inputs (DTensor has no rule for their top-k, sort, scatters and
+gathers), the buffer and the experts' output split by ``shard`` over the
+``experts`` axis between them, so the experts' products run on each rank's
+own experts; ``moe_ep_a2a`` takes x and the experts' weights apart at the
+reference's ``shard_map`` specs (``_ep_dtensor``).
+
 No step of the sort path waits on the card: the per-expert counts are a
 fixed-length ``scatter_add_`` (not ``bincount``), dropped assignments land
 in a spare buffer row that is sliced off, and no shape depends on the data.
@@ -34,7 +42,10 @@ import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.configs.registry import ModelConfig
-from repro_torch.distributed.sharding import axis_group, current_rules, mesh_shape
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.distributed.sharding import (axis_group, current_rules, local_call, mesh_shape,
+                                              shard)
 from repro_torch.models.params import boxed_normal
 
 # leaves kept in f32 whatever the model's dtype (the JAX package's router)
@@ -162,9 +173,27 @@ def moe_sort_local(cfg: ModelConfig, p: dict, x: torch.Tensor,
     t = b * s
     c = capacity or _capacity(cfg, t)
     xf = x.reshape(t, d)
-    gates, topi, aux = _route(cfg, p["router"], xf)
-    buf, row_tok = _dispatch(cfg, xf, topi, c)
-    y = _combine(_expert_ffn(cfg, p, buf), gates, row_tok)
+
+    def route_dispatch(router, xf):
+        gates, topi, aux = _route(cfg, router, xf)
+        return (gates, aux, *_dispatch(cfg, xf, topi, c))
+
+    if isinstance(x, DTensor):
+        # no DTensor rule for the routing's top-k, sort and scatters or the
+        # combine's gather: they run on every rank's whole copy of their
+        # inputs (an all-gather of the tokens, and of the experts' rows)
+        mesh = x.device_mesh
+        rep = (Replicate(),) * mesh.ndim
+        gates, aux, buf, row_tok = local_call(route_dispatch, mesh, (rep, rep),
+                                              (rep,) * 4, p["router"], xf)
+    else:
+        gates, aux, buf, row_tok = route_dispatch(p["router"], xf)
+    buf = shard(buf, "experts", None, None)
+    out = shard(_expert_ffn(cfg, p, buf), "experts", None, None)
+    if isinstance(x, DTensor):
+        y = local_call(_combine, mesh, (rep,) * 3, rep, out, gates, row_tok)
+    else:
+        y = _combine(out, gates, row_tok)
     return y.reshape(b, s, d).to(x.dtype), aux
 
 
@@ -275,7 +304,9 @@ def moe_ep_a2a(cfg: ModelConfig, p: dict, x: torch.Tensor):
     its own B_loc·S_loc tokens, runs the experts it owns (e_loc =
     num_experts / n_ep of them, a contiguous slice) over the rows every rank
     of its EP group sent it, and returns the global y and the aux averaged
-    over the shards.  Differentiable: every rank gets the whole gradient."""
+    over the shards.  Differentiable: every rank gets the whole gradient.
+    On DTensors (a partitioned step) the boundary is the reference's
+    ``shard_map``'s: ``_ep_dtensor``."""
     rules = current_rules()
     if rules is None:
         return moe_sort_local(cfg, p, x)
@@ -301,16 +332,17 @@ def moe_ep_a2a(cfg: ModelConfig, p: dict, x: torch.Tensor):
     n_b = math.prod(sizes[a] for a in batch_axes)
     if b % n_b:
         raise ValueError(f"batch {b} does not split over the mesh axes {batch_axes} ({n_b})")
+    ep_group = axis_group(mesh, ep_axis)
+    batch_groups = [axis_group(mesh, a) for a in batch_axes]
+    if isinstance(x, DTensor):
+        return _ep_dtensor(cfg, p, x, mesh, ep_axis, batch_axes, ep_group, batch_groups)
     coord = dict(zip(shape.axis_names, mesh.get_coordinate()))
     bi = 0
     for a in batch_axes:                             # major to minor, as P((a0, a1))
         bi = bi * sizes[a] + coord[a]
     si = coord[ep_axis]
     b_loc, s_loc = b // n_b, s // n_ep
-    e, e_loc = cfg.num_experts, cfg.num_experts // n_ep
-
-    ep_group = axis_group(mesh, ep_axis)
-    batch_groups = [axis_group(mesh, a) for a in batch_axes]
+    e_loc = cfg.num_experts // n_ep
     all_groups = [axis_group(mesh, a) for a in shape.axis_names]
     unsplit_y = math.prod(n for a, n in sizes.items() if a != ep_axis and a not in batch_axes)
 
@@ -320,10 +352,25 @@ def moe_ep_a2a(cfg: ModelConfig, p: dict, x: torch.Tensor):
     xs = whole(x)[bi * b_loc:(bi + 1) * b_loc, si * s_loc:(si + 1) * s_loc]
     p_loc = {name: whole(p[name])[si * e_loc:(si + 1) * e_loc]
              for name in ("wi_gate", "wi_up", "wo")}
+    y, aux = _ep_local(cfg, xs, whole(p["router"]), p_loc, ep_group, n_ep)
+    y = _GatherY.apply(y, ep_group, batch_groups, (bi, si), 1.0 / unsplit_y)
+    aux = _MeanAux.apply(aux, [ep_group] + batch_groups, 1.0 / math.prod(sizes.values()))
+    return y, aux
+
+
+def _ep_local(cfg: ModelConfig, xs: torch.Tensor, router: torch.Tensor, p_loc: dict,
+              ep_group, n_ep: int):
+    """One rank's EP body: its (B_loc, S_loc, d) block routed with the
+    capacity of its own tokens, each expert's rows sent to the rank that owns
+    it, its own experts ``p_loc`` run over the rows every rank of its EP
+    group sent, the rows sent back and combined -> (y block, local aux)."""
+    b_loc, s_loc, d = xs.shape
+    e = cfg.num_experts
+    e_loc = e // n_ep
     t_loc = b_loc * s_loc
     c = _capacity(cfg, t_loc)
     xf = xs.reshape(t_loc, d)
-    gates, topi, aux = _route(cfg, whole(p["router"]), xf)
+    gates, topi, aux = _route(cfg, router, xf)
     # the buffer by destination shard: (E, C, d) == (n_ep·e_loc, C, d); after
     # the exchange dim 0 is the source shard
     buf, row_tok = _dispatch(cfg, xf, topi, c)
@@ -332,10 +379,39 @@ def moe_ep_a2a(cfg: ModelConfig, p: dict, x: torch.Tensor):
     out = _expert_ffn(cfg, p_loc, recv)                                 # (e_loc, n_src·C, d)
     out = out.view(e_loc, n_ep, c, d).transpose(0, 1).reshape(e, c, d)
     back = _all_to_all(out, ep_group)
-    y = _combine(back, gates, row_tok).reshape(b_loc, s_loc, d).to(x.dtype)
-    y = _GatherY.apply(y, ep_group, batch_groups, (bi, si), 1.0 / unsplit_y)
-    aux = _MeanAux.apply(aux, [ep_group] + batch_groups, 1.0 / math.prod(sizes.values()))
+    y = _combine(back, gates, row_tok).reshape(b_loc, s_loc, d).to(xs.dtype)
     return y, aux
+
+
+def _ep_dtensor(cfg: ModelConfig, p: dict, x: DTensor, mesh: DeviceMesh, ep_axis: str,
+                batch_axes, ep_group, batch_groups):
+    """``moe_ep_a2a`` on DTensors: the reference's ``shard_map`` boundary.
+    x is redistributed to its block spec ``P(batch axes, ep axis)`` and
+    the experts' weights to ``P(ep axis)``, the router replicated; the body
+    runs on the local tensors (``_ep_local``); y comes back as a DTensor of
+    x's block spec and aux replicated.  The gradient placements of the
+    local inputs say how the ranks' gradients add up: over the axes that
+    split the tokens (EP and batch) they are partial sums, and over the
+    axes that split nothing every rank holds the same one."""
+    names = tuple(mesh.mesh_dim_names)
+    split = {ep_axis, *batch_axes}
+
+    def placements(**by_axis):
+        return [by_axis.get(a, Partial() if a in split else Replicate()) for a in names]
+
+    x_pl = [Shard(1) if a == ep_axis else Shard(0) if a in batch_axes else Replicate()
+            for a in names]
+    w_pl = [Shard(0) if a == ep_axis else Replicate() for a in names]
+    xs = x.redistribute(mesh, x_pl).to_local(grad_placements=x_pl)
+    router = p["router"].redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=placements())
+    p_loc = {name: p[name].redistribute(mesh, w_pl).to_local(
+        grad_placements=placements(**{ep_axis: Shard(0)})) for name in ("wi_gate", "wi_up", "wo")}
+    y, aux = _ep_local(cfg, xs, router, p_loc, ep_group, mesh.size(names.index(ep_axis)))
+    n_split = math.prod(mesh.size(names.index(a)) for a in split)
+    aux = _MeanAux.apply(aux, [ep_group] + batch_groups, 1.0 / n_split)
+    return (DTensor.from_local(y, mesh, x_pl, shape=x.shape, stride=x.stride()),
+            DTensor.from_local(aux, mesh, [Replicate()] * mesh.ndim))
 
 
 def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, path: str = "local"):

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.registry import ModelConfig
+from repro_torch.distributed.sharding import unflatten_last
 from repro_torch.kernels import ops
 from repro_torch.models.params import boxed_normal, boxed_zeros
 
@@ -101,11 +102,11 @@ def time_mix(
     delta = _token_shift(x, shift_prev) - x
     mu = p["mu"].to(x.dtype)
     xr, xk, xv, xw, xg = [x + delta * mu[i] for i in range(5)]
-    r = (xr @ p["wr"]).reshape(b, t, h, hd)
-    k = (xk @ p["wk"]).reshape(b, t, h, hd)
-    v = (xv @ p["wv"]).reshape(b, t, h, hd)
+    r = unflatten_last(xr @ p["wr"], h, hd)
+    k = unflatten_last(xk @ p["wk"], h, hd)
+    v = unflatten_last(xv @ p["wv"], h, hd)
     g = xg @ p["wg"]
-    w = _decay(p, xw).reshape(b, t, h, hd).to(x.dtype)
+    w = unflatten_last(_decay(p, xw), h, hd).to(x.dtype)
 
     out, wkv = ops.rwkv6(r, k, v, w, p["u"], wkv0, final_state=wkv_out)   # (B,T,H,hd)
     out = out.reshape(b, t, d) * F.silu(g)

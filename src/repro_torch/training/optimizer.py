@@ -10,6 +10,11 @@ that is None (a parameter the loss does not reach, e.g. llava's token
 embedding) counts as zeros: its moments decay and weight decay still
 applies, as in the JAX package, whose gradient holds zeros there.
 
+DTensor leaves (a partitioned train step): each gradient is redistributed
+to its parameter's placements first, so ``m`` and ``v`` take them, ``step``
+is replicated, and ``global_norm``'s sums of squares are partial sums that
+DTensor adds across the shards before the square root.
+
 ``state_dtype=torch.bfloat16`` halves optimizer memory (m, v in bf16) — used
 by the 1T-parameter Kimi-K2 training config of the JAX package.
 """
@@ -19,6 +24,7 @@ from dataclasses import dataclass
 from typing import Any, Iterator, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 
 @dataclass(frozen=True)
@@ -64,10 +70,18 @@ def _rebuild(like, it: Iterator):
 
 
 def adamw_init(params, opt_cfg: OptimizerConfig):
+    """Zero moments shaped (and, for DTensor parameters, placed) as the
+    parameters, and ``step`` 0 (replicated on a DTensor's mesh)."""
     leaves = tree_leaves(params)
-    zeros = lambda p: torch.zeros(p.shape, dtype=opt_cfg.state_dtype, device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=opt_cfg.state_dtype)
+    step = torch.zeros((), dtype=torch.int32, device=leaves[0].device)
+    if isinstance(leaves[0], DTensor):
+        mesh = leaves[0].device_mesh
+        step = DTensor.from_local(torch.zeros((), dtype=torch.int32,
+                                              device=leaves[0].to_local().device),
+                                  mesh, [Replicate()] * mesh.ndim)
     return {
-        "step": torch.zeros((), dtype=torch.int32, device=leaves[0].device),
+        "step": step,
         "m": tree_unflatten(params, [zeros(p) for p in leaves]),
         "v": tree_unflatten(params, [zeros(p) for p in leaves]),
     }
@@ -75,6 +89,15 @@ def adamw_init(params, opt_cfg: OptimizerConfig):
 
 def _f32(leaves) -> List[torch.Tensor]:
     return [x.float() for x in leaves]
+
+
+def _like(g, p):
+    """A DTensor gradient on its parameter's placements (a partial sum is
+    reduced, a replicated one sliced), so that each moment takes its
+    parameter's placements; a plain gradient as it is."""
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -104,7 +127,7 @@ def adamw_update(
     step = opt_state["step"] + 1
     lr = torch.as_tensor(opt_cfg.lr if lr is None else lr, dtype=torch.float32, device=dev)
 
-    g32 = [torch.zeros(p.shape, dtype=torch.float32, device=dev) if g is None else g.float()
+    g32 = [torch.zeros_like(p, dtype=torch.float32) if g is None else _like(g, p).float()
            for p, g in zip(flat_p, flat_g)]
     gnorm = global_norm(g32)
     clip = torch.clamp(opt_cfg.grad_clip / (gnorm + 1e-9), max=1.0)

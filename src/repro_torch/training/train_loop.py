@@ -4,7 +4,10 @@
 card every attention and WKV call runs its hand-written kernel forward and
 the plain version's VJP backward (``kernels/ops.py``).  The step reads
 nothing back to the host; ``train`` reads the metrics only at logged steps,
-as the JAX package's loop does.
+as the JAX package's loop does.  On DTensor parameters (``launch/specs.py:
+build_step`` on a ``DeviceMesh``) the step runs under ``partitioned``, its
+backward included, and the optimizer keeps each moment on its parameter's
+placements.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import ModelConfig
+from repro_torch.distributed.sharding import partitioned
 from repro_torch.models import model as model_lib
 from repro_torch.training.optimizer import (
     OptimizerConfig, adamw_init, adamw_update, tree_leaves, tree_unflatten)
@@ -41,6 +45,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     ``lr``) are 0-d tensors on the device."""
     sched = make_schedule(tcfg.schedule)
 
+    @partitioned()
     def train_step(params, opt_state, batch):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         loss, parts = model_lib.loss_fn(

@@ -1,20 +1,33 @@
 """Processes for the port's multi-rank CPU tests (``tests/test_torch_ep.py``,
-``tests/test_torch_sharded_grid.py``); pytest does not collect this file.
+``tests/test_torch_sharded_grid.py``, ``tests/test_torch_sharded_step.py``);
+pytest does not collect this file.
 
   python tests/torch_dist_workers.py ep   <rank> <world> <store> <out dir>
   python tests/torch_dist_workers.py grid <rank> <world> <store> <out dir>
+  python tests/torch_dist_workers.py step <rank> <world> <store> <out dir>
   python tests/torch_dist_workers.py jax_ep <out dir>
+  python tests/torch_dist_workers.py jax_step <out dir>
 
 ``ep`` and ``grid`` are one rank of a gloo process group of ``world``
 ranks that meet through a ``FileStore`` at ``<store>`` (no port, so that
 several groups can run at once): ``ep`` runs every EP case of that world
 size through the port's ``moe_ep_a2a`` (and phi3.5-moe's ``forward`` at 2
 ranks), ``grid`` runs ``torch_engine.run_grid`` sharded and not.  Each rank
-writes what it returned to ``<out dir>``.  ``jax_ep`` is the reference: the
-JAX package's ``moe_ep_a2a`` on as many host devices as a case's mesh has
-(run with ``XLA_FLAGS=--xla_force_host_platform_device_count=4``).  The
-``ep`` and ``jax_ep`` jobs import nothing of the other package; the inputs
-of both are made here from seeds with numpy.
+writes what it returned to ``<out dir>``.  ``step`` runs the partitioned
+steps of ``STEP_ARCHS`` at ``reduced()`` on every mesh of ``STEP_MESHES``:
+``launch/specs.py:build_step``'s train step and ``loss_fn``'s gradients on
+DTensor arguments placed by its specs, and a prefill with two decode steps
+under the prefill and decode rules, then the same steps on every rank's
+whole plain tensors under the same rules (the unsharded step; for phi the
+MoE layers' EP by hand, as ``moe_ep_a2a`` runs on plain tensors); every
+rank writes the whole tensors of both.
+``jax_ep`` and ``jax_step`` are the reference: the JAX package's
+``moe_ep_a2a``, and its steps jitted with the ``in_shardings`` of its own
+specs, on as many host devices as a case's mesh has (run with
+``XLA_FLAGS=--xla_force_host_platform_device_count=4``, axes ``Auto``).  A
+port's job and a reference's import nothing of the other package; the
+inputs of both are made here from seeds with numpy, the parameters by the
+test (``<arch>.params.pt`` from the reference's ``init_params``).
 """
 from __future__ import annotations
 
@@ -49,6 +62,15 @@ AUX_WEIGHT = 0.01
 PHI = "phi3.5-moe-42b-a6.6b"
 PHI_MESH, PHI_TOKENS = (1, 2), (2, 32)
 GRID_ARCHS = ["llama3-8b", "minicpm-2b", "qwen1.5-0.5b"]
+# the partitioned steps: archs, meshes (data, model), batch, prompt and
+# cache lengths, decode steps.  phi's capacity factor is raised so that no
+# expert drops a token, neither in an EP shard nor over the whole batch:
+# the EP capacity is per shard by design (tests/test_torch_ep.py holds the
+# dropping shapes), and here the sharded step must equal the unsharded one
+STEP_ARCHS = ("qwen1.5-0.5b", PHI)
+STEP_MESHES = ((2, 2), (1, 4))
+STEP_B, STEP_S, STEP_CACHE, STEP_DECODES = 4, 16, 32, 2
+STEP_CAPACITY = 8.0
 GRID_A, GRID_T = 3, 120
 
 
@@ -75,6 +97,20 @@ def phi_batch(vocab: int):
     tokens = np.random.default_rng(7).integers(0, vocab, size=PHI_TOKENS).astype(np.int32)
     labels = np.concatenate([tokens[:, 1:], np.full_like(tokens[:, :1], -1)], axis=1)
     return tokens, labels
+
+
+def step_inputs(vocab: int) -> dict:
+    """The steps' tokens (B, S), labels (two masked) and decode tokens."""
+    rng = np.random.default_rng(11)
+    tokens = rng.integers(0, vocab, size=(STEP_B, STEP_S)).astype(np.int32)
+    labels = rng.integers(0, vocab, size=(STEP_B, STEP_S)).astype(np.int32)
+    labels[0, :2] = -1
+    decode = rng.integers(0, vocab, size=(STEP_DECODES, STEP_B)).astype(np.int32)
+    return {"tokens": tokens, "labels": labels, "decode": decode}
+
+
+def step_tag(arch: str, shape) -> str:
+    return f"{arch}.{shape[0]}x{shape[1]}"
 
 
 def grid_inputs():
@@ -209,6 +245,100 @@ def run_ep(rank: int, world: int, store: str, out: str) -> None:
     dist.destroy_process_group()
 
 
+def step_config(arch: str, package):
+    """``arch`` at ``reduced()`` from ``package``'s registry, MoE at
+    ``STEP_CAPACITY``."""
+    import dataclasses
+
+    cfg = package.get_config(arch).reduced()
+    return dataclasses.replace(cfg, moe_capacity_factor=STEP_CAPACITY) if cfg.num_experts else cfg
+
+
+def run_step(rank: int, world: int, store: str, out: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    from torch.distributed.tensor import distribute_tensor
+
+    import repro_torch.configs as configs
+    from repro_torch.configs.registry import InputShape
+    from repro_torch.distributed import (axis_rules, logical_to_spec, partitioned,
+                                         placements_of)
+    from repro_torch.launch.mesh import make_rules, make_test_mesh
+    from repro_torch.launch.specs import build_step, cache_axes, place, shardings_of
+    from repro_torch.models import model
+    from repro_torch.training.optimizer import (OptimizerConfig, adamw_init, tree_leaves,
+                                                tree_unflatten)
+
+    _init(rank, world, store)
+    # a dimension split over two mesh axes, in mesh order and in the other
+    mesh = make_test_mesh((2, 2))
+    orders = {}
+    for spec in ((("data", "model"),), (("model", "data"),)):
+        t = distribute_tensor(torch.arange(16), mesh, placements_of(spec, mesh))
+        orders["+".join(spec[0])] = t.to_local().tolist()
+    orders["coordinate"] = list(mesh.get_coordinate())
+    with open(os.path.join(out, f"orders.rank{rank}.json"), "w") as f:
+        json.dump(orders, f)
+
+    def steps(cfg, mesh, params, data, placed: bool):
+        """The train step, loss_fn's gradients, a prefill and two decode
+        steps under the rules of ``mesh``: on DTensors placed by the specs
+        (``placed``), or on every rank's whole plain tensors."""
+        put = (lambda tree, spec: place(tree, spec, mesh)) if placed else (lambda tree, _: tree)
+        full = (lambda t: t.full_tensor().detach()) if placed else (lambda t: t.detach())
+        batch = {"inputs": data["tokens"], "labels": data["labels"]}
+        res = {}
+        train = InputShape("train_reduced", STEP_S, STEP_B, "train")
+        step, _, specs, rules, _ = build_step(cfg, train, mesh, param_dtype=torch.float32)
+        p, b = put(params, specs[0]), put(batch, specs[2])
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(p)]
+        moe_path = "ep_a2a" if cfg.num_experts else "local"
+        with axis_rules(rules), partitioned(rules):
+            loss, _ = model.loss_fn(cfg, tree_unflatten(p, leaves), b, moe_path=moe_path)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            new_p, new_o, metrics = step(p, adamw_init(p, OptimizerConfig()), b)
+        res["loss"], res["grads"] = full(loss), [full(g) for g in grads]
+        res["step_loss"] = full(metrics["loss"])
+        for key, tree in (("new_params", new_p), ("m", new_o["m"]), ("v", new_o["v"])):
+            res[key] = [full(t) for t in tree_leaves(tree)]
+        if placed:
+            res["param_placements"] = [str(t.placements) for t in tree_leaves(p)]
+        # a prefill under the prefill rules, two decode steps under the decode rules
+        pre_rules = make_rules(cfg, mesh, "prefill", batch_size=STEP_B)
+        dec_rules = make_rules(cfg, mesh, "decode", batch_size=STEP_B, cache_len=STEP_CACHE)
+        cache = model.init_cache(cfg, STEP_B, STEP_CACHE, device="cpu")
+        axes = cache_axes(cache)
+        with torch.no_grad():
+            with axis_rules(pre_rules):
+                p = put(params, shardings_of(model.param_axes(cfg), pre_rules))
+                c = put(cache, shardings_of(axes, pre_rules))
+                tok = put(data["tokens"], logical_to_spec(("batch", "seq_act"), pre_rules))
+                logits, c = model.prefill(cfg, p, tok, c, moe_path=moe_path)
+                res["logits"] = [full(logits)]
+            with axis_rules(dec_rules):
+                c = put(c, shardings_of(axes, dec_rules))
+                if placed:
+                    res["cache_placements"] = str(c["blocks"]["p0_attn"]["attn"]["k"].placements)
+                for tokens in data["decode"]:
+                    tok = put(tokens, logical_to_spec(("batch",), dec_rules))
+                    logits, c = model.decode_step(cfg, p, tok, c)
+                    res["logits"].append(full(logits))
+        return res
+
+    for shape in STEP_MESHES:
+        mesh = make_test_mesh(shape)
+        for arch in STEP_ARCHS:
+            cfg = step_config(arch, configs)
+            params = torch.load(os.path.join(out, f"{arch}.params.pt"))
+            data = {k: torch.tensor(v).long() for k, v in step_inputs(cfg.vocab_size).items()}
+            res = {"sharded": steps(cfg, mesh, params, data, placed=True),
+                   "plain": steps(cfg, mesh, params, data, placed=False)}
+            torch.save(res, os.path.join(out, f"{step_tag(arch, shape)}.rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 def grid_workload():
     from repro_torch.core.sim.types import ArchLoad
 
@@ -304,10 +434,71 @@ def run_jax_ep(out: str) -> None:
                      "grads": jax.tree.map(np.asarray, grads)}, f)
 
 
+def run_jax_step(out: str) -> None:
+    """The reference's partitioned steps, jitted with its own specs'
+    ``in_shardings``: the train step of ``launch/specs.py:build_step``, a
+    prefill and two decode steps; written as numpy trees."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AxisType
+
+    import repro.configs as configs
+    from repro.configs.registry import InputShape
+    from repro.distributed.sharding import axis_rules
+    from repro.launch import specs
+    from repro.launch.mesh import make_rules
+    from repro.models import model
+    from repro.training.optimizer import OptimizerConfig, adamw_init
+
+    for shape in STEP_MESHES:
+        mesh = jax.make_mesh(shape, ("data", "model"), axis_types=(AxisType.Auto,) * 2,
+                             devices=jax.devices()[:world_of(shape)])
+        for arch in STEP_ARCHS:
+            cfg = step_config(arch, configs)
+            params = model.init_params(cfg, jax.random.key(0))
+            data = {k: jnp.asarray(v) for k, v in step_inputs(cfg.vocab_size).items()}
+            batch = {"inputs": data["tokens"], "labels": data["labels"]}
+            res = {}
+            train = InputShape("train_reduced", STEP_S, STEP_B, "train")
+            step, _, shardings, rules, _ = specs.build_step(cfg, train, mesh,
+                                                            param_dtype=jnp.float32)
+            with mesh, axis_rules(rules):
+                new_p, new_o, metrics = jax.jit(step, in_shardings=shardings)(
+                    params, adamw_init(params, OptimizerConfig()), batch)
+            res["step_loss"] = np.asarray(metrics["loss"])
+            res["new_params"], res["m"], res["v"] = (jax.tree.map(np.asarray, t)
+                                                     for t in (new_p, new_o["m"], new_o["v"]))
+            pre_rules = make_rules(cfg, mesh, "prefill", batch_size=STEP_B)
+            dec_rules = make_rules(cfg, mesh, "decode", batch_size=STEP_B, cache_len=STEP_CACHE)
+            cache = model.init_cache(cfg, STEP_B, STEP_CACHE)
+            axes = specs.cache_axes(cache)
+            p_axes = model.param_axes(cfg)
+            moe_path = "ep_a2a" if cfg.num_experts else "local"
+            with mesh, axis_rules(pre_rules):
+                shard_in = (specs.shardings_of(p_axes, pre_rules),
+                            specs.shardings_of({"t": ("batch", "seq_act")}, pre_rules)["t"],
+                            specs.shardings_of(axes, pre_rules))
+                logits, cache = jax.jit(
+                    lambda p, t, c: model.prefill(cfg, p, t, c, moe_path=moe_path),
+                    in_shardings=shard_in)(params, data["tokens"], cache)
+            res["logits"] = [np.asarray(logits)]
+            with mesh, axis_rules(dec_rules):
+                shard_in = (specs.shardings_of(p_axes, dec_rules),
+                            specs.shardings_of({"t": ("batch",)}, dec_rules)["t"],
+                            specs.shardings_of(axes, dec_rules))
+                dec = jax.jit(lambda p, t, c: model.decode_step(cfg, p, t, c),
+                              in_shardings=shard_in)
+                for tokens in data["decode"]:
+                    logits, cache = dec(params, tokens, jax.device_put(cache, shard_in[2]))
+                    res["logits"].append(np.asarray(logits))
+            with open(os.path.join(out, f"{step_tag(arch, shape)}.jax.pkl"), "wb") as f:
+                pickle.dump(res, f)
+
+
 if __name__ == "__main__":
     job = sys.argv[1]
-    if job == "jax_ep":
-        run_jax_ep(sys.argv[2])
+    if job in ("jax_ep", "jax_step"):
+        {"jax_ep": run_jax_ep, "jax_step": run_jax_step}[job](sys.argv[2])
     else:
         rank, world, store, out = int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
-        {"ep": run_ep, "grid": run_grid}[job](rank, world, store, out)
+        {"ep": run_ep, "grid": run_grid, "step": run_step}[job](rank, world, store, out)
