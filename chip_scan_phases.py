@@ -3,8 +3,9 @@
 Builds ``csrc/rwkv6_scan.cu`` a second time with its ``RWKV6_STAMP`` hook
 defined: each CTA's thread 0 records ``clock64`` at every phase boundary of
 the T > 1 kernel (set-up, the first copies, the chunk terms and their
-parts, pass 1's products, each scan round, the carry-in, pass 2) and ``%globaltimer`` at its
-start and end, with its SM.  Then runs the main-path shapes once each and
+parts, pass 1's products, the composite's publication, the carry's first
+cluster barrier, its transfer, its second barrier, the carry-in, pass 2)
+and ``%globaltimer`` at its start and end, with its SM.  Then runs the main-path shapes once each and
 prints, as one JSON line a shape, the median over the CTAs of each phase's
 cycles, the CTAs' spans (start, end, duration in microseconds on the global
 timer) summarised, and the kernel's CUDA-event time beside it.  The stamped
@@ -32,16 +33,15 @@ from repro_torch.kernels import rwkv6_scan as rk  # noqa: E402
 
 MAX_CTAS = 8192
 STAMPS = 24
-PHASES = ["first copies", "chunk terms", "pass-1 products and A", "round 1", "round 2",
-          "round 3", "round 4", "round 5", "after the rounds", "pass-2 copies and terms",
-          "pass-2 products and store", "cluster wait"]
+# each phase by the stamp at its end (csrc/rwkv6_scan.cu's RWKV6_STAMP)
+PHASES = {1: "first copies", 2: "chunk terms", 3: "pass-1 products and A",
+          4: "composite published", 5: "carry barrier 1", 6: "carry transfer",
+          7: "carry barrier 2", 8: "carry-in read", 10: "pass-2 copies and terms",
+          11: "pass-2 products and store", 12: "exit"}
 # the chunk terms, split: every level's rows of A, r 2^P and the decayed k;
 # A's 496 dot products and the bonus; A's tile parts
 SPLIT = {"level rows, r 2^P, decayed k": (1, 13), "(3) and A's dot products": (13, 15),
          "A's parts and (1)": (15, 3)}
-# each scan round and the carry-in, split at its cluster barrier's end:
-# (stamp before, stamp after the barrier, stamp at its end)
-ROUNDS = {f"round {k + 1}": (3 + k, 16 + k, 4 + k) for k in range(4)}
 SOURCE = f"""
 __device__ long long g_clock[{MAX_CTAS}][{STAMPS}];
 __device__ unsigned long long g_span[{MAX_CTAS}][2];
@@ -80,14 +80,17 @@ extern "C" int stamps_read(long long* clk, unsigned long long* span, int* sm) {{
 }}
 """
 
-# (name, shape, dtype, ranks at most: None for the card's R_MAX); the served
-# prefill also at 8 ranks of 2 chunks, a plan the wrapper does not take
+# (name, shape, dtype, ranks: None for the plan's); the served prefill also
+# at 9 ranks (the most that fit one wave, runs of 2 chunks as at the plan's
+# 8) and at 16 of one chunk in two waves, and the training forward at 4
+# ranks of one chunk in three: plans the wrapper does not take
 SHAPES = [("served prefill bf16", (1, 500, 32, 64), torch.bfloat16, None),
           ("training forward f32", (4, 128, 32, 64), torch.float32, None),
           ("served prefill f32", (1, 500, 32, 64), torch.float32, None),
           ("T=2048 bf16", (1, 2048, 4, 64), torch.bfloat16, None),
-          ("served prefill bf16, 8 ranks", (1, 500, 32, 64), torch.bfloat16, 8),
-          ("served prefill f32, 8 ranks", (1, 500, 32, 64), torch.float32, 8),
+          ("served prefill bf16, 9 ranks", (1, 500, 32, 64), torch.bfloat16, 9),
+          ("served prefill bf16, 16 ranks", (1, 500, 32, 64), torch.bfloat16, 16),
+          ("training forward f32, 4 ranks", (4, 128, 32, 64), torch.float32, 4),
           ("served prefill bf16, no state", (1, 500, 32, 64), torch.bfloat16, None)]
 
 
@@ -106,17 +109,20 @@ def build() -> ctypes.CDLL:
     return lib
 
 
-def max_ranks(lib, dtype, hd, dev) -> int:
-    """``rwkv6_scan.max_ranks`` asked of the stamped library: the main one
-    is never loaded here, since the two would share the host code's
-    function-local statics (GNU unique symbols), and with them the record
-    of which kernel's cluster attributes were set."""
-    n = ctypes.c_int(0)
-    err = lib.rwkv6_max_active_clusters(_build.DTYPE_CODES[dtype], hd, rk.R_MAX, 1,
-                                        dev.index or 0, ctypes.byref(n))
-    if err:
-        raise RuntimeError(f"rwkv6_max_active_clusters failed with cudaError_t {err}")
-    return rk.R_MAX if n.value >= 1 else rk.R_PORTABLE
+def at_once(lib, dtype, hd, dev):
+    """``rwkv6_scan.max_active_clusters`` asked of the stamped library, as
+    ``cluster_plan`` takes it: the main one is never loaded here, since the
+    two would share the host code's function-local statics (GNU unique
+    symbols), and with them the record of which kernel's cluster attributes
+    were set."""
+    def count(ranks, one_chunk):
+        n = ctypes.c_int(0)
+        err = lib.rwkv6_max_active_clusters(_build.DTYPE_CODES[dtype], hd, ranks, int(one_chunk),
+                                            dev.index or 0, ctypes.byref(n))
+        if err:
+            raise RuntimeError(f"rwkv6_max_active_clusters failed with cudaError_t {err}")
+        return n.value
+    return count
 
 
 def inputs(b, t, h, hd, dtype, dev, seed=0, state=True):
@@ -171,14 +177,16 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     lib = build()
-    for name, (b, t, h, hd), dtype, r_max in SHAPES:
+    for name, (b, t, h, hd), dtype, forced in SHAPES:
         args = inputs(b, t, h, hd, dtype, dev, state="no state" not in name)
-        plan = rk.cluster_plan(b, t, h, hd, dtype, r_max or max_ranks(lib, dtype, hd, dev))
-        n = b * h * plan.ranks
-        ms = event_ms(lambda: run(lib, args, plan.ranks, dev))
+        count = at_once(lib, dtype, hd, dev)
+        ranks = forced or rk.cluster_plan(b, t, h, hd, dtype, count).ranks
+        clusters_at_once = count(ranks, ranks == -(-t // rk.CHUNK))
+        n = b * h * ranks
+        ms = event_ms(lambda: run(lib, args, ranks, dev))
         lib.stamps_clear()
         torch.cuda.synchronize()
-        run(lib, args, plan.ranks, dev)
+        run(lib, args, ranks, dev)
         torch.cuda.synchronize()
         clk = (ctypes.c_longlong * (MAX_CTAS * STAMPS))()
         span = (ctypes.c_ulonglong * (MAX_CTAS * 2))()
@@ -186,7 +194,7 @@ def main() -> int:
         if lib.stamps_read(clk, span, sm):
             raise RuntimeError("stamps_read failed")
         phases = {}
-        for p in range(1, 13):          # each stamp against the last one the CTA wrote
+        for p, phase in PHASES.items():  # each stamp against the last one the CTA wrote
             d = []
             for c in range(n):
                 row = clk[c * STAMPS:(c + 1) * STAMPS]
@@ -194,33 +202,23 @@ def main() -> int:
                 if row[p] and prev:
                     d.append(row[p] - prev[-1])
             if d:
-                phases[PHASES[p - 1]] = median(d)
+                phases[phase] = median(d)
         # pass 1's chunk terms where they include the outputs' (one chunk a
         # rank): stamps 13, 14, 15 inside them
         split = {}
         for key, (lo, hi) in SPLIT.items():
             d = [clk[c * STAMPS + hi] - clk[c * STAMPS + lo] for c in range(n)
                  if clk[c * STAMPS + hi] and clk[c * STAMPS + lo]]
-            if d and plan.ranks == plan.chunks:
+            if d and ranks == -(-t // rk.CHUNK):
                 split[key] = median(d)
-        rounds = {}
-        for key, (lo, mid, hi) in ROUNDS.items():
-            wait, pull = [], []
-            for c in range(n):
-                row = clk[c * STAMPS:(c + 1) * STAMPS]
-                if row[mid] and row[hi] and row[lo]:
-                    wait.append(row[mid] - row[lo])
-                    pull.append(row[hi] - row[mid])
-            if wait:
-                rounds[key] = {"to barrier end": median(wait), "after": median(pull)}
         starts = [span[2 * c] for c in range(n)]
         ends = [span[2 * c + 1] for c in range(n)]
         t0 = min(starts)
         dur = [(e - s) / 1e3 for s, e in zip(starts, ends)]
         print(json.dumps({
-            "shape": name, "B_T_H_hd": [b, t, h, hd], "ranks": plan.ranks, "ctas": n,
+            "shape": name, "B_T_H_hd": [b, t, h, hd], "ranks": ranks, "ctas": n,
+            "clusters_at_once": clusters_at_once, "waves": -(-b * h // clusters_at_once),
             "event_ms": ms, "phase_cycles_median": phases, "chunk_terms_cycles_median": split,
-            "round_cycles_median": rounds,
             "cta_us": {"median": median(dur), "max": max(dur)},
             "start_us": {"median": median([(s - t0) / 1e3 for s in starts]),
                          "max": (max(starts) - t0) / 1e3},

@@ -31,9 +31,10 @@ never prints its last line):
    (``cudaOccupancyMaxActiveClusters``, printed); the scan's T > 1 kernel
    (``scan_kernel``, over a cluster per sequence) wgmma, tf32 wgmma in
    its f32 instantiations, and TMA loads in its SASS, no ``HMMA`` or
-   ``LDSM``, its 16 instantiations no spill and no serialised wgmma, and
-   the card must hold a cluster of each plan of the served and training
-   shapes (printed with the ranks chosen for each dtype and hd);
+   ``LDSM``, its 16 instantiations no spill and no serialised wgmma; the
+   card's clusters at once for 1 to 16 ranks are printed, and each plan of
+   the served and training shapes with its ranks and waves: the served
+   bf16 prefill must take one wave;
 2. hold each kernel against its plain PyTorch version on the card, in f32
    and bf16: the attention kernels at the shapes of ``tests/test_kernels.py``,
    at the main path's shapes, at phi3.5-moe's and llama3-8b's GQA shapes
@@ -46,7 +47,7 @@ never prints its last line):
    cache); the RWKV-6 scan at ``RWKV_CASES``
    (with and without a state, ragged T), under strong
    decay (also in bf16 at T = 100 and in f32 at rwkv6-1.6b's T = 500, H = 32,
-   16 ranks of the kernel training runs, timed there), at T = 1 with a
+   the plan of the kernel training runs, timed there), at T = 1 with a
    state, at T = 2048, with
    the state updated in place at T = 45 and T = 1, and at rwkv6-1.6b's
    prefill and decode shapes; the attention kernels' edge cases (rows that
@@ -381,7 +382,7 @@ F32_DECODE_STEPS = 8
 RWKV_F32_LAYERS, RWKV_F32_PROMPT = 4, 77
 # rwkv6-1.6b's main-path scan shapes: prefill (B=1, a ragged T) and decode (8 slots)
 RWKV_PREFILL, RWKV_DECODE = (1, 500, 32, 64, True), (SLOTS, 1, 32, 64, True)
-# 64 chunks over 16 ranks of 4; the state updated in place over two chunks
+# 64 chunks (16 ranks of 4 on the card); the state updated in place over two chunks
 # and a ragged tail, and in one decode step
 RWKV_LONG, RWKV_IN_PLACE = (1, 2048, 4, 64, True), ((2, 45, 4, 64, True), (8, 1, 4, 64, True))
 # the decode library's one kernel: a call launches it once, never another
@@ -638,11 +639,13 @@ def check_scan_design(path, log) -> None:
     tf32 wgmma in the f32 instantiations' own SASS, TMA loads, and neither
     mma.sync (``HMMA``) nor ldmatrix (``LDSM``); its 16 instantiations (f32
     and bf16, hd 16 to 128, one chunk a rank or several) compiled without
-    spill, and no ptxas warning that wgmma was serialised.  Prints the ranks
-    chosen for each (dtype, hd) (16, a non-portable cluster, where the card
-    holds one) and, for each plan of the served and training shapes, the
-    clusters the card holds at once (``cudaOccupancyMaxActiveClusters``)
-    and the waves its grid takes."""
+    spill, and no ptxas warning that wgmma was serialised.  Prints the
+    card's count of clusters it holds at once (``cudaOccupancyMaxActiveClusters``)
+    for every rank count 1 to 16 of both instantiations at hd 64, in bf16
+    and f32 (what ``rwkv6_scan.cluster_plan`` chooses by), and, for each
+    plan of the served and training shapes, its ranks, that count and the
+    waves its grid takes; fails where the served bf16 prefill's plan takes
+    more than one wave."""
     counts, f32 = sass_counts(path, SCAN_KERNEL), sass_counts(path, SCAN_KERNEL_F32)
     print("[build] rwkv6_scan scan_kernel: " + ", ".join(f"{c} {op}" for op, c in counts.items())
           + " instructions in its SASS (f32 instantiations: "
@@ -664,22 +667,23 @@ def check_scan_design(path, log) -> None:
     if warned:
         raise AssertionError("ptxas: " + " | ".join(warned))
     dev = torch.device("cuda")
-    r_max = {f"{str(dt)[6:]} hd {hd}": rk.max_ranks(dt, hd, dev)
-             for dt in (torch.float32, torch.bfloat16) for hd in rk.SUPPORTED_HEAD_DIMS}
-    print("[build] rwkv6_scan ranks at most: " + json.dumps(r_max))
+    at_once = {f"{str(dt)[6:]} hd 64 {kind}": [rk.max_active_clusters(dt, 64, r, dev, one)
+                                              for r in range(1, rk.R_MAX + 1)]
+               for dt in (torch.bfloat16, torch.float32)
+               for kind, one in (("one chunk a rank", True), ("several", False))}
+    print("[build] rwkv6_scan clusters at once, ranks 1-16: " + json.dumps(at_once))
     plans = {}
     for name, (b, t, h, hd, dtype) in SCAN_PLANS.items():
-        plan = rk.cluster_plan(b, t, h, hd, dtype, rk.max_ranks(dtype, hd, dev))
-        one = plan.ranks == plan.chunks
-        at_once = rk.max_active_clusters(dtype, hd, plan.ranks, dev, one)
-        if at_once < 1:
-            raise AssertionError(f"rwkv6_scan {name}: the card holds no cluster of {plan.ranks}")
+        plan = rk.plan_on(b, t, h, hd, dtype, dev)
         clusters = b * h
         plans[name] = {"ranks": plan.ranks, "chunks_a_rank": plan.runs[0][1],
-                       "one_chunk_a_rank": one, "clusters": clusters,
-                       "ctas": clusters * plan.ranks, "max_active_clusters": at_once,
-                       "waves": -(-clusters // at_once)}
+                       "one_chunk_a_rank": plan.ranks == plan.chunks, "clusters": clusters,
+                       "ctas": clusters * plan.ranks, "max_active_clusters": plan.at_once,
+                       "waves": plan.waves}
     print("[build] rwkv6_scan cluster plans: " + json.dumps(plans))
+    if plans["served prefill bf16"]["waves"] != 1:
+        raise AssertionError(f"rwkv6_scan served bf16 prefill in more than one wave: "
+                             f"{plans['served prefill bf16']}")
 
 
 # ---------------------------------------------------------------------------
@@ -1279,7 +1283,7 @@ def phase_rwkv_kernel(seed):
             {name: {"max_abs_err": e, "max_abs_out": m} for name, (e, _, m) in main[dtype].items()}))
     edges["strong decay T=100 bf16"] = check_rwkv(
         gen, (1, 100, 4, 64, True), torch.bfloat16, strong=True)[0]
-    # the f32 cluster kernel (which training runs) at the served shape, 16 ranks
+    # the f32 cluster kernel (which training runs) at the served shape
     edges["strong decay T=500 H=32 f32"] = check_rwkv(
         gen, RWKV_PREFILL, torch.float32, strong=True)[0]
     n += 2

@@ -161,25 +161,8 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// The two halves of cluster_sync, for work between a CTA's arrival and its
-// wait (a CTA whose peers still read its shared memory arrives, works on,
-// and waits before it exits).
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// Loads from another CTA's shared memory at a cluster_map address: one
-// float; four floats at a 16-byte aligned one
-__device__ __forceinline__ float ld_cluster(uint32_t addr) {
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
-  return v;
-}
-
+// Loads from another CTA's shared memory at a cluster_map address: four
+// floats at a 16-byte aligned one
 __device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
   float4 v;
   asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"

@@ -30,14 +30,19 @@
 //
 // T > 1, f32 and bf16: cl::scan_kernel, one launch, one thread-block
 // cluster per (b, h) sequence (grid (R, H, B), cluster (R, 1, 1)).
-//  - ranks: R = min(ceil(T / C), R_MAX) CTAs, rank q owning a contiguous
-//    run of chunks (the first NC % R ranks one more; rwkv6_scan.cluster_plan
-//    and ref.rwkv6_rank_runs).  R_MAX is 16 (a non-portable cluster) where
-//    the card holds such a cluster, else 8.  The kernel is instantiated
-//    twice: for one chunk a rank (the served prefill, 16 ranks; the
-//    training forward, 4), whose pass 1 keeps the chunk's tiles for pass 2
-//    and whose bf16 CTAs up to hd 64 fit three to an SM (168 registers),
-//    and for several.
+//  - ranks: R CTAs, rank q owning a contiguous run of chunks (the first
+//    NC % R ranks one more; ref.rwkv6_rank_runs).  rwkv6_scan.cluster_plan
+//    picks R <= min(NC, R_MAX = 16) from the card's own count of clusters
+//    it holds at once (cudaOccupancyMaxActiveClusters, active_clusters
+//    below): among the R whose B H clusters fit in one wave, the fewest
+//    chunks a rank, then the fewest ranks; where none fits, the fewest
+//    waves x chunks a rank.  On an H100 the served prefill (B=1, T=500,
+//    H=32: 32 clusters of 16 chunks) takes 8 ranks of 2 chunks (45
+//    clusters of 8 at once in bf16), the f32 training forward (B=4, T=128:
+//    128 clusters of 4 chunks) 2 ranks of 2 (132 at once).  The kernel is
+//    instantiated twice: for one chunk a rank, whose pass 1 keeps the
+//    chunk's tiles for pass 2, and for several; in bf16 up to hd 64 both
+//    fit three CTAs to an SM (168 registers).
 //  - loads: each chunk's r, k, v and w (C tokens x hd) land by TMA (tensor
 //    maps over the (B, T, H, hd) tensors, 128-byte boxes under 128-byte
 //    swizzle; hd 16 in one box, its end zero-filled) on one mbarrier.
@@ -81,39 +86,49 @@
 //    product is skipped; A, the decayed k, r 2^P and the state are split in
 //    both types, so a bf16 output is rounded once, from an f32-accurate
 //    value.
-//  - the carry, in two passes.  Pass 1: rank q folds its run into the
-//    composite (D, dS) = (prod 2^P[L], the run's state increment) by (3),
-//    rank 0 starting from s0 (read into its accumulators) and D = 0.  The
-//    composites combine as (D2, S2) o (D1, S1) = (D1 D2, diag(D2) S1 + S2),
-//    products of factors <= 1: an inclusive scan in rounds at distances
-//    d = 1, 2, 4, ... over exchange buffers of (D, S^T) in the ranks' shared
-//    memory (two, alternating; S^T in the threads' own order, 16 bytes a
-//    load), one cluster barrier a round.  Round 1: each rank publishes its
-//    own and rank q >= d pulls rank q - d's (mapa, ld.shared::cluster) after
-//    the barrier (a push could land in a peer still in pass 1, whose tiles
-//    the buffers overlay); later rounds: rank q pushes its own into rank q +
-//    d's buffer (st.shared::cluster) before the barrier and reads it there
-//    after, one-way traffic.  In the last round (2 d >= R) each rank
-//    publishes; rank q's carry-in is rank q - 1's composite combined with
-//    rank q - 1 - d's (the two cover every rank before q), pulled after the
-//    barrier, and the last rank's own composite combined with rank q - d's
-//    is sT.  Pass 2: each rank walks its run from its carry-in, (1) and (2)
-//    per chunk, (3) between chunks.  No state touches device memory but s0
-//    in and sT out.  With one chunk a rank, pass 1 also computes the
-//    chunk's A and (1), and rank 0 its (2) from s0, so pass 2 is (2) alone
-//    (rank 0: nothing but the store).
-//  - s0 may alias sT (the served path updates the state in place): with one
-//    chunk a rank, rank 0 reads s0 only in pass 1, before every cluster
-//    barrier; with several, again just before the last round's barrier.
-//    The last rank writes sT only after that barrier.
-//  - shared memory: the chunk's working set and the two exchange buffers
-//    share one region (no phase uses both): bf16 at hd 64 is 72.7 KB a CTA
-//    (three an SM), f32 85 KB; at hd 128 two warpgroups, one per 64 value
-//    columns.
-//  - where the time goes (chip_scan_phases.py prints each phase): at the
-//    served prefill the 16-rank clusters run in two waves of CTAs, and a
-//    CTA spends about half its time in the scan's rounds, each a cluster
-//    barrier and 16 KB of state a CTA through distributed shared memory.
+//  - the carry, in two passes and two cluster barriers.  Pass 1: rank q
+//    folds its run into its composite (D_q, dS_q) = (the product of its
+//    chunks' 2^P[L], the run's state increment from zero) by (3), and
+//    publishes it over its own tiles (D; S^T in the threads' own order, a
+//    16-byte slot a float4 of a thread).  Barrier 1.  Rank q owns 1/R of
+//    the state's slots (ref.rwkv6_carry_owners); for each, a thread reads
+//    the 4 elements of s0 (0 where s0 is null) and every rank's composite
+//    of them (mapa, ld.shared::cluster: R float4 and R float2 of D, all
+//    issued before the first FMA, in groups of 8 ranks where one chunk a
+//    rank holds (1) and (2) in registers), runs c_0 = s0, c_{p+1} = D_p
+//    c_p + dS_p (fmaf, a serial chain as exact as the composites of a
+//    scan), writes each c_p into rank p's carry-in buffer
+//    (st.shared::cluster) and c_R to sT.  Barrier 2; each rank reads its
+//    carry-in.  A rank moves hd^2 4 bytes in and as many out once (16 KB
+//    each at hd 64), whatever R.  Pass 2: each rank walks its run from its carry-in,
+//    (1) and (2) per chunk, (3) between chunks.  With one chunk a rank,
+//    pass 1 also computes the chunk's A and (1), and rank 0 its (2) from
+//    s0, so pass 2 is (2) alone (rank 0: nothing but the store).  R = 1:
+//    no carry; one pass from s0 with (3) after every chunk, the last sT.
+//    No state touches device memory but s0 in and sT out.
+//  - s0 may alias sT (the served path updates the state in place): each
+//    element of s0 is read and then written in sT by the same thread of its
+//    owner rank, and rank 0 of one chunk a rank reads s0 for its (2)
+//    before barrier 1, after which the owners write.
+//  - shared memory: the chunk's working set in one region, which the
+//    carry's two buffers overlay: the composite (peers read it between the
+//    barriers) and, after it, the carry-in (peers write it between the
+//    barriers); no rank writes the region again before barrier 2, after
+//    which it reads its carry-in first, and one chunk a rank keeps r 2^P's
+//    parts for pass 2 outside both.  bf16 at hd 64 is 73,728 bytes a CTA,
+//    74,752 with the 1 KB the SM reserves: three an SM (224,256 of
+//    233,472); f32 86,016 (two); at hd 128 two warpgroups, one per 64
+//    value columns.
+//  - where the time goes (chip_scan_phases.py, median cycles of a CTA on
+//    an H100 at 700 W): at the served bf16 prefill the 32 clusters of 8
+//    run in one wave (256 CTAs on 124 SMs, a CTA 23.4 us, the last done
+//    29.3 us after the first starts; 35.6 us in CUDA events).  Of ~42,400
+//    cycles, pass 1 over two chunks (copies, terms, (3)) takes 9,011, the
+//    carry 8,905 (publish 441, barrier 1 1,379, transfer 4,634, barrier 2
+//    2,247, carry-in 204), pass 2 over two chunks 24,319 (copies and terms
+//    again, (2), (3), A, (1)).  At 16 ranks of one chunk (two waves) the
+//    carry took 13,560 of a CTA's cycles and its first barrier 4,853: a
+//    rank waits for the slowest of more peers.
 //
 // T = 1 (every decode step), f32 and bf16: decode::decode_kernel, no chunk
 //  machinery.  Per (b, h): o_j = sum_i r_i (S_ij + u_i k_i v_j) and
@@ -173,7 +188,8 @@ constexpr int PAIRS1 = E;                                  // 16 of level 1
 // Then one region:
 //   v; r, k and w as they land | the decayed k^T's parts | A's parts and A
 //   in f32; A's level rows; r 2^P's small part
-// or, during the scan, its two exchange buffers (below r 2^P's small part).
+// or, during the carry, the composite and the carry-in (below r 2^P's
+// small part, which one chunk a rank keeps for pass 2).
 template <typename T, int HD>
 struct Cfg {
   static constexpr int ES = (int)sizeof(T);
@@ -201,13 +217,16 @@ struct Cfg {
   static constexpr int R = V + TILE, K = R + TILE, W = K + TILE, KT = R;
   static constexpr int AT = R, AF = R + 2 * AT_PART;
   static constexpr int X = R + cmax(cmax(3 * TILE, 2 * KT_PART), 2 * AT_PART + AF_BYTES);
-  // D [HD], then S^T as the threads hold it: float4 k of thread x at [k][x]
+  // the carry's two buffers over the chunk's working set: the composite,
+  // D [HD] then S^T as the threads hold it (float4 k of thread x at
+  // [k][x]), and the carry-in, S^T alone in the same order
   static constexpr int XBUF = 4 * (HD + NT * HD / 2);
-  static constexpr int XB = REGION;
+  static constexpr int COMP = REGION;
+  static constexpr int CARRY = COMP + XBUF;
   // level rows f32 [LEVELS][C][HD]; then r 2^P's small part, which the
   // chunk's terms use first for k times the decays after it in its
-  // sub-chunk (KL, f32 [C][HD]), clear of the exchange buffers
-  static constexpr int RTS = (cmax(X + 4 * LEVELS * C * HD, XB + 2 * XBUF) + 1023) / 1024 * 1024;
+  // sub-chunk (KL, f32 [C][HD]), clear of both carry buffers
+  static constexpr int RTS = (cmax(X + 4 * LEVELS * C * HD, CARRY + 4 * NT * HD / 2) + 1023) / 1024 * 1024;
   static constexpr int KL = RTS;
   static constexpr int END = RTS + RT_PART;
   static constexpr size_t SMEM = 1024 + END;
@@ -606,9 +625,9 @@ __device__ __forceinline__ void decay_state(float (&S)[HD / 2], const float* DC,
   for (int e = 0; e < HD / 2; ++e) S[e] *= DC[col_of(tig, e)];
 }
 
-// (D, S^T) into exchange buffer x: D; S^T as the threads hold it, float4 k
-// of thread `tid` at [k][tid], so that a peer's thread reads its own
-// elements in 16-byte loads, a warp's over 512 consecutive bytes
+// (D, S^T) into the composite buffer x: D; S^T as the threads hold it,
+// float4 k of thread `tid` at [k][tid] (a slot), so that the carry's
+// owners read 16 bytes a load, a warp's over 512 consecutive bytes
 template <int HD, int NT>
 __device__ __forceinline__ void publish(float* x, const float (&S)[HD / 2], const float* DR,
                                         int tid) {
@@ -619,10 +638,87 @@ __device__ __forceinline__ void publish(float* x, const float (&S)[HD / 2], cons
         make_float4(S[4 * k4], S[4 * k4 + 1], S[4 * k4 + 2], S[4 * k4 + 3]);
 }
 
-// x + diag(D) y over S^T's columns, on a thread's float4 (columns i, i + 1)
+// x + diag(D) y over S^T's columns, on a slot (columns i, i + 1)
 __device__ __forceinline__ float4 fold_in(float4 x, float4 y, float d0, float d1) {
   return make_float4(fmaf(d0, y.x, x.x), fmaf(d1, y.y, x.y), fmaf(d0, y.z, x.z),
                      fmaf(d1, y.w, x.w));
+}
+
+// The carry's slots: float4 k4 of thread t holds S^T at rows j = j0(t), j0
+// + 8 and columns i = 8 k4 + 2 (t % 4), i + 1, that is the state's
+// elements (i, j), (i + 1, j), (i, j + 8), (i + 1, j + 8).  Only threads
+// t < TV hold rows below HD (hd 16 and 32 pad wgmma's 64 rows), so the
+// state is NV slots, slot v being float4 v / TV of thread v % TV; rank q
+// owns slots [q NV / R, (q + 1) NV / R) (ref.rwkv6_carry_owners).
+template <int HD, int NT>
+struct Slots {
+  static constexpr int TV = NT < 2 * HD ? NT : 2 * HD;
+  static constexpr int NV = HD / 8 * TV;
+};
+
+// Rank q's share of the carry, between the two cluster barriers.  For each
+// slot it owns, SB slots at a time: the state's four elements c_0 = s0 (0
+// where s0 is null), then for the ranks p in groups of G, every rank's
+// composite (D_p, dS_p) of them (ld.shared::cluster, the group's all issued
+// before its first FMA; one group where R <= G), c_{p+1} = D_p c_p + dS_p
+// (one fmaf each), c_p stored into rank p's carry-in buffer
+// (st.shared::cluster); c_R into sT.  The same thread reads an element of
+// s0 and then writes it in sT, so s0 may alias sT.
+template <int HD, int NT, int G, int SB>
+__device__ __forceinline__ void carry_share(int q, int R, uint32_t comp, uint32_t carry,
+                                            const float* s0, float* sT, long s_base, int tid) {
+  using SL = Slots<HD, NT>;
+  const int lo = q * SL::NV / R, hi = (q + 1) * SL::NV / R;
+  for (int v0 = lo + tid; v0 < hi; v0 += SB * NT) {
+    float4 c[SB];
+    int off[SB], col[SB];         // a slot's place in the threads' order, its column i
+    long at[SB];                  // its element (i, j) in the state
+#pragma unroll
+    for (int m = 0; m < SB; ++m) {
+      const int v = v0 + m * NT, k4 = v / SL::TV, t = v % SL::TV, lane = t % 32;
+      col[m] = v < hi ? 8 * k4 + 2 * (lane % 4) : -1;
+      off[m] = k4 * NT + t;
+      at[m] = s_base + (long)col[m] * HD + 16 * (t / 32) + lane / 4;
+      const float* p = s0 + at[m];
+      c[m] = col[m] >= 0 && s0 != nullptr ? make_float4(p[0], p[HD], p[8], p[HD + 8])
+                                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    for (int g0 = 0; g0 < R; g0 += G) {
+      float4 ds[SB][G];
+      float2 dd[SB][G];
+#pragma unroll
+      for (int m = 0; m < SB; ++m) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (g0 + g < R && col[m] >= 0) {
+            const uint32_t peer = cluster_map(comp, g0 + g);
+            ds[m][g] = ld_cluster4(peer + 4 * (HD + 4 * off[m]));
+            dd[m][g] = ld_cluster2(peer + 4 * col[m]);
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < SB; ++m) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (g0 + g < R && col[m] >= 0) {
+            st_cluster(cluster_map(carry, g0 + g) + 16 * off[m], c[m]);
+            c[m] = fold_in(ds[m][g], c[m], dd[m][g].x, dd[m][g].y);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < SB; ++m) {
+      if (col[m] >= 0) {
+        float* p = sT + at[m];
+        p[0] = c[m].x;
+        p[HD] = c[m].y;
+        p[8] = c[m].z;
+        p[HD + 8] = c[m].w;
+      }
+    }
+  }
 }
 
 __device__ __forceinline__ void zero16(float (&x)[16]) {
@@ -630,35 +726,49 @@ __device__ __forceinline__ void zero16(float (&x)[16]) {
   for (int e = 0; e < 16; ++e) x[e] = 0.f;
 }
 
-// CTAs an SM holds of the kernel where every rank has one chunk (the served
-// prefill and the training forward), in bf16 up to hd 64: three, their
-// registers capped at 168 to match (the kernel for several chunks a rank
-// holds its state across each chunk's terms and would spill there)
+// CTAs an SM holds of the kernel in bf16 up to hd 64: three, their
+// registers capped at 168 to match (rwkv6-1.6b's served prefill then runs
+// 8 ranks of 2 chunks, 256 CTAs, in one wave)
 template <typename T, int HD, bool ONE>
 __host__ __device__ constexpr int min_ctas() {
-  return ONE && std::is_same<T, __nv_bfloat16>::value && HD <= 64 ? 3 : 1;
+  return std::is_same<T, __nv_bfloat16>::value && HD <= 64 ? 3 : 1;
+}
+
+// S^T = this rank's carry-in as the owners wrote it (threads' order; zeros
+// in the rows past HD that hd 16 and 32 pad)
+template <int HD, int NT>
+__device__ __forceinline__ void load_carry(float (&S)[HD / 2], const float* x, int tid) {
+#pragma unroll
+  for (int k4 = 0; k4 < HD / 8; ++k4) {
+    const float4 c = tid < Slots<HD, NT>::TV
+                         ? *reinterpret_cast<const float4*>(x + 4 * (k4 * NT + tid))
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    S[4 * k4] = c.x;
+    S[4 * k4 + 1] = c.y;
+    S[4 * k4 + 2] = c.z;
+    S[4 * k4 + 3] = c.w;
+  }
 }
 
 // One CTA of a cluster of R = gridDim.x ranks over sequence (b = blockIdx.z,
 // h = blockIdx.y); rank q = blockIdx.x.  ONE: every rank has one chunk
-// (ceil(T / C) == R), and pass 1's tiles serve pass 2.
+// (ceil(T / C) == R), and pass 1's tiles serve pass 2.  R = 1: one pass
+// over the chunks from s0, (3) after each one, no carry.
 template <typename T, int HD, bool ONE>
 __global__ void __launch_bounds__(Cfg<T, HD>::NT, (min_ctas<T, HD, ONE>())) scan_kernel(
     const __grid_constant__ CUtensorMap tr, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tw,
     const float* __restrict__ u,
-    const float* s0,              // may alias sT: rank 0 reads it before the last round's barrier
+    const float* s0,              // may alias sT: every element is read before it is written
     float* sT, T* __restrict__ o, int Tn, int H) {
   using G = Cfg<T, HD>;
   constexpr int NT = G::NT, NS = HD / 2;
-  // 16-byte pulls in flight at once
-  constexpr int PG = NS / 4 < 4 ? NS / 4 : HD > 64 ? 2 : 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   float* RT = reinterpret_cast<float*>(base + G::RT);
   float* US = reinterpret_cast<float*>(base + G::U);
   float* DC = reinterpret_cast<float*>(base + G::DC);
-  float* DR = reinterpret_cast<float*>(base + G::DR);   // rank 0 folds s0 in: D = 0
+  float* DR = reinterpret_cast<float*>(base + G::DR);
   float* TOTP = reinterpret_cast<float*>(base + G::TOTP);
   float* BONP = reinterpret_cast<float*>(base + G::BONP);
   float* L1P = reinterpret_cast<float*>(base + G::L1P);
@@ -672,7 +782,8 @@ __global__ void __launch_bounds__(Cfg<T, HD>::NT, (min_ctas<T, HD, ONE>())) scan
   float* AF = reinterpret_cast<float*>(base + G::AF);
   float* X = reinterpret_cast<float*>(base + G::X);
   float* KL = reinterpret_cast<float*>(base + G::KL);
-  float* XB = reinterpret_cast<float*>(base + G::XB);
+  float* COMP = reinterpret_cast<float*>(base + G::COMP);
+  float* CARRY = reinterpret_cast<float*>(base + G::CARRY);
 
   const int R = gridDim.x, q = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, gid = lane / 4, tig = lane % 4;
@@ -681,6 +792,7 @@ __global__ void __launch_bounds__(Cfg<T, HD>::NT, (min_ctas<T, HD, ONE>())) scan
   const int per = NC / R, extra = NC % R;
   const int c_lo = q * per + min(q, extra), n_run = per + (q < extra ? 1 : 0);
   constexpr bool reuse = ONE;
+  const bool two_pass = R > 1;
   static_assert(min_ctas<T, HD, ONE>() * (G::SMEM + 1024) <= 233472, "shared memory of an SM");
   const long stride = (long)H * HD;
   const long s_base = ((long)b * H + h) * HD * HD;
@@ -693,8 +805,8 @@ __global__ void __launch_bounds__(Cfg<T, HD>::NT, (min_ctas<T, HD, ONE>())) scan
     tma_prefetch(&tk);
     tma_prefetch(&tv);
     tma_prefetch(&tw);
-    // rank 0 reads s0 again in the last round, just before a barrier
-    if (q == 0 && s0 != nullptr) prefetch_l2(s0 + s_base, 4 * HD * HD);
+    // every rank reads its share of s0 between the barriers
+    if (s0 != nullptr) prefetch_l2(s0 + s_base, 4 * HD * HD);
   }
   for (int i = tid; i < HD; i += NT) US[i] = u[h * HD + i];
 
@@ -737,163 +849,80 @@ __global__ void __launch_bounds__(Cfg<T, HD>::NT, (min_ctas<T, HD, ONE>())) scan
   };
 
   // ---- pass 1: the composite of this rank's run ----------------------------
-  for (int ci = 0; ci < n_run; ++ci) {
-    const int c = c_lo + ci, L = min(C, Tn - c * C);
-    load(c, reuse);
-    RWKV6_STAMP(1);
-    chunk_terms<T, HD>(Rs, Ks, Ws, US, X, BONP, L1P, TOTP, RT, KL, KT, DC, L, reuse, tid);
-    RWKV6_STAMP(13);
-    fence_proxy_async_smem();     // the decayed k's parts, before the tensor cores read them
-    __syncthreads();
-    RWKV6_STAMP(2);
-    if (ci == 0) {
-      if (q == 0) {
-        load_state<HD>(S, s0, s_base, j0, tig);
-        // one chunk a rank: rank 0's carry-in is s0, so (2) now, and s0 is
-        // never read again (the last rank may write sT after any barrier)
-        if (reuse) {
+  // Two passes: every rank from zero (D = 1).  One chunk a rank: the chunk's
+  // A and (1) too, and rank 0 its (2) from s0, its carry-in; with one rank
+  // (one chunk) (3) starts from s0 and pass 1 is the only pass.
+  if (reuse || two_pass) {
+    for (int ci = 0; ci < n_run; ++ci) {
+      const int c = c_lo + ci, L = min(C, Tn - c * C);
+      load(c, reuse);
+      RWKV6_STAMP(1);
+      chunk_terms<T, HD>(Rs, Ks, Ws, US, X, BONP, L1P, TOTP, RT, KL, KT, DC, L, reuse, tid);
+      RWKV6_STAMP(13);
+      fence_proxy_async_smem();   // the decayed k's parts, before the tensor cores read them
+      __syncthreads();
+      RWKV6_STAMP(2);
+      if (ci == 0) {
+        if (reuse && q == 0) {
+          load_state<HD>(S, s0, s_base, j0, tig);
           split_rt();
           zero16(O2);
           issue_state<HD>(O2, S, rt_addr, G::RTS - G::RT);
         }
-      } else {
+        if (two_pass) {
 #pragma unroll
-        for (int e = 0; e < NS; ++e) S[e] = 0.f;
+          for (int e = 0; e < NS; ++e) S[e] = 0.f;
+        }
+        for (int i = tid; i < HD; i += NT) DR[i] = 1.f;
       }
-      for (int i = tid; i < HD; i += NT) DR[i] = q == 0 ? 0.f : 1.f;
+      decay_state<HD>(S, DC, tig);
+      issue_v<T, HD, HD>(S, Vs, j0, tig, kt_addr, G::KT_PART);   // (3)
+      for (int i = tid; i < HD; i += NT) DR[i] *= DC[i];
+      if (reuse) {                // A over the decayed k's space, then (1)
+        __syncthreads();
+        chunk_scores<T, HD>(X, BONP, L1P, AF, AT, tid);
+        fence_proxy_async_smem(); // A's parts, before the tensor cores read them
+        __syncthreads();
+        zero16(O1);
+        issue_v<T, HD, 32>(O1, Vs, j0, tig, at_addr, G::AT_PART);   // (1)
+      }
+      RWKV6_STAMP(3);
     }
-    decay_state<HD>(S, DC, tig);
-    issue_v<T, HD, HD>(S, Vs, j0, tig, kt_addr, G::KT_PART);   // (3)
-    for (int i = tid; i < HD; i += NT) DR[i] *= DC[i];
-    if (reuse) {                  // A over the decayed k's space, then (1)
-      __syncthreads();
-      chunk_scores<T, HD>(X, BONP, L1P, AF, AT, tid);
-      fence_proxy_async_smem();   // A's parts, before the tensor cores read them
-      __syncthreads();
-      zero16(O1);
-      issue_v<T, HD, 32>(O1, Vs, j0, tig, at_addr, G::AT_PART);   // (1)
-    }
-    RWKV6_STAMP(3);
   }
 
-  // ---- the scan over the ranks, through distributed shared memory ----------
-  auto pull_s = [&](uint32_t peer, int k4) {
-    return ld_cluster4(peer + 4 * (HD + 4 * (k4 * NT + tid)));
-  };
-  // D of this thread's float4 k4 of S^T (columns 8 k4 + 2 tig, + 1)
-  auto pull_d = [&](uint32_t peer, int k4) { return ld_cluster2(peer + 4 * (8 * k4 + 2 * tig)); };
-  // one rank (one chunk): sT is its composite; (2) came from s0 in pass 1
-  if (R == 1) store_state<HD>(sT, s_base, S, j0, tig);
-  int rd = 0;
-  for (int d = 1; d < R; d *= 2, ++rd) {
-    const bool last = 2 * d >= R;
-    float* x = XB + (rd & 1) * (G::XBUF / 4);
-    if (!last) {
-      // rank q's (D, S^T) into rank q + d's buffer (16-byte remote stores,
-      // which the barrier's release makes visible), read there after the
-      // barrier; in round 1, which may find a peer still in pass 1 (the
-      // buffers overlay its tiles), each rank publishes into its own buffer
-      // and its reader pulls after the barrier.  A buffer is written again
-      // two barriers later, after its reader has used it.
-      if (rd == 0) {
-        publish<HD, NT>(x, S, DR, tid);
-      } else if (q + d < R) {
-        const uint32_t dst = cluster_map(smem_addr(x), q + d);
-        for (int i = tid; i < HD; i += NT) st_cluster(dst + 4 * i, DR[i]);
-#pragma unroll
-        for (int k4 = 0; k4 < NS / 4; ++k4)
-          st_cluster(dst + 4 * (HD + 4 * (k4 * NT + tid)),
-                     make_float4(S[4 * k4], S[4 * k4 + 1], S[4 * k4 + 2], S[4 * k4 + 3]));
-      }
-      cluster_sync();
-      RWKV6_STAMP(16 + rd);
-      // (D_q, S_q) o (D', S') = (D' D_q, diag(D_q) S' + S_q): columns i of S^T
-      if (q >= d) {
-        const uint32_t src = rd == 0 ? cluster_map(smem_addr(x), q - d) : smem_addr(x);
-        float4 p[PG];
-#pragma unroll
-        for (int g = 0; g < NS / 4; g += PG) {
-#pragma unroll
-          for (int m = 0; m < PG; ++m) p[m] = pull_s(src, g + m);
-#pragma unroll
-          for (int m = 0; m < PG; ++m) {
-            const int k4 = g + m;
-            const float2 dk = *reinterpret_cast<const float2*>(DR + 8 * k4 + 2 * tig);
-            const float4 y = fold_in(make_float4(S[4 * k4], S[4 * k4 + 1], S[4 * k4 + 2],
-                                                 S[4 * k4 + 3]),
-                                     p[m], dk.x, dk.y);
-            S[4 * k4] = y.x;
-            S[4 * k4 + 1] = y.y;
-            S[4 * k4 + 2] = y.z;
-            S[4 * k4 + 3] = y.w;
-          }
-        }
-        __syncthreads();          // every thread has read D for its columns
-        for (int i = tid; i < HD; i += NT) DR[i] *= ld_cluster(src + 4 * i);
-      }
-    } else {
-      publish<HD, NT>(x, S, DR, tid);
-      // rank 0's carry-in over several chunks, read before the last barrier
-      if (q == 0 && !reuse) load_state<HD>(S, s0, s_base, j0, tig);
-      cluster_sync();
-      RWKV6_STAMP(16 + rd);
-      // the last round: the last rank's composite o rank q - d's is sT; rank
-      // q's carry-in is rank q - 1's composite o rank q - 1 - d's (each
-      // covers d ranks, 2 d >= R), rank 0's s0
-      if (q == R - 1 && q >= d) {
-        const uint32_t peer = cluster_map(smem_addr(x), q - d);
-#pragma unroll
-        for (int k4 = 0; k4 < NS / 4; ++k4) {
-          const float2 dk = *reinterpret_cast<const float2*>(DR + 8 * k4 + 2 * tig);
-          const float4 y = fold_in(make_float4(S[4 * k4], S[4 * k4 + 1], S[4 * k4 + 2],
-                                               S[4 * k4 + 3]),
-                                   pull_s(peer, k4), dk.x, dk.y);
-          S[4 * k4] = y.x;
-          S[4 * k4 + 1] = y.y;
-          S[4 * k4 + 2] = y.z;
-          S[4 * k4 + 3] = y.w;
-        }
-        store_state<HD>(sT, s_base, S, j0, tig);
-      }
-      if (q >= 1) {
-        const uint32_t pa = cluster_map(smem_addr(x), q - 1);
-        const uint32_t pb = cluster_map(smem_addr(x), q - 1 >= d ? q - 1 - d : q - 1);
-        float4 p[PG], pp[PG];
-#pragma unroll
-        for (int g = 0; g < NS / 4; g += PG) {
-#pragma unroll
-          for (int m = 0; m < PG; ++m) {
-            p[m] = pull_s(pa, g + m);
-            if (q - 1 >= d) pp[m] = pull_s(pb, g + m);
-          }
-#pragma unroll
-          for (int m = 0; m < PG; ++m) {
-            const int k4 = g + m;
-            float4 y = p[m];
-            if (q - 1 >= d) {         // with rank q - 1's D
-              const float2 dk = pull_d(pa, k4);
-              y = fold_in(p[m], pp[m], dk.x, dk.y);
-            }
-            S[4 * k4] = y.x;
-            S[4 * k4 + 1] = y.y;
-            S[4 * k4 + 2] = y.z;
-            S[4 * k4 + 3] = y.w;
-          }
-        }
-      }
-      // peers read this CTA's buffer until they arrive; pass 2 writes the
-      // region again only where it loads new tiles
-      if (reuse) cluster_arrive();
-      else cluster_sync();
-    }
-    RWKV6_STAMP(4 + rd);
+  // ---- the carry: two cluster barriers -------------------------------------
+  // Every rank publishes its composite (D, S^T) over its own tiles; after
+  // the first barrier each rank carries its share of the state's elements
+  // through every rank's composite and writes each rank's carry-in into
+  // that rank's carry-in buffer, which overlays neither a composite nor
+  // anything a rank writes before it has read its carry-in; after the
+  // second, no CTA touches another's shared memory again.
+  if (two_pass) {
+    __syncthreads();              // every warpgroup's products read the tiles the composite overlays
+    publish<HD, NT>(COMP, S, DR, tid);
+    RWKV6_STAMP(4);
+    cluster_sync();
+    RWKV6_STAMP(5);
+    const uint32_t comp = smem_addr(COMP), carry = smem_addr(CARRY);
+    // loads in flight: up to 16 composites' slots; one chunk a rank holds
+    // (1) and rank 0's (2) across the carry, so 8
+    if (reuse) carry_share<HD, NT, 8, 1>(q, R, comp, carry, s0, sT, s_base, tid);
+    else if (R <= 4) carry_share<HD, NT, 4, 4>(q, R, comp, carry, s0, sT, s_base, tid);
+    else if (R <= 8) carry_share<HD, NT, 8, 2>(q, R, comp, carry, s0, sT, s_base, tid);
+    else carry_share<HD, NT, R_MAX, 1>(q, R, comp, carry, s0, sT, s_base, tid);
+    RWKV6_STAMP(6);
+    cluster_sync();
+    RWKV6_STAMP(7);
+    if (!(reuse && q == 0)) load_carry<HD, NT>(S, CARRY, tid);
+    RWKV6_STAMP(8);
+  } else if (!reuse) {
+    load_state<HD>(S, s0, s_base, j0, tig);   // one rank: its run from s0
   }
-  RWKV6_STAMP(9);
 
   // ---- pass 2: this rank's outputs, from its carry-in ----------------------
   // One chunk a rank: (2), A and (1) came with pass 1.  Several: the
   // chunk's terms, (2) from the state and (3) while the decayed k's parts
-  // hold, then A over them and (1).
+  // hold (with one rank after every chunk), then A over them and (1).
   for (int ci = 0; ci < n_run; ++ci) {
     const int c = c_lo + ci, L = min(C, Tn - c * C);
     if (!reuse) {
@@ -907,7 +936,7 @@ __global__ void __launch_bounds__(Cfg<T, HD>::NT, (min_ctas<T, HD, ONE>())) scan
       issue_state<HD>(O2, S, rt_addr, G::RTS - G::RT);
     }
     if (!reuse) {
-      if (ci < n_run - 1) {
+      if (ci < n_run - 1 || !two_pass) {
         decay_state<HD>(S, DC, tig);
         issue_v<T, HD, HD>(S, Vs, j0, tig, kt_addr, G::KT_PART);   // (3)
       }
@@ -928,7 +957,7 @@ __global__ void __launch_bounds__(Cfg<T, HD>::NT, (min_ctas<T, HD, ONE>())) scan
     }
   }
   RWKV6_STAMP(11);
-  if (R > 1 && reuse) cluster_wait();
+  if (!two_pass) store_state<HD>(sT, s_base, S, j0, tig);   // one rank: its state is sT
   RWKV6_STAMP(12);
 }
 

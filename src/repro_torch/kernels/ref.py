@@ -674,6 +674,27 @@ def rwkv6_rank_runs(nc: int, ranks: int) -> List[Tuple[int, int]]:
     return [(q * per + min(q, extra), per + (q < extra)) for q in range(ranks)]
 
 
+def rwkv6_carry_owners(hd: int, ranks: int) -> torch.Tensor:
+    """(hd, hd) int64: the rank of the scan kernel's cluster that carries
+    each element (i, j) of the state between its two barriers.  The kernel
+    holds S^T in wgmma accumulators, four elements (i, j), (i + 1, j),
+    (i, j + 8), (i + 1, j + 8) a 16-byte slot, with i = 8 k + 2 (t % 4) and
+    j = 16 (t / 32) + (t % 32) / 4 for slot k of thread t; only the first
+    TV = min(threads, 2 hd) threads hold rows below hd (128 threads up to
+    hd 64, 256 at hd 128).  Slot v is slot v / TV of thread v % TV, and rank
+    q owns slots [q NV / R, (q + 1) NV / R) of the NV = hd / 8 * TV."""
+    tv = min(128 if hd <= 64 else 256, 2 * hd)
+    nv = hd // 8 * tv
+    owner = torch.full((hd, hd), -1, dtype=torch.int64)
+    for q in range(ranks):
+        for v in range(q * nv // ranks, (q + 1) * nv // ranks):
+            k4, t = divmod(v, tv)
+            i, j = 8 * k4 + 2 * (t % 4), 16 * (t // 32) + (t % 32) // 4
+            owner[i:i + 2, j] = q
+            owner[i:i + 2, j + 8] = q
+    return owner
+
+
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """a * b + c rounded once to f32, as fmaf."""
     return (a.double() * b.double() + c.double()).float()
@@ -690,6 +711,7 @@ def rwkv6_cluster_reference(
     ranks: Optional[int] = None,
     products: int = 3,
     accumulate: str = "truncate",
+    final_state: Optional[torch.Tensor] = None,   # (B, H, hd, hd) f32; may be ``state``
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The schedule and arithmetic of ``csrc/rwkv6_scan.cu``'s T > 1 kernel
     on the CPU, f32 and bf16 alike.
@@ -705,19 +727,23 @@ def rwkv6_cluster_reference(
       (1) V^T A^T and (2) S^T (r 2^P)^T, each from zero and added in f32:
       o^T = (1) + (2);
       (3) S_c^T = V^T (k 2^(P[L]-P[s+1])) added to S_{c-1}^T diag(2^P[L]).
-    The carry as the cluster takes it: ``ranks`` (default
-    min(chunks, RWKV_R_MAX)) runs of chunks (``rwkv6_rank_runs``); pass 1
-    folds each run into its composite by (3), rank 0 from the state with
-    decay 0; an inclusive scan over the ranks in rounds at distances 1, 2,
-    4, ..., rank q >= d taking S_q + D_q S_{q-d} (one f32 rounding, fmaf)
-    and D_q D_{q-d}; rank q's carry-in rank q - 1's result (rank 0's the
-    state; the kernel forms it in the last round from the two composites
-    that cover the ranks before q, the same fmaf); pass 2 walks each run
-    from its carry-in, (1) and (2) per chunk, (3) between its chunks.  The
-    final state is the last rank's result.  The output is rounded once to
-    r's dtype.  Nothing on the card's path calls it; the tests hold it to
-    the JAX oracle and the Pallas kernel.  Returns (out (B, T, H, hd) in
-    r's dtype, final state (B, H, hd, hd) f32)."""
+    The carry as the cluster takes it: ``ranks`` (default min(chunks,
+    RWKV_R_MAX)) runs of chunks (``rwkv6_rank_runs``).  One rank: its run
+    from the state, (3) after every chunk, the last the final state.
+    Several: pass 1 folds each run into its composite (D_q, dS_q) by (3)
+    from zero, D_q the product of its chunks' 2^P[L]; then each element of
+    the state is carried by the rank that owns it (``rwkv6_carry_owners``)
+    as a serial chain c_0 = the state's element (0 where it is None),
+    c_{q+1} = D_q c_q + dS_q (one f32 rounding, fmaf), c_q rank q's
+    carry-in and c_R the final state's element; pass 2 walks each run from
+    its carry-in, (1) and (2) per chunk, (3) between its chunks.  As in the
+    kernel, an owner reads an element of the state just before it writes
+    that element of ``final_state``, which may be ``state`` itself; with
+    one chunk a rank, rank 0 reads the whole state for its (2) before any
+    owner writes.  The output is rounded once to r's dtype.  Nothing on the
+    card's path calls it; the tests hold it to the JAX oracle and the
+    Pallas kernel.  Returns (out (B, T, H, hd) in r's dtype, final state
+    (B, H, hd, hd) f32: ``final_state`` where it is given)."""
     b, t, h, d = r.shape
     nc = -(-t // RWKV_CHUNK)
     ranks = min(nc, RWKV_R_MAX) if ranks is None else ranks
@@ -746,32 +772,49 @@ def rwkv6_cluster_reference(
     def step(s_t, c):                  # (3): S^T's columns are the state rows i
         return prod(v_t[:, :, c], kt[:, :, c], s_t * dec[:, :, c, None, :])
 
+    def outputs(s_t, c):               # o^T = (1) + (2), its sums in f32
+        return (prod(v_t[:, :, c], a_t[:, :, c]).double()
+                + prod(s_t, rt_t[:, :, c]).double()).float().transpose(-1, -2)
+
     zeros = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
-    s0_t = zeros if state is None else state.float().transpose(-1, -2)
-    comp, dr = [], []
-    for q, (c0, n) in enumerate(runs):                            # pass 1
-        s_t = s0_t if q == 0 else zeros
-        dq = torch.zeros_like(dec[:, :, 0]) if q == 0 else torch.ones_like(dec[:, :, 0])
-        for c in range(c0, c0 + n):
-            s_t = step(s_t, c)
-            dq = dq * dec[:, :, c]
-        comp.append(s_t)
-        dr.append(dq)
-    dist = 1
-    while dist < ranks:                                           # the scan
-        comp, dr = ([comp[q] if q < dist else _fma(dr[q][..., None, :], comp[q - dist], comp[q])
-                     for q in range(ranks)],
-                    [dr[q] if q < dist else dr[q] * dr[q - dist] for q in range(ranks)])
-        dist *= 2
-    carries = [s0_t] + comp[:-1]
+    # the state as S^T, read where the kernel reads it whole: one rank, or
+    # rank 0 of one chunk a rank
+    s0_t = zeros if state is None else state.float().transpose(-1, -2).clone()
+    if final_state is None:
+        final_state = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
     out = torch.zeros_like(vc)
-    for q, (c0, n) in enumerate(runs):                            # pass 2
-        s_t = carries[q]
-        for c in range(c0, c0 + n):
-            o_t = (prod(v_t[:, :, c], a_t[:, :, c]).double()
-                   + prod(s_t, rt_t[:, :, c]).double()).float()
-            out[:, :, c] = o_t.transpose(-1, -2)
-            if c < c0 + n - 1:
+    if ranks == 1:
+        s_t = s0_t
+        for c in range(nc):
+            out[:, :, c] = outputs(s_t, c)
+            s_t = step(s_t, c)
+        final_state.copy_(s_t.transpose(-1, -2))
+    else:
+        comp, dr = [], []
+        for c0, n in runs:                                        # pass 1
+            s_t, dq = zeros, torch.ones_like(dec[:, :, 0])
+            for c in range(c0, c0 + n):
                 s_t = step(s_t, c)
+                dq = dq * dec[:, :, c]
+            comp.append(s_t)
+            dr.append(dq)
+        carries = [torch.empty_like(zeros) for _ in range(ranks)]
+        fin_t = final_state.transpose(-1, -2)
+        for q, mine in enumerate(rwkv6_carry_owners(d, ranks).to(r.device).T == torch.arange(
+                ranks, device=r.device)[:, None, None]):          # the carry, S^T's (j, i)
+            c_el = zeros[..., mine] if state is None else state.transpose(-1, -2)[..., mine].float()
+            for p in range(ranks):
+                carries[p][..., mine] = c_el
+                c_el = _fma(dr[p][..., None, :].expand(b, h, d, d)[..., mine], c_el,
+                            comp[p][..., mine])
+            fin_t[..., mine] = c_el
+        if nc == ranks:                                           # rank 0's (2) in pass 1
+            carries[0] = s0_t
+        for q, (c0, n) in enumerate(runs):                        # pass 2
+            s_t = carries[q]
+            for c in range(c0, c0 + n):
+                out[:, :, c] = outputs(s_t, c)
+                if c < c0 + n - 1:
+                    s_t = step(s_t, c)
     out = out.permute(0, 2, 3, 1, 4).reshape(b, nc * RWKV_CHUNK, h, d)
-    return out[:, :t].to(r.dtype), comp[-1].transpose(-1, -2).contiguous()
+    return out[:, :t].to(r.dtype), final_state

@@ -17,7 +17,7 @@ requires a gradient under grad mode.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -26,10 +26,9 @@ from repro_torch.kernels import _build, ref
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 #: tokens per chunk of the kernels
 CHUNK = ref.RWKV_CHUNK
-#: ranks of a cluster at most: 16 is a non-portable cluster size, which the
-#: card may refuse; ``max_ranks`` falls back to the portable 8 only then
+#: ranks of a cluster at most: 16 is a non-portable cluster size, which a
+#: card may refuse (its count of such clusters at once is then 0)
 R_MAX = ref.RWKV_R_MAX
-R_PORTABLE = 8
 
 #: kernel launches in this process; ``chip_smoke.py`` resets and reads it
 launches = 0
@@ -40,33 +39,64 @@ _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_int, ctypes.c
 _CLUSTER_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
 
 _at_once = {}
+_plans = {}
 
 
 class ClusterPlan(NamedTuple):
     """The T > 1 kernel's grid: one cluster of ``ranks`` CTAs per (b, h),
     rank q taking chunks ``runs[q] = (first, count)`` of the ``chunks``
-    32-token chunks."""
+    32-token chunks, in ``waves`` waves of clusters (``at_once`` of them
+    on the card at a time)."""
     ranks: int
     chunks: int
     runs: Tuple[Tuple[int, int], ...]
     grid: Tuple[int, int, int]
+    at_once: int
+    waves: int
 
 
 def cluster_plan(b: int, t: int, h: int, hd: int, dtype: torch.dtype,
-                 r_max: int = R_MAX) -> ClusterPlan:
-    """``ranks = min(ceil(t / 32), r_max)``, each rank a contiguous run of
-    chunks, the first ``chunks % ranks`` one longer
-    (``ref.rwkv6_rank_runs``); grid ``(ranks, h, b)``.  Shapes only: the
-    same for f32 and bf16 and every head dim the kernel takes."""
+                 at_once: Callable[[int, bool], int]) -> ClusterPlan:
+    """The ranks R of each of the b h clusters, R <= min(chunks, R_MAX):
+    among the R whose clusters all fit on the card at once (one wave), the
+    fewest chunks a rank (the longest run, the cluster's critical path) and
+    then the fewest ranks (the same path over fewer CTAs carries less); where
+    no R fits one wave, the fewest waves x chunks a rank, then the fewest
+    ranks.  ``at_once(R, one_chunk)`` is how many clusters of R CTAs the
+    card holds at once for the instantiation a plan of R ranks runs (one
+    chunk a rank where R is the chunks; ``max_active_clusters``), 0 where it
+    holds none, which no plan takes.  Rank q takes a contiguous run of
+    chunks, the first ``chunks % R`` one longer (``ref.rwkv6_rank_runs``);
+    grid ``(R, h, b)``."""
     if hd not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not supported, only {SUPPORTED_HEAD_DIMS}")
     if dtype not in _build.DTYPE_CODES:
         raise TypeError(f"dtype {dtype} not supported")
-    if not 1 <= r_max <= R_MAX:
-        raise ValueError(f"r_max must be in [1, {R_MAX}], got {r_max}")
     nc = -(-t // CHUNK)
-    ranks = min(nc, r_max)
-    return ClusterPlan(ranks, nc, tuple(ref.rwkv6_rank_runs(nc, ranks)), (ranks, h, b))
+    clusters = b * h
+    fits = {r: n for r in range(1, min(nc, R_MAX) + 1) if (n := at_once(r, r == nc)) >= 1}
+    if not fits:
+        raise ValueError(f"the card holds no cluster of 1 to {min(nc, R_MAX)} CTAs")
+    waves = {r: -(-clusters // n) for r, n in fits.items()}
+    one_wave = [r for r in fits if waves[r] == 1]
+    if one_wave:
+        ranks = min(one_wave, key=lambda r: (-(-nc // r), r))
+    else:
+        ranks = min(fits, key=lambda r: (waves[r] * -(-nc // r), r))
+    return ClusterPlan(ranks, nc, tuple(ref.rwkv6_rank_runs(nc, ranks)), (ranks, h, b),
+                       fits[ranks], waves[ranks])
+
+
+def plan_on(b: int, t: int, h: int, hd: int, dtype: torch.dtype,
+            device: torch.device) -> ClusterPlan:
+    """``cluster_plan`` with the card's own counts of clusters at once
+    (``max_active_clusters``); one per chunk count and shape, then
+    remembered."""
+    key = (b, -(-t // CHUNK), h, hd, dtype, device.index or 0)
+    if key not in _plans:
+        _plans[key] = cluster_plan(
+            b, t, h, hd, dtype, lambda r, one: max_active_clusters(dtype, hd, r, device, one))
+    return _plans[key]
 
 
 def rwkv6_scan(
@@ -82,10 +112,12 @@ def rwkv6_scan(
     """(out (B, T, H, hd) in r's dtype, state after the last token, f32).
 
     ``final_state``, when given, receives the final state and is returned;
-    it may be ``state`` itself, which is then updated in place (whatever
-    reads an element of the state does so before any element is written:
-    a thread of the one-token kernel its own elements, the cluster's rank 0
-    before the barrier after which its last rank writes)."""
+    it may be ``state`` itself, which is then updated in place (a thread
+    reads an element of the state before it writes that element, and no
+    other thread reads it after: in the one-token kernel its own elements,
+    in the cluster kernel the elements of the carry its rank owns, rank 0
+    of one chunk a rank reading the state for its outputs before the first
+    cluster barrier, after which the owners write)."""
     global launches
     dev = r.device
     if dev.type != "cuda":
@@ -115,8 +147,7 @@ def rwkv6_scan(
     out = torch.empty_like(r)
     if final_state is None:
         final_state = torch.empty((b, h, hd, hd), dtype=torch.float32, device=dev)
-    ranks = 1 if t == 1 else cluster_plan(b, t, h, hd, r.dtype,
-                                          max_ranks(r.dtype, hd, dev)).ranks
+    ranks = 1 if t == 1 else plan_on(b, t, h, hd, r.dtype, dev).ranks
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _build.function("rwkv6_scan", "rwkv6_forward", _ARGTYPES)(
         *(x.data_ptr() if x is not None else None
@@ -144,11 +175,3 @@ def max_active_clusters(dtype: torch.dtype, hd: int, ranks: int, device: torch.d
         _build.raise_on_error("rwkv6_scan", err)
         _at_once[key] = n.value
     return _at_once[key]
-
-
-def max_ranks(dtype: torch.dtype, hd: int, device: torch.device) -> int:
-    """R_MAX (16) where the card holds a cluster of 16 of both (dtype, hd)
-    kernels' CTAs, else R_PORTABLE (8); a plan whose cluster the card then
-    cannot hold raises in the launch.  Asked once per (dtype, hd)."""
-    fits = min(max_active_clusters(dtype, hd, R_MAX, device, one) for one in (True, False))
-    return R_MAX if fits >= 1 else R_PORTABLE

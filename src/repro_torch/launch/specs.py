@@ -16,6 +16,7 @@ tree of real tensors on the mesh the same way.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -130,13 +131,25 @@ def place(tree, spec_tree, mesh: DeviceMesh):
     becomes a meta DTensor whose local tensor has the shard's shape; a leaf
     on a device is split from rank 0's copy (every rank holds the same
     tensor, made from the same seed); a DTensor leaf is redistributed (a
-    prefilled cache placed for decode)."""
+    prefilled cache placed for decode).  Raises ``ValueError`` where a
+    leaf's mesh axes do not divide its dimension, as the reference's
+    ``NamedSharding(mesh, P(*spec)).shard_shape`` does: DTensor would split
+    it unevenly."""
     if isinstance(tree, dict):
         return {k: place(v, spec_tree[k], mesh) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(place(v, s, mesh) for v, s in zip(tree, spec_tree))
     if tree is None:
         return tree
+    names = tuple(mesh.mesh_dim_names)
+    for d, m in enumerate(spec_tree):
+        axes = () if m is None else (m,) if isinstance(m, str) else tuple(m)
+        parts = math.prod(mesh.size(names.index(a)) for a in axes)
+        if tree.shape[d] % parts:
+            raise ValueError(
+                f"partition spec {tuple(spec_tree)} splits dimension {d} of a "
+                f"{tuple(tree.shape)} tensor into {parts} parts over mesh axes {axes}, "
+                f"which do not divide it")
     placements = placements_of(spec_tree, mesh)
     if isinstance(tree, DTensor):
         return tree if tree.placements == placements else tree.redistribute(mesh, placements)

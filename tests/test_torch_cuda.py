@@ -1032,8 +1032,8 @@ def test_kernels_without_a_function_refuse_a_gradient(cuda):
 def test_rwkv6_kernel_f32_strong_decay_at_the_served_shape(cuda):
     """The f32 cluster kernel (which training runs) under strong decay,
     exp(-exp(U(-2, 4))) down to 1e-24, at rwkv6-1.6b's served prefill
-    (T = 500, H = 32, hd 64: 16 ranks of one chunk), within 1e-4 of the plain
-    version."""
+    (T = 500, H = 32, hd 64: the plan's runs of several chunks), within
+    1e-4 of the plain version."""
     r, k, v, w, u, s0 = _rwkv_inputs((1, 500, 32, 64, True), torch.float32, cuda, strong=True)
     out, s_t = rk.rwkv6_scan(r, k, v, w, u, s0)
     exp_o, exp_s = ref.rwkv6_reference(r, k, v, w, u, s0)
@@ -1041,10 +1041,8 @@ def test_rwkv6_kernel_f32_strong_decay_at_the_served_shape(cuda):
     assert _err(out, exp_o) < 1e-4 and _err(s_t, exp_s) < 1e-4
 
 
-# the cluster kernel's plans (b, t, h, hd): a cluster of 16 ranks of one
-# chunk at the served prefill, 16 ranks of several chunks (T = 2048 and a
-# ragged 19 chunks: the first three ranks two), the training forward's 4
-# ranks, and every head dim over a cluster
+# the cluster kernel's plans (b, t, h, hd): the served prefill, T = 2048, a
+# ragged 19 chunks, the training forward, and every head dim over a cluster
 RWKV_CLUSTER_CASES = [(1, 500, 32, 64), (1, 2048, 4, 64), (2, 600, 3, 64), (4, 128, 32, 64),
                       (2, 200, 3, 16), (2, 200, 3, 32), (2, 200, 3, 128), (1, 600, 2, 128)]
 
@@ -1054,11 +1052,16 @@ RWKV_CLUSTER_CASES = [(1, 500, 32, 64), (1, 2048, 4, 64), (2, 600, 3, 64), (4, 1
 def test_rwkv6_cluster_kernel_plans(cuda, case, dtype):
     """The cluster kernel at each plan against the plain version (r, k, v
     halved as the edge cases are, |o| below bf16's step of 8), one launch a
-    call, and the plan the wrapper takes within the card's clusters."""
+    call; where some rank count's clusters fit the card in one wave, the
+    wrapper's plan takes one wave and no such count has shorter runs."""
     b, t, h, hd = case
-    plan = rk.cluster_plan(b, t, h, hd, DTYPES[dtype], rk.max_ranks(DTYPES[dtype], hd, cuda))
-    assert plan.ranks == min(-(-t // 32), 16)
-    r, k, v, w, u, s0 = _rwkv_inputs((*case, True), DTYPES[dtype], cuda, scale=0.5)
+    dt, nc = DTYPES[dtype], -(-t // 32)
+    plan = rk.plan_on(b, t, h, hd, dt, cuda)
+    one_wave = [r for r in range(1, min(nc, 16) + 1)
+                if rk.max_active_clusters(dt, hd, r, cuda, r == nc) >= b * h]
+    if one_wave:
+        assert plan.waves == 1 and -(-nc // plan.ranks) == min(-(-nc // r) for r in one_wave)
+    r, k, v, w, u, s0 = _rwkv_inputs((*case, True), dt, cuda, scale=0.5)
     launches = rk.launches
     out, s_t = rk.rwkv6_scan(r, k, v, w, u, s0)
     exp_o, exp_s = ref.rwkv6_reference(r, k, v, w, u, s0)
@@ -1066,13 +1069,35 @@ def test_rwkv6_cluster_kernel_plans(cuda, case, dtype):
     assert _err(out, exp_o) < RWKV_TOL[dtype] and _err(s_t, exp_s) < RWKV_TOL[dtype]
 
 
+@pytest.mark.parametrize("ranks", range(1, 17))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rwkv6_cluster_kernel_every_rank_count(cuda, monkeypatch, ranks, dtype):
+    """17 chunks (a ragged last one of 8 tokens) over every rank count the
+    card holds a cluster of, whatever the plan would take: ragged runs,
+    every carry share, the state also updated in place (bit-equal)."""
+    b, t, h, hd = 2, 520, 3, 64
+    dt = DTYPES[dtype]
+    if rk.max_active_clusters(dt, hd, ranks, cuda, False) < 1:
+        pytest.skip(f"the card holds no cluster of {ranks}")
+    forced = rk.ClusterPlan(ranks, 17, tuple(ref.rwkv6_rank_runs(17, ranks)), (ranks, h, b), 1, 1)
+    monkeypatch.setattr(rk, "plan_on", lambda *args: forced)
+    r, k, v, w, u, s0 = _rwkv_inputs((b, t, h, hd, True), dt, cuda, scale=0.5)
+    out, s_t = rk.rwkv6_scan(r, k, v, w, u, s0)
+    exp_o, exp_s = ref.rwkv6_reference(r, k, v, w, u, s0)
+    assert _err(out, exp_o) < RWKV_TOL[dtype] and _err(s_t, exp_s) < RWKV_TOL[dtype]
+    state = s0.clone()
+    out_in, _ = rk.rwkv6_scan(r, k, v, w, u, state, final_state=state)
+    assert torch.equal(out_in, out) and torch.equal(state, s_t)
+
+
 @pytest.mark.parametrize("t", [500, 600])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_rwkv6_cluster_kernel_updates_the_state_in_place(cuda, t, dtype):
-    """``final_state=state`` at T > 32 through 16 ranks of one chunk (T =
-    500, where rank 0 reads s0 only in pass 1) and of several (T = 600, where
-    it reads s0 again before the last round's barrier): the result of a
-    separate final state, bit for bit, within tolerance of the plain
+    """``final_state=state`` at T > 32 through the wrapper's plans (B = 2,
+    H = 4: one wave of one chunk a rank at T = 500, rank 0 reading s0 for
+    its outputs before the first cluster barrier; several at T = 600), each
+    element of the state read and then written by its owner: the result of
+    a separate final state, bit for bit, within tolerance of the plain
     version."""
     r, k, v, w, u, s0 = _rwkv_inputs((2, t, 4, 64, True), DTYPES[dtype], cuda, scale=0.5)
     out_sep, s_sep = rk.rwkv6_scan(r, k, v, w, u, s0)

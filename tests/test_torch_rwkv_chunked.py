@@ -112,35 +112,70 @@ def test_every_exponent_is_at_most_zero(strong):
         assert bool(torch.isfinite(torch.exp2(x)).all()), name
 
 
-# (b, t, h) -> (ranks, chunks a rank): the served prefill, the training
-# forward, T = 2048, two chunks, one chunk
-PLANS = {(1, 500, 32): (16, 1), (4, 128, 32): (4, 1), (1, 2048, 4): (16, 4), (2, 33, 4): (2, 1),
-         (1, 32, 8): (1, 1), (3, 17, 2): (1, 1)}
+# clusters of R = 1 .. 16 CTAs the card holds at once for the T > 1
+# kernel at hd 64, by dtype (both instantiations alike), as chip_smoke.py
+# phase 1 printed them on an NVIDIA H100 80GB HBM3 (three bf16 CTAs an SM,
+# two f32; a cluster within one GPC)
+H100_AT_ONCE = {
+    torch.bfloat16: (396, 198, 124, 92, 69, 62, 47, 45, 37, 30, 28, 28, 23, 21, 21, 21),
+    torch.float32: (264, 132, 79, 62, 47, 39, 32, 30, 23, 21, 16, 16, 14, 14, 14, 14),
+}
+
+
+def _h100(dtype):
+    return lambda ranks, one_chunk: H100_AT_ONCE[dtype][ranks - 1]
+
+
+# (b, t, h) -> {dtype: (ranks, chunks a rank, waves)} on the H100: the
+# served prefill (bf16 9 ranks fit one wave, 8 take the same 2 chunks a
+# rank; f32 7 fit, 6 take the same 3), the training forward (2 of 2), T =
+# 2048 (16 of 4), two chunks, one chunk, and 512 clusters, which fit one
+# wave at no R (bf16: 2, 4 and 8 ranks all take 24 waves x chunks, the
+# fewest; f32: 1 and 2 ranks 32)
+BF16, F32 = torch.bfloat16, torch.float32
+PLANS = {(1, 500, 32): {BF16: (8, {2}, 1), F32: (6, {3, 2}, 1)},
+         (4, 128, 32): {BF16: (2, {2}, 1), F32: (2, {2}, 1)},
+         (1, 2048, 4): {BF16: (16, {4}, 1), F32: (16, {4}, 1)},
+         (2, 33, 4): {BF16: (2, {1}, 1), F32: (2, {1}, 1)},
+         (1, 32, 8): {BF16: (1, {1}, 1), F32: (1, {1}, 1)},
+         (3, 17, 2): {BF16: (1, {1}, 1), F32: (1, {1}, 1)},
+         (16, 500, 32): {BF16: (2, {8}, 3), F32: (1, {16}, 2)}}
 
 
 @pytest.mark.parametrize("shape", sorted(PLANS))
 def test_cluster_plan_of_the_main_shapes(shape):
-    """The kernel's grid: one cluster of min(ceil(T / 32), 16) ranks per (b,
-    h), every rank a run of chunks; shapes only, the same in f32 and bf16."""
+    """The kernel's grid on the H100's counts of clusters at once: one
+    cluster per (b, h) of the ranks that fit one wave with the fewest chunks
+    a rank, and the fewest such ranks; where none fits one wave, the fewest
+    waves x chunks a rank."""
     b, t, h = shape
-    ranks, per = PLANS[shape]
-    for dtype in (torch.float32, torch.bfloat16):
-        plan = rk.cluster_plan(b, t, h, 64, dtype)
+    for dtype, (ranks, per, waves) in PLANS[shape].items():
+        plan = rk.cluster_plan(b, t, h, 64, dtype, _h100(dtype))
         assert (plan.ranks, plan.chunks, plan.grid) == (ranks, -(-t // 32), (ranks, h, b))
-        assert {n for _, n in plan.runs} == {per}
+        assert {n for _, n in plan.runs} == per
+        assert (plan.waves, plan.at_once) == (waves, H100_AT_ONCE[dtype][ranks - 1])
 
 
 def test_cluster_plan_never_exceeds_r_max():
-    """Ranks at most r_max (16, or the portable 8) and at most the chunks;
-    refused head dims, dtypes and r_max raise."""
+    """Ranks at most R_MAX (16) and at most the chunks: with room for every
+    cluster, min(chunks, 16) where that is the fewest chunks a rank; a card
+    that holds no cluster above 8 gets at most 8; one chunk a rank asks for
+    the one-chunk instantiation; refused head dims and dtypes raise, and so
+    does a card that holds no cluster."""
+    roomy = lambda ranks, one_chunk: 10**6
     for t in (1, 31, 33, 100, 257, 500, 1000, 4096):
-        for r_max in (8, 16):
-            plan = rk.cluster_plan(1, t, 4, 32, torch.float32, r_max)
-            assert plan.ranks == min(-(-t // 32), r_max)
-            assert plan.runs == tuple(ref.rwkv6_rank_runs(plan.chunks, plan.ranks))
+        nc = -(-t // 32)
+        plan = rk.cluster_plan(1, t, 4, 32, torch.float32, roomy)
+        assert plan.ranks == min(-(-nc // -(-nc // 16)), nc) and plan.ranks <= 16
+        assert plan.runs == tuple(ref.rwkv6_rank_runs(plan.chunks, plan.ranks))
+        portable = rk.cluster_plan(1, t, 4, 32, torch.float32, lambda r, one: 10 if r <= 8 else 0)
+        assert portable.ranks <= min(nc, 8) and portable.waves == 1
+    asked = []
+    rk.cluster_plan(1, 100, 4, 64, torch.bfloat16, lambda r, one: asked.append((r, one)) or 1)
+    assert asked == [(1, False), (2, False), (3, False), (4, True)]
     with pytest.raises(ValueError):
-        rk.cluster_plan(1, 64, 4, 48, torch.float32)
+        rk.cluster_plan(1, 64, 4, 48, torch.float32, roomy)
     with pytest.raises(TypeError):
-        rk.cluster_plan(1, 64, 4, 64, torch.float16)
+        rk.cluster_plan(1, 64, 4, 64, torch.float16, roomy)
     with pytest.raises(ValueError):
-        rk.cluster_plan(1, 64, 4, 64, torch.float32, r_max=32)
+        rk.cluster_plan(1, 64, 4, 64, torch.float32, lambda r, one: 0)

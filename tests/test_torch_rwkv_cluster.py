@@ -56,9 +56,10 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def _inputs(b, t, h, hd, with_state, seed, strong=False):
+def _inputs(b, t, h, hd, with_state, seed, strong=False, scale=1.0):
     """numpy inputs with the distribution of tests/test_kernels.py; strong:
-    w = exp(-exp(U(-2, 4))), down to exp(-e^4) ~ 1e-24."""
+    w = exp(-exp(U(-2, 4))), down to exp(-e^4) ~ 1e-24; ``scale``
+    multiplies r, k and v."""
     rng = np.random.default_rng(seed)
     x = lambda *shape: rng.standard_normal(shape).astype(np.float32)
     sh = (b, t, h, hd)
@@ -67,7 +68,8 @@ def _inputs(b, t, h, hd, with_state, seed, strong=False):
     else:
         w = (1 / (1 + np.exp(-(x(*sh) * 2 - 1))) * 0.5 + 0.45).astype(np.float32)
     s0 = x(b, h, hd, hd) * 0.2 if with_state else None
-    return x(*sh) * 0.5, x(*sh) * 0.5, x(*sh), w, x(h, hd) * 0.3, s0
+    return (x(*sh) * 0.5 * scale, x(*sh) * 0.5 * scale, x(*sh) * scale, w, x(h, hd) * 0.3,
+            s0)
 
 
 def _both(arrays, dtype):
@@ -177,3 +179,60 @@ def test_rank_runs():
     for bad in (0, 6):
         with pytest.raises(ValueError):
             ref.rwkv6_rank_runs(5, bad)
+
+
+# the two-barrier carry: 9 chunks (a ragged last one of 24 tokens) over 2
+# ranks (runs of 5 and 4) and over 8 (the first rank two chunks)
+CARRY_T = 280
+
+
+@pytest.mark.parametrize("ranks", [2, 8])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cluster_model_carry_over_two_and_eight_ranks(ranks, hd, dtype):
+    """Ragged runs of chunks over 2 and 8 ranks, every element of the state
+    carried by its owner through every rank's composite, in f32 and bf16 at
+    hd 64 and 128, against the JAX oracle at the file's tolerances.  In
+    bf16, r, k, v are halved, as chip_smoke.py's main-path checks halve
+    them: at hd 128 over 280 tokens outputs pass 8, where one bf16 step
+    (0.0625) exceeds 5e-2 by rounding alone."""
+    tol = TOL_HD128 if hd == 128 and dtype == "float32" else None
+    scale = 0.5 if dtype == "bfloat16" else 1.0
+    _check(_inputs(1, CARRY_T, 2, hd, True, seed=ranks + hd, scale=scale), dtype, tol=tol,
+           ranks=ranks)
+
+
+@pytest.mark.parametrize("ranks", [2, 8])
+def test_cluster_model_carry_matches_pallas_interpret(ranks):
+    """The same runs at hd 64 in f32 against the Pallas kernel in interpret
+    mode, at tests/test_kernels.py's tolerance for the kernel, 1e-4."""
+    arrays = _inputs(1, CARRY_T, 2, 64, True, seed=ranks)
+    out, s_t = ref.rwkv6_cluster_reference(*(torch.from_numpy(a) for a in arrays), ranks=ranks)
+    pal_o, pal_s = rwkv6_chunked(*(jnp.asarray(a) for a in arrays), chunk=32, interpret=True)
+    assert _err(pal_o, out) < 1e-4 and _err(pal_s, s_t) < 1e-4
+
+
+@pytest.mark.parametrize("t,ranks", [(280, 1), (280, 2), (280, 8), (256, 8)])
+def test_cluster_model_state_in_place(t, ranks):
+    """``final_state=state``: each owner reads an element of the state just
+    before it writes it, and rank 0 of one chunk a rank (T = 256 over 8)
+    reads the whole state before any owner writes; out and state equal
+    those of a separate final state, bit for bit."""
+    tx = [torch.from_numpy(a) for a in _inputs(1, t, 2, 32, True, seed=t + ranks)]
+    out_sep, s_sep = ref.rwkv6_cluster_reference(*tx, ranks=ranks)
+    state = tx[5].clone()
+    out, s_t = ref.rwkv6_cluster_reference(*tx[:5], state, ranks=ranks, final_state=state)
+    assert s_t is state
+    assert torch.equal(out, out_sep) and torch.equal(state, s_sep)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_carry_owners_split_every_element_once(hd):
+    """Every element of the state has one owner rank; the ranks' shares
+    differ by at most one 16-byte slot (4 elements); one rank owns all."""
+    assert bool((ref.rwkv6_carry_owners(hd, 1) == 0).all())
+    for ranks in range(2, 17):
+        owners = ref.rwkv6_carry_owners(hd, ranks)
+        counts = torch.bincount(owners.flatten(), minlength=ranks)
+        assert int(owners.min()) == 0 and int(owners.max()) == ranks - 1
+        assert int(counts.sum()) == hd * hd and int(counts.max() - counts.min()) <= 4

@@ -28,7 +28,6 @@ and the (16, 16) production mesh against the reference's
 from __future__ import annotations
 
 import json
-import math
 import os
 import pickle
 
@@ -45,6 +44,7 @@ import torch_dist_workers as workers
 from repro.models import model as jmodel
 from repro_torch.configs import INPUT_SHAPES, list_architectures
 from repro_torch.distributed import placements_of
+from repro_torch.distributed.sharding import MeshShape
 from repro_torch.kernels import ops
 from repro_torch.launch import specs
 from repro_torch.models.params import params_from_jax
@@ -243,29 +243,34 @@ def test_local_shard_shapes_equal_the_reference(fake_group, arch, shape, mesh):
     batch, or params, inputs and cache) at ``reduced()``: rank 0's local
     shard shape equals the reference's ``NamedSharding(mesh,
     P(*spec)).shard_shape`` of the leaf's spec, and every argument is a
-    DTensor on the mesh.  Where the reference refuses the spec (a mesh axis
-    that does not divide the dimension: reduced() cuts recurrentgemma's
-    local window to 8 slots, which the decode rules split over 16), rank 0
-    holds DTensor's uneven first chunk."""
-    dm = _device_mesh(MESHES[mesh])
-    _, args, arg_specs, _, _ = specs.build_step(configs.get_config(arch).reduced(),
-                                                INPUT_SHAPES[shape], dm)
+    DTensor on the mesh.  Where the reference refuses a leaf's spec (a mesh
+    axis that does not divide the dimension: reduced() cuts recurrentgemma's
+    local window to 8 slots, which the decode rules split over 16), ``place``
+    refuses that leaf and ``build_step`` the step, each with ``ValueError``."""
+    cfg, dm = configs.get_config(arch).reduced(), _device_mesh(MESHES[mesh])
+    _, leaves_of, specs_of, _, _ = specs.build_step(cfg, INPUT_SHAPES[shape],
+                                                    MeshShape(("data", "model"), MESHES[mesh]))
     am = AbstractMesh(MESHES[mesh], ("data", "model"))
+    spec_list = [x for a in specs_of for x in _spec_leaves(a)]
+    wants = []
+    for t, spec in zip(tree_leaves(list(leaves_of)), spec_list):
+        try:
+            wants.append(NamedSharding(am, PartitionSpec(*spec)).shard_shape(tuple(t.shape)))
+        except ValueError:
+            wants.append(None)
+            with pytest.raises(ValueError, match="do not divide"):
+                specs.place(t, spec, dm)
+    if None in wants:
+        with pytest.raises(ValueError, match="do not divide"):
+            specs.build_step(cfg, INPUT_SHAPES[shape], dm)
+        return
+    _, args, arg_specs, _, _ = specs.build_step(cfg, INPUT_SHAPES[shape], dm)
     leaves = tree_leaves(list(args))
-    spec_list = [x for a in arg_specs for x in _spec_leaves(a)]
-    assert len(leaves) == len(spec_list)
-    for t, spec in zip(leaves, spec_list):
+    assert [x for a in arg_specs for x in _spec_leaves(a)] == spec_list
+    assert len(leaves) == len(spec_list) == len(wants)
+    for t, spec, want in zip(leaves, spec_list, wants):
         assert isinstance(t, torch.distributed.tensor.DTensor) and t.device_mesh is dm
         assert tuple(t.placements) == placements_of(spec, dm)
-        try:
-            want = NamedSharding(am, PartitionSpec(*spec)).shard_shape(tuple(t.shape))
-        except ValueError:
-            # the reference refuses a dimension its mesh axes do not divide
-            # (at reduced() a local-attention cache of 8 slots over 16):
-            # DTensor splits it unevenly, rank 0 taking ceil(n / parts)
-            want = [-(-n // math.prod(MESHES[mesh][("data", "model").index(a)]
-                                      for a in ((p,) if isinstance(p, str) else p or ())))
-                    for n, p in zip(t.shape, tuple(spec) + (None,) * t.dim())]
         assert tuple(t.to_local().shape) == tuple(want), (spec, tuple(t.shape))
 
 
