@@ -70,12 +70,21 @@ never prints its last line):
    16:1); both attention kernels at kimi-k2's hd 112 (64 q heads over 8 kv
    heads): flash causal at S = 512 and 2048, with a q_offset and
    non-causal at Sq = 4, decode over the 8-slot, 2048-slot cache with the
-   main path's prefix masks and with masks that leave whole tiles empty.
+   main path's prefix masks and with masks that leave whole tiles empty;
+   both attention kernels at the shapes of phases 3g-3k: minicpm-2b's 36 q
+   over 36 kv heads of 64 and qwen2-72b's 64 q over 8 kv heads of 128 with
+   the main path's traffic, and llama3-8b's sliding-window mode at 32 q over
+   8 kv heads of 128: flash causal under the 4096-token window at Sq = Sk =
+   8192 and at a ragged 4161, decode over the 4096-slot ring of the window
+   traffic after its last step (wrapped, every slot in the window) and over
+   a wrapped ring under a 3000-token window.
    Time kernel, plain version, one PyTorch call for the same function where
-   there is one (SDPA, a yardstick the port never calls) and the card's
-   bound, at the main path's shapes (and the attention kernels also at
-   phi3.5-moe's, llama3-8b's, recurrentgemma-9b's and whisper-small's
-   (its encoder and its cross-attention of a decode step in the flash row),
+   there is one (SDPA, a yardstick the port never calls; under a window
+   SDPA takes it as a mask) and the card's bound, at the main path's
+   shapes (and the attention kernels also at phi3.5-moe's, llama3-8b's,
+   recurrentgemma-9b's, whisper-small's (its encoder and its
+   cross-attention of a decode step in the flash row), minicpm-2b's,
+   qwen2-72b's and llama3-8b's window mode's (``"llama3_8b_window"``),
    under those names in each attention row; kimi-k2's, 64 q heads over 8 kv
    heads of 112, under ``"kimi_k2"``), and print them on one ``{"kernels": ...}``
    line; for flash also the wrapper's host microseconds a call and the
@@ -140,19 +149,50 @@ never prints its last line):
    sync debug mode "error" at 384 experts, profiles as phase 3c's, then
    the f32 check at full attention width and 1 layer with 16 experts and a
    32,768-token vocabulary (experts chosen equal card vs CPU, logits);
+3g. llama3-8b at full width and all 32 layers in bf16 (16.1 GB; 32 q heads
+   over 8 kv heads of 128, rope theta 500,000, the 128,256-token
+   vocabulary), phase 3's traffic and checks, its f32 check at full width
+   and 4 layers;
+3h. llama3-8b in the reference's sliding-window long-context mode
+   (``EngineConfig(window=cfg.long_context_window)``, 4096): every layer's
+   cache a 4096-slot ring, 8 requests (one a slot) of 4160 to 8192 tokens
+   from the seed, each longer than the window, so the prefill's flash
+   attention masks keys past the window and only the prompt's tail stays
+   in the ring, 32 new tokens each; the prefill profile at 8192 tokens;
+   its f32 check at full width and 2 layers on a 4160-token prompt, whose
+   8 decode steps write over the ring's oldest slots;
+3i. minicpm-2b at full width and all 40 layers (5.4 GB; 36 q over 36 kv
+   heads of 64, tied embeddings), phase 3's traffic and checks, its f32
+   check at 8 layers;
+3j. qwen2-72b at full width and 32 of its 80 layers (61.2 GB of bf16: all
+   80 are 145.4 GB; 64 q heads over 8 kv heads of 128, qkv bias, the
+   152,064-token vocabulary), phase 3's traffic and checks, its f32 check
+   at full width and 1 layer with the full vocabulary (13.5 GB in f32);
+3k. llava-next-mistral-7b's language backbone at full width and all 32
+   layers (14.5 GB) at the model's entry points (the engine and
+   ``launch/serve.py`` take no image, and the vision tower is a stub in
+   both packages): 2 batches of 8 requests, each 2880 seeded patch
+   embeddings (``frontends.vision_embeddings``, 5 tiles: the 2 x 2 anyres
+   grid and the base image) followed by a 64-token prompt's rows of the
+   card's embedding table, prefilled together and decoded 32 greedy steps
+   in a 4096-slot cache; launch counters (flash 32 a batch prefill, decode
+   32 a step), a profile of 8 decode steps and of one request's 2944-token
+   prefill (``profile_prefill`` on embeddings), then the f32 check at 2
+   layers on the first request's patches and prompt;
 4. the control plane: the batched float64 tick engine
    (``core/sim/torch_engine.py``) at the JAX package's benchmark shapes
-   (``benchmarks/sim_throughput.py``): ``run_scenario`` over a fleet of
-   1024 archs and 3600 ticks under ``portfolio`` and ``rl_pool``, and
-   ``run_grid`` over 64 cells (4 scenarios x 16 seeds) of 16 archs under
-   ``portfolio``; every fleet run and 8 sampled grid cells held to the
-   port's NumPy engine (raw ledger and per-arch flows at 1e-6, equal
-   summary keys), and each sampled cell of the grid run again over its
-   first 600 ticks equal to ``run_scenario`` of that cell over them;
+   (``benchmarks/sim_throughput.py``) cut in time (``CONTROL_CUT``,
+   printed): ``run_scenario`` over a fleet of 1024 archs and 600 ticks
+   under ``portfolio`` and ``rl_pool``, and ``run_grid`` over 64 cells (4
+   scenarios x 16 seeds) of 16 archs under ``portfolio``; every fleet run
+   and 8 sampled grid cells held to the port's NumPy engine (raw ledger
+   and per-arch flows at 1e-6, equal summary keys), and each sampled cell
+   of the grid run again over its first 150 ticks equal to
+   ``run_scenario`` of that cell over them;
    the tick loop runs under ``torch.cuda.set_sync_debug_mode("error")``
    (a sync raises; the phase first shows the guard catching one); prints
    ticks/s, arch- and cell-ticks/s beside the NumPy engine's on the same
-   runs, the device's busy share and kernels a tick over 100 profiled
+   runs, the device's busy share and kernels a tick over 50 profiled
    ticks, peak memory and the largest relative ledger error;
 5. the PPO controller (``core/rl/ppo.py``), trained on the card in the JAX
    package's training env (``benchmarks/rl_vs_schemes.py``: its 8-model
@@ -198,7 +238,8 @@ never prints its last line):
    output bit-equal to a direct call of the model's entry point, and the
    dry-run's parameter, optimizer and cache bytes equal to the tensors' (the
    allocator's growth beside them); then the dry-run's FLOP and byte table
-   for all ten archs x four input shapes (meta tensors, on the host,
+   for all ten archs, each at one of the four input shapes
+   (``DRYRUN_CUT``, printed; meta tensors, on the host,
    ``launch/dryrun.py``), printed on a ``[dryrun]`` line and timed in the
    phase's seconds; then the dry-run's partition (``dryrun.run_one``) of
    qwen1.5-0.5b ``train_4k``, kimi-k2 ``decode_32k`` and whisper-small
@@ -356,7 +397,6 @@ KIMI_LAYERS, KIMI_F32_EXPERTS, KIMI_F32_VOCAB, KIMI_F32_PROMPT = 1, 16, 32_768, 
 KIMI_DEPTH_CUT = ("1 of 61 layers at full width, all 384 experts, top-8, the full 163,840 "
                   "vocabulary: one layer is 38.8 GB of bf16 weights, two 72.8 GB, more than "
                   "one 80 GB card holds with the cache and activations")
-DEPTH_CUTS = {MOE_ARCH: MOE_DEPTH_CUT, KIMI_ARCH: KIMI_DEPTH_CUT}
 RG_ARCH = "recurrentgemma-9b"
 # its f32 check: one (RG-LRU, RG-LRU, local attention) pattern and the tail,
 # on a prompt longer than the 2048-token window and ring
@@ -372,6 +412,40 @@ WHISPER_FRAMES = frontends.WHISPER_FRAMES
 # NEW_TOKENS greedy tokens after the prefill's, in a cache of 448 slots (the
 # decoder's context)
 WHISPER_BATCHES, WHISPER_PROMPT, WHISPER_CACHE = 2, 4, 448
+LLAMA_ARCH = "llama3-8b"
+# llama3-8b's f32 check: full width (32 q heads over 8 kv heads of 128, the
+# 128,256-token vocabulary), 4 of its 32 layers, ~7.7 GB in f32 on the card
+# and again on the host
+LLAMA_F32_LAYERS = 4
+# llama3-8b in the reference's sliding-window long-context mode
+# (EngineConfig.window = cfg.long_context_window): every layer's cache a
+# ring of LONG_CACHE slots, LONG_REQUESTS requests (one a slot) of
+# LONG_MIN to LONG_MAX tokens, each longer than the window; its f32 check
+# at LONG_F32_LAYERS layers on a LONG_F32_PROMPT-token prompt
+LONG_REQUESTS, LONG_CACHE, LONG_MIN, LONG_MAX = 8, 4096, 4160, 8192
+LONG_F32_LAYERS, LONG_F32_PROMPT = 2, 4160
+LONG_SLICE = "llama3-8b window"
+MINICPM_ARCH = "minicpm-2b"
+MINICPM_F32_LAYERS = 8
+QWEN2_ARCH = "qwen2-72b"
+# qwen2-72b on one card: a layer is 877,684,736 parameters (1.755 GB of
+# bf16), embedding and untied head 2,491,424,768 (4.98 GB); 80 layers are
+# 145.4 GB, so the slice runs 32 (61.2 GB) and its f32 check 1 (13.5 GB in
+# f32, on the card and again on the host; the full 152,064 vocabulary)
+QWEN2_LAYERS, QWEN2_F32_LAYERS = 32, 1
+QWEN2_DEPTH_CUT = ("32 of 80 layers at full width: a layer is 1.755 GB of bf16 weights and "
+                   "embedding plus head 4.98 GB, so 80 layers are 145.4 GB, more than one 80 GB "
+                   "card holds; 32 layers are 61.2 GB, which leaves ~19 GB of the card for the "
+                   "2.1 GB cache, the activations and the allocator (33 layers 62.9 GB)")
+VLM_ARCH = "llava-next-mistral-7b"
+# llava-next-mistral-7b's language backbone at the model's entry points (the
+# engine and launch/serve.py take no image): VLM_BATCHES batches of SLOTS
+# requests, each VLM_TILES x 576 patch embeddings (LLaVA-NeXT's 2 x 2 anyres
+# grid and the base image) then a VLM_TEXT-token prompt, NEW_TOKENS greedy
+# tokens after the prefill's into a cache of VLM_CACHE slots; its f32 check
+# at VLM_F32_LAYERS layers on one request
+VLM_BATCHES, VLM_TILES, VLM_TEXT, VLM_CACHE, VLM_F32_LAYERS = 2, 5, 64, 4096, 2
+DEPTH_CUTS = {MOE_ARCH: MOE_DEPTH_CUT, KIMI_ARCH: KIMI_DEPTH_CUT, QWEN2_ARCH: QWEN2_DEPTH_CUT}
 KERNELS = {"flash_attention": fa, "decode_attention": da, "rwkv6_scan": rk}
 N_REQUESTS, SLOTS, CACHE_LEN, NEW_TOKENS = 16, 8, 2048, 32
 PROMPT_MIN, PROMPT_MAX = 64, 512
@@ -401,6 +475,14 @@ PROFILED = {
                 "decode": ("decode_attention", DECODE_KERNELS)},
     RG_ARCH: {"prefill": ("flash_attention", ("fa_wgmma_kernel",)),
               "decode": ("decode_attention", DECODE_KERNELS)},
+    LLAMA_ARCH: {"prefill": ("flash_attention", ("fa_wgmma_kernel",)),
+                 "decode": ("decode_attention", DECODE_KERNELS)},
+    MINICPM_ARCH: {"prefill": ("flash_attention", ("fa_wgmma_kernel",)),
+                   "decode": ("decode_attention", DECODE_KERNELS)},
+    QWEN2_ARCH: {"prefill": ("flash_attention", ("fa_wgmma_kernel",)),
+                 "decode": ("decode_attention", DECODE_KERNELS)},
+    VLM_ARCH: {"prefill": ("flash_attention", ("fa_wgmma_kernel",)),
+               "decode": ("decode_attention", DECODE_KERNELS)},
 }
 # the MoE layer's parts, each run inside a profiler range of this name:
 # the whole layer, its routing (router product, top-k, softmax, aux) and
@@ -980,6 +1062,28 @@ def check_decode_rounding(dev):
     return out
 
 
+# llama3-8b's window mode at its edges: flash at a ragged prompt of 4161
+# tokens (65 past the window, one past a multiple of the 64-key tile), at
+# 32 q over 8 kv heads of 128, and decode over the 4096-slot ring with a window shorter than the
+# ring (positions written per sequence: past the ring, at its edge, short
+# of it, and one slot), so that whole 64-slot tiles and cluster ranks are
+# masked in the ring's middle
+LONG_EDGE_PROMPT = LONG_MIN + 1
+LONG_RING_POSITIONS, LONG_RING_WINDOW = [4200, 8223, 6000, 4095, 100, 10000, 4096, 10], 3000
+
+
+def check_window_edges(gen, dtype) -> dict:
+    """Flash under the window at LONG_EDGE_PROMPT and decode over a wrapped
+    ring under LONG_RING_WINDOW, llama3-8b's heads; the max abs errors."""
+    dev = gen.device
+    return {
+        f"flash S={LONG_EDGE_PROMPT} window={LONG_CACHE}": check_flash(
+            gen, 1, LONG_EDGE_PROMPT, LONG_EDGE_PROMPT, 32, 8, 128, True, LONG_CACHE, dtype)[0],
+        f"decode ring={LONG_CACHE} window={LONG_RING_WINDOW}": check_decode(
+            gen, SLOTS, LONG_CACHE, 32, 8, 128, dtype,
+            ring_valid(LONG_RING_POSITIONS, LONG_CACHE, LONG_RING_WINDOW, dev))[0]}
+
+
 def ring_valid(positions, ring, window, device):
     """The decode mask of a ring of ``ring`` slots after each sequence wrote
     positions 0..t (slot = pos % ring, the latest write wins) under a window
@@ -1022,25 +1126,39 @@ def kernels_of(fn) -> list:
     return sorted(device_times(prof))
 
 
-def time_flash(err, qkv, flush, causal=True):
+def window_pairs(s, window) -> int:
+    """Visible (q, k) pairs of a causal Sq = Sk = ``s`` attention under a
+    window of ``window`` positions (row i sees min(i + 1, window) keys)."""
+    w = min(s, window)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def time_flash(err, qkv, flush, causal=True, window=0):
     q, k, v = qkv
     b, sq, nq, hd = q.shape
     sk, nkv = k.shape[1], k.shape[2]
     gqa = {"enable_gqa": True} if nq != nkv else {}
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    # visible (q, k) pairs: causal from position 0 (Sq = Sk), or all of them
-    pairs = b * nq * (sq * (sq + 1) // 2 if causal else sq * sk)
+    # visible (q, k) pairs: causal from position 0 (Sq = Sk), under the
+    # window if any, or all of them
+    pairs = b * nq * (window_pairs(sq, window or sq) if causal else sq * sk)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()   # q, k, v in; o out
+    if window:       # SDPA takes a window only as a mask: row i sees keys (i - window, i]
+        i = torch.arange(sq, device=q.device)
+        lib = {"attn_mask": (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)}
+    else:
+        lib = {"is_causal": causal}
     t = timings(
-        lambda: fa.flash_attention(q, k, v, causal=causal),
-        lambda: ref.mha_reference(q, k, v, causal=causal),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, **gqa),
+        lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
+        lambda: ref.mha_reference(q, k, v, causal=causal, window=window),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, **lib, **gqa),
         4 * hd * pairs, nbytes, flush,
     )
-    t["host_us_per_call"] = host_us_per_call(lambda: fa.flash_attention(q, k, v, causal=causal))
+    t["host_us_per_call"] = host_us_per_call(
+        lambda: fa.flash_attention(q, k, v, causal=causal, window=window))
     t["library_kernels"] = kernels_of(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, **gqa))
-    kind = "causal" if causal else "non-causal"
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, **lib, **gqa))
+    kind = ("causal" if causal else "non-causal") + (f" window={window}" if window else "")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:91",
@@ -1074,7 +1192,7 @@ def time_decode(err, qkvm, flush):
             "max_abs_err": err, **t}
 
 
-def phase_kernels(seed, prompt_lengths):
+def phase_kernels(seed, prompt_lengths, long_lengths):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     n = 0
@@ -1122,25 +1240,37 @@ def phase_kernels(seed, prompt_lengths):
     # heads, hd 112, the same traffic), llama3-8b's (a random mask) and
     # recurrentgemma-9b's (MQA 16 q heads over 1 kv head, hd 256, the same
     # traffic: its 2048-token window does not bite at S = 512, and its ring
-    # of 2048 slots is the main path's cache)
-    shapes = {"main": ((1, PROMPT_MAX, 16, 16, 64), (SLOTS, CACHE_LEN, 16, 16, 64, valid)),
-              MOE_ARCH: ((1, PROMPT_MAX, 32, 8, 128), (SLOTS, CACHE_LEN, 32, 8, 128, valid)),
-              "kimi_k2": ((1, PROMPT_MAX, 64, 8, 112), (SLOTS, CACHE_LEN, 64, 8, 112, valid)),
-              "llama3_8b": ((1, 2048, 32, 8, 128), (8, 4096, 32, 8, 128, None)),
-              "recurrentgemma_9b": ((1, PROMPT_MAX, 16, 1, 256),
-                                    (SLOTS, CACHE_LEN, 16, 1, 256, valid))}
+    # of 2048 slots is the main path's cache), minicpm-2b's (36 q over 36 kv
+    # heads of 64) and qwen2-72b's (64 q over 8 kv heads of 128), the same
+    # traffic, and llama3-8b's sliding-window mode (flash over its longest
+    # prompt under the 4096-token window, decode over the wrapped 4096-slot
+    # ring of the window traffic after its last step); flash (b, s, nq, nkv,
+    # hd, window), causal
+    long_valid = ring_valid([n + NEW_TOKENS - 1 for n in long_lengths[:SLOTS]], LONG_CACHE,
+                            LONG_CACHE, dev)
+    shapes = {"main": ((1, PROMPT_MAX, 16, 16, 64, 0), (SLOTS, CACHE_LEN, 16, 16, 64, valid)),
+              MOE_ARCH: ((1, PROMPT_MAX, 32, 8, 128, 0), (SLOTS, CACHE_LEN, 32, 8, 128, valid)),
+              "kimi_k2": ((1, PROMPT_MAX, 64, 8, 112, 0), (SLOTS, CACHE_LEN, 64, 8, 112, valid)),
+              "llama3_8b": ((1, 2048, 32, 8, 128, 0), (8, 4096, 32, 8, 128, None)),
+              "recurrentgemma_9b": ((1, PROMPT_MAX, 16, 1, 256, 0),
+                                    (SLOTS, CACHE_LEN, 16, 1, 256, valid)),
+              "minicpm_2b": ((1, PROMPT_MAX, 36, 36, 64, 0), (SLOTS, CACHE_LEN, 36, 36, 64, valid)),
+              "qwen2_72b": ((1, PROMPT_MAX, 64, 8, 128, 0), (SLOTS, CACHE_LEN, 64, 8, 128, valid)),
+              "llama3_8b_window": ((1, LONG_MAX, 32, 8, 128, LONG_CACHE),
+                                   (SLOTS, LONG_CACHE, 32, 8, 128, long_valid))}
     main = {}
     for dtype in (torch.float32, torch.bfloat16):
         main[dtype] = {}
         for name, (f, d) in shapes.items():
-            err_f, qkv = check_flash(gen, f[0], f[1], f[1], *f[2:], True, 0, dtype)
+            err_f, qkv = check_flash(gen, f[0], f[1], f[1], *f[2:5], True, f[5], dtype)
             err_d, qkvm = check_decode(gen, *d[:5], dtype, d[5])
             main[dtype][name] = (err_f, qkv, err_d, qkvm)
-        print(f"[kernels] main-path, {MOE_ARCH}, {KIMI_ARCH}, llama3-8b and {RG_ARCH} shapes "
-              f"{dtype}: "
-              "max abs err "
+        print(f"[kernels] main-path, {MOE_ARCH}, {KIMI_ARCH}, llama3-8b, {RG_ARCH}, minicpm-2b, "
+              f"qwen2-72b and llama3-8b window shapes {dtype}: max abs err "
               + json.dumps({name: {"flash": r[0], "decode": r[2]}
                             for name, r in main[dtype].items()}))
+        print(f"[kernels] llama3-8b window edges {dtype}: max abs err "
+              + json.dumps(check_window_edges(gen, dtype)))
     # whisper-small (12 q over 12 kv heads of 64, non-causal flash): the
     # encoder over 1500 frames, the cross-attention of a batch prefill's
     # 4-token prompts and of one decode step (Sq = 1) over those frames, and
@@ -1164,7 +1294,8 @@ def phase_kernels(seed, prompt_lengths):
                for name in ("encoder", "cross_prefill", "cross_decode")}))
     rows = []
     for name, (err_f, qkv, err_d, qkvm) in main[torch.bfloat16].items():   # the paths run bf16
-        pair = [time_flash(err_f, qkv, flush), time_decode(err_d, qkvm, flush)]
+        pair = [time_flash(err_f, qkv, flush, window=shapes[name][0][5]),
+                time_decode(err_d, qkvm, flush)]
         if name == "main":
             rows = pair
         else:
@@ -1335,18 +1466,23 @@ def expected_launches(cfg, prefills, decode_steps):
             "rwkv6_scan": n_rwkv * (prefills + decode_steps)}
 
 
-def phase_slice(cfg, seed, prompts, gpu, f32):
-    """Serve ``prompts`` with ``cfg`` at full width in bf16, profile its
-    decode and its prefill (``profile_prefill``), then run its f32 check
-    ``f32(seed, prompt)``, which holds its f32 logits on the card to the
-    CPU's."""
+def phase_slice(cfg, seed, prompts, gpu, f32, *, cache_len=CACHE_LEN, window=0,
+                prefill_length=PROMPT_MAX, label=None):
+    """Serve ``prompts`` with ``cfg`` at full width in bf16 (an engine of
+    SLOTS slots and ``cache_len`` cache slots, in sliding-window mode when
+    ``window``), profile its decode and a ``prefill_length``-token prefill
+    (``profile_prefill``), then run its f32 check ``f32(seed, prompt)``,
+    which holds its f32 logits on the card to the CPU's.  ``label`` names
+    the slice (the arch by default)."""
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     arch = cfg.name
+    label = label or arch
+    n_requests = len(prompts)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = model_lib.init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
     engine = Engine(cfg, params, EngineConfig(
-        slots=SLOTS, cache_len=CACHE_LEN, max_new_tokens=NEW_TOKENS,
+        slots=SLOTS, cache_len=cache_len, window=window, max_new_tokens=NEW_TOKENS,
         dtype=torch.bfloat16, device="cuda"))
     batcher = ContinuousBatcher(engine)
     spent = {"insert": [], "step": []}
@@ -1383,15 +1519,17 @@ def phase_slice(cfg, seed, prompts, gpu, f32):
         raise AssertionError(f"{arch}: requests not finished with 1 + {NEW_TOKENS} tokens: {bad}")
     if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.output):
         raise AssertionError(f"{arch}: a token outside the vocabulary")
-    expected = expected_launches(cfg, N_REQUESTS, engine.steps)
+    expected = expected_launches(cfg, n_requests, engine.steps)
     if launches != expected or not any(launches.values()):
-        raise AssertionError(f"{arch}: kernel launches {launches} != {expected} "
-                             f"({cfg.num_layers} layers, {N_REQUESTS} prefills, "
+        raise AssertionError(f"{label}: kernel launches {launches} != {expected} "
+                             f"({cfg.num_layers} layers, {n_requests} prefills, "
                              f"{engine.steps} decode steps)")
     n_tokens = sum(len(r.output) for r in reqs)
     result = {
-        "model": arch, "dtype": "bfloat16", "layers": cfg.num_layers, "d_model": cfg.d_model,
-        "requests": N_REQUESTS, "slots": SLOTS, "cache_len": CACHE_LEN, "new_tokens": NEW_TOKENS,
+        "model": arch, "slice": label, "dtype": "bfloat16", "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim],
+        "requests": n_requests, "slots": SLOTS, "cache_len": cache_len, "window": window,
+        "new_tokens": NEW_TOKENS,
         "prompt_tokens": int(sum(len(p) for p in prompts)),
         "decode_steps": engine.steps, "batch_stats": stats.summary(),
         "wall_s": wall, "tokens_per_s": n_tokens / wall,
@@ -1403,28 +1541,44 @@ def phase_slice(cfg, seed, prompts, gpu, f32):
         "gpu": gpu,
     }
     moe = bool(cfg.num_experts)
-    if moe:
+    if cfg.num_layers < get_config(arch).num_layers:
         result["layers_full"] = get_config(arch).num_layers
         result["depth_cut"] = DEPTH_CUTS[arch]
+        print(f"[cut] {label}: {DEPTH_CUTS[arch]}")
+    if moe:
         result["moe_sync_free"] = check_moe_sync_free(cfg, params["layers"][0]["moe"])
-    print(f"[slice] {arch}: served {N_REQUESTS} requests with {1 + NEW_TOKENS} tokens each "
-          f"over {engine.steps} decode steps; kernel launches {json.dumps(launches)} = "
-          f"{json.dumps(expected_launches(cfg, 1, 1))} per (prefill, decode step) x "
-          f"({N_REQUESTS} prefills, {engine.steps} decode steps)")
+    print(f"[slice] {label}: served {n_requests} requests of {min(map(len, prompts))}-"
+          f"{max(map(len, prompts))} prompt tokens with {1 + NEW_TOKENS} tokens each "
+          f"over {engine.steps} decode steps (cache {cache_len}, window {window}); kernel "
+          f"launches {json.dumps(launches)} = {json.dumps(expected_launches(cfg, 1, 1))} per "
+          f"(prefill, decode step) x ({n_requests} prefills, {engine.steps} decode steps)")
+    t_profiles = time.perf_counter()
     with moe_ranges() if moe else contextlib.nullcontext():
         prof = profile_decode(engine, prompts, PROFILED[arch]["decode"])
         prof["device_busy_share_of_median_step"] = (
             prof["device_ms_per_step"] / result["decode_ms_per_step_median"])
         result["decode_profile"] = prof
-        result["prefill_profile"] = profile_prefill(engine, prompts[0], PROFILED[arch]["prefill"])
+        result["prefill_profile"] = profile_prefill(engine, prompts[0], PROFILED[arch]["prefill"],
+                                                    length=prefill_length)
     # the timing wrappers refer back to the engine: collect the cycle, so
     # that the next slice's peak memory does not count this one's weights
     del engine, batcher, params
     gc.collect()
     torch.cuda.empty_cache()
+    t_f32 = time.perf_counter()
     result["f32_check"] = f32(seed, prompts[0])
     result["phase_s"] = time.perf_counter() - t_phase
+    result["seconds"] = phase_seconds(t_phase, t0, t_profiles, t_f32)
     return result
+
+
+def phase_seconds(t_phase, t_serve, t_profiles, t_f32) -> dict:
+    """Host seconds of a served slice's parts, from the start of each: the
+    weights and engine, the served run, the profiles (and checks after the
+    run), the f32 check to now."""
+    now = time.perf_counter()
+    return {"setup": t_serve - t_phase, "served_run_and_checks": t_profiles - t_serve,
+            "profiles": t_f32 - t_profiles, "f32_check": now - t_f32}
 
 
 @contextlib.contextmanager
@@ -1478,12 +1632,15 @@ def check_moe_sync_free(cfg, p):
     return {"shapes": [list(sh) for sh in shapes], "sync_debug_mode": "error"}
 
 
-def f32_check(cfg, seed, prompt, fill=None, enc_inputs=None):
+def f32_check(cfg, seed, prompt, fill=None, enc_inputs=None, image=None, window=0):
     """The same port code in f32 with the kernels on the card and the plain
     versions on the CPU, on one prompt plus F32_DECODE_STEPS decode steps;
-    ``fill(params, gen)`` may first change the weights on the card, and
-    ``enc_inputs`` (1, frames, d) on the CPU are whisper's audio.  An MoE
-    model's experts chosen must also be the same on both sides."""
+    ``fill(params, gen)`` may first change the weights on the card,
+    ``enc_inputs`` (1, frames, d) on the CPU are whisper's audio, ``image``
+    (patches, d) on the CPU a VLM's patch embeddings ahead of the prompt's
+    (``_teacher_forced``), and ``window`` runs the sliding-window mode over
+    a ring of ``window`` slots.  An MoE model's experts chosen must also be
+    the same on both sides."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     p_gpu = model_lib.init_params(cfg, gen, dtype=torch.float32, device=dev)
@@ -1494,13 +1651,14 @@ def f32_check(cfg, seed, prompt, fill=None, enc_inputs=None):
     before = launch_counts()
     card_routes, cpu_routes = [], []
     with wrapped(moe_lib, "_route", record_routes(card_routes)):
-        gpu_logits, tokens = _teacher_forced(cfg, p_gpu, prompt, None, dev, enc_inputs)
+        gpu_logits, tokens = _teacher_forced(cfg, p_gpu, prompt, None, dev, enc_inputs,
+                                             image, window)
     ran = {name: n - before[name] for name, n in launch_counts().items()}
     if ran != expected_launches(cfg, 1, F32_DECODE_STEPS):
         raise AssertionError(f"the f32 run on the card did not go through the kernels: {ran}")
     with wrapped(moe_lib, "_route", record_routes(cpu_routes)):
         cpu_logits, _ = _teacher_forced(cfg, p_cpu, prompt, tokens, torch.device("cpu"),
-                                        enc_inputs)
+                                        enc_inputs, image, window)
     checked = compare_routes(cfg, card_routes, cpu_routes) if cfg.num_experts else {}
     errs = []
     for step, (g, c) in enumerate(zip(gpu_logits, cpu_logits)):
@@ -1511,6 +1669,8 @@ def f32_check(cfg, seed, prompt, fill=None, enc_inputs=None):
     del p_gpu, p_cpu
     torch.cuda.empty_cache()
     return {"layers": cfg.num_layers, "prompt_tokens": len(prompt),
+            **({"image_patches": len(image)} if image is not None else {}),
+            **({"window": window, "ring_slots": window} if window else {}),
             "decode_steps": F32_DECODE_STEPS, "max_abs_err_per_step": errs, "tol": LOGIT_TOL,
             **checked}
 
@@ -1576,6 +1736,29 @@ def f32_check_rg(seed, prompt):
     return f32_check(cfg, seed, np.resize(prompt, RG_F32_PROMPT))
 
 
+def f32_check_cut(arch, layers):
+    """The f32 check (``f32_check``, its keywords passed on) of ``arch`` at
+    full width and ``layers`` layers; the cut is stated in the result."""
+    def run(seed, prompt, **kw):
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        out = f32_check(cfg, seed, prompt, **kw)
+        out["cuts"] = {"layers": f"{layers} of {get_config(arch).num_layers}"}
+        return out
+    return run
+
+
+def f32_check_long(seed, prompt):
+    """llama3-8b's f32 check in sliding-window mode at full width and
+    LONG_F32_LAYERS layers, on a LONG_F32_PROMPT-token prompt, longer than
+    the cfg.long_context_window-slot ring and window: the prefill's flash
+    attention masks keys past the window and keeps the prompt's tail in the
+    ring, and the decode steps write over its oldest slots.  Tolerance
+    LOGIT_TOL, as for attention."""
+    return f32_check_cut(LLAMA_ARCH, LONG_F32_LAYERS)(
+        seed, np.resize(prompt, LONG_F32_PROMPT),
+        window=get_config(LLAMA_ARCH).long_context_window)
+
+
 # ---------------------------------------------------------------------------
 # Phase 3e: whisper-small, served at the model's entry points.
 # ---------------------------------------------------------------------------
@@ -1614,11 +1797,13 @@ def whisper_floors(cfg, params, batch, valid_slots):
             "prefill_floor_ms": 1e3 * prefill_ops / PEAK_BF16_FLOPS}
 
 
-def whisper_generate(cfg, params, frames, prompt, steps, spent):
-    """Greedy tokens of one batch at the model's entry points: ``init_cache``,
-    ``prefill(enc_inputs=frames)`` and ``steps`` decode steps, each timed on
-    the host clock between syncs into ``spent``; returns (B, 1 + steps)
-    tokens on the host."""
+def generate(cfg, params, inputs, steps, spent, cache_len, enc_inputs=None):
+    """Greedy tokens of one batch at the model's entry points: ``init_cache``
+    of ``cache_len`` slots, ``prefill(inputs, enc_inputs=)`` (``inputs`` the
+    prompts' tokens (B, S) or a VLM's embeddings (B, S, d); ``enc_inputs``
+    whisper's frames) and ``steps`` decode steps, each timed on the host
+    clock between syncs into ``spent``; returns (B, 1 + steps) tokens on
+    the host."""
     def timed(name, fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1628,9 +1813,9 @@ def whisper_generate(cfg, params, frames, prompt, steps, spent):
         return out
 
     def prefill():
-        cache = model_lib.init_cache(cfg, prompt.shape[0], WHISPER_CACHE,
-                                     dtype=params["embed"].dtype, device=prompt.device)
-        return model_lib.prefill(cfg, params, prompt, cache, enc_inputs=frames)
+        cache = model_lib.init_cache(cfg, inputs.shape[0], cache_len,
+                                     dtype=params["embed"].dtype, device=inputs.device)
+        return model_lib.prefill(cfg, params, inputs, cache, enc_inputs=enc_inputs)
 
     logits, cache = timed("prefill", prefill)
     out = [torch.argmax(logits, dim=-1)]
@@ -1765,7 +1950,7 @@ def phase_whisper(seed, gpu):
     for mod in KERNELS.values():
         mod.launches = 0
     t0 = time.perf_counter()
-    tokens = [whisper_generate(cfg, params, frames, prompt, NEW_TOKENS, spent)
+    tokens = [generate(cfg, params, prompt, NEW_TOKENS, spent, WHISPER_CACHE, enc_inputs=frames)
               for frames, prompt in batches]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1813,6 +1998,106 @@ def phase_whisper(seed, gpu):
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 3k: llava-next-mistral-7b's backbone, served at the model's entry points.
+# ---------------------------------------------------------------------------
+def vlm_inputs(cfg, params, text, seed):
+    """(B, VLM_TILES * 576 + S_text, d) embeddings on the card, laid out as
+    ``frontends.multimodal_inputs`` lays them: the seeded patch embeddings
+    (``frontends.vision_embeddings``), then the rows of the text tokens
+    ``text`` (B, S_text) gathered from the card's embedding table."""
+    img = frontends.vision_embeddings(cfg, text.shape[0], tiles=VLM_TILES, seed=seed)
+    table = params["embed"]
+    return torch.cat([torch.from_numpy(img).to(table.device, table.dtype), table[text]], dim=1)
+
+
+def phase_vlm(seed, texts, gpu):
+    """llava-next-mistral-7b's language backbone at full width and depth in
+    bf16 through ``init_cache``, ``prefill`` on (B, S, d) embeddings and
+    batched ``decode_step`` (the engine and ``launch/serve.py`` take no
+    image, in both packages): VLM_BATCHES batches of SLOTS requests, each
+    one's patches and its ``texts`` prompt, every prefill attention call
+    through the flash kernel and every decode one through the decode
+    kernel, by the launch counters; then the profiles and the f32 check at
+    VLM_F32_LAYERS layers on the first request."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_config(VLM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = model_lib.init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+    batches = [vlm_inputs(cfg, params, torch.as_tensor(t, dtype=torch.long, device=dev), seed + i)
+               for i, t in enumerate(texts)]
+    spent = {"prefill": [], "step": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in KERNELS.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    tokens = [generate(cfg, params, x, NEW_TOKENS, spent, VLM_CACHE) for x in batches]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = VLM_BATCHES * NEW_TOKENS
+    if any(t.shape != (SLOTS, 1 + NEW_TOKENS) for t in tokens):
+        raise AssertionError(f"{cfg.name}: tokens of shapes {[tuple(t.shape) for t in tokens]}")
+    if not all(bool(((t >= 0) & (t < cfg.vocab_size)).all()) for t in tokens):
+        raise AssertionError(f"{cfg.name}: a token outside the vocabulary")
+    expected = expected_launches(cfg, VLM_BATCHES, steps)
+    if launches != expected:
+        raise AssertionError(f"{cfg.name}: kernel launches {launches} != {expected} "
+                             f"({cfg.num_layers} layers, {VLM_BATCHES} batch prefills, "
+                             f"{steps} decode steps)")
+    seq = batches[0].shape[1]
+    print(f"[slice] {cfg.name}: served {VLM_BATCHES * SLOTS} requests of "
+          f"{VLM_TILES * frontends.VLM_BASE_PATCHES} patch embeddings and {VLM_TEXT} prompt "
+          f"tokens with {1 + NEW_TOKENS} tokens each over {steps} decode steps; kernel launches "
+          f"{json.dumps(launches)} = {json.dumps(expected_launches(cfg, 1, 0))} per batch "
+          f"prefill + {json.dumps(expected_launches(cfg, 0, 1))} per decode step")
+    result = {
+        "model": cfg.name, "slice": cfg.name, "dtype": "bfloat16", "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim],
+        "params": model_lib.param_count(cfg), "requests": VLM_BATCHES * SLOTS,
+        "batches": VLM_BATCHES, "slots": SLOTS, "tiles": VLM_TILES,
+        "image_patches": VLM_TILES * frontends.VLM_BASE_PATCHES, "prompt_tokens": VLM_TEXT,
+        "prefill_seq": seq, "cache_len": VLM_CACHE, "new_tokens": NEW_TOKENS,
+        "decode_steps": steps, "wall_s": wall,
+        "tokens_per_s": sum(t.numel() for t in tokens) / wall,
+        "prefill_ms_mean": 1e3 * float(np.mean(spent["prefill"])),
+        "prefill_ms_per_prompt_token": 1e3 * sum(spent["prefill"]) / (VLM_BATCHES * SLOTS * seq),
+        "decode_ms_per_step_median": 1e3 * float(np.median(spent["step"])),
+        "peak_mem_gib": peak / 2**30, "launches": launches, "gpu": gpu,
+    }
+    t_profiles = time.perf_counter()
+    cache = model_lib.init_cache(cfg, SLOTS, VLM_CACHE, dtype=torch.bfloat16, device=dev)
+    logits, cache = model_lib.prefill(cfg, params, batches[0], cache)
+    state = {"tok": torch.argmax(logits, dim=-1), "cache": cache}
+
+    def step():
+        out, state["cache"] = model_lib.decode_step(cfg, params, state["tok"], state["cache"])
+        state["tok"] = torch.argmax(out, dim=-1)
+
+    prof = profile_steps(step, PROFILED[VLM_ARCH]["decode"])
+    prof["device_busy_share_of_median_step"] = (
+        prof["device_ms_per_step"] / result["decode_ms_per_step_median"])
+    result["decode_profile"] = prof
+    del state, cache, logits
+    one = Engine(cfg, params, EngineConfig(slots=1, cache_len=VLM_CACHE, dtype=torch.bfloat16,
+                                           device="cuda"))
+    result["prefill_profile"] = profile_prefill(one, None, PROFILED[VLM_ARCH]["prefill"],
+                                                inputs=batches[0][:1])
+    text = np.asarray(texts[0][0])                     # the first request's, and its image:
+    del params, batches, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    image = torch.from_numpy(frontends.vision_embeddings(cfg, 1, tiles=VLM_TILES, seed=seed)[0])
+    t_f32 = time.perf_counter()
+    result["f32_check"] = f32_check_cut(VLM_ARCH, VLM_F32_LAYERS)(seed, text, image=image)
+    result["phase_s"] = time.perf_counter() - t_phase
+    result["seconds"] = phase_seconds(t_phase, t0, t_profiles, t_f32)
+    return result
+
+
 
 # ---------------------------------------------------------------------------
 # Phase 4: the control plane, the batched tick engine on the card.
@@ -1820,18 +2105,24 @@ def phase_whisper(seed, gpu):
 # the JAX package's own benchmark shapes (benchmarks/sim_throughput.py):
 # a fleet of FLEET_ARCHS archs over SCAN_TICKS ticks of the shared_berkeley
 # scenario, and a grid of GRID_CELLS cells (the four GRID_SCENARIOS x 16
-# seeds) of GRID_ARCHS archs over the same number of ticks
+# seeds) of GRID_ARCHS archs over the same number of ticks; one cut,
+# CONTROL_CUT: SCAN_TICKS, SAME_TICKS and PROFILE_TICKS, for time
 SERVING_POOL = ["llama3-8b", "qwen1.5-0.5b", "rwkv6-1.6b", "minicpm-2b", "whisper-small",
                 "llava-next-mistral-7b", "recurrentgemma-9b", "phi3.5-moe-42b-a6.6b"]
-FLEET_ARCHS, SCAN_TICKS, STRICT_FRAC = 1024, 3600, 0.25
+FLEET_ARCHS, SCAN_TICKS, STRICT_FRAC = 1024, 600, 0.25
 GRID_CELLS, GRID_ARCHS, GRID_MEAN_RPS = 64, 16, 400.0
 GRID_SCENARIOS = ("shared_berkeley", "diurnal_phases", "mmpp_bursts", "flash_correlated")
 # grid cells held to the NumPy engine and to run_scenario: all four scenarios
 GRID_SAMPLE = (0, 9, 18, 27, 36, 45, 54, 63)
 # the grid = run_scenario check runs the grid again over the first
 # SAME_TICKS ticks of every cell and each sampled cell alone over them
-SAME_TICKS = 600
-PROFILE_TICKS = 100
+SAME_TICKS = 150
+PROFILE_TICKS = 50
+CONTROL_CUT = ("the fleet and grid runs over 600 of the benchmark's 3600 ticks, the grid = "
+               "run_scenario check over 150 of 600 and the profiles over 50 of 100 ticks, so "
+               "that the run, with the served slices 3g-3k, stays within 900 s: the uncut "
+               "phase took 241 s, at 1200, 300 and 100 ticks 134.5 s, on an "
+               "H100 80GB HBM3 at 700 W")
 # the contract of tests/test_torch_sim_engine.py (and the reference's
 # tests/test_jax_engine.py): raw ledger totals and per-arch flows
 SIM_RTOL = SIM_ATOL = 1e-6
@@ -1939,9 +2230,10 @@ def phase_control_plane(seed):
     under portfolio and rl_pool, run_grid over 64 cells of 16 archs under
     portfolio, every run held to the port's NumPy engine."""
     t_phase = time.perf_counter()
+    print(f"[cut] phase 4: {CONTROL_CUT}")
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
-    result = {"sync_guard_catches_a_sync": check_sync_guard(dev)}
+    result = {"sync_guard_catches_a_sync": check_sync_guard(dev), "cut": CONTROL_CUT}
     wl = core_sim.replicate_pool(SERVING_POOL, FLEET_ARCHS, strict_frac=STRICT_FRAC)
     arr = SCENARIO_ZOO["shared_berkeley"].build(FLEET_ARCHS, duration_s=SCAN_TICKS)
     worst = 0.0
@@ -2906,6 +3198,23 @@ def spec_step_on_card(cfg, shape, seed):
             "flops_dry_run": rec["flops"]}
 
 
+DRYRUN_CUT = ("the dry-run's table at one input shape an arch, 10 records instead of all 40, "
+              "each arch and each shape at least once: the shallowest arch at the train "
+              "shape (a forward and a backward to count), the others deepest first at the "
+              "three one-pass shapes in turn; so that the run, with the served slices 3g-3k, "
+              "stays within 900 s: the 40 took ~96 s of host time on the H100 machine; "
+              "tests/test_torch_dryrun.py holds all 40 on the CPU at one pattern repetition")
+
+
+def dryrun_plan() -> dict:
+    """DRYRUN_CUT's shape for each arch."""
+    archs = sorted(list_architectures(), key=lambda a: -get_config(a).num_layers)
+    train = [n for n, shape in INPUT_SHAPES.items() if shape.kind == "train"]
+    one_pass = [n for n in INPUT_SHAPES if n not in train]
+    plan = {arch: one_pass[i % len(one_pass)] for i, arch in enumerate(archs[:-1])}
+    return {**plan, archs[-1]: train[0]}
+
+
 def phase_specs(seed, gpu):
     """qwen1.5-0.5b's train, prefill and decode steps from ``build_step`` on
     the card, kimi-k2's decode step at one layer, then the dry-run's FLOP
@@ -2919,18 +3228,19 @@ def phase_specs(seed, gpu):
     for r in steps:
         print("[specs] " + json.dumps(r))
     t0 = time.perf_counter()
+    print(f"[cut] phase 7: {DRYRUN_CUT}")
     table = {}
-    for arch in list_architectures():
-        for name, shape in INPUT_SHAPES.items():
-            rec = dryrun.record(get_config(arch), shape)
-            table[f"{arch} {name}"] = {"flops": rec["flops"], "flops_ideal": rec["flops_ideal"],
-                                       **{f"{k}_bytes": v for k, v in rec["bytes"].items()}}
+    for arch, name in dryrun_plan().items():
+        rec = dryrun.record(get_config(arch), INPUT_SHAPES[name])
+        table[f"{arch} {name}"] = {"flops": rec["flops"], "flops_ideal": rec["flops_ideal"],
+                                   **{f"{k}_bytes": v for k, v in rec["bytes"].items()}}
     print("[dryrun] product FLOPs (FlopCounterMode on meta tensors, equal to the analytic "
-          "count), the ideal count and bytes, every arch x input shape: " + json.dumps(table))
+          "count), the ideal count and bytes, every arch at one input shape (DRYRUN_CUT): "
+          + json.dumps(table))
     dry_run_s = time.perf_counter() - t0
     partition = partition_runs()
-    return {"steps": steps, "dry_run_s": dry_run_s, "partition": partition, "gpu": gpu,
-            "phase_s": time.perf_counter() - t_phase}
+    return {"steps": steps, "dry_run_s": dry_run_s, "dry_run_cut": DRYRUN_CUT,
+            "partition": partition, "gpu": gpu, "phase_s": time.perf_counter() - t_phase}
 
 
 # the dry-run's partition (launch/dryrun.py:run_one) over the
@@ -3400,20 +3710,26 @@ def kernel_time(by_kernel, patterns) -> float:
 
 
 def profile_decode(engine, prompts, kernel, steps=8):
-    """Device time of ``steps`` decode steps with all slots live, from
-    ``torch.profiler``: busy share of the host-clock window, the time of
-    ``kernel`` = (label, name patterns) and the kernels that take the most
-    device time.  Runs after the served run; its launches are not counted
-    against the main path."""
+    """``profile_steps`` of the engine's ``step`` with all slots live.  Runs
+    after the served run; its launches are not counted against the main
+    path."""
     for i, p in enumerate(prompts[:SLOTS]):
         engine.insert(Request(rid=1000 + i, prompt=p, max_new_tokens=steps + 1))
+    return profile_steps(engine.step, kernel, steps)
+
+
+def profile_steps(step, kernel, steps=8):
+    """Device time of ``steps`` calls of ``step`` (one decode step each),
+    from ``torch.profiler``: busy share of the host-clock window, the time
+    of ``kernel`` = (label, name patterns) and the kernels that take the
+    most device time."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     before = da.launches
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
-            engine.step()
+            step()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_kernel = device_times(prof)
@@ -3524,9 +3840,10 @@ PROFILE_PAD_LAUNCHES = 256
 PROFILE_PAD_CYCLES = 200_000
 
 
-def profile_prefill(engine, prompt, kernel, length=PROMPT_MAX):
+def profile_prefill(engine, prompt, kernel, length=PROMPT_MAX, inputs=None):
     """Device time of one ``length``-token prefill, the engine's own call
-    (batch 1, a fresh one-sequence cache), after one unprofiled warm-up:
+    (batch 1, a fresh one-sequence cache), after one unprofiled warm-up
+    (``inputs`` (1, S, d), a VLM's embeddings, in place of the prompt):
     busy share of its host-clock window, the time and share of device time
     of ``kernel`` = (label, name patterns) and the kernels that take the
     most.
@@ -3544,10 +3861,14 @@ def profile_prefill(engine, prompt, kernel, length=PROMPT_MAX):
     with its count, and the prefill is profiled again, at most
     PREFILL_PROFILE_TRIES times in all, before ``kernel_time`` fails.  Each
     profile's readings are returned under ``"profiles"``."""
-    tokens = torch.as_tensor(np.resize(prompt, length), dtype=torch.long,
-                             device=engine.device)[None, :]
-    other = torch.roll(tokens, 1, dims=1) + 1
-    other = torch.where(other < engine.cfg.vocab_size, other, torch.zeros_like(other))
+    if inputs is None:
+        tokens = torch.as_tensor(np.resize(prompt, length), dtype=torch.long,
+                                 device=engine.device)[None, :]
+        other = torch.roll(tokens, 1, dims=1) + 1
+        other = torch.where(other < engine.cfg.vocab_size, other, torch.zeros_like(other))
+    else:
+        tokens, other = inputs, torch.roll(inputs, 1, dims=1)
+    length = tokens.shape[1]
 
     def run(x):
         return model_lib.prefill(engine.cfg, engine.params, x, engine._init_cache(1),
@@ -3615,20 +3936,28 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def _teacher_forced(cfg, params, prompt, tokens, device, enc_inputs=None):
+def _teacher_forced(cfg, params, prompt, tokens, device, enc_inputs=None, image=None,
+                    window=0):
     """Prefill plus F32_DECODE_STEPS decode steps of batch 1; feeds ``tokens``
-    when given, else the greedy ones, which it returns."""
-    cache = model_lib.init_cache(cfg, 1, len(prompt) + F32_DECODE_STEPS,
-                                 dtype=torch.float32, device=device)
+    when given, else the greedy ones, which it returns.  With ``image``
+    (patches, d) the prefill takes embeddings, the patches then the
+    prompt's rows of the embedding table, as ``frontends.multimodal_inputs``
+    builds them; with ``window`` the cache is a ring of ``window`` slots."""
+    inputs = prompt[None].to(device)
+    if image is not None:
+        inputs = torch.cat([image.to(device, params["embed"].dtype)[None],
+                            params["embed"][inputs]], dim=1)
+    cache = model_lib.init_cache(cfg, 1, window or inputs.shape[1] + F32_DECODE_STEPS,
+                                 window=window, dtype=torch.float32, device=device)
     enc = enc_inputs.to(device) if enc_inputs is not None else None
-    logits, cache = model_lib.prefill(cfg, params, prompt[None].to(device), cache,
-                                      enc_inputs=enc)
+    logits, cache = model_lib.prefill(cfg, params, inputs, cache, enc_inputs=enc, window=window)
     out, fed = [logits], []
     for i in range(F32_DECODE_STEPS):
         tok = tokens[i] if tokens is not None else int(torch.argmax(logits[0]))
         fed.append(tok)
         logits, cache = model_lib.decode_step(
-            cfg, params, torch.tensor([tok], dtype=torch.long, device=device), cache)
+            cfg, params, torch.tensor([tok], dtype=torch.long, device=device), cache,
+            window=window)
         out.append(logits)
     return out, fed
 
@@ -3636,7 +3965,9 @@ def _teacher_forced(cfg, params, prompt, tokens, device, enc_inputs=None):
 def served_prompts(seed) -> dict:
     """The slices' traffic by arch: N_REQUESTS prompts of PROMPT_MIN to
     PROMPT_MAX tokens from ``seed`` for the main path, and the same lengths
-    in each other served model's vocabulary."""
+    in each other served model's vocabulary; under LONG_SLICE LONG_REQUESTS
+    prompts of LONG_MIN to LONG_MAX tokens in llama3-8b's, and under
+    VLM_ARCH VLM_BATCHES batches of SLOTS text prompts of VLM_TEXT tokens."""
     rng = np.random.default_rng(seed)
     vocab = get_config(ARCH).vocab_size
     prompts = [
@@ -3644,9 +3975,16 @@ def served_prompts(seed) -> dict:
         for _ in range(N_REQUESTS)
     ]
     out = {ARCH: prompts}
-    for arch in (RWKV_ARCH, MOE_ARCH, RG_ARCH, KIMI_ARCH):
+    for arch in (RWKV_ARCH, MOE_ARCH, RG_ARCH, KIMI_ARCH, LLAMA_ARCH, MINICPM_ARCH, QWEN2_ARCH):
         v = get_config(arch).vocab_size
         out[arch] = [rng.integers(0, v, size=len(p)).astype(np.int32) for p in prompts]
+    v = get_config(LLAMA_ARCH).vocab_size
+    out[LONG_SLICE] = [
+        rng.integers(0, v, size=int(rng.integers(LONG_MIN, LONG_MAX + 1))).astype(np.int32)
+        for _ in range(LONG_REQUESTS)]
+    v = get_config(VLM_ARCH).vocab_size
+    out[VLM_ARCH] = [rng.integers(0, v, size=(SLOTS, VLM_TEXT)).astype(np.int32)
+                     for _ in range(VLM_BATCHES)]
     return out
 
 
@@ -3664,11 +4002,13 @@ def main() -> None:
     traffic = served_prompts(args.seed)
     prompts, rwkv_prompts, moe_prompts, rg_prompts, kimi_prompts = (
         traffic[a] for a in (ARCH, RWKV_ARCH, MOE_ARCH, RG_ARCH, KIMI_ARCH))
-    rows = phase_kernels(args.seed, [len(p) for p in prompts])
+    rows = phase_kernels(args.seed, [len(p) for p in prompts],
+                         [len(p) for p in traffic[LONG_SLICE]])
     rows.append(phase_rwkv_kernel(args.seed))
     qwen = get_config(ARCH)
     moe = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
     kimi = dataclasses.replace(get_config(KIMI_ARCH), num_layers=KIMI_LAYERS)
+    llama = get_config(LLAMA_ARCH)
     # one slice at a time: each phase frees its weights before the next
     slices = [phase_slice(qwen, args.seed, prompts, gpu,
                           lambda seed, prompt: f32_check(qwen, seed, prompt)),
@@ -3676,7 +4016,18 @@ def main() -> None:
               phase_slice(moe, args.seed, moe_prompts, gpu, f32_check_moe),
               phase_slice(get_config(RG_ARCH), args.seed, rg_prompts, gpu, f32_check_rg),
               phase_whisper(args.seed, gpu),
-              phase_slice(kimi, args.seed, kimi_prompts, gpu, f32_check_kimi)]
+              phase_slice(kimi, args.seed, kimi_prompts, gpu, f32_check_kimi),
+              phase_slice(llama, args.seed, traffic[LLAMA_ARCH], gpu,
+                          f32_check_cut(LLAMA_ARCH, LLAMA_F32_LAYERS)),
+              phase_slice(llama, args.seed, traffic[LONG_SLICE], gpu, f32_check_long,
+                          cache_len=LONG_CACHE, window=llama.long_context_window,
+                          prefill_length=LONG_MAX, label=LONG_SLICE),
+              phase_slice(get_config(MINICPM_ARCH), args.seed, traffic[MINICPM_ARCH], gpu,
+                          f32_check_cut(MINICPM_ARCH, MINICPM_F32_LAYERS)),
+              phase_slice(dataclasses.replace(get_config(QWEN2_ARCH), num_layers=QWEN2_LAYERS),
+                          args.seed, traffic[QWEN2_ARCH], gpu,
+                          f32_check_cut(QWEN2_ARCH, QWEN2_F32_LAYERS)),
+              phase_vlm(args.seed, traffic[VLM_ARCH], gpu)]
     control = phase_control_plane(args.seed)
     ppo_run = phase_ppo(args.seed)
     trained = [phase_train(args.seed, gpu, prompts[0]), phase_train_rwkv(args.seed, gpu)]

@@ -41,7 +41,7 @@ def _err(j, t) -> float:
     return float(np.max(np.abs(np.asarray(j) - t.numpy())))
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "llama3-8b", "minicpm-2b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "llama3-8b", "minicpm-2b", "qwen2-72b"])
 def test_logits_match_jax(arch):
     jcfg, tcfg, jp, tp = _pair(arch)
     toks = _tokens(jcfg)
@@ -78,6 +78,55 @@ def test_windowed_forward_and_prefill_match_jax():
     tlast, _ = model.prefill(tcfg, tp, torch.from_numpy(toks).long(),
                              model.init_cache(tcfg, 2, 8, window=8, device="cpu"), window=8)
     assert _err(jlast, tlast) < TOL
+
+
+def test_windowed_decode_past_the_ring_matches_jax():
+    """The sliding-window mode over a ring shorter than the prompt: the
+    prefill keeps the prompt's tail, then each decode step overwrites the
+    ring's oldest slot; logits and every cache leaf against the JAX package."""
+    jcfg, tcfg, jp, tp = _pair("llama3-8b")
+    W = 8
+    toks = _tokens(jcfg)                                   # 20 tokens, a ring of 8
+    jcache = jmodel.init_cache(jcfg, 2, W, window=W)
+    tcache = model.init_cache(tcfg, 2, W, window=W, device="cpu")
+    jlast, jcache = jmodel.prefill(jcfg, jp, jnp.asarray(toks), jcache, window=W)
+    tlast, tcache = model.prefill(tcfg, tp, torch.from_numpy(toks).long(), tcache, window=W)
+    assert _err(jlast, tlast) < TOL
+    nxt = np.asarray(jnp.argmax(jlast, -1)).astype(np.int32)
+    for _ in range(W + 2):                                 # around the ring and past it
+        jd, jcache = jmodel.decode_step(jcfg, jp, jnp.asarray(nxt), jcache, window=W)
+        td, tcache = model.decode_step(tcfg, tp, torch.from_numpy(nxt).long(), tcache, window=W)
+        assert _err(jd, td) < TOL
+        nxt = np.asarray(jnp.argmax(jd, -1)).astype(np.int32)
+    jattn, tattn = jcache["blocks"]["p0_attn"]["attn"], tcache["blocks"]["p0_attn"]["attn"]
+    assert np.array_equal(np.asarray(jattn["slot_pos"]), tattn["slot_pos"].numpy())
+    assert np.array_equal(np.asarray(jcache["t"]), tcache["t"].numpy())
+    for key in ("k", "v"):
+        assert _err(jattn[key], tattn[key]) < TOL
+
+
+def test_vlm_embedding_prefill_and_decode_match_jax():
+    """The VLM at its entry points: ``prefill`` on patch and text embeddings
+    (``frontends.multimodal_inputs``, one anyres tile), then 3 greedy
+    ``decode_step``s on tokens."""
+    jcfg, tcfg, jp, tp = _pair("llava-next-mistral-7b", seed=5)
+    text = _tokens(jcfg, b=2, s=6, seed=5)
+    inputs = frontends.multimodal_inputs(tcfg, text, np.asarray(jp["embed"]), tiles=1, seed=1)
+    jcache = jmodel.init_cache(jcfg, 2, inputs.shape[1] + 4)
+    tcache = model.init_cache(tcfg, 2, inputs.shape[1] + 4, device="cpu")
+    jlast, jcache = jmodel.prefill(jcfg, jp, jnp.asarray(inputs), jcache)
+    tlast, tcache = model.prefill(tcfg, tp, torch.from_numpy(inputs), tcache)
+    assert tlast.shape == (2, tcfg.vocab_size) and _err(jlast, tlast) < TOL
+    assert np.array_equal(np.asarray(jcache["t"]), tcache["t"].numpy())
+    nxt = np.asarray(jnp.argmax(jlast, -1)).astype(np.int32)
+    for _ in range(3):
+        jd, jcache = jmodel.decode_step(jcfg, jp, jnp.asarray(nxt), jcache)
+        td, tcache = model.decode_step(tcfg, tp, torch.from_numpy(nxt).long(), tcache)
+        assert _err(jd, td) < TOL
+        nxt = np.asarray(jnp.argmax(jd, -1)).astype(np.int32)
+    for key in ("k", "v"):
+        assert _err(jcache["blocks"]["p0_attn"]["attn"][key],
+                    tcache["blocks"]["p0_attn"]["attn"][key]) < TOL
 
 
 def test_vlm_embedding_inputs_match_jax():

@@ -103,6 +103,27 @@ def test_batcher_conservation(small_lm):
     assert all(len(o) == 1 + 2 for o in tout)   # prefill token + 2 decoded
 
 
+def test_windowed_engine_matches_jax_on_prompts_longer_than_the_ring(small_lm):
+    """The sliding-window mode (``EngineConfig.window``): every layer's cache
+    a ring of 8 slots, prompts of 9-17 tokens, 10 new tokens each (the ring
+    wraps again in decode), three requests over two slots (one slot reused);
+    the greedy tokens equal the JAX engine's."""
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 1024, size=n).astype(np.int32) for n in (12, 17, 9)]
+    jeng, teng = _engines(small_lm, slots=2, cache_len=8, window=8, max_new_tokens=10)
+    assert teng.cache["blocks"]["p0_attn"]["attn"]["k"].shape[2] == 8
+    outs = []
+    for eng, bat_cls, req_cls in ((jeng, JaxBatcher, JaxRequest),
+                                  (teng, ContinuousBatcher, Request)):
+        bat = bat_cls(eng)
+        reqs = [req_cls(rid=i, prompt=p, max_new_tokens=10) for i, p in enumerate(prompts)]
+        for r in reqs:
+            bat.submit(r)
+        bat.run_until_idle()
+        outs.append([r.output for r in reqs])
+    assert outs[1] == outs[0] and all(len(o) == 11 for o in outs[1])
+
+
 def test_scatter_slot_writes_one_lane(small_lm):
     """A batch-1 prefill lands in its slot of the layer-stacked cache
     (batch axis 1) and of ``t`` (batch axis 0), leaving other slots alone."""

@@ -52,8 +52,9 @@ from repro_torch.training.optimizer import tree_leaves
 
 TOL = 1e-5           # against the unsharded step, of each leaf's largest magnitude
 REF_LOGIT_TOL = 1e-4  # the port's unsharded logits parity (test_torch_model.py)
-CASES = [(a, m) for a in workers.STEP_ARCHS for m in workers.STEP_MESHES]
-IDS = [f"{a}-{m[0]}x{m[1]}" for a, m in CASES]
+CASES = workers.step_cases()
+IDS = [f"{a}-{m[0]}x{m[1]}" + ("" if c == workers.STEP_CAPACITY else "-own_capacity")
+       for a, m, c in CASES]
 
 
 @pytest.fixture(scope="module")
@@ -72,8 +73,8 @@ def runs(tmp_path_factory):
     return out
 
 
-def _rank(runs, arch, mesh, rank):
-    return torch.load(os.path.join(runs, f"{workers.step_tag(arch, mesh)}.rank{rank}.pt"))
+def _rank(runs, arch, mesh, rank, capacity=workers.STEP_CAPACITY):
+    return torch.load(os.path.join(runs, f"{workers.step_tag(arch, mesh, capacity)}.rank{rank}.pt"))
 
 
 def _close(name, got, want, tol=TOL):
@@ -83,10 +84,10 @@ def _close(name, got, want, tol=TOL):
     assert err <= tol * max(float(np.max(np.abs(want))), 1e-30), (name, err)
 
 
-@pytest.mark.parametrize("arch,mesh", CASES, ids=IDS)
-def test_sharded_loss_and_gradients_equal_the_unsharded(runs, arch, mesh):
+@pytest.mark.parametrize("arch,mesh,capacity", CASES, ids=IDS)
+def test_sharded_loss_and_gradients_equal_the_unsharded(runs, arch, mesh, capacity):
     for rank in range(4):
-        res = _rank(runs, arch, mesh, rank)
+        res = _rank(runs, arch, mesh, rank, capacity)
         got, want = res["sharded"], res["plain"]
         _close("loss", got["loss"], want["loss"])
         assert len(got["grads"]) == len(want["grads"])
@@ -94,10 +95,10 @@ def test_sharded_loss_and_gradients_equal_the_unsharded(runs, arch, mesh):
             _close(f"rank {rank} grad {i}", g, w)
 
 
-@pytest.mark.parametrize("arch,mesh", CASES, ids=IDS)
-def test_sharded_train_step_equals_the_unsharded(runs, arch, mesh):
+@pytest.mark.parametrize("arch,mesh,capacity", CASES, ids=IDS)
+def test_sharded_train_step_equals_the_unsharded(runs, arch, mesh, capacity):
     for rank in range(4):
-        res = _rank(runs, arch, mesh, rank)
+        res = _rank(runs, arch, mesh, rank, capacity)
         got, want = res["sharded"], res["plain"]
         _close("step loss", got["step_loss"], want["step_loss"])
         for key in ("new_params", "m", "v"):
@@ -105,10 +106,10 @@ def test_sharded_train_step_equals_the_unsharded(runs, arch, mesh):
                 _close(f"rank {rank} {key} {i}", g, w)
 
 
-@pytest.mark.parametrize("arch,mesh", CASES, ids=IDS)
-def test_sharded_prefill_and_decode_logits_equal_the_unsharded(runs, arch, mesh):
+@pytest.mark.parametrize("arch,mesh,capacity", CASES, ids=IDS)
+def test_sharded_prefill_and_decode_logits_equal_the_unsharded(runs, arch, mesh, capacity):
     for rank in range(4):
-        res = _rank(runs, arch, mesh, rank)
+        res = _rank(runs, arch, mesh, rank, capacity)
         got, want = res["sharded"], res["plain"]
         assert len(got["logits"]) == 1 + workers.STEP_DECODES
         for i, (g, w) in enumerate(zip(got["logits"], want["logits"])):
@@ -130,17 +131,18 @@ def test_the_unsharded_steps_agree_across_ranks_and_meshes(runs, arch):
                 _close("logits", g, w, tol=TOL)
 
 
-@pytest.mark.parametrize("arch,mesh", CASES, ids=IDS)
-def test_sharded_step_matches_the_reference_jitted_step(runs, arch, mesh):
+@pytest.mark.parametrize("arch,mesh,capacity", CASES, ids=IDS)
+def test_sharded_step_matches_the_reference_jitted_step(runs, arch, mesh, capacity):
     """Against the reference's steps jitted with ``in_shardings`` on four
     forced host devices: the train step's loss, first moments (the clipped
     gradients times 1 - b1) and new parameters at 1e-5 of each leaf's
-    largest magnitude, the logits at 1e-4."""
-    with open(os.path.join(runs, f"{workers.step_tag(arch, mesh)}.jax.pkl"), "rb") as f:
+    largest magnitude, the logits at 1e-4.  phi also at its config's own
+    capacity factor on (1, 4), where EP's shards drop tokens."""
+    with open(os.path.join(runs, f"{workers.step_tag(arch, mesh, capacity)}.jax.pkl"), "rb") as f:
         ref = pickle.load(f)
-    cfg = workers.step_config(arch, configs)
+    cfg = workers.step_config(arch, configs, capacity)
     for rank in range(4):
-        got = _rank(runs, arch, mesh, rank)["sharded"]
+        got = _rank(runs, arch, mesh, rank, capacity)["sharded"]
         _close("step loss", got["step_loss"], ref["step_loss"])
         for key in ("m", "new_params"):
             want = tree_leaves(params_from_jax(cfg, jax.tree.map(
@@ -152,12 +154,12 @@ def test_sharded_step_matches_the_reference_jitted_step(runs, arch, mesh):
             assert err < REF_LOGIT_TOL, (rank, i, err)
 
 
-@pytest.mark.parametrize("arch,mesh", CASES, ids=IDS)
-def test_the_step_partitions(runs, arch, mesh):
+@pytest.mark.parametrize("arch,mesh,capacity", CASES, ids=IDS)
+def test_the_step_partitions(runs, arch, mesh, capacity):
     """Most parameters sharded (heads and ff over ``model``; on (2, 2) FSDP's
     ``embed`` over ``data`` too), and the decode cache's ``kv_seq`` over
     ``model`` (the split-K spec).  A mesh axis of one rank replicates."""
-    got = _rank(runs, arch, mesh, 0)["sharded"]
+    got = _rank(runs, arch, mesh, 0, capacity)["sharded"]
     sharded = [p for p in got["param_placements"] if "Shard" in p]
     assert 2 * len(sharded) > len(got["param_placements"])
     if mesh == (2, 2):
@@ -165,6 +167,21 @@ def test_the_step_partitions(runs, arch, mesh):
     # the stacked cache (layers, B, S, kv heads, hd): batch over data, S over model
     batch = "Shard(dim=1)" if mesh[0] > 1 else "Replicate()"
     assert got["cache_placements"] == f"({batch}, Shard(dim=2))"
+
+
+def test_phi_at_its_own_capacity_factor_drops_tokens(runs):
+    """At the config's own capacity factor (1.25) the EP shards on
+    ``DROPS_MESH`` drop tokens that STEP_CAPACITY keeps: the reference's
+    prefill logits move between the two factors on the same tokens (and
+    the port's equal the reference's at each factor, above)."""
+    cfg = workers.step_config(workers.PHI, configs, None)
+    assert cfg.moe_capacity_factor == 1.25 < workers.STEP_CAPACITY
+    tag = workers.step_tag(workers.PHI, workers.DROPS_MESH, None)
+    with open(os.path.join(runs, f"{tag}.jax.pkl"), "rb") as f:
+        ref = pickle.load(f)
+    assert float(np.max(np.abs(ref["logits"][0] - ref["prefill_logits_kept"]))) > 1e-2
+    got = _rank(runs, workers.PHI, workers.DROPS_MESH, 0, None)["sharded"]["logits"][0]
+    assert float(np.max(np.abs(got.numpy() - ref["prefill_logits_kept"]))) > 1e-2
 
 
 def test_a_dimension_over_two_mesh_axes_splits_as_a_partition_spec(runs):

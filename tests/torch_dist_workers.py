@@ -62,15 +62,25 @@ AUX_WEIGHT = 0.01
 PHI = "phi3.5-moe-42b-a6.6b"
 PHI_MESH, PHI_TOKENS = (1, 2), (2, 32)
 GRID_ARCHS = ["llama3-8b", "minicpm-2b", "qwen1.5-0.5b"]
-# the partitioned steps: archs, meshes (data, model), batch, prompt and
-# cache lengths, decode steps.  phi's capacity factor is raised so that no
-# expert drops a token, neither in an EP shard nor over the whole batch:
+# the partitioned steps: archs, meshes (data, model), batch and prompt
+# lengths (the cache twice the prompt), decode steps.  phi's capacity
+# factor is raised so that no expert drops a token, neither in an EP shard
+# nor over the whole batch:
 # the EP capacity is per shard by design (tests/test_torch_ep.py holds the
 # dropping shapes), and here the sharded step must equal the unsharded one
 STEP_ARCHS = ("qwen1.5-0.5b", PHI)
 STEP_MESHES = ((2, 2), (1, 4))
-STEP_B, STEP_S, STEP_CACHE, STEP_DECODES = 4, 16, 32, 2
+STEP_B, STEP_S, STEP_DECODES = 4, 16, 2
 STEP_CAPACITY = 8.0
+# phi's steps also at its config's own capacity factor (1.25), on one mesh,
+# over DROPS_S tokens a sequence whose first DROPS_RUN are one id: at the
+# first layer those positions are the same vector (attention over equal
+# values gives that value), so they choose the same experts, and an EP
+# shard's DROPS_S tokens overflow its capacity of 24 rows an expert
+# (1.25 x 2 x 32 / 4, plus one, up to a multiple of 8); the reference's
+# jitted step drops them per shard as well.  (At STEP_S a shard's 16
+# tokens never overflow its floor of 16 rows, whatever the routing.)
+DROPS_MESH, DROPS_S, DROPS_RUN = (1, 4), 32, 24
 GRID_A, GRID_T = 3, 120
 
 
@@ -99,18 +109,37 @@ def phi_batch(vocab: int):
     return tokens, labels
 
 
-def step_inputs(vocab: int) -> dict:
-    """The steps' tokens (B, S), labels (two masked) and decode tokens."""
+def step_inputs(vocab: int, capacity=STEP_CAPACITY) -> dict:
+    """The steps' tokens (B, S), labels (two masked) and decode tokens; at
+    the config's own capacity factor S is DROPS_S, its first DROPS_RUN
+    tokens one id."""
     rng = np.random.default_rng(11)
-    tokens = rng.integers(0, vocab, size=(STEP_B, STEP_S)).astype(np.int32)
-    labels = rng.integers(0, vocab, size=(STEP_B, STEP_S)).astype(np.int32)
+    s = step_seq(capacity)
+    tokens = rng.integers(0, vocab, size=(STEP_B, s)).astype(np.int32)
+    labels = rng.integers(0, vocab, size=(STEP_B, s)).astype(np.int32)
     labels[0, :2] = -1
     decode = rng.integers(0, vocab, size=(STEP_DECODES, STEP_B)).astype(np.int32)
+    if capacity != STEP_CAPACITY:
+        tokens[:, :DROPS_RUN] = tokens[0, 0]
     return {"tokens": tokens, "labels": labels, "decode": decode}
 
 
-def step_tag(arch: str, shape) -> str:
-    return f"{arch}.{shape[0]}x{shape[1]}"
+def step_seq(capacity=STEP_CAPACITY) -> int:
+    """The steps' sequence length: STEP_S, DROPS_S at the config's own
+    capacity factor; the cache holds twice as many slots."""
+    return STEP_S if capacity == STEP_CAPACITY else DROPS_S
+
+
+def step_cases():
+    """(arch, mesh, capacity factor) of every run of the step job: the
+    factor ``STEP_CAPACITY``, or None for the config's own."""
+    return ([(arch, shape, STEP_CAPACITY) for shape in STEP_MESHES for arch in STEP_ARCHS]
+            + [(PHI, DROPS_MESH, None)])
+
+
+def step_tag(arch: str, shape, capacity=STEP_CAPACITY) -> str:
+    tag = f"{arch}.{shape[0]}x{shape[1]}"
+    return tag if capacity == STEP_CAPACITY else f"{tag}.own_capacity"
 
 
 def grid_inputs():
@@ -245,13 +274,15 @@ def run_ep(rank: int, world: int, store: str, out: str) -> None:
     dist.destroy_process_group()
 
 
-def step_config(arch: str, package):
-    """``arch`` at ``reduced()`` from ``package``'s registry, MoE at
-    ``STEP_CAPACITY``."""
+def step_config(arch: str, package, capacity=STEP_CAPACITY):
+    """``arch`` at ``reduced()`` from ``package``'s registry, MoE at the
+    capacity factor ``capacity`` (None: the config's own)."""
     import dataclasses
 
     cfg = package.get_config(arch).reduced()
-    return dataclasses.replace(cfg, moe_capacity_factor=STEP_CAPACITY) if cfg.num_experts else cfg
+    if cfg.num_experts and capacity is not None:
+        return dataclasses.replace(cfg, moe_capacity_factor=capacity)
+    return cfg
 
 
 def run_step(rank: int, world: int, store: str, out: str) -> None:
@@ -289,7 +320,8 @@ def run_step(rank: int, world: int, store: str, out: str) -> None:
         full = (lambda t: t.full_tensor().detach()) if placed else (lambda t: t.detach())
         batch = {"inputs": data["tokens"], "labels": data["labels"]}
         res = {}
-        train = InputShape("train_reduced", STEP_S, STEP_B, "train")
+        s = data["tokens"].shape[1]
+        train = InputShape("train_reduced", s, STEP_B, "train")
         step, _, specs, rules, _ = build_step(cfg, train, mesh, param_dtype=torch.float32)
         p, b = put(params, specs[0]), put(batch, specs[2])
         leaves = [t.detach().requires_grad_() for t in tree_leaves(p)]
@@ -306,8 +338,8 @@ def run_step(rank: int, world: int, store: str, out: str) -> None:
             res["param_placements"] = [str(t.placements) for t in tree_leaves(p)]
         # a prefill under the prefill rules, two decode steps under the decode rules
         pre_rules = make_rules(cfg, mesh, "prefill", batch_size=STEP_B)
-        dec_rules = make_rules(cfg, mesh, "decode", batch_size=STEP_B, cache_len=STEP_CACHE)
-        cache = model.init_cache(cfg, STEP_B, STEP_CACHE, device="cpu")
+        dec_rules = make_rules(cfg, mesh, "decode", batch_size=STEP_B, cache_len=2 * s)
+        cache = model.init_cache(cfg, STEP_B, 2 * s, device="cpu")
         axes = cache_axes(cache)
         with torch.no_grad():
             with axis_rules(pre_rules):
@@ -326,15 +358,16 @@ def run_step(rank: int, world: int, store: str, out: str) -> None:
                     res["logits"].append(full(logits))
         return res
 
-    for shape in STEP_MESHES:
-        mesh = make_test_mesh(shape)
-        for arch in STEP_ARCHS:
-            cfg = step_config(arch, configs)
-            params = torch.load(os.path.join(out, f"{arch}.params.pt"))
-            data = {k: torch.tensor(v).long() for k, v in step_inputs(cfg.vocab_size).items()}
-            res = {"sharded": steps(cfg, mesh, params, data, placed=True),
-                   "plain": steps(cfg, mesh, params, data, placed=False)}
-            torch.save(res, os.path.join(out, f"{step_tag(arch, shape)}.rank{rank}.pt"))
+    meshes = {}
+    for arch, shape, capacity in step_cases():
+        mesh = meshes.setdefault(shape, make_test_mesh(shape))
+        cfg = step_config(arch, configs, capacity)
+        params = torch.load(os.path.join(out, f"{arch}.params.pt"))
+        data = {k: torch.tensor(v).long()
+                for k, v in step_inputs(cfg.vocab_size, capacity).items()}
+        res = {"sharded": steps(cfg, mesh, params, data, placed=True),
+               "plain": steps(cfg, mesh, params, data, placed=False)}
+        torch.save(res, os.path.join(out, f"{step_tag(arch, shape, capacity)}.rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
 
@@ -450,49 +483,55 @@ def run_jax_step(out: str) -> None:
     from repro.models import model
     from repro.training.optimizer import OptimizerConfig, adamw_init
 
-    for shape in STEP_MESHES:
+    for arch, shape, capacity in step_cases():
         mesh = jax.make_mesh(shape, ("data", "model"), axis_types=(AxisType.Auto,) * 2,
                              devices=jax.devices()[:world_of(shape)])
-        for arch in STEP_ARCHS:
-            cfg = step_config(arch, configs)
-            params = model.init_params(cfg, jax.random.key(0))
-            data = {k: jnp.asarray(v) for k, v in step_inputs(cfg.vocab_size).items()}
-            batch = {"inputs": data["tokens"], "labels": data["labels"]}
-            res = {}
-            train = InputShape("train_reduced", STEP_S, STEP_B, "train")
-            step, _, shardings, rules, _ = specs.build_step(cfg, train, mesh,
-                                                            param_dtype=jnp.float32)
-            with mesh, axis_rules(rules):
-                new_p, new_o, metrics = jax.jit(step, in_shardings=shardings)(
-                    params, adamw_init(params, OptimizerConfig()), batch)
-            res["step_loss"] = np.asarray(metrics["loss"])
-            res["new_params"], res["m"], res["v"] = (jax.tree.map(np.asarray, t)
-                                                     for t in (new_p, new_o["m"], new_o["v"]))
-            pre_rules = make_rules(cfg, mesh, "prefill", batch_size=STEP_B)
-            dec_rules = make_rules(cfg, mesh, "decode", batch_size=STEP_B, cache_len=STEP_CACHE)
-            cache = model.init_cache(cfg, STEP_B, STEP_CACHE)
-            axes = specs.cache_axes(cache)
-            p_axes = model.param_axes(cfg)
-            moe_path = "ep_a2a" if cfg.num_experts else "local"
-            with mesh, axis_rules(pre_rules):
-                shard_in = (specs.shardings_of(p_axes, pre_rules),
-                            specs.shardings_of({"t": ("batch", "seq_act")}, pre_rules)["t"],
-                            specs.shardings_of(axes, pre_rules))
-                logits, cache = jax.jit(
-                    lambda p, t, c: model.prefill(cfg, p, t, c, moe_path=moe_path),
-                    in_shardings=shard_in)(params, data["tokens"], cache)
-            res["logits"] = [np.asarray(logits)]
-            with mesh, axis_rules(dec_rules):
-                shard_in = (specs.shardings_of(p_axes, dec_rules),
-                            specs.shardings_of({"t": ("batch",)}, dec_rules)["t"],
-                            specs.shardings_of(axes, dec_rules))
-                dec = jax.jit(lambda p, t, c: model.decode_step(cfg, p, t, c),
-                              in_shardings=shard_in)
-                for tokens in data["decode"]:
-                    logits, cache = dec(params, tokens, jax.device_put(cache, shard_in[2]))
-                    res["logits"].append(np.asarray(logits))
-            with open(os.path.join(out, f"{step_tag(arch, shape)}.jax.pkl"), "wb") as f:
-                pickle.dump(res, f)
+        cfg = step_config(arch, configs, capacity)
+        params = model.init_params(cfg, jax.random.key(0))
+        data = {k: jnp.asarray(v) for k, v in step_inputs(cfg.vocab_size, capacity).items()}
+        s = step_seq(capacity)
+        batch = {"inputs": data["tokens"], "labels": data["labels"]}
+        res = {}
+        train = InputShape("train_reduced", s, STEP_B, "train")
+        step, _, shardings, rules, _ = specs.build_step(cfg, train, mesh,
+                                                        param_dtype=jnp.float32)
+        with mesh, axis_rules(rules):
+            new_p, new_o, metrics = jax.jit(step, in_shardings=shardings)(
+                params, adamw_init(params, OptimizerConfig()), batch)
+        res["step_loss"] = np.asarray(metrics["loss"])
+        res["new_params"], res["m"], res["v"] = (jax.tree.map(np.asarray, t)
+                                                 for t in (new_p, new_o["m"], new_o["v"]))
+        pre_rules = make_rules(cfg, mesh, "prefill", batch_size=STEP_B)
+        dec_rules = make_rules(cfg, mesh, "decode", batch_size=STEP_B, cache_len=2 * s)
+        cache = model.init_cache(cfg, STEP_B, 2 * s)
+        axes = specs.cache_axes(cache)
+        p_axes = model.param_axes(cfg)
+        moe_path = "ep_a2a" if cfg.num_experts else "local"
+        with mesh, axis_rules(pre_rules):
+            shard_in = (specs.shardings_of(p_axes, pre_rules),
+                        specs.shardings_of({"t": ("batch", "seq_act")}, pre_rules)["t"],
+                        specs.shardings_of(axes, pre_rules))
+            logits, cache = jax.jit(
+                lambda p, t, c: model.prefill(cfg, p, t, c, moe_path=moe_path),
+                in_shardings=shard_in)(params, data["tokens"], cache)
+            if capacity != STEP_CAPACITY:            # the same prefill, nothing dropped
+                kept = step_config(arch, configs)
+                res["prefill_logits_kept"] = np.asarray(jax.jit(
+                    lambda p, t, c: model.prefill(kept, p, t, c, moe_path=moe_path)[0],
+                    in_shardings=shard_in)(params, data["tokens"],
+                                           model.init_cache(kept, STEP_B, 2 * s)))
+        res["logits"] = [np.asarray(logits)]
+        with mesh, axis_rules(dec_rules):
+            shard_in = (specs.shardings_of(p_axes, dec_rules),
+                        specs.shardings_of({"t": ("batch",)}, dec_rules)["t"],
+                        specs.shardings_of(axes, dec_rules))
+            dec = jax.jit(lambda p, t, c: model.decode_step(cfg, p, t, c),
+                          in_shardings=shard_in)
+            for tokens in data["decode"]:
+                logits, cache = dec(params, tokens, jax.device_put(cache, shard_in[2]))
+                res["logits"].append(np.asarray(logits))
+        with open(os.path.join(out, f"{step_tag(arch, shape, capacity)}.jax.pkl"), "wb") as f:
+            pickle.dump(res, f)
 
 
 if __name__ == "__main__":
