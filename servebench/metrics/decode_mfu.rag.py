@@ -1,0 +1,2 @@
+"""decode_mfu.rag: see ``servebench.readers.decode_mfu``."""
+from servebench.readers import decode_mfu as read  # noqa: F401

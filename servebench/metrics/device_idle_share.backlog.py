@@ -1,0 +1,2 @@
+"""device_idle_share.backlog: see ``servebench.readers.device_idle_share``."""
+from servebench.readers import device_idle_share as read  # noqa: F401

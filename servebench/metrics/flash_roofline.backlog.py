@@ -1,0 +1,2 @@
+"""flash_roofline.backlog: see ``servebench.readers.flash_roofline``."""
+from servebench.readers import flash_roofline as read  # noqa: F401

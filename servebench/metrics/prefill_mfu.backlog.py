@@ -1,0 +1,2 @@
+"""prefill_mfu.backlog: see ``servebench.readers.prefill_mfu``."""
+from servebench.readers import prefill_mfu as read  # noqa: F401

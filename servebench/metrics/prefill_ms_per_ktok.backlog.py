@@ -1,0 +1,2 @@
+"""prefill_ms_per_ktok.backlog: see ``servebench.readers.prefill_ms_per_ktok``."""
+from servebench.readers import prefill_ms_per_ktok as read  # noqa: F401
