@@ -1,0 +1,2 @@
+"""step_launch_ms.rag: see ``servebench.spans.step_launch_ms``."""
+from servebench.spans import step_launch_ms as read  # noqa: F401

@@ -17,6 +17,11 @@ fail with the card's out-of-memory error.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --dtype bfloat16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --reduced \
       --device cpu
+
+``--trace <path>`` serves the batch under ``torch.profiler``, writes its
+Chrome trace (the program's spans, ``repro_torch.tracing``, on the device's
+timeline) to ``<path>`` and prints each span's count, total and self time
+and its counters' totals.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs import get_config
 from repro_torch.models import model as model_lib
 from repro_torch.serving import ContinuousBatcher, Engine, EngineConfig, Request
@@ -45,6 +51,9 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="float32")
+    ap.add_argument("--trace", metavar="PATH", default=None,
+                    help="serve under torch.profiler, write its Chrome trace to PATH and print "
+                         "the program's spans and counters")
     args = ap.parse_args()
 
     cfg = get_config(args.arch)
@@ -76,13 +85,37 @@ def main() -> None:
         batcher.submit(Request(rid=i, prompt=prompt, max_new_tokens=args.max_new))
 
     t0 = time.perf_counter()
-    stats = batcher.run_until_idle()
+    if args.trace:
+        stats = traced(batcher, device, args.trace)
+    else:
+        stats = batcher.run_until_idle()
     wall = time.perf_counter() - t0
     s = stats.summary()
     toks = s["finished"] * args.max_new
     print(f"[serve] {s}")
     print(f"[serve] {toks} tokens in {wall:.2f}s = {toks / wall:.1f} tok/s "
           f"({s['decode_steps']} decode steps)")
+
+
+def traced(batcher: ContinuousBatcher, device: torch.device, path: str):
+    """``run_until_idle`` under the profiler; writes the Chrome trace to
+    ``path`` and prints the spans' times and counts."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    tracing.clear()
+    with torch.profiler.profile(activities=activities) as prof:
+        stats = batcher.run_until_idle()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    print(f"[trace] {path}")
+    for name, s in sorted(tracing.summary(tracing.records()).items()):
+        counts = " ".join(f"{k}={v}" for k, v in sorted(s["counts"].items()))
+        print(f"[trace] {name:<26} n={s['n']:<6} total {s['total_ms']:10.3f} ms  "
+              f"self {s['self_ms']:10.3f} ms  {counts}")
+    tracing.clear()
+    return stats
 
 
 if __name__ == "__main__":

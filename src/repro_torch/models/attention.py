@@ -15,6 +15,10 @@ cache in place (``copy_``/``index_put_``): a layer's cache entries are views
 of the model's layer-stacked cache tensors, so no per-step copy of the
 cache is made.  A DTensor cache (a partitioned step) is written the same
 way on each rank's local shard (``write_slots``, ``_write_prefill_cache``).
+
+While a profiler collects, ``attention_full`` is an ``attention.prefill``
+span where it fills a cache (``attention.full`` without one) and
+``attention_decode`` an ``attention.decode`` span (``repro_torch.tracing``).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
+from repro_torch import tracing
 from repro_torch.configs.registry import ModelConfig
 from repro_torch.distributed.sharding import flatten, local_call, shard, unflatten_last
 from repro_torch.kernels import ops
@@ -94,17 +99,18 @@ def attention_full(
     cache: Optional[dict] = None,  # if given, prefill: populate and return it
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Full-sequence attention (training / prefill)."""
-    q, k, v = _project_qkv(cfg, p, x, x)
-    q = shard(q, "batch", "seq_act", "heads", None)
-    k = shard(k, "batch", "seq_act", "kv_heads", None)
-    v = shard(v, "batch", "seq_act", "kv_heads", None)
-    q = apply_rope(q, positions[None, :], cfg.rope_theta)
-    k = apply_rope(k, positions[None, :], cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=causal, window=window)
-    out = shard(out, "batch", "seq_act", "heads", None)
-    y = _out_proj(out, p["wo"])
-    if cache is not None:
-        cache = _write_prefill_cache(cache, k, v, positions, window)
+    with tracing.span("attention.full" if cache is None else "attention.prefill"):
+        q, k, v = _project_qkv(cfg, p, x, x)
+        q = shard(q, "batch", "seq_act", "heads", None)
+        k = shard(k, "batch", "seq_act", "kv_heads", None)
+        v = shard(v, "batch", "seq_act", "kv_heads", None)
+        q = apply_rope(q, positions[None, :], cfg.rope_theta)
+        k = apply_rope(k, positions[None, :], cfg.rope_theta)
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        out = shard(out, "batch", "seq_act", "heads", None)
+        y = _out_proj(out, p["wo"])
+        if cache is not None:
+            cache = _write_prefill_cache(cache, k, v, positions, window)
     return y, cache
 
 
@@ -158,26 +164,27 @@ def attention_decode(
     window: int = 0,
 ) -> Tuple[torch.Tensor, dict]:
     """One-token decode against the cache; returns (out (B,1,d), the cache)."""
-    b = x.shape[0]
-    t = t.to(torch.int32).expand(b)
-    q, k, v = _project_qkv(cfg, p, x, x)
-    q = apply_rope(q, t[:, None], cfg.rope_theta)
-    k = apply_rope(k, t[:, None], cfg.rope_theta)
+    with tracing.span("attention.decode"):
+        b = x.shape[0]
+        t = t.to(torch.int32).expand(b)
+        q, k, v = _project_qkv(cfg, p, x, x)
+        q = apply_rope(q, t[:, None], cfg.rope_theta)
+        k = apply_rope(k, t[:, None], cfg.rope_theta)
 
-    cache_len = cache["k"].shape[1]
-    slot = (t % cache_len).long()                     # (B,)
-    write_slots(cache["k"], slot, k[:, 0].to(cache["k"].dtype))
-    write_slots(cache["v"], slot, v[:, 0].to(cache["v"].dtype))
-    write_slots(cache["slot_pos"], slot, t)
-    cache["k"] = shard(cache["k"], "batch", "kv_seq", "kv_heads", None)
-    cache["v"] = shard(cache["v"], "batch", "kv_seq", "kv_heads", None)
-    sp = cache["slot_pos"]
+        cache_len = cache["k"].shape[1]
+        slot = (t % cache_len).long()                     # (B,)
+        write_slots(cache["k"], slot, k[:, 0].to(cache["k"].dtype))
+        write_slots(cache["v"], slot, v[:, 0].to(cache["v"].dtype))
+        write_slots(cache["slot_pos"], slot, t)
+        cache["k"] = shard(cache["k"], "batch", "kv_seq", "kv_heads", None)
+        cache["v"] = shard(cache["v"], "batch", "kv_seq", "kv_heads", None)
+        sp = cache["slot_pos"]
 
-    valid = (sp >= 0) & (sp <= t[:, None])            # (B, S_cache)
-    if window:
-        valid &= sp > (t[:, None] - window)
-    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], valid)  # (B,nq,hd)
-    y = _out_proj(out, p["wo"])[:, None, :]
+        valid = (sp >= 0) & (sp <= t[:, None])            # (B, S_cache)
+        if window:
+            valid &= sp > (t[:, None] - window)
+        out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], valid)  # (B,nq,hd)
+        y = _out_proj(out, p["wo"])[:, None, :]
     return y, cache
 
 

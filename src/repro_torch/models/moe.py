@@ -30,6 +30,13 @@ fixed-length ``scatter_add_`` (not ``bincount``), dropped assignments land
 in a spare buffer row that is sliced off, and no shape depends on the data.
 The combine is a gather back into token order and a sum over the k slots,
 so it does not depend on the order of atomics.
+
+While a profiler collects, ``moe_sort_local`` is a ``moe_layer`` span over
+``moe_layer.route`` (routing and dispatch), ``moe_layer.experts`` and
+``moe_layer.combine`` (``repro_torch.tracing``); the route span counts the
+live tokens' ``assigned`` and ``dropped`` assignments on the card, the
+rows of the batch being live where no open span's ``live_rows`` says
+otherwise (``Engine.step`` marks its free slots so).
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
+from repro_torch import tracing
 from repro_torch.configs.registry import ModelConfig
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
@@ -176,25 +184,49 @@ def moe_sort_local(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
     def route_dispatch(router, xf):
         gates, topi, aux = _route(cfg, router, xf)
-        return (gates, aux, *_dispatch(cfg, xf, topi, c))
+        buf, row_tok = _dispatch(cfg, xf, topi, c)
+        if tracing.enabled():
+            _count_assignments(row_tok, cfg.num_experts * c, cfg.num_experts_per_tok)
+        return gates, aux, buf, row_tok
 
-    if isinstance(x, DTensor):
-        # no DTensor rule for the routing's top-k, sort and scatters or the
-        # combine's gather: they run on every rank's whole copy of their
-        # inputs (an all-gather of the tokens, and of the experts' rows)
-        mesh = x.device_mesh
-        rep = (Replicate(),) * mesh.ndim
-        gates, aux, buf, row_tok = local_call(route_dispatch, mesh, (rep, rep),
-                                              (rep,) * 4, p["router"], xf)
-    else:
-        gates, aux, buf, row_tok = route_dispatch(p["router"], xf)
-    buf = shard(buf, "experts", None, None)
-    out = shard(_expert_ffn(cfg, p, buf), "experts", None, None)
-    if isinstance(x, DTensor):
-        y = local_call(_combine, mesh, (rep,) * 3, rep, out, gates, row_tok)
-    else:
-        y = _combine(out, gates, row_tok)
+    with tracing.span("moe_layer"):
+        with tracing.span("moe_layer.route"):
+            if isinstance(x, DTensor):
+                # no DTensor rule for the routing's top-k, sort and scatters or
+                # the combine's gather: they run on every rank's whole copy of
+                # their inputs (an all-gather of the tokens, and of the
+                # experts' rows)
+                mesh = x.device_mesh
+                rep = (Replicate(),) * mesh.ndim
+                gates, aux, buf, row_tok = local_call(route_dispatch, mesh, (rep, rep),
+                                                      (rep,) * 4, p["router"], xf)
+            else:
+                gates, aux, buf, row_tok = route_dispatch(p["router"], xf)
+        with tracing.span("moe_layer.experts"):
+            buf = shard(buf, "experts", None, None)
+            out = shard(_expert_ffn(cfg, p, buf), "experts", None, None)
+        with tracing.span("moe_layer.combine"):
+            if isinstance(x, DTensor):
+                y = local_call(_combine, mesh, (rep,) * 3, rep, out, gates, row_tok)
+            else:
+                y = _combine(out, gates, row_tok)
     return y.reshape(b, s, d).to(x.dtype), aux
+
+
+def _count_assignments(row_tok: torch.Tensor, dropped_row: int, k: int) -> None:
+    """Count the live tokens' ``assigned`` and ``dropped`` assignments
+    (``row_tok`` in token order, ``dropped_row`` where one was dropped) in
+    the open span, as device tensors: every token is live unless an open
+    span's ``live_rows`` masks them (a decode step's slots, a token each)."""
+    dropped = row_tok == dropped_row
+    live = tracing.live_rows()
+    if live is None:
+        tracing.count("assigned", row_tok.numel())
+        tracing.count("dropped", dropped.sum())
+        return
+    live = live[:, None].expand(-1, k).reshape(-1)
+    tracing.count("assigned", live.sum())
+    tracing.count("dropped", (dropped & live).sum())
 
 
 # ---------------------------------------------------------------------------

@@ -4,6 +4,8 @@ Implements the serving loop a reserved slice runs: admit waiting requests
 into free decode lanes (prefill-on-insert), decode all lanes in lockstep,
 retire finished requests, repeat.  Tracks per-request latency so the
 serving examples can report SLO attainment like the simulator predicts.
+While a profiler collects, each ``run_step`` is a ``batcher.run_step``
+span (``repro_torch.tracing``) that counts the requests ``admitted``.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Deque, List
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.serving.engine import Engine, Request
 
 
@@ -54,20 +57,21 @@ class ContinuousBatcher:
 
     def run_step(self) -> List[Request]:
         """One scheduler iteration: admit -> decode -> retire."""
-        # admit as many waiting requests as there are free slots
-        for slot in self.engine.free_slots():
-            if not self.queue:
-                break
-            req = self.queue.popleft()
-            self.engine.insert(req, slot)
-            self.stats.admitted += 1
-        finished = self.engine.step()
-        self.stats.decode_steps += 1
-        now = self.clock()
-        for req in finished:
-            req.finished_at = now
-            self.stats.latencies.append(now - req.enqueued_at)
-            self.stats.finished += 1
+        with tracing.span("batcher.run_step"):
+            # admit as many waiting requests as there are free slots
+            for slot in self.engine.free_slots():
+                if not self.queue:
+                    break
+                req = self.queue.popleft()
+                self.engine.insert(req, slot)
+                self.stats.admitted += 1
+                tracing.count("admitted", 1)
+            finished = self.engine.step()
+            self.stats.decode_steps += 1
+            now = self.clock()
+            for req in finished:
+                self.stats.latencies.append(now - req.enqueued_at)
+                self.stats.finished += 1
         return finished
 
     def run_until_idle(self, max_steps: int = 100_000) -> BatchStats:

@@ -6,6 +6,15 @@ A new request is prefilled at batch 1 and scattered into a free slot; every
 ``step()`` decodes one token for all live slots.  This is the execution
 layer underneath the paper's serving system: a reserved slice runs exactly
 this engine, and ``max_concurrency`` from the profile is its slot count.
+
+While a profiler collects, ``insert`` and ``step`` record spans
+(``repro_torch.tracing``): ``engine.insert`` (the request's ``rid``; the
+prompt upload, which waits for the card's queue, is its own time) over
+``.cache``, ``.prefill`` (the enqueue), ``.first_token`` (the host waits on
+the card) and ``.scatter``; ``engine.step`` over ``.launch`` (the token
+upload and the enqueue of ``decode_step``), ``.wait`` (the ``.cpu()`` of
+the argmax) and ``.retire``, with the counts ``slots``, ``live`` and
+``valid_kv`` and the live slots' mask as its ``live_rows``.
 """
 from __future__ import annotations
 
@@ -15,6 +24,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.registry import ModelConfig
 from repro_torch.models import model as model_lib
 
@@ -40,7 +50,12 @@ class Request:
     prefill_done: bool = False
     finished: bool = False
     enqueued_at: float = 0.0
-    finished_at: float = 0.0
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
 
 
 def _scatter(full, one, slot: int, batch_axis: int) -> None:
@@ -98,14 +113,21 @@ class Engine:
         if not free:
             raise RuntimeError("no free slot")
         slot = free[0] if slot is None else slot
-        tokens = torch.as_tensor(np.asarray(req.prompt), dtype=torch.long, device=self.device)
-        logits, cache1 = model_lib.prefill(
-            self.cfg, self.params, tokens[None, :], self._init_cache(1),
-            window=self.ecfg.window,
-        )
-        first = int(torch.argmax(logits[0]))   # first index on ties, as jnp.argmax
-
-        _scatter_slot(self.cache, cache1, slot)
+        with tracing.span("engine.insert", rid=req.rid):
+            tracing.count("prompt_tokens", len(req.prompt))
+            tokens = torch.as_tensor(np.asarray(req.prompt), dtype=torch.long, device=self.device)
+            with tracing.span("engine.insert.cache"):
+                cache1 = self._init_cache(1)
+                if tracing.enabled():
+                    tracing.count("cache_bytes", _tree_bytes(cache1))
+            with tracing.span("engine.insert.prefill"):
+                logits, cache1 = model_lib.prefill(
+                    self.cfg, self.params, tokens[None, :], cache1, window=self.ecfg.window,
+                )
+            with tracing.span("engine.insert.first_token"):
+                first = int(torch.argmax(logits[0]))   # first index on ties, as jnp.argmax
+            with tracing.span("engine.insert.scatter"):
+                _scatter_slot(self.cache, cache1, slot)
         self.slot_req[slot] = req
         self.slot_remaining[slot] = req.max_new_tokens
         self.next_token[slot] = first
@@ -118,22 +140,51 @@ class Engine:
         """Decode one token for every live slot; return finished requests."""
         if self.live == 0:
             return []
-        tokens = torch.as_tensor(self.next_token, dtype=torch.long, device=self.device)
-        logits, self.cache = model_lib.decode_step(
-            self.cfg, self.params, tokens, self.cache, window=self.ecfg.window
-        )
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
-        self.steps += 1
+        with tracing.span("engine.step") as sp:
+            if sp is not None:
+                self._count_slots()
+            with tracing.span("engine.step.launch"):
+                tokens = self._upload_tokens(sp)
+                logits, self.cache = model_lib.decode_step(
+                    self.cfg, self.params, tokens, self.cache, window=self.ecfg.window
+                )
+            with tracing.span("engine.step.wait"):
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+            self.steps += 1
 
-        finished = []
-        for i, req in enumerate(self.slot_req):
-            if req is None:
-                continue
-            self.next_token[i] = nxt[i]
-            req.output.append(int(nxt[i]))
-            self.slot_remaining[i] -= 1
-            if self.slot_remaining[i] <= 0:
-                req.finished = True
-                finished.append(req)
-                self.slot_req[i] = None
+            finished = []
+            with tracing.span("engine.step.retire"):
+                for i, req in enumerate(self.slot_req):
+                    if req is None:
+                        continue
+                    self.next_token[i] = nxt[i]
+                    req.output.append(int(nxt[i]))
+                    self.slot_remaining[i] -= 1
+                    if self.slot_remaining[i] <= 0:
+                        req.finished = True
+                        finished.append(req)
+                        self.slot_req[i] = None
+                tracing.count("finished", len(finished))
         return finished
+
+    def _count_slots(self) -> None:
+        """The open step's counts: the decoded ``slots``, the ``live`` ones
+        and their valid cache positions ``valid_kv`` (the prompt and the
+        outputs so far, at most the cache or the window)."""
+        cap = min(self.ecfg.cache_len, self.ecfg.window or self.ecfg.cache_len)
+        live = [r for r in self.slot_req if r is not None]
+        tracing.count("slots", len(self.slot_req))
+        tracing.count("live", len(live))
+        tracing.count("valid_kv", sum(min(len(r.prompt) + len(r.output), cap) for r in live))
+
+    def _upload_tokens(self, sp) -> torch.Tensor:
+        """The step's tokens on the device.  Traced (``sp`` the open step),
+        they go up in one copy with the live slots' mask, which becomes
+        ``sp.live_rows``: a second copy would wait on the card again."""
+        if sp is None:
+            return torch.as_tensor(self.next_token, dtype=torch.long, device=self.device)
+        live = [r is not None for r in self.slot_req]
+        up = torch.as_tensor(np.stack([self.next_token, live]), dtype=torch.long,
+                             device=self.device)
+        sp.live_rows = up[1] > 0
+        return up[0]
